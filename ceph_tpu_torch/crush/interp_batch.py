@@ -1,0 +1,738 @@
+"""Level-synchronous batched CRUSH interpreter (the fast device path).
+
+Semantics: identical to the reference package's ``crush/interp_batch.py``
+(upstream ``src/crush/mapper.c :: crush_do_rule / crush_choose_firstn /
+crush_choose_indep``), lane for lane, restructured batch-first:
+
+- **Level-synchronous descent.**  All lanes walk one hierarchy level per
+  step; levels are the BFS level sets of the map from the rule's take
+  root, so each level's table holds only the buckets reachable at that
+  depth.  The tables of one descent are stacked into one
+  :class:`~ceph_tpu_torch.core.straw2.DescendTables`.
+- **Three modes, chosen by the caller** (no environment flags, no
+  silent fallback):
+
+  - ``"draw"``: per level, a PyTorch row gather around the K1 draw
+    kernel, then ``argmin`` and a column gather;
+  - ``"level"``: per level, the K2 level-choose kernel;
+  - ``"descend"``: the whole descent in one K3 launch.
+
+  On CPU tensors every mode runs the kernels' plain versions.
+- **Masked whole-batch retry rounds.**  The reference's per-replica
+  retry ladder (``r' = r + ftotal``) is a Python loop whose body
+  re-descends the full batch with per-lane r; settled lanes are masked.
+  Each loop test is one ``.any()`` on the device, one host sync per
+  round (counted in ``HOST_SYNCS``).
+- **General rule programs.**  Multi-TAKE chains and chained choose
+  steps run natively: each choose consumes the working vector entry by
+  entry.  Working-vector bucket ids are translated to the next pack's
+  local indices by matching against its root list.
+
+Scope (checked by :func:`supports`): straw2 buckets only, bobtail+
+tunables (no legacy local retries), take targets must be buckets.
+Multi-EMIT programs that overflow ``result_max`` drop surplus at emit,
+the reference's EMIT cap.  Chained chooses whose fan-out exceeds
+``result_max`` need a per-lane dynamic inner cap: compile raises, and
+``engine.make_batch_runner`` routes them to the exact C++ tier.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import hashes, straw2
+from .map import (
+    ALG_STRAW2,
+    ITEM_NONE,
+    DenseCrushMap,
+    OP_CHOOSE_FIRSTN,
+    OP_CHOOSE_INDEP,
+    OP_CHOOSELEAF_FIRSTN,
+    OP_CHOOSELEAF_INDEP,
+    OP_EMIT,
+    OP_SET_CHOOSE_TRIES,
+    OP_SET_CHOOSELEAF_TRIES,
+    OP_SET_CHOOSE_LOCAL_TRIES,
+    OP_SET_CHOOSE_LOCAL_FALLBACK_TRIES,
+    OP_SET_CHOOSELEAF_VARY_R,
+    OP_SET_CHOOSELEAF_STABLE,
+    OP_TAKE,
+    Rule,
+)
+
+I32 = torch.int32
+I64 = torch.int64
+
+ITEM_UNDEF = 0x7FFFFFFE
+MODES = ("draw", "level", "descend")
+# measured on the card (PERF.md): the fused descent is the fastest mode
+DEFAULT_MODE = "descend"
+
+_CHOOSE_OPS = (
+    OP_CHOOSE_FIRSTN,
+    OP_CHOOSE_INDEP,
+    OP_CHOOSELEAF_FIRSTN,
+    OP_CHOOSELEAF_INDEP,
+)
+
+# child_type sentinel for a dangling bucket reference (child idx out of
+# range); real type ids are capped below this by supports()
+_CTYPE_DANGLING = straw2.CTYPE_DANGLING
+assert straw2.ITEM_NONE == ITEM_NONE
+
+# loop tests that read a device value on the host (one sync each)
+HOST_SYNCS = 0
+
+_MEMO_CAP = 64  # evict oldest beyond this (maps evolve in long processes)
+
+
+def _memo_put(cache: dict, key, value) -> None:
+    if len(cache) >= _MEMO_CAP:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
+def rule_signature(rule: Rule) -> tuple:
+    return tuple((s.op, s.arg1, s.arg2) for s in rule.steps)
+
+
+def _any(t: torch.Tensor) -> bool:
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return bool(t.any())
+
+
+def check_mode(mode: str | None) -> str:
+    mode = DEFAULT_MODE if mode is None else mode
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}; expected one of {MODES}")
+    return mode
+
+
+def _level_arrays(
+    dense: DenseCrushMap,
+    bucket_idxs: list[int],
+    next_map: dict[int, int],
+    consumer_map: dict[int, int],
+    target_type: int,
+):
+    """(ids, weights, ctype, nlidx, sizes) numpy arrays for one BFS level.
+
+    ``next_map``: bucket idx -> local idx in this pack's next level.
+    ``consumer_map``: bucket idx -> local idx at level 0 of the leaf
+    pack (chooseleaf only).  A chosen child of ``target_type`` is
+    consumed by the leaf pack; any other bucket child keeps descending
+    in this pack, so one column serves both (usage is disjoint).
+    """
+    nb = max(len(bucket_idxs), 1)
+    fanout = 1
+    for b in bucket_idxs:
+        fanout = max(fanout, int(dense.size[b]))
+    ids = np.zeros((nb, fanout), np.uint32)
+    ws = np.zeros((nb, fanout), np.uint32)
+    ctype = np.zeros((nb, fanout), np.uint32)
+    nlidx = np.zeros((nb, fanout), np.uint32)
+    sizes = np.zeros((nb,), np.uint32)
+    for row, b in enumerate(bucket_idxs):
+        sz = int(dense.size[b])
+        sizes[row] = sz
+        for f in range(sz):
+            item = int(dense.items[b, f])
+            ids[row, f] = np.uint32(item & 0xFFFFFFFF)
+            ws[row, f] = dense.weights[b, f]
+            if item < 0:
+                cidx = -1 - item
+                if cidx < dense.n_buckets:
+                    ct = int(dense.btype[cidx])
+                    ctype[row, f] = ct
+                    if ct == target_type and target_type != 0:
+                        nlidx[row, f] = consumer_map.get(cidx, 0)
+                    else:
+                        nlidx[row, f] = next_map.get(cidx, 0)
+                else:
+                    # dangling bucket reference: descend() hard-fails on
+                    # the sentinel (reference bad-bucket skip_rep;
+                    # supports() guarantees real types stay < 255)
+                    ctype[row, f] = _CTYPE_DANGLING
+    return ids, ws, ctype, nlidx, sizes
+
+
+def _bfs_levels(
+    dense: DenseCrushMap, roots: list[int], stop_type: int, max_levels: int
+) -> list[list[int]]:
+    """BFS level sets of bucket indices from ``roots``.  Children of
+    buckets whose type is ``stop_type`` are not expanded beyond level 0
+    (descent stops there)."""
+    levels = [list(roots)]
+    while len(levels) < max_levels:
+        nxt: list[int] = []
+        seen: set[int] = set()
+        for b in levels[-1]:
+            if (
+                stop_type != 0
+                and len(levels) > 1
+                and int(dense.btype[b]) == stop_type
+            ):
+                continue
+            for f in range(int(dense.size[b])):
+                item = int(dense.items[b, f])
+                if item < 0:
+                    cidx = -1 - item
+                    if cidx < dense.n_buckets and cidx not in seen:
+                        seen.add(cidx)
+                        nxt.append(cidx)
+        if not nxt:
+            break
+        levels.append(nxt)
+    return levels
+
+
+def _stop_buckets(
+    dense: DenseCrushMap, roots: list[int], target_type: int
+) -> list[int]:
+    """Reachable target-type buckets in BFS order — build_pack's stop
+    list without constructing any tables."""
+    levels = _bfs_levels(dense, roots, target_type, dense.max_depth + 2)
+    stop: list[int] = []
+    seen: set[int] = set()
+    for lvl in levels:
+        for b in lvl:
+            if int(dense.btype[b]) == target_type and b not in seen:
+                seen.add(b)
+                stop.append(b)
+    return stop
+
+
+def build_pack(
+    dense: DenseCrushMap,
+    roots: list[int],
+    target_type: int,
+    consumer_map: dict[int, int],
+    device,
+) -> tuple[straw2.DescendTables, list[int]]:
+    """Stacked level tables for a descent from ``roots`` stopping at
+    ``target_type``.  Returns (tables, stop_buckets) where stop_buckets
+    lists the reachable target-type buckets in BFS order (the leaf
+    pack's roots for chooseleaf, or the next choose's roots)."""
+    levels = _bfs_levels(dense, roots, target_type, dense.max_depth + 2)
+    maps = [{b: i for i, b in enumerate(lvl)} for lvl in levels]
+    arrays = [
+        _level_arrays(dense, lvl, maps[li + 1] if li + 1 < len(levels) else {},
+                      consumer_map, target_type)
+        for li, lvl in enumerate(levels)
+    ]
+    return (straw2.pack_descend_tables(arrays, device),
+            _stop_buckets(dense, roots, target_type))
+
+
+def descend(
+    pack: straw2.DescendTables,
+    x: torch.Tensor,       # [B] int32 (u32 bits)
+    lidx0: torch.Tensor,   # [B] int32 level-0 local bucket index
+    r: torch.Tensor,       # [B] int32 per-lane replica seed
+    target_type: int,
+    empty_is_hard: bool,
+    active: torch.Tensor,  # [B] bool
+    max_devices: int,
+    mode: str,
+):
+    """Batched hierarchy walk; mirrors the reference's ``descend``.
+
+    Returns (item, ok, hard, next_lidx), all [B]; ``next_lidx`` is the
+    chosen bucket's local index in the consumer (leaf) pack, valid when
+    the item is a target-type bucket.
+    """
+    if mode == "descend":
+        return straw2.descend_fused(x, r, lidx0, active, pack, target_type,
+                                    empty_is_hard, max_devices)
+    choose = straw2.level_choose if mode == "level" else straw2.level_choose_draws
+    return straw2.descend_levels(x, r, lidx0, active, pack, target_type,
+                                 empty_is_hard, max_devices, choose)
+
+
+def _is_out(osd_weight, item, x):
+    wmax = osd_weight.shape[0]
+    oob = item >= wmax
+    w = osd_weight[item.clamp(0, wmax - 1).to(I64)]
+    return oob | hashes.is_out(w, item, x)
+
+
+def _collides(out: torch.Tensor, outpos: torch.Tensor, item: torch.Tensor):
+    """item[b] in out[b, :outpos[b]]; out has small static width."""
+    cap = out.shape[1]
+    pos = torch.arange(cap, dtype=I32, device=out.device)[None, :]
+    return ((pos < outpos[:, None]) & (out == item[:, None])).any(dim=1)
+
+
+def _append_rows(acc, acc_pos, vals, counts):
+    """Per-lane append: acc[b, acc_pos[b] : acc_pos[b]+counts[b]] =
+    vals[b, :counts[b]] (the reference's ``o + osize`` pointer offset).
+    Positions beyond acc's width are dropped."""
+    rm = acc.shape[1]
+    c = vals.shape[1]
+    idx = torch.arange(rm, dtype=I32, device=acc.device)[None, :]
+    shift = idx - acc_pos[:, None]  # [B, rm]
+    src = vals.gather(1, shift.clamp(0, c - 1).to(I64))
+    write = (shift >= 0) & (shift < counts[:, None])
+    return torch.where(write, src, acc), acc_pos + counts
+
+
+def _full(B, value, device, dtype=I32):
+    return torch.full((B,), value, dtype=dtype, device=device)
+
+
+def _leaf_firstn(
+    leaf_pack, osd_weight, x, leaf_lidx, has_bucket, sub_r,
+    recurse_tries: int, out2, outpos, stable: int, max_devices: int, mode: str,
+):
+    """Batched leaf recursion of ``choose_firstn``. Returns (leaf, ok)."""
+    B = x.shape[0]
+    dev = x.device
+    rep = torch.zeros(B, dtype=I32, device=dev) if stable else outpos
+    ftotal = 0
+    settled = torch.zeros(B, dtype=torch.bool, device=dev)
+    leaf_ok = torch.zeros_like(settled)
+    leaf = _full(B, ITEM_NONE, dev)
+
+    def body():
+        nonlocal ftotal, settled, leaf_ok, leaf
+        active = has_bucket & ~settled
+        r = rep + sub_r + ftotal
+        it, ok, hard, _ = descend(
+            leaf_pack, x, leaf_lidx, r, 0, False, active, max_devices, mode
+        )
+        collide = ok & _collides(out2, outpos, it)
+        rejected = ok & (collide | _is_out(osd_weight, it, x))
+        good = active & ok & ~rejected
+        stop = active & hard  # hard leaf failure abandons the slot
+        ftotal += 1
+        settled = settled | good | stop
+        leaf_ok = leaf_ok | good
+        leaf = torch.where(good, it, leaf)
+
+    if recurse_tries == 1:
+        body()
+    else:
+        while ftotal < recurse_tries and _any(has_bucket & ~settled):
+            body()
+    return leaf, leaf_ok
+
+
+def _choose_firstn_batch(
+    pack, leaf_pack, osd_weight, x, lidx0, start_active,
+    numrep: int, target_type: int, cap: int, tries: int,
+    recurse_tries: int, vary_r: int, stable: int, max_devices: int, mode: str,
+):
+    """Batched ``choose_firstn`` for one working-vector entry.
+
+    Entry-local state, like the reference's per-entry
+    ``choose_firstn(..., o + osize, /*outpos=*/0, ...)`` call: collision
+    scope and the stable=0 leaf replica seed cover only this entry's
+    segment.  Returns (out [B, cap], out2 [B, cap], outpos [B]).
+    """
+    B = x.shape[0]
+    dev = x.device
+    out = torch.full((B, cap), ITEM_NONE, dtype=I32, device=dev)
+    out2 = out.clone()
+    outpos = torch.zeros(B, dtype=I32, device=dev)
+    col_ids = torch.arange(cap, dtype=I32, device=dev)[None, :]
+
+    for rep in range(numrep):
+        ftotal = 0
+        settled = torch.zeros(B, dtype=torch.bool, device=dev)
+        item_acc = _full(B, ITEM_NONE, dev)
+        leaf_acc = _full(B, ITEM_NONE, dev)
+        placed = torch.zeros_like(settled)
+        while ftotal < tries and _any(start_active & ~settled):
+            active = start_active & ~settled
+            r = _full(B, rep + ftotal, dev)
+            item, ok, hard, nlidx = descend(
+                pack, x, lidx0, r, target_type, False, active, max_devices, mode
+            )
+            collide = ok & _collides(out, outpos, item)
+            reject = torch.zeros_like(collide)
+            leaf = item
+            if leaf_pack is not None:
+                is_bucket = item < 0
+                sub_r = (r >> (vary_r - 1)) if vary_r else torch.zeros_like(r)
+                lf, lok = _leaf_firstn(
+                    leaf_pack, osd_weight, x, nlidx,
+                    active & ok & ~collide & is_bucket,
+                    sub_r, recurse_tries, out2, outpos, stable, max_devices, mode,
+                )
+                leaf_ok = torch.where(is_bucket, lok, torch.ones_like(lok))
+                leaf = torch.where(is_bucket, lf, item)
+                reject = reject | (ok & ~collide & ~leaf_ok)
+            if target_type == 0:
+                reject = reject | (ok & ~collide & _is_out(osd_weight, item, x))
+            good = active & ok & ~collide & ~reject
+            stop = active & hard  # skip_rep: abandon this slot
+            ftotal += 1
+            settled = settled | good | stop
+            item_acc = torch.where(good, item, item_acc)
+            leaf_acc = torch.where(good, leaf, leaf_acc)
+            placed = placed | good
+
+        place = (placed & (outpos < cap))[:, None] & (col_ids == outpos[:, None])
+        out = torch.where(place, item_acc[:, None], out)
+        if leaf_pack is not None:
+            out2 = torch.where(place, leaf_acc[:, None], out2)
+        outpos = outpos + place.any(dim=1).to(I32)
+    return out, out2, outpos
+
+
+def _leaf_indep(
+    leaf_pack, osd_weight, x, leaf_lidx, has_bucket, rep: int,
+    numrep: int, parent_r, recurse_tries: int, max_devices: int, mode: str,
+):
+    """Batched leaf recursion of ``choose_indep``. Returns (leaf, ok)."""
+    B = x.shape[0]
+    dev = x.device
+    ft = 0
+    settled = torch.zeros(B, dtype=torch.bool, device=dev)
+    got = torch.zeros_like(settled)
+    leaf = _full(B, ITEM_NONE, dev)
+    while ft < recurse_tries and _any(has_bucket & ~settled):
+        active = has_bucket & ~settled
+        r = parent_r + (rep + numrep * ft)
+        it, ok, hard, _ = descend(
+            leaf_pack, x, leaf_lidx, r, 0, True, active, max_devices, mode
+        )
+        ok = ok & ~_is_out(osd_weight, it, x)
+        newly = active & ok
+        fail_now = active & hard  # permanent failure in the reference
+        ft += 1
+        settled = settled | newly | fail_now
+        got = got | newly
+        leaf = torch.where(newly, it, leaf)
+    return torch.where(got, leaf, torch.full_like(leaf, ITEM_NONE)), got
+
+
+def _choose_indep_batch(
+    pack, leaf_pack, osd_weight, x, lidx0, start_active,
+    out_size: int, numrep: int, target_type: int,
+    tries: int, recurse_tries: int, max_devices: int, mode: str,
+):
+    """Batched ``choose_indep`` for one working entry.
+    Returns (out [B, out_size], out2 [B, out_size])."""
+    B = x.shape[0]
+    dev = x.device
+    out = torch.where(
+        start_active[:, None],
+        torch.full((B, out_size), ITEM_UNDEF, dtype=I32, device=dev),
+        torch.full((B, out_size), ITEM_NONE, dtype=I32, device=dev),
+    )
+    out2 = out.clone()
+    none = _full(B, ITEM_NONE, dev)
+
+    ftotal = 0
+    while ftotal < tries and _any(out == ITEM_UNDEF):
+        for rep in range(out_size):
+            active = start_active & (out[:, rep] == ITEM_UNDEF)
+            r = _full(B, rep + numrep * ftotal, dev)
+            item, ok, hard, nlidx = descend(
+                pack, x, lidx0, r, target_type, True, active, max_devices, mode
+            )
+            # collisions see this round's earlier slots (in-place columns)
+            collide = ok & (out == item[:, None]).any(dim=1)
+            good = ok & ~collide
+            leaf = item
+            if leaf_pack is not None:
+                is_bucket = item < 0
+                lf, lok = _leaf_indep(
+                    leaf_pack, osd_weight, x, nlidx,
+                    active & good & is_bucket,
+                    rep, numrep, r, recurse_tries, max_devices, mode,
+                )
+                leaf_ok = torch.where(is_bucket, lok, torch.ones_like(lok))
+                leaf = torch.where(is_bucket, lf, item)
+                good = good & leaf_ok
+            if target_type == 0:
+                good = good & ~_is_out(osd_weight, item, x)
+            write_item = active & good
+            write_none = active & hard
+            out[:, rep] = torch.where(
+                write_item, item, torch.where(write_none, none, out[:, rep]))
+            out2[:, rep] = torch.where(
+                write_item, leaf, torch.where(write_none, none, out2[:, rep]))
+        ftotal += 1
+    out = torch.where(out == ITEM_UNDEF, ITEM_NONE, out)
+    out2 = torch.where(out2 == ITEM_UNDEF, ITEM_NONE, out2)
+    return out, out2
+
+
+def supports(dense: DenseCrushMap, rule: Rule) -> bool:
+    """Whether this engine can run (dense, rule)."""
+    if dense.algs_present() - {ALG_STRAW2}:
+        return False
+    tun = dense.tunables
+    if tun.choose_local_tries or tun.choose_local_fallback_tries:
+        return False
+    # packed field widths: type ids live in one byte (255 is the
+    # dangling-child sentinel), level-local indices in two
+    if dense.n_buckets and (
+        int(dense.btype.max(initial=0)) >= _CTYPE_DANGLING
+        or dense.n_buckets > 0xFFFF
+        or dense.max_fanout > 0xFFFF
+    ):
+        return False
+    take: int | None = None
+    for s in rule.steps:
+        if s.op == OP_TAKE:
+            if s.arg1 >= 0:
+                return False
+            take = s.arg1
+        elif s.op in (OP_SET_CHOOSE_LOCAL_TRIES,
+                      OP_SET_CHOOSE_LOCAL_FALLBACK_TRIES):
+            if s.arg1 > 0:
+                return False
+        elif s.op in _CHOOSE_OPS and take is None:
+            return False
+    return True
+
+
+def as_i32(v, device) -> torch.Tensor:
+    """u32 values (numpy, list or tensor) -> int32 bit patterns on device."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype != I32:
+            v = (v.to(I64) & 0xFFFFFFFF).to(I32)
+        return v.to(device).contiguous()
+    a = np.ascontiguousarray(np.asarray(v).astype(np.uint64).astype(np.uint32))
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
+                       device, mode: str | None = None):
+    """Build (packs, run, program_sig): ``run(packs, osd_weight, xs)``
+    returns (results [B, result_max] int32, lens [B] int32) on ``device``.
+
+    ``packs`` holds the stacked level tables of every choose step on the
+    device; the step program is specialized on the rule here, once.
+    """
+    mode = check_mode(mode)
+    tun = dense.tunables
+    if not supports(dense, rule):
+        raise NotImplementedError(
+            "batch engine: straw2-only maps, modern tunables, and bucket "
+            "take targets (the engine routes other shapes to the host tier)"
+        )
+
+    # ---- host-side plan + pack construction (one forward walk) ----
+    plans: list[dict] = []
+    choose_tries = tun.choose_total_tries
+    chooseleaf_tries = 0
+    vary_r = tun.chooseleaf_vary_r
+    stable = tun.chooseleaf_stable
+    roots: list[int] | None = None  # current descent roots (bucket idxs)
+    for s in rule.steps:
+        if s.op == OP_TAKE:
+            roots = [-1 - s.arg1]
+            plans.append({"op": "take", "bucket_id": s.arg1})
+        elif s.op == OP_SET_CHOOSE_TRIES:
+            if s.arg1 > 0:
+                choose_tries = s.arg1
+        elif s.op == OP_SET_CHOOSELEAF_TRIES:
+            if s.arg1 > 0:
+                chooseleaf_tries = s.arg1
+        elif s.op == OP_SET_CHOOSELEAF_VARY_R:
+            if s.arg1 >= 0:
+                vary_r = s.arg1
+        elif s.op == OP_SET_CHOOSELEAF_STABLE:
+            if s.arg1 >= 0:
+                stable = s.arg1
+        elif s.op in _CHOOSE_OPS:
+            firstn = s.op in (OP_CHOOSE_FIRSTN, OP_CHOOSELEAF_FIRSTN)
+            recurse = s.op in (OP_CHOOSELEAF_FIRSTN, OP_CHOOSELEAF_INDEP)
+            numrep = s.arg1
+            if numrep <= 0:
+                numrep += result_max
+            p = {
+                "op": "choose", "firstn": firstn, "recurse": recurse,
+                "numrep": numrep, "type": s.arg2, "tries": choose_tries,
+                "chooseleaf_tries": chooseleaf_tries,
+                "vary_r": vary_r, "stable": stable,
+                "pack": None, "leaf_pack": None, "root_ids": None,
+            }
+            if numrep > 0 and roots is not None:
+                if recurse:
+                    stop = _stop_buckets(dense, roots, s.arg2)
+                    leaf_pack, _ = build_pack(dense, stop, 0, {}, device)
+                    leaf0_map = {b: i for i, b in enumerate(stop)}
+                    pk, _ = build_pack(dense, roots, s.arg2, leaf0_map, device)
+                    p["pack"], p["leaf_pack"] = pk, leaf_pack
+                    p["root_ids"] = [-1 - b for b in roots]
+                    roots = None  # leaves are devices; not chainable
+                else:
+                    pk, stop = build_pack(dense, roots, s.arg2, {}, device)
+                    p["pack"] = pk
+                    p["root_ids"] = [-1 - b for b in roots]
+                    roots = stop if s.arg2 != 0 else None
+            plans.append(p)
+        elif s.op == OP_EMIT:
+            plans.append({"op": "emit"})
+
+    # the working-vector widths run() will see, checked up front (the
+    # reference raises the same error while tracing)
+    width: int | None = None  # None: no working vector
+    for p in plans:
+        if p["op"] == "take":
+            width = 1
+        elif p["op"] == "choose" and p["pack"] is not None and width is not None:
+            if width > 1 and width * p["numrep"] > result_max:
+                raise NotImplementedError(
+                    "chained choose overflowing result_max trims per-lane "
+                    "entry widths; not supported on the batch engine"
+                )
+            width = min(width * p["numrep"], result_max)
+        elif p["op"] == "emit":
+            width = None
+
+    pack_args = tuple(
+        (p["pack"], p["leaf_pack"])
+        for p in plans
+        if p.get("op") == "choose" and p["pack"] is not None
+    )
+    max_devices = dense.max_devices
+
+    def run(packs_, osd_weight, xs):
+        x = as_i32(xs, device)
+        osd_weight = as_i32(osd_weight, device)
+        B = x.shape[0]
+        dev = x.device
+        result = torch.full((B, result_max), ITEM_NONE, dtype=I32, device=dev)
+        result_len = torch.zeros(B, dtype=I32, device=dev)
+        w_vals: torch.Tensor | None = None  # [B, W] working vector
+        w_size = torch.zeros(B, dtype=I32, device=dev)
+        take_pending: int | None = None
+        choose_i = 0
+
+        for p in plans:
+            if p["op"] == "take":
+                take_pending = p["bucket_id"]
+                w_vals = None
+            elif p["op"] == "choose":
+                if p["pack"] is None:
+                    continue
+                pack, leaf_pack = packs_[choose_i]
+                choose_i += 1
+                if take_pending is not None:
+                    entries = 1
+                    ent_lidx = [torch.zeros(B, dtype=I32, device=dev)]
+                    ent_active = [torch.ones(B, dtype=torch.bool, device=dev)]
+                    take_pending = None
+                else:
+                    if w_vals is None:
+                        continue
+                    entries = w_vals.shape[1]
+                    rid = torch.tensor(p["root_ids"], dtype=I32, device=dev)
+                    local = torch.arange(len(p["root_ids"]), dtype=I32, device=dev)
+                    ent_lidx, ent_active = [], []
+                    for e in range(entries):
+                        hit = w_vals[:, e][:, None] == rid[None, :]
+                        ent_lidx.append(
+                            torch.where(hit, local[None, :], 0).sum(dim=1, dtype=I32))
+                        ent_active.append(hit.any(dim=1) & (e < w_size))
+                # per-entry segments appended at per-lane offsets (the
+                # reference's ``o + osize`` pointer bump; skipped
+                # entries advance nothing, so later ones compact left)
+                acc_w = min(entries * p["numrep"], result_max)
+                acc = torch.full((B, acc_w), ITEM_NONE, dtype=I32, device=dev)
+                acc_pos = torch.zeros(B, dtype=I32, device=dev)
+                if p["firstn"]:
+                    cap = min(p["numrep"], result_max)
+                    recurse_tries = (
+                        p["chooseleaf_tries"]
+                        if p["chooseleaf_tries"]
+                        else (1 if tun.chooseleaf_descend_once else p["tries"])
+                    )
+                    for e in range(entries):
+                        out, out2, outpos = _choose_firstn_batch(
+                            pack,
+                            leaf_pack if p["recurse"] else None,
+                            osd_weight, x, ent_lidx[e], ent_active[e],
+                            p["numrep"], p["type"], cap,
+                            p["tries"], recurse_tries,
+                            p["vary_r"], p["stable"], max_devices, mode,
+                        )
+                        vals = out2 if p["recurse"] else out
+                        acc, acc_pos = _append_rows(acc, acc_pos, vals, outpos)
+                else:
+                    os_e = min(p["numrep"], result_max)
+                    recurse_tries = (
+                        p["chooseleaf_tries"] if p["chooseleaf_tries"] else 1
+                    )
+                    for e in range(entries):
+                        o, o2 = _choose_indep_batch(
+                            pack,
+                            leaf_pack if p["recurse"] else None,
+                            osd_weight, x, ent_lidx[e], ent_active[e],
+                            os_e, p["numrep"], p["type"],
+                            p["tries"], recurse_tries, max_devices, mode,
+                        )
+                        vals = o2 if p["recurse"] else o
+                        width = torch.where(ent_active[e], os_e, 0).to(I32)
+                        acc, acc_pos = _append_rows(acc, acc_pos, vals, width)
+                w_vals = acc
+                w_size = acc_pos
+            elif p["op"] == "emit":
+                if w_vals is None:
+                    if take_pending is not None:
+                        w_vals = torch.full((B, 1), take_pending, dtype=I32, device=dev)
+                        w_size = torch.ones(B, dtype=I32, device=dev)
+                        take_pending = None
+                    else:
+                        continue
+                result, _ = _append_rows(result, result_len, w_vals, w_size)
+                result_len = torch.clamp(result_len + w_size, max=result_max)
+                w_vals = None
+                w_size = torch.zeros(B, dtype=I32, device=dev)
+
+        return result, result_len
+
+    program_sig = tuple(
+        (p["op"], p.get("bucket_id"))
+        if p["op"] != "choose"
+        else (
+            "choose", p["firstn"], p["recurse"], p["numrep"], p["type"],
+            p["tries"], p["chooseleaf_tries"], p["vary_r"], p["stable"],
+            tuple(p["root_ids"]) if p["root_ids"] is not None else None,
+            p["pack"].signature if p["pack"] is not None else None,
+            p["leaf_pack"].signature if p["leaf_pack"] is not None else None,
+        )
+        for p in plans
+    )
+    return pack_args, run, program_sig
+
+
+_PACK_CACHE: dict = {}
+
+
+def _packs_for(dense: DenseCrushMap, rule: Rule, result_max: int, device,
+               mode: str):
+    dev = torch.device(device)
+    pkey = (id(dense), rule_signature(rule), result_max, str(dev), mode)
+    hit = _PACK_CACHE.get(pkey)
+    if hit is not None and hit[0] is dense:
+        return hit[1], hit[2], hit[3]
+    packs, run, program_sig = compile_rule_batch(dense, rule, result_max, dev, mode)
+    _memo_put(_PACK_CACHE, pkey, (dense, packs, run, program_sig))
+    return packs, run, program_sig
+
+
+def fast_signature(dense: DenseCrushMap, rule: Rule, result_max: int,
+                   mode: str | None = None) -> tuple:
+    """Static signature of the program for (dense, rule, result_max):
+    rule structure, tunables, pack shapes and the map-derived constants
+    baked into the program (take ids, chained-choose root ids)."""
+    mode = check_mode(mode)
+    _, _, program_sig = _packs_for(dense, rule, result_max, "cpu", mode)
+    return (program_sig, dense.tunables, result_max, dense.max_devices, mode)
+
+
+def fast_runner(dense: DenseCrushMap, rule: Rule, result_max: int,
+                mode: str | None = None, device="cuda"):
+    """Cached (packs, run) for ``dense``/``rule`` on ``device``; the
+    packs are built once per dense-map object."""
+    packs, run, _ = _packs_for(dense, rule, result_max, device, check_mode(mode))
+    return packs, run

@@ -1,0 +1,97 @@
+"""The port stands alone: no jax, nothing of ceph_tpu, no hidden device.
+
+An AST scan of every module of ``ceph_tpu_torch`` and of
+``chip_smoke.py`` finds no import of ``jax`` or of the reference package
+``ceph_tpu``; importing every module of the port in a fresh interpreter
+leaves both out of ``sys.modules``.  Entry points default to the card
+and raise without one.
+"""
+
+import ast
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ceph_tpu_torch
+from ceph_tpu.models.clusters import build_osdmap
+from ceph_tpu_torch import convert, resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "ceph_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "ceph_tpu")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not sources
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_reference_or_jax_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_the_reference():
+    mods = sorted(m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch."))
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules "
+        "if k.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert len(mods) > 10
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_cuda_device_needs_a_card():
+    """No CPU fallback: asking for the card without one raises."""
+    if torch.cuda.is_available():
+        assert resolve_device("cuda").type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+        from ceph_tpu_torch.models.clusters import build_simple
+        from ceph_tpu_torch.crush.engine import make_batch_runner
+
+        m = build_simple(8)
+        with pytest.raises(RuntimeError):
+            make_batch_runner(m.to_dense(), m.rule_by_name("replicated_rule"), 3)
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_convert_carries_the_reference_state():
+    ref = build_osdmap(32, pg_num=64)
+    ref.mark_down(3)
+    ref.crush.create_choose_args("compat")
+    port = convert.osdmap_from_reference(ref.encode())
+    assert json.loads(port.encode()) == json.loads(ref.encode())
+    crush = convert.crushmap_from_reference(ref.crush.to_obj())
+    assert json.loads(crush.encode()) == json.loads(ref.crush.encode())
+    assert type(crush).__module__.startswith("ceph_tpu_torch.")
+    assert ceph_tpu_torch.__version__
