@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of every kernel launcher, by library
 SIGNATURES = {
     "straw2": {
@@ -38,6 +39,11 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P],
         "straw2_descend": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "ec": {
+        "ec_matrix_encode": [_P, _P, _P, _I, _I, _L, _P],
+        "ec_bitmatrix_encode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+        "ec_byte_lut": [_P, _P, _P, _L, _P],
     },
 }
 

@@ -1,18 +1,24 @@
-"""Carry map state across from the reference package.
+"""Carry map and codec state across from the reference package.
 
-Both functions take the reference's own serialized forms (a plain dict
-or bytes), so the port imports nothing from it:
+Each function takes the reference's own serialized forms (a plain dict,
+bytes or numpy arrays), so the port imports nothing from it:
 
 - :func:`crushmap_from_reference` takes ``CrushMap.to_obj()``;
-- :func:`osdmap_from_reference` takes ``OSDMap.encode()``.
+- :func:`osdmap_from_reference` takes ``OSDMap.encode()``;
+- :func:`ec_codec_from_reference` takes a codec's (or a decoder's)
+  numpy state: ``matrix`` or ``bitmatrix``, ``w``, ``packetsize``,
+  ``technique``.
 
 The result computes on the same state: same bucket ids and weights,
-rules, tunables, choose_args, shadow trees, OSD states and overrides.
+rules, tunables, choose_args, shadow trees, OSD states and overrides;
+the same coding matrices.
 """
 
 from __future__ import annotations
 
 import copy
+
+import numpy as np
 
 from .crush.map import CrushMap
 from .osdmap.map import OSDMap
@@ -26,3 +32,19 @@ def crushmap_from_reference(obj: dict) -> CrushMap:
 def osdmap_from_reference(data: bytes) -> OSDMap:
     """The port's :class:`OSDMap` from a reference ``encode()`` blob."""
     return OSDMap.decode(bytes(data))
+
+
+def ec_codec_from_reference(state: dict, device="cuda"):
+    """The port's :class:`~.ec.backend.MatrixCodec` (``state["matrix"]``,
+    GF(2^8), with ``technique`` "table" or "bitmatrix") or
+    :class:`~.ec.backend.BitmatrixCodec` (``state["bitmatrix"]``, GF(2),
+    word size ``w``) on ``device``.  Its ``encode`` applies the same
+    product as the reference codec or decoder the state came from."""
+    from .ec.backend import BitmatrixCodec, MatrixCodec
+
+    packetsize = int(state.get("packetsize", 64))
+    if state.get("matrix") is not None:
+        return MatrixCodec(np.asarray(state["matrix"], np.uint8),
+                           state.get("technique", "table"), packetsize, device)
+    return BitmatrixCodec(np.asarray(state["bitmatrix"], np.uint8), int(state["w"]),
+                          packetsize, device)

@@ -1,0 +1,121 @@
+"""GF(2^8) byte-table kernels K4 and K7: wrappers, launch counters, plain versions.
+
+The counterpart of ``ceph_tpu/ec/pallas_gf.py``.  Each wrapper takes
+tensors on one device.  On a CUDA tensor it launches its kernel from
+``csrc/ec.cu`` (or raises); on a CPU tensor it runs its plain PyTorch
+version, which the CPU tests hold against the reference package and
+``chip_smoke.py`` holds the kernel against on the card.  Each wrapper
+counts its kernel launches in ``LAUNCHES``.
+
+- K4 :func:`matrix_encode`: ``coding[j] = XOR_i mul[M[j, i]][data[i]]``,
+  the GF(2^8) matrix product of every table codec's encode and decode
+  (``backend.TableEncoder``).
+- K7 :func:`byte_lut`: ``table[x]`` for a u8 tensor of any shape
+  (CLAY's pair transforms).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import gf
+
+U8 = torch.uint8
+SMEM_BYTES = 232448  # csrc/ec.cu kMaxSmem: K4 stages tables up to this in shared memory
+
+LAUNCHES = {"matrix_encode": 0, "byte_lut": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if t.dtype != U8:
+            raise TypeError(f"the EC kernels take uint8 tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+
+
+# ---------------------------------------------------------------- K4
+
+
+def mul_tables(matrix: np.ndarray, device) -> torch.Tensor:
+    """K4's operand: ``[m, k, 256]`` u8, row ``(j, i)`` the GF(2^8)
+    product table of the coefficient ``matrix[j, i]``."""
+    rows = gf.mul_table()[np.asarray(matrix, np.uint8)]
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+
+
+def tables_staged(m: int, k: int) -> bool:
+    """Whether K4 holds these tables in shared memory (else it reads
+    them from global memory)."""
+    return m * k * 256 <= SMEM_BYTES
+
+
+def matrix_encode_plain(tables: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """Plain K4: one gather per coefficient, XOR-accumulated."""
+    m, k, _ = tables.shape
+    out = torch.zeros((m, data.shape[1]), dtype=U8, device=data.device)
+    for i in range(k):
+        idx = data[i].long()
+        for j in range(m):
+            out[j] ^= tables[j, i][idx]
+    return out
+
+
+def matrix_encode(tables: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """K4: GF(2^8) ``[m, k] x [k, S] -> [m, S]``.
+
+    tables: u8 ``[m, k, 256]`` (:func:`mul_tables`); data: u8 ``[k, S]``."""
+    m, k, _ = tables.shape
+    if data.dim() != 2 or data.shape[0] != k or tables.shape[2] != 256:
+        raise ValueError(f"matrix_encode: tables {tuple(tables.shape)}, data {tuple(data.shape)}")
+    if data.device.type == "cpu":
+        return matrix_encode_plain(tables, data)
+    from .. import _cuda
+
+    _check_cuda(data, tables)
+    if tables.data_ptr() % 16:
+        raise ValueError("matrix_encode: tables must be 16-byte aligned")
+    S = data.shape[1]
+    out = torch.empty((m, S), dtype=U8, device=data.device)
+    if S == 0:
+        return out
+    _cuda.launch("ec", "ec_matrix_encode", data.device, _cuda.ptr(tables), _cuda.ptr(data),
+                 _cuda.ptr(out), m, k, S)
+    LAUNCHES["matrix_encode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- K7
+
+
+def byte_lut_plain(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain K7: an index gather."""
+    return table[x.long()]
+
+
+def byte_lut(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K7: ``table[x]`` for a u8 tensor of any shape; table: u8 ``[256]``
+    on x's device."""
+    if table.shape != (256,):
+        raise ValueError(f"byte_lut takes a [256] table, got {tuple(table.shape)}")
+    if x.device.type == "cpu":
+        return byte_lut_plain(x, table)
+    from .. import _cuda
+
+    _check_cuda(x, table)
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _cuda.launch("ec", "ec_byte_lut", x.device, _cuda.ptr(table), _cuda.ptr(x), _cuda.ptr(out),
+                 x.numel())
+    LAUNCHES["byte_lut"] += 1
+    return out

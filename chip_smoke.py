@@ -5,21 +5,44 @@
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. build: compile the CUDA kernels from ``ceph_tpu_torch/csrc/`` with
-   nvcc (sm_90a) and print the build seconds and the card;
+   nvcc (sm_90a, one nvcc per source, all at once) and print the build
+   seconds, the card and every library's ptxas report;
 2. kernels: hold K1 (negdraw), K2 (level_choose) and K3 (descend_fused)
    against their plain PyTorch versions on the card, bit for bit, at the
    slice's shapes (1M lanes, build_simple(1024) tables), and time both;
-3. crush: ``make_batch_runner`` on build_simple(1024)'s replicated rule
+3. ec_kernels: the same for K4 (matrix_encode: k=8 m=3 and k=4 m=2 over
+   32 MiB chunks), K5 (bitmatrix_encode: cauchy_good k=8 m=3 w=8,
+   packetsize 2048, over the same) and K7 (byte_lut: one CLAY repair
+   transform, 32 MiB, and the CLAY encode's, 64 MiB; beside the
+   ``torch.take`` call), plus each kernel's edge shapes (ragged
+   lengths, K4's global-memory tables, K5 at w = 7 and w = 32,
+   unaligned packets), bit for bit;
+4. crush: ``make_batch_runner`` on build_simple(1024)'s replicated rule
    (3 replicas), 1M objects, in each mode; bit-equal across modes and to
    the C++ reference tier on a 50k sample; placements/s per mode (the
    modes timed in turns, median of 5 calls each), and a torch.profiler
    breakdown of one call per mode;
-4. osdmap: ``OSDMapMapping.update`` on build_osdmap(1024, pg_num=32768)
+5. osdmap: ``OSDMapMapping.update`` on build_osdmap(1024, pg_num=32768)
    with upmap items, a full pg_upmap, pg_temp, primary affinity and one
-   OSD down; a sample of PGs must equal the scalar pipeline.
+   OSD down; a sample of PGs must equal the scalar pipeline;
+6. ec_encode: jerasure reed_sol_van k=8 m=3 (BASELINE's headline) and
+   k=4 m=2 (BASELINE config 2) on a batch of 64 objects of 4 MiB with
+   a 4 KiB stripe unit (256 MiB of data per call): data GB/s
+   device-resident (``encode_async``) and through
+   ``stripe.encode_object`` for one 4 MiB object (host copies
+   included); parity equal to the C++ tier on 4 MiB of columns;
+7. ec_decode: both codes with m chunks erased (data chunks first),
+   decoded through ``ec.decode`` and device-resident; bit-equal to the
+   data; GB/s;
+8. ec_plugins: the 15 profiles of ``nonregression.ec_cases`` built on
+   the card reproduce every ``"ec"`` digest of
+   ``tests/golden/archive.json``; a CLAY k=4 m=2 (d=5) repair of one
+   chunk of a 64 MiB object, bit-equal to the lost chunk; an LRC
+   k=4 m=2 l=3 decode of one lost chunk.
 
-Then the kernels line (launch counts from phases 3-4, the main path; all
-must be > 0), the card's name and power limit, and the last line
+Then the kernels line (launch counts from the main paths: phases 4-5
+for K1-K3, phases 6-8 for K4, K5 and K7; all must be > 0), the card's
+name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is present.
 """
@@ -49,6 +72,40 @@ OBJECTS = 1 << 20
 OPS_PER_DRAW = 245
 ISSUE_LANES_PER_SM = 128  # 4 schedulers x one 32-lane warp instruction a clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+
+MIB = 1 << 20
+EC_OBJECTS = 64                # objects per encode call
+EC_OBJECT_BYTES = 4 * MIB      # RBD/RGW default object size
+EC_STRIPE_UNIT = 4096          # Ceph's default EC stripe unit (chunk per stripe)
+EC_CODES = {
+    "rs_8_3": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
+    "rs_4_2": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"},
+}
+# nonregression.ec_cases' profiles and object, restated (tests/golden/archive.json "ec")
+GOLDEN_EC = {
+    "jerasure_rs_4_2": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"},
+    "jerasure_rs_8_3": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
+    "jerasure_r6_4_2": {"plugin": "jerasure", "technique": "reed_sol_r6_op", "k": "4", "m": "2"},
+    "jerasure_cauchy_4_2_p8": {"plugin": "jerasure", "technique": "cauchy_good", "k": "4",
+                               "m": "2", "packetsize": "8"},
+    "lrc_4_2_3": {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+    "shec_4_3_2": {"plugin": "shec", "k": "4", "m": "3", "c": "2"},
+    "clay_4_2": {"plugin": "clay", "k": "4", "m": "2"},
+    "clay_4_3_d5": {"plugin": "clay", "k": "4", "m": "3", "d": "5"},
+    "clay_4_3_d4": {"plugin": "clay", "k": "4", "m": "3", "d": "4"},
+    "jerasure_liberation_4_2_w7": {"plugin": "jerasure", "technique": "liberation", "k": "4",
+                                   "m": "2", "w": "7", "packetsize": "8"},
+    "jerasure_blaum_roth_4_2_w6": {"plugin": "jerasure", "technique": "blaum_roth", "k": "4",
+                                   "m": "2", "w": "6", "packetsize": "8"},
+    "jerasure_liber8tion_4_2": {"plugin": "jerasure", "technique": "liber8tion", "k": "4",
+                                "m": "2", "packetsize": "8"},
+    "jerasure_rs_4_2_w16": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4",
+                            "m": "2", "w": "16"},
+    "jerasure_rs_4_2_w32": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4",
+                            "m": "2", "w": "32"},
+    "jerasure_cauchy_4_2_w16_p8": {"plugin": "jerasure", "technique": "cauchy_good", "k": "4",
+                                   "m": "2", "w": "16", "packetsize": "8"},
+}
 
 
 def emit(obj) -> None:
@@ -95,21 +152,30 @@ def time_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, draws: int,
-                  int_rate: float) -> dict:
+def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, int]:
+    """(bit-equal, max abs error) of two integer tensors."""
+    equal = got.dtype == want.dtype and got.shape == want.shape and bool(torch.equal(got, want))
+    if got.shape != want.shape or got.numel() == 0:
+        return equal, 0 if equal else -1
+    return equal, int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int,
+                  int_rate: float, library=None) -> dict:
     """Run ``kernel`` and ``plain`` on the same card inputs, compare them
-    bit for bit, time both, and bound the kernel."""
+    bit for bit, time both (and ``library``, one PyTorch call of the
+    same function, where there is one), and bound the kernel by bytes
+    and operations."""
     got, want = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    equal = all(a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
-                for a, b in zip(got, want))
-    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-              for a, b in zip(got, want))
-    bms, by = bound_ms(nbytes, draws * OPS_PER_DRAW, int_rate)
-    return {"name": name, "replaces": replaces, "bit_equal": equal, "max_abs_err": err,
-            "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3), "bound_ms": bms,
-            "bound_by": by, "draws": draws}
+    checks = [compare(a, b) for a, b in zip(got, want)]
+    bms, by = bound_ms(nbytes, ops, int_rate)
+    return {"name": name, "replaces": replaces, "bit_equal": all(c[0] for c in checks),
+            "max_abs_err": max(c[1] for c in checks), "ms": time_ms(kernel),
+            "plain_ms": time_ms(plain, 3), "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "ops": ops,
+            "library_ms": time_ms(library) if library is not None else None}
 
 
 def phase_kernels(n: int, int_rate: float, dev) -> list[dict]:
@@ -139,19 +205,20 @@ def phase_kernels(n: int, int_rate: float, dev) -> list[dict]:
                        lambda: straw2.negdraw(x, r, *rows),
                        lambda: straw2.negdraw_plain(x, r, *rows),
                        n * 8 + rows[0].numel() * (4 + 4 + 8 + 8),
-                       int((rows[1] != 0).sum()), int_rate)
+                       int((rows[1] != 0).sum()) * OPS_PER_DRAW, int_rate)
     # K2 at the same level: row fetch, draws and argmin in one launch
     fanout = pack.meta[0][1]
     k2 = kernel_record("level_choose", "ceph_tpu/core/pallas_straw2.py:384",
                        lambda: straw2.level_choose(x, r, lidx, pack, 0),
                        lambda: straw2.level_choose_plain(x, r, lidx, pack, 0),
-                       n * (3 * 4 + 4 * 4) + table_bytes, n * fanout, int_rate)
+                       n * (3 * 4 + 4 * 4) + table_bytes, n * fanout * OPS_PER_DRAW, int_rate)
     # K3: the rule's descent root -> rack -> host for every lane
     k3 = kernel_record("descend", "ceph_tpu/core/pallas_straw2.py:603",
                        lambda: straw2.descend_fused(x, r, lidx, active, pack, 3, False, 1024),
                        lambda: straw2.descend_plain(x, r, lidx, active, pack, 3, False, 1024),
                        n * (3 * 4 + 1 + 2 * 4 + 2) + table_bytes,
-                       count_descend_draws(x, r, lidx, active, pack, 3, 1024), int_rate)
+                       count_descend_draws(x, r, lidx, active, pack, 3, 1024) * OPS_PER_DRAW,
+                       int_rate)
     # and the leaf descent host -> osd from the hosts the lanes reached
     item, ok, hard, nl = straw2.descend_fused(x, r, lidx, active, pack, 3, False, 1024)
     k3["bit_equal"] = k3["bit_equal"] and all(
@@ -183,6 +250,224 @@ def count_descend_draws(x, r, lidx0, active, tb, target_type, max_devices) -> in
         lidx = torch.where(new_done, lidx, nlidx.to(lidx.dtype))
         done = new_done
     return draws
+
+
+def card_bytes(shape, seed: int, dev) -> torch.Tensor:
+    """Random u8 tensor made on the card from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+
+def phase_ec_kernels(int_rate: float, dev) -> dict:
+    """K4, K5 and K7 vs their plain versions at the main path's shapes,
+    timed, and on their edge shapes, compared only."""
+    from ceph_tpu_torch.ec import gf, gf_kernels, gfw, kernels
+
+    S = EC_OBJECTS * EC_OBJECT_BYTES // 8  # one chunk stream of the k=8 batch
+    results, edges = [], []
+    for k, m in ((8, 3), (4, 2)):
+        tables = gf_kernels.mul_tables(gf.vandermonde_matrix(k, m), dev)
+        data = card_bytes((k, S), SEED + k, dev)
+        rec = kernel_record(
+            "matrix_encode", "ceph_tpu/ec/pallas_gf.py:162",
+            lambda: gf_kernels.matrix_encode(tables, data),
+            lambda: gf_kernels.matrix_encode_plain(tables, data),
+            (k + m) * S + m * k * 256, m * k * S + m * (k - 1) * S // 4, int_rate)
+        rec["shape"] = f"k={k} m={m} S={S}"
+        results.append(rec)
+        del data
+    bits = gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))
+    bm = kernels.Bitmatrix(bits, 8, dev)
+    data = card_bytes((8, S), SEED + 5, dev)
+    rec = kernel_record(
+        "bitmatrix_encode", "ceph_tpu/ec/pallas_kernels.py:94",
+        lambda: kernels.bitmatrix_encode(bm, data, 2048),
+        lambda: kernels.bitmatrix_encode_plain(bm, data, 2048),
+        (8 + 3) * S + bm.masks.numel() * 4, int(bits.sum()) * (S // 8 // 4), int_rate)
+    rec["shape"] = f"cauchy_good k=8 m=3 w=8 p=2048 S={S}"
+    results.append(rec)
+    del data
+    table = torch.from_numpy(gf.mul_table()[gf.gf_inv(1 ^ gf.gf_mul(2, 2))].copy()).to(dev)
+    for label, shape in (("CLAY k=4 m=2 repair transform", (4, 4, 2 * MIB)),
+                         ("CLAY k=4 m=2 encode transform", (4, 8, 2 * MIB))):
+        x = card_bytes(shape, SEED + 7, dev)
+        n = x.numel()
+        rec = kernel_record(
+            "byte_lut", "ceph_tpu/ec/pallas_gf.py:94",
+            lambda: gf_kernels.byte_lut(x, table),
+            lambda: gf_kernels.byte_lut_plain(x, table), 2 * n + 256, n, int_rate,
+            library=lambda: torch.take(table, x.long()))
+        rec["shape"] = f"{label} {list(shape)} ({n} bytes)"
+        results.append(rec)
+        del x
+
+    def edge(label, got, want):
+        equal, err = compare(got, want)
+        edges.append({"case": label, "bit_equal": equal, "max_abs_err": err})
+
+    for k, m, size in ((8, 3, 1_000_003), (4, 2, 4100), (128, 8, 1 << 20)):
+        tables = gf_kernels.mul_tables(gf.vandermonde_matrix(k, m), dev)
+        data = card_bytes((k, size), SEED + size, dev)
+        path = "shared" if gf_kernels.tables_staged(m, k) else "global"
+        edge(f"matrix_encode k={k} m={m} S={size} tables={path}",
+             gf_kernels.matrix_encode(tables, data), gf_kernels.matrix_encode_plain(tables, data))
+    rs32 = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(4, 2, 32), 32)
+    gen = np.vstack([np.eye(128, dtype=np.uint8), rs32])
+    dec32 = gf.invert_bitmatrix(np.vstack([gen[r * 32:(r + 1) * 32] for r in (1, 3, 4, 5)]))
+    for label, bits, w, p in (("liberation k=4 w=7 p=8", gfw.liberation_bitmatrix(4, 7), 7, 8),
+                              ("blaum_roth k=4 w=6 p=8", gfw.blaum_roth_bitmatrix(4, 6), 6, 8),
+                              ("reed_sol_van k=4 m=2 w=32 p=4", rs32, 32, 4),
+                              ("w=32 decoder (128 rows) p=4", dec32, 32, 4),
+                              ("cauchy_good k=8 m=3 w=8 p=3", gf.matrix_to_bitmatrix(
+                                  gf.cauchy_good_matrix(8, 3)), 8, 3)):
+        op = kernels.Bitmatrix(bits, w, dev)
+        data = card_bytes((bits.shape[1] // w, w * p * 4099), SEED + w + p, dev)
+        edge(f"bitmatrix_encode {label}", kernels.bitmatrix_encode(op, data, p),
+             kernels.bitmatrix_encode_plain(op, data, p))
+    x = card_bytes((64 * MIB + 3,), SEED + 3, dev)
+    edge("byte_lut n=64 MiB + 3", gf_kernels.byte_lut(x, table), gf_kernels.byte_lut_plain(x, table))
+    torch.cuda.synchronize()
+    return {"phase": "ec_kernels", "results": results, "edges": edges}
+
+
+def ec_batch(name: str, dev):
+    """A codec on the card and one encode call's data: EC_OBJECTS objects
+    of EC_OBJECT_BYTES striped with EC_STRIPE_UNIT-byte chunks, as the
+    k shard streams ``[k, EC_OBJECTS * EC_OBJECT_BYTES / k]`` (byte-local
+    codes encode the concatenated streams as the objects one by one)."""
+    from ceph_tpu_torch.ec import create
+
+    ec = create(EC_CODES[name], device=dev)
+    k = ec.get_data_chunk_count()
+    if ec.get_chunk_size(k * EC_STRIPE_UNIT) != EC_STRIPE_UNIT:
+        raise AssertionError(f"{name}: a {k * EC_STRIPE_UNIT}-byte stripe is not {k} chunks")
+    data = card_bytes((k, EC_OBJECTS * EC_OBJECT_BYTES // k), SEED + k, dev)
+    return ec, data
+
+
+def host_seconds(fn, reps: int) -> list[float]:
+    """Host-clock seconds of ``fn`` followed by a device synchronize."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_ec_encode(dev, batches: dict) -> dict:
+    from ceph_tpu_torch.ec import stripe
+    from ceph_tpu_torch.testing import cppref
+
+    out = {}
+    for name in EC_CODES:
+        ec, data = ec_batch(name, dev)
+        k, m = ec.get_data_chunk_count(), ec.get_coding_chunk_count()
+        parity = ec.codec.encode_async(data)
+        cols = -(-4 * MIB // k)  # >= 4 MiB of data columns against the C++ tier
+        want = cppref.matrix_encode(ec.codec.matrix, data[:, :cols].cpu().numpy())
+        if not np.array_equal(parity[:, :cols].cpu().numpy(), want):
+            raise AssertionError(f"{name}: parity differs from the C++ tier")
+        ms = time_ms(lambda: ec.codec.encode_async(data))
+        obj = np.random.default_rng(SEED).integers(0, 256, EC_OBJECT_BYTES, dtype=np.uint8)
+        sw = k * EC_STRIPE_UNIT
+        iface = host_seconds(lambda: stripe.encode_object(ec, obj, sw), 10)
+        sinfo, shards = stripe.encode_object(ec, obj, sw)
+        if stripe.decode_object(ec, sinfo, shards, len(obj), failed=set(range(m))) != obj.tobytes():
+            raise AssertionError(f"{name}: encode_object / decode_object round trip failed")
+        batches[name] = (ec, data, parity)
+        out[name] = {
+            "k": k, "m": m, "chunk_bytes": data.shape[1], "data_bytes": data.numel(),
+            "cpp_sample_bytes": k * cols,
+            "device_ms": ms, "device_GBps": data.numel() / ms / 1e6,
+            "object_bytes": EC_OBJECT_BYTES, "stripe_width": sw,
+            "encode_object_s": float(np.median(iface)), "all_encode_object_s": iface,
+            "encode_object_GBps": EC_OBJECT_BYTES / float(np.median(iface)) / 1e9,
+            "profile_device": profile_call(lambda: ec.codec.encode_async(data)),
+            "profile_encode_object": profile_call(lambda: stripe.encode_object(ec, obj, sw)),
+        }
+    return {"phase": "ec_encode", "objects": EC_OBJECTS, "codes": out}
+
+
+def phase_ec_decode(dev, batches: dict) -> dict:
+    out = {}
+    for name, (ec, data, parity) in batches.items():
+        k, m = ec.get_data_chunk_count(), ec.get_coding_chunk_count()
+        lost = set(range(m))  # data chunks first
+        rows = {i: data[i] for i in range(k)} | {k + j: parity[j] for j in range(m)}
+        avail_dev = {i: t for i, t in rows.items() if i not in lost}
+        got = ec.codec.decode_async(avail_dev, lost)
+        if not all(torch.equal(got[i], data[i]) for i in lost):
+            raise AssertionError(f"{name}: device-resident decode differs from the data")
+        ms = time_ms(lambda: ec.codec.decode_async(avail_dev, lost), 5)
+        avail = {i: t.cpu().numpy() for i, t in avail_dev.items()}
+        size = data.shape[1]
+        secs = host_seconds(lambda: ec.decode(lost, avail, size), 3)
+        dec = ec.decode(lost, avail, size)
+        for i in lost:
+            if not np.array_equal(dec[i], data[i].cpu().numpy()):
+                raise AssertionError(f"{name}: decode of chunk {i} differs from the data")
+        out[name] = {"lost": sorted(lost), "data_bytes": data.numel(),
+                     "device_ms": ms, "device_GBps": data.numel() / ms / 1e6,
+                     "decode_s": float(np.median(secs)), "all_decode_s": secs,
+                     "decode_GBps": data.numel() / float(np.median(secs)) / 1e9}
+    return {"phase": "ec_decode", "codes": out}
+
+
+def phase_ec_plugins(dev) -> dict:
+    import hashlib
+
+    from ceph_tpu_torch.ec import create
+
+    with open(os.path.join(HERE, "tests", "golden", "archive.json")) as f:
+        golden = json.load(f)["ec"]
+    obj = np.random.default_rng(0xCE9).integers(0, 256, 40_000, dtype=np.uint8)
+    bad = []
+    for name, profile in GOLDEN_EC.items():
+        ec = create(profile, device=dev)
+        enc = ec.encode(set(range(ec.get_chunk_count())), obj)
+        got = {str(i): hashlib.sha256(np.ascontiguousarray(enc[i]).tobytes()).hexdigest()
+               for i in sorted(enc)}
+        if got != golden[name]["chunks_sha256"] or len(enc[0]) != golden[name]["chunk_size"]:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"EC digests differ from tests/golden/archive.json: {bad}")
+
+    # CLAY k=4 m=2 (d=5): repair chunk 0 of a 64 MiB object from 5 helpers
+    clay = create(GOLDEN_EC["clay_4_2"], device=dev)
+    big = np.random.default_rng(SEED).integers(0, 256, 64 * MIB, dtype=np.uint8)
+    t0 = time.perf_counter()
+    enc = clay.encode(set(range(clay.get_chunk_count())), big)
+    encode_s = time.perf_counter() - t0
+    lost = 0
+    helpers, planes = clay.minimum_to_decode_subchunks(lost, set(range(1, 6)))
+    sub = len(enc[0]) // clay.get_sub_chunk_count()
+    helper_subchunks = {i: {int(z): enc[i][z * sub:(z + 1) * sub] for z in planes}
+                        for i in helpers}
+    if not np.array_equal(clay.repair(lost, helper_subchunks), enc[lost]):
+        raise AssertionError("CLAY repair differs from the lost chunk")
+    secs = host_seconds(lambda: clay.repair(lost, helper_subchunks), 3)
+    read = sum(len(v) for h in helper_subchunks.values() for v in h.values())
+
+    # LRC k=4 m=2 l=3: one lost data chunk, repaired from its local group
+    lrc = create(GOLDEN_EC["lrc_4_2_3"], device=dev)
+    lenc = lrc.encode(set(range(lrc.get_chunk_count())), big[:4 * MIB])
+    gone = lrc.chunk_mapping[0]
+    avail = {i: c for i, c in lenc.items() if i != gone}
+    t0 = time.perf_counter()
+    dec = lrc.decode({gone}, avail, len(lenc[0]))
+    lrc_s = time.perf_counter() - t0
+    if not np.array_equal(dec[gone], lenc[gone]):
+        raise AssertionError("LRC decode differs from the lost chunk")
+    return {"phase": "ec_plugins", "golden_profiles": len(GOLDEN_EC), "golden_ok": True,
+            "clay": {"object_bytes": big.size, "chunk_bytes": len(enc[0]), "encode_s": encode_s,
+                     "lost": lost, "helpers": sorted(helpers), "helper_bytes_read": read,
+                     "repair_s": float(np.median(secs)), "all_repair_s": secs,
+                     "repair_GBps": len(enc[0]) / float(np.median(secs)) / 1e9,
+                     "profile_repair": profile_call(lambda: clay.repair(lost, helper_subchunks))},
+            "lrc": {"chunk_bytes": len(lenc[0]), "lost": gone,
+                    "read": sorted(lrc.minimum_to_decode({gone}, set(avail))), "decode_s": lrc_s}}
 
 
 def profile_call(fn) -> dict:
@@ -309,38 +594,65 @@ def main() -> int:
     from ceph_tpu_torch import _cuda
     from ceph_tpu_torch.core import straw2
     from ceph_tpu_torch.crush import interp_batch
+    from ceph_tpu_torch.ec import gf_kernels, kernels as ec_kernels
 
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
     built = _cuda.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": built,
-          "card": card, "torch": torch.__version__, "cuda": torch.version.cuda})
-    with open(os.path.join(_cuda.BUILD_DIR, "straw2.ptxas.txt")) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+    seconds = time.perf_counter() - t0
+    ptxas = {}
+    for lib in _cuda.SIGNATURES:
+        with open(os.path.join(_cuda.BUILD_DIR, f"{lib}.ptxas.txt")) as f:
+            ptxas[lib] = [ln.strip() for ln in f
+                          if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": seconds, "nvcc_seconds": built, "card": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda, "ptxas": ptxas})
 
     int_rate = int32_ops_per_s()
     kernels = phase_kernels(OBJECTS, int_rate, dev)
     emit({"phase": "kernels", "lanes": OBJECTS, "int32_ops_per_s": int_rate,
-          "ptxas": ptxas, "results": kernels})
+          "results": kernels})
     bad = [k["name"] for k in kernels if not k["bit_equal"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    ec = phase_ec_kernels(int_rate, dev)
+    emit(ec)
+    bad = [r["name"] for r in ec["results"] if not r["bit_equal"]]
+    bad += [e["case"] for e in ec["edges"] if not e["bit_equal"]]
+    if bad:
+        raise AssertionError(f"EC kernels disagree with their plain versions: {bad}")
 
     # the main path: counts from 0, raw CRUSH in every mode, then the OSDMap
     straw2.reset_launches()
     emit(phase_crush(OBJECTS, dev, interp_batch.MODES))
     emit(phase_osdmap(dev))
     launches = dict(straw2.LAUNCHES)
+
+    # the EC main path: counts from 0, encode, decode, then the plugins
+    gf_kernels.reset_launches()
+    ec_kernels.reset_launches()
+    batches = {}
+    emit(phase_ec_encode(dev, batches))
+    emit(phase_ec_decode(dev, batches))
+    batches.clear()
+    emit(phase_ec_plugins(dev))
+    launches.update(gf_kernels.LAUNCHES)
+    launches.update(ec_kernels.LAUNCHES)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
+    # one record per kernel: K4 at k=8 m=3, K7 over the CLAY encode's 64 MiB
+    main_ec = [r for r in ec["results"] if r["name"] != "matrix_encode" or "k=8" in r["shape"]]
+    main_ec = [r for r in main_ec if r["name"] != "byte_lut" or "encode" in r["shape"]]
+    records = [dict(k, source="ceph_tpu_torch/csrc/straw2.cu") for k in kernels]
+    records += [dict(r, source="ceph_tpu_torch/csrc/ec.cu") for r in main_ec]
     emit({"kernels": [
-        {"name": k["name"], "route": "cuda", "source": "ceph_tpu_torch/csrc/straw2.cu",
+        {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["name"]],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": None}
-        for k in kernels]})
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+        for k in records]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

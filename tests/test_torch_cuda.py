@@ -2,7 +2,10 @@
 
 Each kernel against its plain PyTorch version on the same card inputs,
 and the batch runner's three modes against the CPU plain versions, at a
-small size, and K2/K3 on tables too large for shared memory.  Run them
+small size, and K2/K3 on tables too large for shared memory; the EC
+kernels K4, K5 and K7 against theirs on edge shapes (ragged lengths,
+K4's global-memory table path, K5 at w = 6, 7, 32 and unaligned packet
+sizes), and codecs built on the card against the same on the CPU.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -126,3 +129,95 @@ def test_modes_match_cpu(card, mode, shape):
     got = fn(ca, w, xs)
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert any(straw2.LAUNCHES[k] > before[k] for k in before)
+
+
+# ---------------------------------------------------------------- EC: K4, K5, K7
+
+
+def _bytes(shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+
+
+@pytest.mark.parametrize("k,m,size", [(8, 3, 1 << 16), (4, 2, 4096), (5, 1, 131), (4, 2, 4100),
+                                      (128, 8, 4096), (3, 2, 0)])
+def test_matrix_encode_matches_plain(card, k, m, size):
+    """Shared-memory tables, ragged and non-16-multiple lengths, and the
+    global-memory table path (k=128 m=8: 256 KB of tables)."""
+    from ceph_tpu_torch.ec import gf, gf_kernels
+
+    M = gf.vandermonde_matrix(k, m)
+    tables = gf_kernels.mul_tables(M, card)
+    data = _bytes((k, size), k + m, card)
+    before = gf_kernels.LAUNCHES["matrix_encode"]
+    got = gf_kernels.matrix_encode(tables, data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gf_kernels.matrix_encode_plain(tables, data))
+    assert gf_kernels.LAUNCHES["matrix_encode"] == before + (size > 0)
+    assert gf_kernels.tables_staged(m, k) == (k * m * 256 <= gf_kernels.SMEM_BYTES)
+
+
+def _bitmatrix(kind):
+    from ceph_tpu_torch.ec import gf, gfw
+
+    if kind == "cauchy_w8":
+        return gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3)), 8
+    if kind == "blaum_roth_w6":
+        return gfw.blaum_roth_bitmatrix(4, 6), 6
+    if kind == "liberation_w7":
+        return gfw.liberation_bitmatrix(4, 7), 7
+    bm = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(4, 2, 32), 32)
+    if kind == "rs_w32":
+        return bm, 32
+    # a w = 32 decoder: 128 output rows
+    gen = np.vstack([np.eye(128, dtype=np.uint8), bm])
+    sub = np.vstack([gen[r * 32:(r + 1) * 32] for r in (1, 3, 4, 5)])
+    return gf.invert_bitmatrix(sub), 32
+
+
+@pytest.mark.parametrize("kind,p", [("cauchy_w8", 2048), ("cauchy_w8", 3), ("blaum_roth_w6", 8),
+                                    ("liberation_w7", 8), ("liberation_w7", 5), ("rs_w32", 4),
+                                    ("decoder_w32", 4)])
+def test_bitmatrix_encode_matches_plain(card, kind, p):
+    from ceph_tpu_torch.ec import kernels
+
+    bits, w = _bitmatrix(kind)
+    bm = kernels.Bitmatrix(bits, w, card)
+    data = _bytes((bits.shape[1] // w, w * p * 37), w + p, card)
+    got = kernels.bitmatrix_encode(bm, data, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.bitmatrix_encode_plain(bm, data, p))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 1001), (1 << 20,), (0,)])
+def test_byte_lut_matches_plain(card, shape):
+    from ceph_tpu_torch.ec import gf, gf_kernels
+
+    table = torch.from_numpy(gf.mul_table()[0x8E].copy()).to(card)
+    x = _bytes(shape, 5, card)
+    got = gf_kernels.byte_lut(x, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gf_kernels.byte_lut_plain(x, table))
+
+
+@pytest.mark.parametrize("profile", [
+    {"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
+    {"plugin": "jerasure", "technique": "cauchy_good", "k": "4", "m": "2", "packetsize": "8"},
+    {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2", "w": "32"},
+    {"plugin": "clay", "k": "4", "m": "2"},
+    {"plugin": "lrc", "k": "4", "m": "2", "l": "3"},
+])
+def test_codecs_on_the_card_match_cpu(card, profile):
+    from ceph_tpu_torch.ec import create
+
+    obj = np.random.default_rng(1).integers(0, 256, 50_000, dtype=np.uint8)
+    gpu, cpu = create(profile, device=card), create(profile, device="cpu")
+    n = gpu.get_chunk_count()
+    got, want = gpu.encode(set(range(n)), obj), cpu.encode(set(range(n)), obj)
+    for i in want:
+        np.testing.assert_array_equal(got[i], want[i])
+    lost = (0, n - 1)
+    avail = {i: c for i, c in want.items() if i not in lost}
+    dec = gpu.decode(set(lost), avail, len(want[0]))
+    for i in lost:
+        np.testing.assert_array_equal(dec[i], want[i])

@@ -67,6 +67,16 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_scan_covers_the_ec_subpackage():
+    """The EC slice (``ec/``, its plugins and kernels) is in both scans."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("ec/backend.py", "ec/gf_kernels.py", "ec/kernels.py", "ec/plugins/clay.py",
+                "ec/plugins/lrc.py", "ec/registry.py"):
+        assert mod in rel
+    mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
+    assert {"ceph_tpu_torch.ec.backend", "ceph_tpu_torch.ec.plugins.clay"} <= mods
+
+
 def test_cuda_device_needs_a_card():
     """No CPU fallback: asking for the card without one raises."""
     if torch.cuda.is_available():
