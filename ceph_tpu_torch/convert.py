@@ -7,7 +7,9 @@ bytes or numpy arrays), so the port imports nothing from it:
 - :func:`osdmap_from_reference` takes ``OSDMap.encode()``;
 - :func:`ec_codec_from_reference` takes a codec's (or a decoder's)
   numpy state: ``matrix`` or ``bitmatrix``, ``w``, ``packetsize``,
-  ``technique``.
+  ``technique``;
+- :func:`plan_from_reference` takes a ``RecoveryPlan`` (its fields are
+  ints, tuples and numpy arrays).
 
 The result computes on the same state: same bucket ids and weights,
 rules, tunables, choose_args, shadow trees, OSD states and overrides;
@@ -48,3 +50,31 @@ def ec_codec_from_reference(state: dict, device="cuda"):
                            state.get("technique", "table"), packetsize, device)
     return BitmatrixCodec(np.asarray(state["bitmatrix"], np.uint8), int(state["w"]),
                           packetsize, device)
+
+
+def plan_from_reference(plan):
+    """The port's :class:`~.recovery.planner.RecoveryPlan` from a
+    reference one: the same groups in the same order, with the same
+    masks, shard tuples, PG arrays and repair (bit)matrices, so the
+    port's executor runs the identical repairs."""
+    from .recovery.planner import PatternGroup, RecoveryPlan
+
+    def arr(a):
+        return None if a is None else np.array(a, copy=True)
+
+    groups = [
+        PatternGroup(
+            mask=int(g.mask),
+            survivors=tuple(int(s) for s in g.survivors),
+            rows=tuple(int(s) for s in g.rows),
+            missing=tuple(int(s) for s in g.missing),
+            pgs=np.array(g.pgs, copy=True),
+            repair_matrix=arr(g.repair_matrix),
+            repair_bitmatrix=arr(g.repair_bitmatrix),
+            w=int(g.w),
+            packetsize=int(g.packetsize),
+        )
+        for g in plan.groups
+    ]
+    return RecoveryPlan(k=int(plan.k), m=int(plan.m), groups=groups,
+                        unrecoverable=np.array(plan.unrecoverable, copy=True))

@@ -6,6 +6,8 @@
 //                               (matrix_encode: GF(2^8) matrix x data)
 //   K5 gf2_bitmatrix_kernel  <- pallas_kernels.py _encode_padded_jit / _kernel
 //                               (PallasBitmatrixEncoder: GF(2) bitmatrix x packets)
+//   K6 xor_schedule_kernel   <- pallas_kernels.py _schedule_padded_jit / _schedule_kernel
+//                               (schedule_apply: the XOR-schedule interpreter)
 //   K7 byte_lut_kernel       <- pallas_gf.py _byte_lut_jit / _byte_lut_kernel
 //                               (byte_lut: table[x] for every byte)
 //
@@ -35,6 +37,20 @@
 //   It indexes the [k, S] chunk layout directly: row s = j*w + l of
 //   group g is bytes [g*w*p + l*p, +p) of chunk j, so the host does no
 //   packing or transpose.
+// - K6: a data-dependent interpreter over u32 word rows.  Buffers are
+//   [inputs | outputs | derived]; step (dst, src) is buf[dst] ^= buf[src].
+//   Steps only ever combine rows of one word column, so a thread owns one
+//   column of every buffer and runs the whole step table on it: no
+//   __syncthreads anywhere.  The step table is read by every thread of a
+//   warp at once (__ldg, a broadcast).  The buffers of a block's TN
+//   columns sit in shared memory as [n_bufs][TN], consecutive threads on
+//   consecutive banks, when n_bufs * TN * 4 bytes fit a block (TN = 128,
+//   else 64); larger schedules (w = 32 repairs with up to 1024 derived
+//   rows) run on a [n_bufs, NW] scratch in device memory, still one
+//   coalesced column per thread.  Each step is a dependent load-XOR-store
+//   on the same column, so the shared path is bound by shared-memory
+//   latency and occupancy (n_bufs sets how many columns fit an SM); the
+//   bytes it must move are only the n_in input and n_out output rows.
 // - K7: the 256-byte table in shared memory, one 4-byte word per thread.
 //
 // What the TPU versions needed and these do not: 128-lane table halves
@@ -198,10 +214,48 @@ byte_lut_kernel(const uint8_t* __restrict__ table, const uint8_t* __restrict__ x
   }
 }
 
+// K6.  Buffers [inputs | outputs | derived] of one word column per
+// thread: rows [0, n_in) from in [n_in, nw], the rest zero; each step
+// (dst, src) of steps [n_steps, 2] does buf[dst] ^= buf[src]; rows
+// [n_in, n_in + n_out) go to out [n_out, nw].  kShared: the block's
+// blockDim.x columns of every buffer in shared memory, [n_bufs][TN];
+// else scratch [n_bufs, nw] in device memory.
+template <bool kShared>
+__global__ void __launch_bounds__(kThreads)
+xor_schedule_kernel(const int* __restrict__ steps, int n_steps, const uint32_t* __restrict__ in,
+                    uint32_t* __restrict__ out, uint32_t* __restrict__ scratch, int n_in,
+                    int n_out, int n_bufs, long long nw) {
+  extern __shared__ uint32_t sbuf[];
+  const int tn = blockDim.x;
+  for (long long c0 = (long long)blockIdx.x * tn; c0 < nw; c0 += (long long)gridDim.x * tn) {
+    const long long c = c0 + threadIdx.x;
+    if (c >= nw) continue;  // a thread touches only its own column
+    if constexpr (kShared) {
+      uint32_t* buf = sbuf + threadIdx.x;
+      for (int r = 0; r < n_in; ++r) buf[r * tn] = __ldg(in + (long long)r * nw + c);
+      for (int r = n_in; r < n_bufs; ++r) buf[r * tn] = 0u;
+      for (int i = 0; i < n_steps; ++i) {
+        const int dst = __ldg(steps + 2 * i), src = __ldg(steps + 2 * i + 1);
+        buf[dst * tn] ^= buf[src * tn];
+      }
+      for (int r = 0; r < n_out; ++r) out[(long long)r * nw + c] = buf[(n_in + r) * tn];
+    } else {
+      uint32_t* buf = scratch + c;
+      for (int r = 0; r < n_in; ++r) buf[r * nw] = __ldg(in + (long long)r * nw + c);
+      for (int r = n_in; r < n_bufs; ++r) buf[r * nw] = 0u;
+      for (int i = 0; i < n_steps; ++i) {
+        const int dst = __ldg(steps + 2 * i), src = __ldg(steps + 2 * i + 1);
+        buf[dst * nw] ^= buf[src * nw];
+      }
+      for (int r = 0; r < n_out; ++r) out[(long long)r * nw + c] = buf[(n_in + r) * nw];
+    }
+  }
+}
+
 // Grid of a grid-stride launch: no more blocks than can be resident at
 // once (each block stages its tables once), no more than the work needs.
 template <typename K>
-int grid_for(K kernel, long long n, size_t smem, cudaError_t* err) {
+int grid_for(K kernel, long long n, size_t smem, cudaError_t* err, int block = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   *err = cudaGetDevice(&dev);
   if (*err != cudaSuccess) return 0;
@@ -211,10 +265,10 @@ int grid_for(K kernel, long long n, size_t smem, cudaError_t* err) {
     *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (*err != cudaSuccess) return 0;
   }
-  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
   if (*err != cudaSuccess) return 0;
   if (per_sm < 1) per_sm = 1;
-  long long need = (n + kThreads - 1) / kThreads;
+  long long need = (n + block - 1) / block;
   long long cap = (long long)sms * per_sm;
   return (int)(need < cap ? need : cap);
 }
@@ -290,6 +344,42 @@ int ec_bitmatrix_encode(const void* masks, const void* data, void* out, int kw, 
     if (rt == 32) return launch_bitmatrix<1, 32>(masks, data, out, kw, mw, w, p, S, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// K6.  steps: [n_steps, 2] i32, every index in [0, n_bufs); in: [n_in,
+// nw] u32; out: [n_out, nw] u32.  tn > 0: shared-memory path with tn
+// columns a block (n_bufs * tn * 4 bytes of shared memory); tn == 0:
+// global path on scratch [n_bufs, nw] u32.
+int ec_xor_schedule(const void* steps, int n_steps, const void* in, void* out, void* scratch,
+                    int n_in, int n_out, int n_bufs, int tn, long long nw, void* stream) {
+  cudaGetLastError();
+  if (nw <= 0 || n_out <= 0) return 0;
+  if (n_in < 0 || n_steps < 0 || n_bufs < n_in + n_out || tn < 0 || tn > kThreads ||
+      (tn == 0 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int* s = static_cast<const int*>(steps);
+  const uint32_t* i = static_cast<const uint32_t*>(in);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  if (tn > 0) {
+    const size_t smem = (size_t)n_bufs * tn * 4;
+    if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(xor_schedule_kernel<true>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    int grid = grid_for(xor_schedule_kernel<true>, nw, smem, &err, tn);
+    if (err != cudaSuccess) return (int)err;
+    xor_schedule_kernel<true><<<grid, tn, smem, st>>>(s, n_steps, i, o, nullptr, n_in, n_out,
+                                                      n_bufs, nw);
+  } else {
+    int grid = grid_for(xor_schedule_kernel<false>, nw, 0, &err);
+    if (err != cudaSuccess) return (int)err;
+    xor_schedule_kernel<false><<<grid, kThreads, 0, st>>>(
+        s, n_steps, i, o, static_cast<uint32_t*>(scratch), n_in, n_out, n_bufs, nw);
+  }
+  return (int)cudaGetLastError();
 }
 
 // K7.  table: [256] u8; x, out: [n] u8.

@@ -1,6 +1,6 @@
-"""GF(2) bitmatrix kernel K5: wrapper, launch counter, plain version.
+"""GF(2) kernels K5 and K6: wrappers, launch counters, plain versions.
 
-The counterpart of ``ceph_tpu/ec/pallas_kernels.py``.  The wrapper
+The counterpart of ``ceph_tpu/ec/pallas_kernels.py``.  Each wrapper
 takes tensors on one device: on a CUDA tensor it launches the kernel
 from ``csrc/ec.cu`` (or raises), on a CPU tensor it runs the plain
 PyTorch version.  Launches are counted in ``LAUNCHES``.
@@ -17,8 +17,15 @@ chunk ``j``, and output row ``r = i*w + t`` lands at the same place in
 output chunk ``i``.  The kernel indexes that layout in place, so there
 is no packing step.
 
-K6 (``schedule_apply``, the XOR-schedule interpreter) belongs here too;
-it is not ported yet (``ROADMAP.md`` §1 item 7, §2 K6).
+- K6 :func:`schedule_apply`: the XOR-schedule interpreter over u32 word
+  rows (carried as int32: XOR is bit-identical).  Buffers are
+  ``[inputs | outputs | derived]``, non-input buffers start zeroed, each
+  step ``(dst, src)`` does ``buf[dst] ^= buf[src]``, and the result is
+  rows ``n_in : n_in + n_out`` — every compiled schedule of
+  ``ec.schedule.XorScheduleEncoder`` (the recovery executor's bit-level
+  pattern groups).  The kernel keeps a block's columns of every buffer
+  in shared memory when ``n_bufs`` allows (:func:`schedule_smem_cols`),
+  else works on a ``[n_bufs, NW]`` scratch the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -26,11 +33,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .gf_kernels import SMEM_BYTES
+
 U8 = torch.uint8
 ROW_TILES = (8, 16, 32)  # output rows per K5 thread (csrc/ec.cu launch_bitmatrix)
 MAX_KW = 12288  # input packet rows whose masks fit 48 KB of shared memory
 
-LAUNCHES = {"bitmatrix_encode": 0}
+SCHEDULE_COLS = (128, 64)  # word columns per K6 block on its shared-memory path
+
+LAUNCHES = {"bitmatrix_encode": 0, "schedule_apply": 0}
 
 
 def reset_launches() -> None:
@@ -108,4 +119,65 @@ def bitmatrix_encode(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -> torc
     _cuda.launch("ec", "ec_bitmatrix_encode", data.device, _cuda.ptr(bm.masks), _cuda.ptr(data),
                  _cuda.ptr(out), bm.kw, bm.mw, bm.w, packetsize, bm.rt, S)
     LAUNCHES["bitmatrix_encode"] += 1
+    return out
+
+
+def schedule_smem_cols(n_bufs: int) -> int:
+    """Word columns per block of K6's shared-memory path for a schedule
+    of ``n_bufs`` buffers, or 0: the schedule takes the global-memory
+    path."""
+    return next((c for c in SCHEDULE_COLS if n_bufs * c * 4 <= SMEM_BYTES), 0)
+
+
+def _check_schedule(steps: torch.Tensor, words: torch.Tensor, n_out: int, n_bufs: int) -> None:
+    if steps.dim() != 2 or steps.shape[1] != 2 or steps.dtype != torch.int32:
+        raise TypeError(f"steps are [n_steps, 2] int32, got {tuple(steps.shape)} {steps.dtype}")
+    if words.dim() != 2 or words.dtype != torch.int32:
+        raise TypeError(f"words are [n_in, NW] int32, got {tuple(words.shape)} {words.dtype}")
+    if n_out < 0 or n_bufs < words.shape[0] + n_out:
+        raise ValueError(f"n_bufs={n_bufs} < n_in={words.shape[0]} + n_out={n_out}")
+    if steps.device != words.device:
+        raise ValueError(f"steps on {steps.device}, words on {words.device}")
+    if steps.numel():  # the kernel indexes its buffers with them unchecked
+        lo, hi = torch.stack(torch.aminmax(steps)).tolist()
+        if lo < 0 or hi >= n_bufs:
+            raise ValueError(f"step buffer indices span [{lo}, {hi}], outside [0, {n_bufs})")
+
+
+def schedule_apply_plain(steps: torch.Tensor, words: torch.Tensor, n_out: int,
+                         n_bufs: int) -> torch.Tensor:
+    """Plain K6: one in-place row XOR per step (``_xla_apply``'s
+    semantics)."""
+    _check_schedule(steps, words, n_out, n_bufs)
+    n_in = words.shape[0]
+    bufs = torch.zeros((n_bufs, words.shape[1]), dtype=torch.int32, device=words.device)
+    bufs[:n_in] = words
+    for dst, src in steps.tolist():
+        bufs[dst] ^= bufs[src]
+    return bufs[n_in:n_in + n_out].clone()
+
+
+def schedule_apply(steps: torch.Tensor, words: torch.Tensor, n_out: int,
+                   n_bufs: int) -> torch.Tensor:
+    """K6: run an XOR schedule over ``words [n_in, NW]`` int32 ->
+    ``[n_out, NW]`` int32.  ``steps [n_steps, 2]`` int32 index buffers
+    ``[0, n_bufs)``, as :func:`~ceph_tpu_torch.ec.schedule.compile_schedule`
+    emits them; an index out of range raises before the launch."""
+    _check_schedule(steps, words, n_out, n_bufs)
+    if words.device.type == "cpu":
+        return schedule_apply_plain(steps, words, n_out, n_bufs)
+    from .. import _cuda
+
+    if not (steps.is_contiguous() and words.is_contiguous()):
+        raise TypeError("schedule_apply takes contiguous tensors")
+    n_in, nw = words.shape
+    out = torch.empty((n_out, nw), dtype=torch.int32, device=words.device)
+    if nw == 0 or n_out == 0:
+        return out
+    cols = schedule_smem_cols(n_bufs)
+    scratch = None if cols else torch.empty((n_bufs, nw), dtype=torch.int32, device=words.device)
+    _cuda.launch("ec", "ec_xor_schedule", words.device, _cuda.ptr(steps), steps.shape[0],
+                 _cuda.ptr(words), _cuda.ptr(out), None if scratch is None else _cuda.ptr(scratch),
+                 n_in, n_out, n_bufs, cols, nw)
+    LAUNCHES["schedule_apply"] += 1
     return out

@@ -38,11 +38,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the card reproduce every ``"ec"`` digest of
    ``tests/golden/archive.json``; a CLAY k=4 m=2 (d=5) repair of one
    chunk of a 64 MiB object, bit-equal to the lost chunk; an LRC
-   k=4 m=2 l=3 decode of one lost chunk.
+   k=4 m=2 l=3 decode of one lost chunk;
+9. schedule_kernel: K6 (schedule_apply) against its plain version at
+   the main shape (the repair schedule of cauchy_good k=8 m=3 w=8
+   p=2048 with chunks {0, 8} lost, over [8, 32 MiB]), timed beside K5
+   on the same repair, and on its edges (a w = 32 schedule on the
+   global-memory path, a ragged word count, packet sizes 3 and 5, the
+   bit-plane layout at S = 131, S = 0), bit for bit;
+10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
+   build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
+   chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
+   ``recovery_xor_schedule=on`` (K6, bit-plane) and cauchy_good k=8
+   m=3 p=2048 under ``auto`` (K6, packet): every rebuilt shard equals
+   the stored one, one launch per pattern, the fused peering equals
+   the staged one and a numpy classification; timed (median of 3) and
+   profiled.
 
-Then the kernels line (launch counts from the main paths: phases 4-5
-for K1-K3, phases 6-8 for K4, K5 and K7; all must be > 0), the card's
-name and power limit, and the last line
+Then the launch counts of each main path (phases 4-5: placement; 6-8:
+EC; 10: recovery, each from 0), the kernels line (each kernel's
+launches summed over the paths; every kernel must launch on its
+paths, K6 on the recovery path), the card's name and power limit, and
+the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is present.
 """
@@ -105,6 +121,20 @@ GOLDEN_EC = {
                             "m": "2", "w": "32"},
     "jerasure_cauchy_4_2_w16_p8": {"plugin": "jerasure", "technique": "cauchy_good", "k": "4",
                                    "m": "2", "w": "16", "packetsize": "8"},
+}
+
+
+# phase recovery: a 1024-OSD EC pool and one rack (8 hosts, 32 OSDs) lost
+RECOVERY_OSDS = 1024
+RECOVERY_PGS = 8192            # Ceph's PG calculator: ~100 PGs per OSD at size 11
+RECOVERY_FAILURE = "rack:0:down_out"
+RECOVERY_CHUNK = 32 * 1024     # a PG's share cut to one 256 KiB object (k=8)
+RECOVERY_CODES = {
+    "rs_8_3_auto": ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
+                    "auto"),
+    "rs_8_3_on": ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"}, "on"),
+    "cauchy_good_8_3_auto": ({"plugin": "jerasure", "technique": "cauchy_good", "k": "8",
+                              "m": "3", "packetsize": "2048"}, "auto"),
 }
 
 
@@ -330,6 +360,221 @@ def phase_ec_kernels(int_rate: float, dev) -> dict:
     return {"phase": "ec_kernels", "results": results, "edges": edges}
 
 
+def repair_bitmatrix(gen_bits: np.ndarray, w: int, k: int, size: int, missing) -> np.ndarray:
+    """The planner's repair bitmatrix: the lost chunks' generator rows
+    times the inverse of the first k survivors'."""
+    from ceph_tpu_torch.ec import gf
+
+    rows = [s for s in range(size) if s not in missing][:k]
+    sub = np.vstack([gen_bits[r * w:(r + 1) * w] for r in rows])
+    need = np.vstack([gen_bits[s * w:(s + 1) * w] for s in missing])
+    return gf.bitmatrix_multiply(need, gf.invert_bitmatrix(sub))
+
+
+def phase_schedule_kernel(int_rate: float, dev) -> dict:
+    """K6 vs its plain version at the main path's shape, timed beside K5
+    on the same repair, and on its edges, compared only."""
+    from ceph_tpu_torch.ec import gf, gfw, kernels, schedule
+
+    S = EC_OBJECTS * EC_OBJECT_BYTES // 8
+    gen = np.vstack([np.eye(64, dtype=np.uint8),
+                     gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))])
+    repair = repair_bitmatrix(gen, 8, 8, 11, (0, 8))
+    sched = schedule.compile_schedule(repair)
+    steps = torch.from_numpy(sched.steps.copy()).to(dev)
+    data = card_bytes((8, S), SEED + 6, dev)
+    words = schedule.pack_packet_rows_dev(data, 8, 2048)
+    nw = words.shape[1]
+    apply = lambda w_: kernels.schedule_apply(steps, w_, sched.n_out, sched.n_bufs)
+    rec = kernel_record(
+        "schedule_apply", "ceph_tpu/ec/pallas_kernels.py:178", lambda: apply(words),
+        lambda: kernels.schedule_apply_plain(steps, words, sched.n_out, sched.n_bufs),
+        (sched.n_in + sched.n_out) * nw * 4, sched.n_steps * nw, int_rate)
+    # K5 on the same repair, from the [8, S] chunks: the same bytes out
+    bm = kernels.Bitmatrix(repair, 8, dev)
+    k5_out = kernels.bitmatrix_encode(bm, data, 2048)
+    k6_bytes = schedule.unpack_packet_rows_dev(apply(words), 2, 8, 2048, S)
+    rec.update(shape=f"cauchy_good k=8 m=3 w=8 p=2048 lost (0, 8) S={S} NW={nw}",
+               n_steps=sched.n_steps, n_bufs=sched.n_bufs, n_in=sched.n_in, n_out=sched.n_out,
+               xor_count=sched.xor_count, naive_xor_count=sched.naive_xor_count,
+               smem_cols=kernels.schedule_smem_cols(sched.n_bufs),
+               k5_same_repair_ms=time_ms(lambda: kernels.bitmatrix_encode(bm, data, 2048)),
+               k5_equal=bool(torch.equal(k5_out, k6_bytes)))
+    del data, words, k5_out, k6_bytes
+    edges = []
+
+    def edge(label, steps_, sched_, w_, encoder=None, host_data=None):
+        got = kernels.schedule_apply(steps_, w_, sched_.n_out, sched_.n_bufs)
+        want = kernels.schedule_apply_plain(steps_, w_, sched_.n_out, sched_.n_bufs)
+        equal, err = compare(got, want)
+        e = {"case": label, "n_steps": sched_.n_steps, "n_bufs": sched_.n_bufs,
+             "smem_cols": kernels.schedule_smem_cols(sched_.n_bufs), "words": list(w_.shape),
+             "bit_equal": equal, "max_abs_err": err}
+        if encoder is not None:  # the encoder's bytes against the numpy host path
+            pack = (schedule.pack_bitplanes(host_data) if encoder.layout == "bitplane"
+                    else schedule.pack_packet_rows(host_data, 8, encoder.packetsize))
+            out = sched_.execute_host(pack)
+            size = host_data.shape[1]
+            host = (schedule.unpack_bitplanes(out, encoder.n_chunks_out, size)
+                    if encoder.layout == "bitplane" else
+                    schedule.unpack_packet_rows(out, encoder.n_chunks_out, 8, encoder.packetsize,
+                                                size))
+            e["bytes_equal_host"] = bool(np.array_equal(encoder.encode(host_data), host))
+            e["bit_equal"] = e["bit_equal"] and e["bytes_equal_host"]
+        edges.append(e)
+
+    rng = np.random.default_rng(SEED)
+    w32 = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(8, 3, 32), 32)
+    gen32 = np.vstack([np.eye(256, dtype=np.uint8), w32])
+    big = schedule.compile_schedule(repair_bitmatrix(gen32, 32, 8, 11, (0, 8)))
+    big_words = torch.from_numpy(rng.integers(0, 2**32, (big.n_in, 40_003), dtype=np.uint32)
+                                 .view(np.int32)).to(dev)
+    edge("w=32 reed_sol_van k=8 m=3 lost (0, 8): global-memory path",
+         torch.from_numpy(big.steps.copy()).to(dev), big, big_words)
+    ragged = torch.from_numpy(rng.integers(0, 2**32, (sched.n_in, 1_000_003), dtype=np.uint32)
+                              .view(np.int32)).to(dev)
+    edge("main schedule, NW = 1,000,003", steps, sched, ragged)
+    for p in (3, 5):
+        enc = schedule.XorScheduleEncoder(repair, "packet", 8, p, device=dev)
+        host_data = rng.integers(0, 256, (8, 8 * p * 4099), dtype=np.uint8)
+        edge(f"packet layout p={p}", enc._steps, enc.schedule,
+             schedule.pack_packet_rows_dev(torch.from_numpy(host_data).to(dev), 8, p),
+             enc, host_data)
+    rs = np.vstack([np.eye(8, dtype=np.uint8), gf.vandermonde_matrix(8, 3)])
+    rows = [s for s in range(11) if s not in (0, 8)][:8]
+    enc = schedule.XorScheduleEncoder(
+        gf.matrix_to_bitmatrix(gf.matrix_encode(rs[[0, 8]], gf.invert_matrix(rs[rows]))),
+        "bitplane", device=dev)
+    host_data = rng.integers(0, 256, (8, 131), dtype=np.uint8)
+    edge("bitplane layout S=131", enc._steps, enc.schedule,
+         schedule.pack_bitplanes_dev(torch.from_numpy(host_data).to(dev)), enc, host_data)
+    before = kernels.LAUNCHES["schedule_apply"]
+    edge("S = 0", steps, sched, torch.empty((sched.n_in, 0), dtype=torch.int32, device=dev))
+    if kernels.LAUNCHES["schedule_apply"] != before:
+        raise AssertionError("schedule_apply launched on an empty word range")
+    torch.cuda.synchronize()
+    return {"phase": "schedule_kernel", "results": [rec], "edges": edges}
+
+
+def numpy_classify(prev: np.ndarray, up: np.ndarray, acting: np.ndarray, min_size: int):
+    """The peering classifier restated in numpy: (flags, survivor_mask)."""
+    from ceph_tpu_torch.crush.map import ITEM_NONE
+    from ceph_tpu_torch.recovery import peering as P
+
+    size = acting.shape[1]
+    alive = acting != ITEM_NONE
+    surv = alive & (acting == prev)
+    n_alive = alive.sum(1)
+    backfill = ((up != ITEM_NONE) & ~(up[:, :, None] == prev[:, None, :]).any(2)).any(1)
+    flags = (np.where((up != acting).any(1), P.PG_STATE_REMAPPED, 0)
+             | np.where(surv.sum(1) < size, P.PG_STATE_DEGRADED, 0)
+             | np.where(n_alive < size, P.PG_STATE_UNDERSIZED, 0)
+             | np.where(backfill, P.PG_STATE_BACKFILL, 0)
+             | np.where(n_alive < min_size, P.PG_STATE_INACTIVE, 0))
+    flags = np.where(flags == 0, P.PG_STATE_CLEAN, flags).astype(np.int32)
+    mask = (surv.astype(np.uint64) << np.arange(size, dtype=np.uint64)).sum(1).astype(np.uint32)
+    return flags, mask
+
+
+def recovery_store(codec, pgs: np.ndarray, dev):
+    """Seeded data for the degraded PGs, with parity from one batched
+    encode on the card; returns ``read_shard(pg, s)`` over one host
+    array ``[k + m, n_pgs * chunk]``."""
+    k = codec.get_data_chunk_count()
+    data = card_bytes((k, len(pgs) * RECOVERY_CHUNK), SEED + 11, dev)
+    full = torch.cat([data, codec.codec.encode_async(data)]).cpu().numpy()
+    col = {int(pg): i * RECOVERY_CHUNK for i, pg in enumerate(pgs)}
+    return full, lambda pg, s: full[s, col[pg]:col[pg] + RECOVERY_CHUNK]
+
+
+def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OSDS,
+                   pg_num: int = RECOVERY_PGS) -> dict:
+    """``recover_pool`` after a rack failure, for each code of
+    RECOVERY_CODES.  ``reset_launches()`` sets the kernels' counters to
+    0 just before each code's ``recover_pool`` calls and
+    ``launch_counts()`` reads them just after, so the path's counts
+    leave out the store's encode and the peering checks."""
+    import copy
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.ec import create
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.osdmap.mapping import build_pool_state
+
+    cur = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
+    prev = copy.deepcopy(cur)
+    inc = rec.inject(cur, RECOVERY_FAILURE)
+    engine = rec.PeeringEngine(cur, 1, device=dev)
+    s0 = build_pool_state(prev, prev.pools[1], device=dev)
+    s1 = build_pool_state(cur, cur.pools[1], device=dev)
+    fused, staged = engine.run(s0, s1), engine.run_staged(s0, s1)
+    for f in ("up", "acting", "prev_acting", "flags", "survivor_mask", "n_alive"):
+        if not np.array_equal(getattr(fused, f), getattr(staged, f)):
+            raise AssertionError(f"fused peering differs from staged in {f}")
+    flags, mask = numpy_classify(fused.prev_acting, fused.up, fused.acting, fused.min_size)
+    if not (np.array_equal(fused.flags, flags) and np.array_equal(fused.survivor_mask, mask)):
+        raise AssertionError("peering differs from the numpy classification")
+    degraded = fused.pgs_with(rec.PG_STATE_DEGRADED)
+    out = {"phase": "recovery", "osds": n_osds, "pgs": pg_num, "failure": RECOVERY_FAILURE,
+           "osds_failed": len(inc.new_state), "chunk_bytes": RECOVERY_CHUNK,
+           "degraded_pgs": len(degraded), "counts": fused.counts(), "codes": {}}
+    pc = rec.recovery_counters()
+    path_counts: dict[str, int] = {}
+    for name, (profile, mode) in RECOVERY_CODES.items():
+        codec = create(profile, device=dev)
+        full, read_shard = recovery_store(codec, degraded, dev)
+        cfg = Config(env={})
+        cfg.set("recovery_xor_schedule", mode)
+        call = lambda: rec.recover_pool(prev, cur, 1, codec, read_shard, config=cfg, device=dev)
+        before = pc.dump()["recovery"]
+        reset_launches()
+        runs, secs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runs.append(call())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        after = pc.dump()["recovery"]
+        prof = profile_call(call)
+        for kname, v in launch_counts().items():
+            path_counts[kname] = path_counts.get(kname, 0) + v
+        peering, plan, result = runs[0]
+        if not np.array_equal(peering.survivor_mask, fused.survivor_mask):
+            raise AssertionError(f"{name}: recover_pool peered differently")
+        bit_groups = sum(1 for g in plan.groups if g.repair_matrix is None or mode == "on")
+        for _, plan_i, res in runs:
+            if res.launches != plan_i.n_patterns or res.schedule_launches != bit_groups:
+                raise AssertionError(f"{name}: {res.launches} launches for {plan_i.n_patterns} "
+                                     f"patterns, {res.schedule_launches} schedules")
+            for g in plan_i.groups:
+                for pg in g.pgs:
+                    for s in g.missing:
+                        if not np.array_equal(res.shards[int(pg)][s], read_shard(int(pg), s)):
+                            raise AssertionError(f"{name}: pg {pg} shard {s} rebuilt wrong")
+        avg = lambda key: ((after[key]["sum"] - before[key]["sum"])
+                           / max(after[key]["avgcount"] - before[key]["avgcount"], 1))
+        wall = float(np.median(secs))
+        out["codes"][name] = {
+            "profile": profile, "mode": mode, "patterns": plan.n_patterns,
+            "degraded_pgs": plan.n_pgs, "unrecoverable_pgs": int(len(plan.unrecoverable)),
+            "missing_histogram": {str(n): sum(g.n_pgs for g in plan.groups if len(g.missing) == n)
+                                  for n in sorted({len(g.missing) for g in plan.groups})},
+            "launches": result.launches, "schedule_launches": result.schedule_launches,
+            "table_launches": result.launches - result.schedule_launches,
+            "bytes_read": plan.bytes_to_read(RECOVERY_CHUNK),
+            "bytes_rebuilt": result.bytes_recovered, "shards_rebuilt": result.shards_rebuilt,
+            "l_peering_s": avg("l_peering"), "l_plan_s": avg("l_plan"),
+            "decode_s": float(np.median([r[2].decode_s for r in runs])),
+            "recover_pool_s": wall, "all_recover_pool_s": secs,
+            "rebuilt_GBps": result.bytes_recovered / wall / 1e9,
+            "profile_recover_pool": prof,
+        }
+        del full, runs
+    out["launches"] = path_counts
+    return out
+
+
 def ec_batch(name: str, dev):
     """A codec on the card and one encode call's data: EC_OBJECTS objects
     of EC_OBJECT_BYTES striped with EC_STRIPE_UNIT-byte chunks, as the
@@ -485,7 +730,10 @@ def profile_call(fn) -> dict:
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function span shows on the device timeline too; it is
+        # no device work of its own
+        span = getattr(e, "is_user_annotation", False) or e.key.startswith("recovery:")
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA and not span:
             rows.append({"kernel": e.key[:80], "ms": us / 1e3, "count": e.count})
     rows.sort(key=lambda r: -r["ms"])
     device_ms = sum(r["ms"] for r in rows)
@@ -623,28 +871,51 @@ def main() -> int:
     if bad:
         raise AssertionError(f"EC kernels disagree with their plain versions: {bad}")
 
-    # the main path: counts from 0, raw CRUSH in every mode, then the OSDMap
-    straw2.reset_launches()
+    sched = phase_schedule_kernel(int_rate, dev)
+    emit(sched)
+    bad = [r["name"] for r in sched["results"] if not (r["bit_equal"] and r["k5_equal"])]
+    bad += [e["case"] for e in sched["edges"] if not e["bit_equal"]]
+    if bad:
+        raise AssertionError(f"K6 disagrees with its plain version: {bad}")
+
+    def counts() -> dict:
+        return {**straw2.LAUNCHES, **gf_kernels.LAUNCHES, **ec_kernels.LAUNCHES}
+
+    def reset() -> None:
+        straw2.reset_launches()
+        gf_kernels.reset_launches()
+        ec_kernels.reset_launches()
+
+    # each main path from 0: placement (raw CRUSH in every mode, then the
+    # OSDMap), EC (encode, decode, the plugins), recovery
+    paths = {}
+    reset()
     emit(phase_crush(OBJECTS, dev, interp_batch.MODES))
     emit(phase_osdmap(dev))
-    launches = dict(straw2.LAUNCHES)
-
-    # the EC main path: counts from 0, encode, decode, then the plugins
-    gf_kernels.reset_launches()
-    ec_kernels.reset_launches()
+    paths["placement"] = counts()
+    reset()
     batches = {}
     emit(phase_ec_encode(dev, batches))
     emit(phase_ec_decode(dev, batches))
     batches.clear()
     emit(phase_ec_plugins(dev))
-    launches.update(gf_kernels.LAUNCHES)
-    launches.update(ec_kernels.LAUNCHES)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    paths["ec"] = counts()
+    recovery = phase_recovery(dev, counts, reset)
+    emit(recovery)
+    paths["recovery"] = recovery["launches"]
+    emit({"launches_by_path": paths})
+    need = {"placement": ("negdraw", "level_choose", "descend"),
+            "ec": ("matrix_encode", "bitmatrix_encode", "byte_lut"),
+            "recovery": ("descend", "matrix_encode", "schedule_apply")}
+    missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"a kernel of a main path never launched: {missing}")
+    launches = {k: sum(p.get(k, 0) for p in paths.values()) for k in counts()}
 
     # one record per kernel: K4 at k=8 m=3, K7 over the CLAY encode's 64 MiB
     main_ec = [r for r in ec["results"] if r["name"] != "matrix_encode" or "k=8" in r["shape"]]
     main_ec = [r for r in main_ec if r["name"] != "byte_lut" or "encode" in r["shape"]]
+    main_ec += sched["results"]
     records = [dict(k, source="ceph_tpu_torch/csrc/straw2.cu") for k in kernels]
     records += [dict(r, source="ceph_tpu_torch/csrc/ec.cu") for r in main_ec]
     emit({"kernels": [

@@ -5,7 +5,9 @@ and the batch runner's three modes against the CPU plain versions, at a
 small size, and K2/K3 on tables too large for shared memory; the EC
 kernels K4, K5 and K7 against theirs on edge shapes (ragged lengths,
 K4's global-memory table path, K5 at w = 6, 7, 32 and unaligned packet
-sizes), and codecs built on the card against the same on the CPU.  Run them
+sizes), K6 on its shared-memory and global-memory paths, codecs built on
+the card against the same on the CPU, and a small ``recover_pool`` on the
+card against the same on the CPU.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -221,3 +223,110 @@ def test_codecs_on_the_card_match_cpu(card, profile):
     dec = gpu.decode(set(lost), avail, len(want[0]))
     for i in lost:
         np.testing.assert_array_equal(dec[i], want[i])
+
+
+# ---------------------------------------------------------------- K6 and recovery
+
+
+def _w32_repair(missing=(0, 8)):
+    """A w = 32 RS k=8 m=3 repair bitmatrix: its schedule has 935 buffers
+    (global-memory path); with (0, 1, 6) of k=6 m=3, 543 (shared, 64
+    columns a block)."""
+    from ceph_tpu_torch.ec import gf, gfw
+
+    k, m = (8, 3) if missing == (0, 8) else (6, 3)
+    bits = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(k, m, 32), 32)
+    gen = np.vstack([np.eye(k * 32, dtype=np.uint8), bits])
+    rows = [s for s in range(k + m) if s not in missing][:k]
+    sub = np.vstack([gen[r * 32:(r + 1) * 32] for r in rows])
+    need = np.vstack([gen[s * 32:(s + 1) * 32] for s in missing])
+    return gf.bitmatrix_multiply(need, gf.invert_bitmatrix(sub))
+
+
+@pytest.mark.parametrize("case,nw", [("cauchy", 4099), ("cauchy", 128), ("w32_shared", 1000),
+                                     ("w32_global", 777), ("cauchy", 0)])
+def test_schedule_apply_matches_plain(card, case, nw):
+    from ceph_tpu_torch.ec import gf, kernels, schedule
+
+    if case == "cauchy":
+        bits = gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))
+        gen = np.vstack([np.eye(64, dtype=np.uint8), bits])
+        rows = [s for s in range(11) if s not in (0, 8)][:8]
+        bm = gf.bitmatrix_multiply(np.vstack([gen[0:8], gen[64:72]]),
+                                   gf.invert_bitmatrix(np.vstack([gen[r * 8:(r + 1) * 8]
+                                                                  for r in rows])))
+    else:
+        bm = _w32_repair((0, 8) if case == "w32_global" else (0, 1, 6))
+    sched = schedule.compile_schedule(bm)
+    cols = kernels.schedule_smem_cols(sched.n_bufs)
+    assert (cols == 0) == (case == "w32_global")
+    steps = torch.from_numpy(sched.steps.copy()).to(card)
+    rng = np.random.default_rng(nw)
+    words = torch.from_numpy(rng.integers(0, 2**32, (sched.n_in, nw), dtype=np.uint32)
+                             .view(np.int32)).to(card)
+    before = kernels.LAUNCHES["schedule_apply"]
+    got = kernels.schedule_apply(steps, words, sched.n_out, sched.n_bufs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["schedule_apply"] == before + (nw > 0)
+    assert torch.equal(got, kernels.schedule_apply_plain(steps, words, sched.n_out, sched.n_bufs))
+
+
+@pytest.mark.parametrize("layout,p,size", [("packet", 2048, 2 * 8 * 2048), ("packet", 3, 8 * 3 * 41),
+                                           ("packet", 5, 8 * 5 * 7), ("bitplane", 0, 131)])
+def test_schedule_encoder_on_the_card_matches_cpu(card, layout, p, size):
+    from ceph_tpu_torch.ec import gf, schedule
+
+    bits = gf.matrix_to_bitmatrix(gf.vandermonde_matrix(8, 3)[:2])
+    data = np.random.default_rng(size).integers(0, 256, (8, size), dtype=np.uint8)
+    kw = dict(layout=layout, w=8, packetsize=p or 64)
+    got = schedule.XorScheduleEncoder(bits, device=card, **kw).encode(data)
+    want = schedule.XorScheduleEncoder(bits, device="cpu", **kw).encode(data)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("profile,mode", [
+    ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"}, "auto"),
+    ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"}, "on"),
+    ({"plugin": "jerasure", "technique": "cauchy_good", "k": "4", "m": "2", "packetsize": "64"},
+     "auto"),
+    ({"plugin": "jerasure", "technique": "cauchy_good", "k": "4", "m": "2", "packetsize": "64"},
+     "off"),
+])
+def test_recover_pool_on_the_card_matches_cpu(card, profile, mode):
+    import copy
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.ec import create, kernels
+    from ceph_tpu_torch.models.clusters import build_osdmap
+
+    cur = build_osdmap(64, pg_num=128, size=6, pool_kind="erasure")
+    prev = copy.deepcopy(cur)
+    rec.inject(cur, "rack:0:down_out")
+    cfg = Config(env={})
+    cfg.set("recovery_xor_schedule", mode)
+    cpu_codec = create(profile, device="cpu")
+    chunk = 2 * 8 * cpu_codec.codec.packetsize
+    rng = np.random.default_rng(5)
+    store = {}
+
+    def read_shard(pg, s):
+        if pg not in store:
+            data = rng.integers(0, 256, (4, chunk), dtype=np.uint8)
+            store[pg] = np.vstack([data, cpu_codec.codec.encode(data)])
+        return store[pg][s]
+
+    before = dict(kernels.LAUNCHES)
+    peering, plan, got = rec.recover_pool(prev, cur, 1, create(profile, device=card), read_shard,
+                                          config=cfg, device=card)
+    want_peering = rec.peer_pool(prev, cur, 1, device="cpu")
+    np.testing.assert_array_equal(peering.survivor_mask, want_peering.survivor_mask)
+    np.testing.assert_array_equal(peering.flags, want_peering.flags)
+    assert got.launches == plan.n_patterns > 0
+    for g in plan.groups:
+        for pg in g.pgs:
+            for s in g.missing:
+                np.testing.assert_array_equal(got.shards[int(pg)][s], store[int(pg)][s])
+    bit_level = mode == "on" or "cauchy" in profile.get("technique", "")
+    if bit_level and mode != "off":
+        assert kernels.LAUNCHES["schedule_apply"] == before["schedule_apply"] + plan.n_patterns
