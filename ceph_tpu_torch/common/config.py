@@ -9,8 +9,8 @@ layer as compiled defaults < config file (JSON) < environment
 precedence order as the reference's file/env/argv/mon-db stack.
 Observers are notified on change (``md_config_obs_t`` analog).
 
-Option names mirror the reference's where the concept carries over
-(``choose_total_tries``, ``upmap_max_deviation``, ...).
+The schema holds only the options the port's code reads, under the
+reference's names; a later slice adds the options its own code reads.
 """
 
 from __future__ import annotations
@@ -65,25 +65,8 @@ class Option:
         return value
 
 
-# The framework's option schema (the *.yaml.in analog).
+# The option schema (the *.yaml.in analog): the options the port reads.
 SCHEMA: list[Option] = [
-    Option("choose_total_tries", OPT_INT, 50, LEVEL_ADVANCED,
-           "CRUSH retry budget per choose step", min=1,
-           see_also=("chooseleaf_vary_r",)),
-    Option("chooseleaf_vary_r", OPT_INT, 1, LEVEL_ADVANCED,
-           "vary r' by parent r on chooseleaf retries", min=0, max=1),
-    Option("chooseleaf_stable", OPT_INT, 1, LEVEL_ADVANCED,
-           "stable replica ordering on chooseleaf retries", min=0, max=1),
-    Option("upmap_max_deviation", OPT_FLOAT, 1.0, LEVEL_ADVANCED,
-           "balancer stops when every OSD is within this many PGs of "
-           "its fair share", min=0.1,
-           see_also=("upmap_max_optimizations",)),
-    Option("upmap_max_optimizations", OPT_INT, 100, LEVEL_ADVANCED,
-           "max pg_upmap_items entries per optimize round", min=1),
-    Option("balancer_mode", OPT_STR, "upmap", LEVEL_BASIC,
-           "balancing strategy", enum_allowed=("upmap", "none")),
-    Option("ec_default_packetsize", OPT_INT, 2048, LEVEL_ADVANCED,
-           "bitmatrix technique packet size (bytes)", min=8),
     Option("recovery_max_bytes_per_sec", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
            "token-bucket cap on recovery decode bandwidth (bytes/s); "
            "0 disables the throttle", min=0.0,
@@ -98,27 +81,9 @@ SCHEMA: list[Option] = [
            "throttle stall to max_debt/rate seconds",
            min=1, see_also=("recovery_burst_bytes",)),
     Option("recovery_retry_max", OPT_INT, 4, LEVEL_ADVANCED,
-           "decode-launch retries before a pattern group's PGs are "
-           "reported failed (0 disables retry)", min=0,
-           see_also=("recovery_backoff_base_ms",)),
-    Option("recovery_backoff_base_ms", OPT_FLOAT, 50.0, LEVEL_ADVANCED,
-           "base delay for exponential backoff between decode-launch "
-           "retries (milliseconds); doubled per attempt plus seeded "
-           "jitter", min=0.0, see_also=("recovery_retry_max",)),
-    Option("recovery_shard_groups", OPT_BOOL, True, LEVEL_ADVANCED,
-           "route large pattern groups through the mesh-sharded decode "
-           "when the executor is given a mesh (byte axis split over "
-           "devices, psum'd progress counters)",
-           see_also=("recovery_shard_min_bytes",)),
-    Option("recovery_shard_min_bytes", OPT_INT, 1 << 23, LEVEL_ADVANCED,
-           "smallest pattern-group operand (bytes moved: read + "
-           "rebuilt) routed to the mesh-sharded decode; smaller groups "
-           "stay on the single-device fast path where dispatch + "
-           "collective overhead beats the parallelism.  Default is the "
-           "measured CPU crossover (8-virtual-device mesh: sharded "
-           "wins >= ~8 MiB moved); real multi-chip meshes should set "
-           "this lower (~1 MiB) since their devices are genuinely "
-           "parallel", min=0, see_also=("recovery_shard_groups",)),
+           "re-derivations of a pattern group whose decode fails "
+           "verification before its PGs are reported inconsistent "
+           "(0 disables retry)", min=0),
     Option("recovery_xor_schedule", OPT_STR, "auto", LEVEL_ADVANCED,
            "batched-repair decode engine for pattern groups: 'auto' "
            "runs CSE-shrunk XOR schedules for bit-level (bitmatrix/"
@@ -130,227 +95,8 @@ SCHEMA: list[Option] = [
     Option("recovery_schedule_cache_max", OPT_INT, 64, LEVEL_ADVANCED,
            "bound on cached decode engines per ScheduleCache (compiled "
            "XOR schedules + dense adapters), evicted LRU; 0 removes "
-           "the bound.  Long chaos timelines visit many erasure "
-           "patterns — without a bound the cache grows for the life "
-           "of the run", min=0,
+           "the bound", min=0,
            see_also=("recovery_xor_schedule",)),
-    Option("recovery_coschedule_max", OPT_INT, 4, LEVEL_ADVANCED,
-           "small pattern groups dispatched back-to-back per "
-           "supervised scheduling window when a mesh is attached "
-           "(async launches round-robined over local devices); 1 "
-           "serializes launches as before", min=1),
-    Option("recovery_work_stealing", OPT_STR, "auto", LEVEL_ADVANCED,
-           "route byte-level pattern groups through the fault-tolerant "
-           "work-stealing dispatcher (over-decomposed sub-shards, "
-           "greedy assignment as chips drain, straggler hedging, "
-           "chip conviction): 'auto' enables it on real multi-chip "
-           "meshes and keeps the static sharded path on CPU hosts; "
-           "'on' forces it everywhere (tests/benches); 'off' pins the "
-           "static path", enum_allowed=("auto", "on", "off"),
-           see_also=("recovery_subshards_per_chip",
-                     "recovery_dispatch_hedge_factor",
-                     "recovery_chip_fail_threshold")),
-    Option("recovery_subshards_per_chip", OPT_INT, 4, LEVEL_ADVANCED,
-           "over-decomposition factor for work-stealing dispatch: each "
-           "pattern group splits into ~subshards_per_chip x n_chips "
-           "byte-range sub-shards (power-of-two bucketed widths, so "
-           "the split never recompiles); higher values smooth skewed "
-           "group mixes at the cost of per-launch overhead", min=1,
-           see_also=("recovery_work_stealing",)),
-    Option("recovery_dispatch_hedge_factor", OPT_FLOAT, 3.0,
-           LEVEL_ADVANCED,
-           "straggler deadline multiplier: a sub-shard is overdue (and "
-           "hedge-redispatched to an idle chip) when its launch runs "
-           "longer than hedge_factor x the owning chip's EWMA "
-           "completion-time estimate; first completion wins, the "
-           "loser's bytes are discarded", min=1.0,
-           see_also=("recovery_work_stealing",
-                     "recovery_chip_fail_threshold")),
-    Option("recovery_chip_fail_threshold", OPT_INT, 3, LEVEL_ADVANCED,
-           "consecutive deadline misses before a chip is convicted and "
-           "its queue drains to survivors; ChipLostError is raised "
-           "only when every chip is convicted (never a hang)", min=1,
-           see_also=("recovery_dispatch_hedge_factor",
-                     "recovery_retry_max")),
-    Option("sparse_dirty_compaction", OPT_STR, "auto", LEVEL_ADVANCED,
-           "route peering, PG classification and pg_hist refolds "
-           "through the compacted dirty-set path (gather dirty lanes, "
-           "compute on a power-of-two bucket, scatter back) instead of "
-           "dense full-width launches: 'auto' enables it when the "
-           "geometry is large enough for the ladder to have at least "
-           "one rung below the dense width; 'on' forces it everywhere "
-           "(tests/benches); 'off' pins the dense reference path",
-           enum_allowed=("auto", "on", "off"),
-           see_also=("sparse_min_bucket", "sparse_ladder_rungs")),
-    Option("sparse_min_bucket", OPT_INT, 32, LEVEL_ADVANCED,
-           "smallest power-of-two bucket width in the dirty-set "
-           "compaction ladder; dirty sets smaller than this still pay "
-           "for min_bucket lanes.  Every rung is compiled into the "
-           "one scanned program (lax.switch), so smaller buckets cost "
-           "compile time, not recompiles", min=1,
-           see_also=("sparse_dirty_compaction",)),
-    Option("sparse_ladder_rungs", OPT_INT, 4, LEVEL_ADVANCED,
-           "maximum number of compacted bucket widths below the dense "
-           "width (each 4x the last, starting at sparse_min_bucket); "
-           "the dense full-width branch is always appended as the "
-           "ladder's top rung and bit-equality reference", min=1,
-           see_also=("sparse_dirty_compaction", "sparse_min_bucket")),
-    Option("flight_recorder", OPT_STR, "auto", LEVEL_ADVANCED,
-           "device-resident flight recorder: a fixed-shape ring of "
-           "per-epoch telemetry lanes (ladder rung + dirty-set size, "
-           "dense-vs-compact branch, stripe-cache traffic, outcome "
-           "counts, per-stage cycle proxies) recorded inside the "
-           "compiled epoch superstep and drained at snapshot "
-           "boundaries into the journal / Perfetto exporter: 'on' "
-           "records everywhere, 'off' pins the recorder-free scan, "
-           "'auto' follows the bench-decided default "
-           "(bench/flight_defaults.json; absent -> off)",
-           enum_allowed=("auto", "on", "off"),
-           see_also=("flight_ring_epochs",)),
-    Option("flight_ring_epochs", OPT_INT, 1024, LEVEL_ADVANCED,
-           "rows in the flight recorder's device ring (one telemetry "
-           "row per epoch; power of two — the write cursor is a "
-           "traced value masked by ring_epochs-1, so ring occupancy "
-           "never becomes a shape).  Once the ring wraps, older "
-           "epochs overwrite: crash dumps carry the last ring_epochs "
-           "epochs", min=2,
-           see_also=("flight_recorder",)),
-    Option("debug_rank_checks", OPT_BOOL, False, LEVEL_ADVANCED,
-           "cross-check a fingerprint of mesh-seam operands across "
-           "ranks via a psum before every sharded decode/scrub/"
-           "pg-state launch (assert_rank_identical): rank-divergent "
-           "state raises RankDivergenceError on every rank instead of "
-           "deadlocking inside the collective.  One tiny collective "
-           "per launch — debug/CI only"),
-    Option("debug_bucket_checks", OPT_BOOL, False, LEVEL_ADVANCED,
-           "assert power-of-two bucketing (assert_bucketed) on the "
-           "padded seam sizes entering jitted programs — cluster-state "
-           "incremental pads, fleet tape stacking, writepath batch "
-           "caps: an unbucketed data-dependent count raises "
-           "UnbucketedShapeError at the seam instead of silently "
-           "recompiling per batch (the runtime twin of jaxlint J013).  "
-           "Host-side integer checks only — debug/CI only"),
-    Option("debug_fsync_audit", OPT_BOOL, False, LEVEL_ADVANCED,
-           "audit the durable-write commit chain (FsyncAudit) around "
-           "checkpoint saves: every os.replace must see a prior file "
-           "fsync and a later directory fsync or FsyncAuditError is "
-           "raised (the runtime twin of jaxlint J016).  Patches "
-           "os.fsync/os.replace for the save scope — debug/CI only"),
-    Option("osd_op_complaint_time", OPT_FLOAT, 30.0, LEVEL_ADVANCED,
-           "an op in flight (or completed) at least this old (seconds) "
-           "is a slow op: counted, kept in the slow-op history, and "
-           "surfaced by dump_slow_ops_in_flight / "
-           "dump_historic_slow_ops (reference analog of the same name)",
-           min=0.0),
-    Option("osd_mclock_client_res_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "mclock reservation for client traffic (bytes/s guaranteed); "
-           "0 disables the reservation term",
-           min=0.0, see_also=("osd_mclock_client_wgt",
-                              "osd_mclock_client_lim_bps")),
-    Option("osd_mclock_client_wgt", OPT_FLOAT, 1.0, LEVEL_ADVANCED,
-           "mclock weight for client traffic (relative share of "
-           "capacity past reservations)", min=0.0),
-    Option("osd_mclock_client_lim_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "mclock limit for client traffic (bytes/s hard cap); 0 "
-           "means uncapped", min=0.0),
-    Option("osd_mclock_recovery_res_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "mclock reservation for recovery (bytes/s guaranteed so "
-           "client load can never starve repair); 0 disables",
-           min=0.0, see_also=("osd_mclock_recovery_wgt",
-                              "osd_mclock_recovery_lim_bps")),
-    Option("osd_mclock_recovery_wgt", OPT_FLOAT, 1.0, LEVEL_ADVANCED,
-           "mclock weight for recovery traffic", min=0.0),
-    Option("osd_mclock_recovery_lim_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "mclock limit for recovery (bytes/s hard cap bounding its "
-           "interference with client tail latency); 0 means uncapped",
-           min=0.0),
-    Option("osd_mclock_scrub_res_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "mclock reservation for scrub traffic (bytes/s guaranteed "
-           "so client/recovery load can never starve integrity "
-           "checking); 0 disables",
-           min=0.0, see_also=("osd_mclock_scrub_wgt",
-                              "osd_mclock_scrub_lim_bps")),
-    Option("osd_mclock_scrub_wgt", OPT_FLOAT, 0.5, LEVEL_ADVANCED,
-           "mclock weight for scrub traffic (background work: half a "
-           "client share by default)", min=0.0),
-    Option("osd_mclock_scrub_lim_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "mclock limit for scrub traffic (bytes/s hard cap bounding "
-           "a scrub storm's interference with client tail latency); 0 "
-           "means uncapped", min=0.0),
-    Option("osd_heartbeat_interval", OPT_FLOAT, 6.0, LEVEL_ADVANCED,
-           "seconds between OSD heartbeat pings (drives the liveness "
-           "detector's polling cadence when nothing else advances the "
-           "virtual clock)", min=0.001,
-           see_also=("osd_heartbeat_grace",)),
-    Option("osd_heartbeat_grace", OPT_FLOAT, 20.0, LEVEL_ADVANCED,
-           "seconds without an ack before the detector may mark an "
-           "OSD down (the mon/OSD heartbeat grace of the same name)",
-           min=0.0, see_also=("mon_osd_adjust_heartbeat_grace",)),
-    Option("mon_osd_down_out_interval", OPT_FLOAT, 600.0, LEVEL_ADVANCED,
-           "seconds a detector-marked-down OSD stays down before it "
-           "is automatically marked out (0 disables auto-out); "
-           "map-event downs are never auto-outed", min=0.0,
-           see_also=("mon_osd_min_in_ratio",)),
-    Option("mon_osd_min_in_ratio", OPT_FLOAT, 0.75, LEVEL_ADVANCED,
-           "auto-out stops once it would push the in-OSD fraction "
-           "below this floor (reference analog of the same name)",
-           min=0.0, max=1.0),
-    Option("mon_osd_min_down_reporters", OPT_INT, 2, LEVEL_ADVANCED,
-           "distinct peer failure reports required before a "
-           "heartbeat-silent OSD can be marked down", min=1),
-    Option("mon_osd_laggy_halflife", OPT_FLOAT, 3600.0, LEVEL_ADVANCED,
-           "decay halflife (seconds) for the per-OSD laggy score and "
-           "the markdown (flap) count", min=0.001),
-    Option("mon_osd_laggy_weight", OPT_FLOAT, 0.3, LEVEL_ADVANCED,
-           "EWMA weight a slow-but-acking OSD's laggy score gains per "
-           "heartbeat tick", min=0.0, max=1.0),
-    Option("mon_osd_adjust_heartbeat_grace", OPT_BOOL, True,
-           LEVEL_ADVANCED,
-           "scale the effective heartbeat grace by 2^markdowns for "
-           "repeat offenders (the markdown-log flap damper); off = "
-           "flat grace",
-           see_also=("mon_osd_grace_doublings_max",)),
-    Option("mon_osd_grace_doublings_max", OPT_FLOAT, 5.0, LEVEL_ADVANCED,
-           "cap on markdown-log grace doublings (effective grace <= "
-           "grace * 2^cap)", min=0.0),
-    Option("reconcile_every_epochs", OPT_INT, 8, LEVEL_ADVANCED,
-           "epochs each divergent rank advances its own device-resident "
-           "view between collective reconciliation rounds; smaller "
-           "values converge skewed observations faster at the cost of "
-           "more collective launches per simulated second "
-           "(bench/PERF_MODEL.md itemizes the trade)", min=1,
-           see_also=("reconcile_deadline_epochs", "debug_rank_checks")),
-    Option("reconcile_deadline_epochs", OPT_INT, 3, LEVEL_ADVANCED,
-           "consecutive reconciliation rounds a rank's contributed "
-           "epoch may sit still before the rank is marked laggy and "
-           "the survivors proceed on its last-merged view; once laggy, "
-           "recovery_retry_max further stalled rounds (with seeded "
-           "exponential backoff per recovery_backoff_base_ms) raise "
-           "RankStalledError on every rank instead of a collective "
-           "hang", min=1,
-           see_also=("reconcile_every_epochs", "recovery_retry_max",
-                     "recovery_backoff_base_ms")),
-    Option("osd_scrub_stagger_period", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
-           "deep-scrub stagger period (seconds): each PG scrubs in a "
-           "hashed phase window inside the period so pool-wide scrub "
-           "bandwidth is flat instead of one burst; 0 scrubs the "
-           "whole pool every pass", min=0.0),
-    Option("osd_max_backfills", OPT_INT, 1, LEVEL_ADVANCED,
-           "backfill pattern groups admitted per repair group in the "
-           "supervised scheduler (the reference's backfill reservation "
-           "analog); repair and backfill share one token bucket", min=1),
-    Option("placement_batch_size", OPT_INT, 4_000_000, LEVEL_DEV,
-           "objects per device batch in streamed placement", min=1),
-    Option("debug_crush", OPT_INT, 1, LEVEL_DEV,
-           "crush subsystem log level", min=0, max=20),
-    Option("debug_osdmap", OPT_INT, 1, LEVEL_DEV,
-           "osdmap subsystem log level", min=0, max=20),
-    Option("debug_ec", OPT_INT, 1, LEVEL_DEV,
-           "erasure-code subsystem log level", min=0, max=20),
-    Option("debug_balancer", OPT_INT, 1, LEVEL_DEV,
-           "balancer subsystem log level", min=0, max=20),
-    Option("debug_recovery", OPT_INT, 1, LEVEL_DEV,
-           "recovery subsystem log level", min=0, max=20),
 ]
 
 

@@ -23,7 +23,8 @@ is no packing step.
   step ``(dst, src)`` does ``buf[dst] ^= buf[src]``, and the result is
   rows ``n_in : n_in + n_out`` — every compiled schedule of
   ``ec.schedule.XorScheduleEncoder`` (the recovery executor's bit-level
-  pattern groups).  The kernel keeps a block's columns of every buffer
+  pattern groups), whose steps are checked once on the host
+  (:class:`StepTable`).  The kernel keeps a block's columns of every buffer
   in shared memory when ``n_bufs`` allows (:func:`schedule_smem_cols`),
   else works on a ``[n_bufs, NW]`` scratch the wrapper allocates.
 """
@@ -129,54 +130,70 @@ def schedule_smem_cols(n_bufs: int) -> int:
     return next((c for c in SCHEDULE_COLS if n_bufs * c * 4 <= SMEM_BYTES), 0)
 
 
-def _check_schedule(steps: torch.Tensor, words: torch.Tensor, n_out: int, n_bufs: int) -> None:
-    if steps.dim() != 2 or steps.shape[1] != 2 or steps.dtype != torch.int32:
-        raise TypeError(f"steps are [n_steps, 2] int32, got {tuple(steps.shape)} {steps.dtype}")
+class StepTable:
+    """A compiled XOR schedule's step table, on one device, for K6.
+
+    ``steps`` are ``[n_steps, 2]`` ``(dst, src)`` buffer indices.  The
+    kernel indexes its buffers with them unchecked, so they are checked
+    against ``[0, n_bufs)`` here, once, on the host: a launch checks only
+    types, shapes and devices and never reads the table back."""
+
+    def __init__(self, steps, n_bufs: int, device):
+        host = np.asarray(steps)
+        if host.ndim != 2 or host.shape[1] != 2 or not np.issubdtype(host.dtype, np.integer):
+            raise TypeError(f"steps are [n_steps, 2] integers, got {host.shape} {host.dtype}")
+        if host.size and (host.min() < 0 or host.max() >= n_bufs):
+            raise ValueError(f"step buffer indices span [{host.min()}, {host.max()}], "
+                             f"outside [0, {n_bufs})")
+        self.host = host.astype(np.int32)
+        self.n_bufs = int(n_bufs)
+        self.steps = torch.from_numpy(self.host.copy()).to(device)
+
+    @property
+    def n_steps(self) -> int:
+        return len(self.host)
+
+
+def _check_schedule(table: StepTable, words: torch.Tensor, n_out: int) -> None:
     if words.dim() != 2 or words.dtype != torch.int32:
         raise TypeError(f"words are [n_in, NW] int32, got {tuple(words.shape)} {words.dtype}")
-    if n_out < 0 or n_bufs < words.shape[0] + n_out:
-        raise ValueError(f"n_bufs={n_bufs} < n_in={words.shape[0]} + n_out={n_out}")
-    if steps.device != words.device:
-        raise ValueError(f"steps on {steps.device}, words on {words.device}")
-    if steps.numel():  # the kernel indexes its buffers with them unchecked
-        lo, hi = torch.stack(torch.aminmax(steps)).tolist()
-        if lo < 0 or hi >= n_bufs:
-            raise ValueError(f"step buffer indices span [{lo}, {hi}], outside [0, {n_bufs})")
+    if n_out < 0 or table.n_bufs < words.shape[0] + n_out:
+        raise ValueError(f"n_bufs={table.n_bufs} < n_in={words.shape[0]} + n_out={n_out}")
+    if table.steps.device != words.device:
+        raise ValueError(f"steps on {table.steps.device}, words on {words.device}")
 
 
-def schedule_apply_plain(steps: torch.Tensor, words: torch.Tensor, n_out: int,
-                         n_bufs: int) -> torch.Tensor:
+def schedule_apply_plain(table: StepTable, words: torch.Tensor, n_out: int) -> torch.Tensor:
     """Plain K6: one in-place row XOR per step (``_xla_apply``'s
     semantics)."""
-    _check_schedule(steps, words, n_out, n_bufs)
+    _check_schedule(table, words, n_out)
     n_in = words.shape[0]
-    bufs = torch.zeros((n_bufs, words.shape[1]), dtype=torch.int32, device=words.device)
+    bufs = torch.zeros((table.n_bufs, words.shape[1]), dtype=torch.int32, device=words.device)
     bufs[:n_in] = words
-    for dst, src in steps.tolist():
+    for dst, src in table.host.tolist():
         bufs[dst] ^= bufs[src]
     return bufs[n_in:n_in + n_out].clone()
 
 
-def schedule_apply(steps: torch.Tensor, words: torch.Tensor, n_out: int,
-                   n_bufs: int) -> torch.Tensor:
+def schedule_apply(table: StepTable, words: torch.Tensor, n_out: int) -> torch.Tensor:
     """K6: run an XOR schedule over ``words [n_in, NW]`` int32 ->
-    ``[n_out, NW]`` int32.  ``steps [n_steps, 2]`` int32 index buffers
-    ``[0, n_bufs)``, as :func:`~ceph_tpu_torch.ec.schedule.compile_schedule`
-    emits them; an index out of range raises before the launch."""
-    _check_schedule(steps, words, n_out, n_bufs)
+    ``[n_out, NW]`` int32, the output buffers ``n_in : n_in + n_out`` of
+    ``table``."""
+    _check_schedule(table, words, n_out)
     if words.device.type == "cpu":
-        return schedule_apply_plain(steps, words, n_out, n_bufs)
+        return schedule_apply_plain(table, words, n_out)
     from .. import _cuda
 
-    if not (steps.is_contiguous() and words.is_contiguous()):
-        raise TypeError("schedule_apply takes contiguous tensors")
+    if not words.is_contiguous():
+        raise TypeError("schedule_apply takes contiguous words")
     n_in, nw = words.shape
+    n_bufs = table.n_bufs
     out = torch.empty((n_out, nw), dtype=torch.int32, device=words.device)
     if nw == 0 or n_out == 0:
         return out
     cols = schedule_smem_cols(n_bufs)
     scratch = None if cols else torch.empty((n_bufs, nw), dtype=torch.int32, device=words.device)
-    _cuda.launch("ec", "ec_xor_schedule", words.device, _cuda.ptr(steps), steps.shape[0],
+    _cuda.launch("ec", "ec_xor_schedule", words.device, _cuda.ptr(table.steps), table.n_steps,
                  _cuda.ptr(words), _cuda.ptr(out), None if scratch is None else _cuda.ptr(scratch),
                  n_in, n_out, n_bufs, cols, nw)
     LAUNCHES["schedule_apply"] += 1

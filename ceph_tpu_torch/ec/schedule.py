@@ -368,7 +368,7 @@ class XorScheduleEncoder:
         self.device = resolve_device(device)
         self.schedule = compile_schedule(self.bitmatrix, max_derived)
         self.n_chunks_out = self.schedule.n_out // self.w
-        self._steps = torch.from_numpy(self.schedule.steps.copy()).to(self.device)
+        self.table = kernels.StepTable(self.schedule.steps, self.schedule.n_bufs, self.device)
 
     def _pack(self, data: torch.Tensor) -> torch.Tensor:
         if self.layout == "packet":
@@ -379,8 +379,7 @@ class XorScheduleEncoder:
         """``data [k, S]`` u8 (numpy or tensor) -> in-flight
         ``[n_out_bits, NW]`` int32 on the device."""
         words = self._pack(to_device(data, self.device))
-        sched = self.schedule
-        return kernels.schedule_apply(self._steps, words, sched.n_out, sched.n_bufs)
+        return kernels.schedule_apply(self.table, words, self.schedule.n_out)
 
     def finalize(self, out: torch.Tensor, size: int) -> np.ndarray:
         """Materialize an in-flight output for ``size``-byte chunks."""

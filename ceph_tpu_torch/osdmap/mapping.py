@@ -18,7 +18,7 @@ import torch
 
 from .. import resolve_device
 from ..core.hashes import ceph_stable_mod, crush_hash32_2
-from ..crush.engine import make_batch_runner, runner_signature
+from ..crush.engine import make_batch_runner
 from ..crush.interp_batch import as_i32
 from ..crush.map import ITEM_NONE
 from .map import (
@@ -139,23 +139,6 @@ def _compact_left(rows: torch.Tensor, valid: torch.Tensor):
     count = valid.sum(dim=1)
     slot = torch.arange(rows.shape[1], device=rows.device)[None, :]
     return torch.where(slot < count[:, None], shifted, ITEM_NONE), count
-
-
-def pool_program_key(dense, pool: Pool, rule, mode: str | None = None) -> tuple:
-    """Hashable static signature of one pool's mapping program: the
-    CRUSH runner signature plus every pool constant the program bakes
-    in.  Equal keys compute the same function of the dynamic state, so
-    the fused placement→peering pipeline (:mod:`ceph_tpu_torch.recovery.
-    pipeline`) caches on it and incremental map epochs, which change
-    only that state, reuse one built program."""
-    return (
-        runner_signature(dense, rule, pool.size, mode),
-        pool.id,
-        pool.size,
-        pool.pgp_num,
-        pool.hashpspool,
-        pool.can_shift_osds(),
-    )
 
 
 def make_seeds(pool: Pool):

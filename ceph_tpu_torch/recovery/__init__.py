@@ -7,9 +7,7 @@ one device:
   down/out events (and flapping) as ordinary epoch-stamped
   ``Incremental``s (a copy of the reference's).
 - :mod:`~ceph_tpu_torch.recovery.peering`  — one batched device pass
-  diffs up/acting between epochs and classifies every PG, through the
-  fused placement→peering program of
-  :mod:`~ceph_tpu_torch.recovery.pipeline`.
+  maps both epochs, diffs up/acting and classifies every PG.
 - :mod:`~ceph_tpu_torch.recovery.planner`  — degraded PGs grouped by
   survivor bitmask; one host matrix inversion per unique erasure
   pattern (a copy of the reference's).
@@ -51,7 +49,6 @@ from .peering import (
     classify_rows,
     peer_pool,
 )
-from .pipeline import PIPELINES, PipelineCache, compile_fused_peering
 from .planner import PatternGroup, RecoveryPlan, build_plan, invalidated_groups
 
 __all__ = [
@@ -63,11 +60,9 @@ __all__ = [
     "PG_STATE_INACTIVE",
     "PG_STATE_REMAPPED",
     "PG_STATE_UNDERSIZED",
-    "PIPELINES",
     "PatternGroup",
     "PeeringEngine",
     "PeeringResult",
-    "PipelineCache",
     "RecoveryExecutor",
     "RecoveryPlan",
     "RecoveryResult",
@@ -75,7 +70,6 @@ __all__ = [
     "build_incremental",
     "build_plan",
     "classify_rows",
-    "compile_fused_peering",
     "flap",
     "inject",
     "invalidated_groups",

@@ -50,7 +50,6 @@ from .. import resolve_device
 from ..crush.map import ITEM_NONE
 from ..osdmap.map import OSDMap
 from ..osdmap.mapping import PoolMapState, build_pool_state, compile_pool_mapping
-from . import pipeline
 
 PG_STATE_CLEAN = 1
 PG_STATE_REMAPPED = 2
@@ -83,9 +82,7 @@ def classify_rows(prev_acting, up, acting, min_size: int):
 
     Inputs are ``[pg_num, size]`` int32 tensors (ITEM_NONE holes) and
     the pool's ``min_size``.  Returns (flags [pg] int32, survivor_mask
-    [pg] int64, n_alive [pg] int32).  Shared by the staged classify
-    call and the fused pipeline (:mod:`ceph_tpu_torch.recovery.
-    pipeline`), so both paths classify with the same code.
+    [pg] int64, n_alive [pg] int32).
     """
     size = acting.shape[1]
     alive = acting != ITEM_NONE
@@ -116,10 +113,9 @@ def classify_rows(prev_acting, up, acting, min_size: int):
 class PeeringResult:
     """One pool's whole-cluster peering pass output (host arrays).
 
-    When produced by the fused pipeline, the classifier outputs also
-    ride along as device tensors (``dev_*``) so a device consumer can
-    take them without a host->device upload; host-array consumers are
-    unaffected.
+    The classifier outputs also ride along as device tensors (``dev_*``)
+    so a device consumer can take them without a host->device upload;
+    host-array consumers are unaffected.
     """
 
     pool_id: int
@@ -135,10 +131,10 @@ class PeeringResult:
     flags: np.ndarray  # [pg] i32 (PG_STATE_* bits)
     survivor_mask: np.ndarray  # [pg] u32 (bit s = shard s data survived)
     n_alive: np.ndarray  # [pg] i32
-    # device twins of the classifier outputs (fused pipeline only)
-    dev_survivor_mask: object = None  # [pg] int64 tensor | None
-    dev_n_alive: object = None  # [pg] int32 tensor | None
-    dev_acting_primary: object = None  # [pg] int32 tensor | None
+    # device twins of the classifier outputs
+    dev_survivor_mask: object = None  # [pg] int64 tensor
+    dev_n_alive: object = None  # [pg] int32 tensor
+    dev_acting_primary: object = None  # [pg] int32 tensor
 
     @property
     def pg_num(self) -> int:
@@ -178,13 +174,9 @@ class PeeringEngine:
     Holds the pool's mapping program; :meth:`run` evaluates it for two
     :class:`PoolMapState` epochs and classifies the diff.  All dynamic
     state is data, so any number of trial epochs (the fault injector's
-    output, balancer what-ifs) reuse the same program.
-
-    By default the whole pass is one call of the fused placement→peering
-    program of :mod:`ceph_tpu_torch.recovery.pipeline` (cached per CRUSH
-    program signature).  Maps routed to the host C++ CRUSH tier, or runs
-    under ``CEPH_TPU_FUSED_PIPELINE=0``, use the staged three-call path
-    (:meth:`run_staged`) instead; both are bit-identical.
+    output, balancer what-ifs) reuse the same program.  A pass maps the
+    previous epoch, maps the current one and classifies the diff; it
+    reads nothing back from the device until the result is built.
     """
 
     def __init__(self, m: OSDMap, pool_id: int, mode: str | None = None, device="cuda"):
@@ -196,9 +188,6 @@ class PeeringEngine:
         rule = m.crush.rules[self.pool.crush_rule]
         self._crush_arg, self._fn = compile_pool_mapping(
             dense, self.pool, rule, mode, self.device
-        )
-        _fused_arg, self._fused = pipeline.compile_fused_peering(
-            dense, self.pool, rule, mode=mode, device=self.device
         )
         self._pgs = torch.arange(self.pool.pg_num, dtype=I64, device=self.device)
 
@@ -236,8 +225,13 @@ class PeeringEngine:
         )[0]
         return result, changed
 
-    def _result(self, epoch_prev, epoch_cur, up, upp, act, actp, pact, flags, mask,
-                n_alive, on_device: bool) -> PeeringResult:
+    def run(
+        self, state_prev: PoolMapState, state_cur: PoolMapState,
+        epoch_prev: int = 0, epoch_cur: int = 0,
+    ) -> PeeringResult:
+        _pup, _pupp, pact, _pactp = self.map_epoch(state_prev)
+        up, upp, act, actp = self.map_epoch(state_cur)
+        flags, mask, n_alive = classify_rows(pact, up, act, self.pool.min_size)
         return PeeringResult(
             pool_id=self.pool.id,
             epoch_prev=epoch_prev,
@@ -252,38 +246,10 @@ class PeeringEngine:
             flags=_host(flags),
             survivor_mask=_host(mask, np.uint32),
             n_alive=_host(n_alive),
-            dev_survivor_mask=mask if on_device else None,
-            dev_n_alive=n_alive if on_device else None,
-            dev_acting_primary=actp if on_device else None,
+            dev_survivor_mask=mask,
+            dev_n_alive=n_alive,
+            dev_acting_primary=actp,
         )
-
-    def run(
-        self, state_prev: PoolMapState, state_cur: PoolMapState,
-        epoch_prev: int = 0, epoch_cur: int = 0,
-    ) -> PeeringResult:
-        if self._fused is None:
-            return self.run_staged(
-                state_prev, state_cur,
-                epoch_prev=epoch_prev, epoch_cur=epoch_cur,
-            )
-        up, upp, act, actp, pact, flags, mask, n_alive = self._fused(
-            self._crush_arg, state_prev, state_cur, self._pgs, self.pool.min_size,
-        )
-        return self._result(epoch_prev, epoch_cur, up, upp, act, actp, pact, flags,
-                            mask, n_alive, on_device=True)
-
-    def run_staged(
-        self, state_prev: PoolMapState, state_cur: PoolMapState,
-        epoch_prev: int = 0, epoch_cur: int = 0,
-    ) -> PeeringResult:
-        """The three-call pass (map prev, map cur, classify) — the
-        host-CRUSH-tier path, and the differential reference the fused
-        program is pinned against."""
-        _pup, _pupp, pact, _pactp = self.map_epoch(state_prev)
-        up, upp, act, actp = self.map_epoch(state_cur)
-        flags, mask, n_alive = classify_rows(pact, up, act, self.pool.min_size)
-        return self._result(epoch_prev, epoch_cur, up, upp, act, actp, pact, flags,
-                            mask, n_alive, on_device=False)
 
 
 def peer_pool(

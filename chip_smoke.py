@@ -50,9 +50,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
    ``recovery_xor_schedule=on`` (K6, bit-plane) and cauchy_good k=8
    m=3 p=2048 under ``auto`` (K6, packet): every rebuilt shard equals
-   the stored one, one launch per pattern, the fused peering equals
-   the staged one and a numpy classification; timed (median of 3) and
-   profiled.
+   the stored one, one launch per pattern, the peering equals a numpy
+   classification; timed (median of 3) and profiled.
 
 Then the launch counts of each main path (phases 4-5: placement; 6-8:
 EC; 10: recovery, each from 0), the kernels line (each kernel's
@@ -381,14 +380,14 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
                      gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))])
     repair = repair_bitmatrix(gen, 8, 8, 11, (0, 8))
     sched = schedule.compile_schedule(repair)
-    steps = torch.from_numpy(sched.steps.copy()).to(dev)
+    table = kernels.StepTable(sched.steps, sched.n_bufs, dev)
     data = card_bytes((8, S), SEED + 6, dev)
     words = schedule.pack_packet_rows_dev(data, 8, 2048)
     nw = words.shape[1]
-    apply = lambda w_: kernels.schedule_apply(steps, w_, sched.n_out, sched.n_bufs)
+    apply = lambda w_: kernels.schedule_apply(table, w_, sched.n_out)
     rec = kernel_record(
         "schedule_apply", "ceph_tpu/ec/pallas_kernels.py:178", lambda: apply(words),
-        lambda: kernels.schedule_apply_plain(steps, words, sched.n_out, sched.n_bufs),
+        lambda: kernels.schedule_apply_plain(table, words, sched.n_out),
         (sched.n_in + sched.n_out) * nw * 4, sched.n_steps * nw, int_rate)
     # K5 on the same repair, from the [8, S] chunks: the same bytes out
     bm = kernels.Bitmatrix(repair, 8, dev)
@@ -403,9 +402,9 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
     del data, words, k5_out, k6_bytes
     edges = []
 
-    def edge(label, steps_, sched_, w_, encoder=None, host_data=None):
-        got = kernels.schedule_apply(steps_, w_, sched_.n_out, sched_.n_bufs)
-        want = kernels.schedule_apply_plain(steps_, w_, sched_.n_out, sched_.n_bufs)
+    def edge(label, table_, sched_, w_, encoder=None, host_data=None):
+        got = kernels.schedule_apply(table_, w_, sched_.n_out)
+        want = kernels.schedule_apply_plain(table_, w_, sched_.n_out)
         equal, err = compare(got, want)
         e = {"case": label, "n_steps": sched_.n_steps, "n_bufs": sched_.n_bufs,
              "smem_cols": kernels.schedule_smem_cols(sched_.n_bufs), "words": list(w_.shape),
@@ -430,14 +429,14 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
     big_words = torch.from_numpy(rng.integers(0, 2**32, (big.n_in, 40_003), dtype=np.uint32)
                                  .view(np.int32)).to(dev)
     edge("w=32 reed_sol_van k=8 m=3 lost (0, 8): global-memory path",
-         torch.from_numpy(big.steps.copy()).to(dev), big, big_words)
+         kernels.StepTable(big.steps, big.n_bufs, dev), big, big_words)
     ragged = torch.from_numpy(rng.integers(0, 2**32, (sched.n_in, 1_000_003), dtype=np.uint32)
                               .view(np.int32)).to(dev)
-    edge("main schedule, NW = 1,000,003", steps, sched, ragged)
+    edge("main schedule, NW = 1,000,003", table, sched, ragged)
     for p in (3, 5):
         enc = schedule.XorScheduleEncoder(repair, "packet", 8, p, device=dev)
         host_data = rng.integers(0, 256, (8, 8 * p * 4099), dtype=np.uint8)
-        edge(f"packet layout p={p}", enc._steps, enc.schedule,
+        edge(f"packet layout p={p}", enc.table, enc.schedule,
              schedule.pack_packet_rows_dev(torch.from_numpy(host_data).to(dev), 8, p),
              enc, host_data)
     rs = np.vstack([np.eye(8, dtype=np.uint8), gf.vandermonde_matrix(8, 3)])
@@ -446,10 +445,10 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
         gf.matrix_to_bitmatrix(gf.matrix_encode(rs[[0, 8]], gf.invert_matrix(rs[rows]))),
         "bitplane", device=dev)
     host_data = rng.integers(0, 256, (8, 131), dtype=np.uint8)
-    edge("bitplane layout S=131", enc._steps, enc.schedule,
+    edge("bitplane layout S=131", enc.table, enc.schedule,
          schedule.pack_bitplanes_dev(torch.from_numpy(host_data).to(dev)), enc, host_data)
     before = kernels.LAUNCHES["schedule_apply"]
-    edge("S = 0", steps, sched, torch.empty((sched.n_in, 0), dtype=torch.int32, device=dev))
+    edge("S = 0", table, sched, torch.empty((sched.n_in, 0), dtype=torch.int32, device=dev))
     if kernels.LAUNCHES["schedule_apply"] != before:
         raise AssertionError("schedule_apply launched on an empty word range")
     torch.cuda.synchronize()
@@ -500,25 +499,18 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
     from ceph_tpu_torch.common.config import Config
     from ceph_tpu_torch.ec import create
     from ceph_tpu_torch.models.clusters import build_osdmap
-    from ceph_tpu_torch.osdmap.mapping import build_pool_state
 
     cur = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
     prev = copy.deepcopy(cur)
     inc = rec.inject(cur, RECOVERY_FAILURE)
-    engine = rec.PeeringEngine(cur, 1, device=dev)
-    s0 = build_pool_state(prev, prev.pools[1], device=dev)
-    s1 = build_pool_state(cur, cur.pools[1], device=dev)
-    fused, staged = engine.run(s0, s1), engine.run_staged(s0, s1)
-    for f in ("up", "acting", "prev_acting", "flags", "survivor_mask", "n_alive"):
-        if not np.array_equal(getattr(fused, f), getattr(staged, f)):
-            raise AssertionError(f"fused peering differs from staged in {f}")
-    flags, mask = numpy_classify(fused.prev_acting, fused.up, fused.acting, fused.min_size)
-    if not (np.array_equal(fused.flags, flags) and np.array_equal(fused.survivor_mask, mask)):
+    peered = rec.peer_pool(prev, cur, 1, device=dev)
+    flags, mask = numpy_classify(peered.prev_acting, peered.up, peered.acting, peered.min_size)
+    if not (np.array_equal(peered.flags, flags) and np.array_equal(peered.survivor_mask, mask)):
         raise AssertionError("peering differs from the numpy classification")
-    degraded = fused.pgs_with(rec.PG_STATE_DEGRADED)
+    degraded = peered.pgs_with(rec.PG_STATE_DEGRADED)
     out = {"phase": "recovery", "osds": n_osds, "pgs": pg_num, "failure": RECOVERY_FAILURE,
            "osds_failed": len(inc.new_state), "chunk_bytes": RECOVERY_CHUNK,
-           "degraded_pgs": len(degraded), "counts": fused.counts(), "codes": {}}
+           "degraded_pgs": len(degraded), "counts": peered.counts(), "codes": {}}
     pc = rec.recovery_counters()
     path_counts: dict[str, int] = {}
     for name, (profile, mode) in RECOVERY_CODES.items():
@@ -540,7 +532,7 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
         for kname, v in launch_counts().items():
             path_counts[kname] = path_counts.get(kname, 0) + v
         peering, plan, result = runs[0]
-        if not np.array_equal(peering.survivor_mask, fused.survivor_mask):
+        if not np.array_equal(peering.survivor_mask, peered.survivor_mask):
             raise AssertionError(f"{name}: recover_pool peered differently")
         bit_groups = sum(1 for g in plan.groups if g.repair_matrix is None or mode == "on")
         for _, plan_i, res in runs:

@@ -260,15 +260,15 @@ def test_schedule_apply_matches_plain(card, case, nw):
     sched = schedule.compile_schedule(bm)
     cols = kernels.schedule_smem_cols(sched.n_bufs)
     assert (cols == 0) == (case == "w32_global")
-    steps = torch.from_numpy(sched.steps.copy()).to(card)
+    table = kernels.StepTable(sched.steps, sched.n_bufs, card)
     rng = np.random.default_rng(nw)
     words = torch.from_numpy(rng.integers(0, 2**32, (sched.n_in, nw), dtype=np.uint32)
                              .view(np.int32)).to(card)
     before = kernels.LAUNCHES["schedule_apply"]
-    got = kernels.schedule_apply(steps, words, sched.n_out, sched.n_bufs)
+    got = kernels.schedule_apply(table, words, sched.n_out)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["schedule_apply"] == before + (nw > 0)
-    assert torch.equal(got, kernels.schedule_apply_plain(steps, words, sched.n_out, sched.n_bufs))
+    assert torch.equal(got, kernels.schedule_apply_plain(table, words, sched.n_out))
 
 
 @pytest.mark.parametrize("layout,p,size", [("packet", 2048, 2 * 8 * 2048), ("packet", 3, 8 * 3 * 41),

@@ -81,9 +81,9 @@ def test_scan_covers_the_recovery_and_common_subpackages():
     """The recovery slice (``recovery/``, ``common/``, ``ec/schedule.py``)
     is in both scans."""
     rel = {os.path.relpath(p, PKG) for p in _sources()}
-    for mod in ("recovery/executor.py", "recovery/peering.py", "recovery/pipeline.py",
-                "recovery/planner.py", "recovery/failure.py", "common/tracing.py",
-                "common/prometheus.py", "ec/schedule.py"):
+    for mod in ("recovery/executor.py", "recovery/peering.py", "recovery/planner.py",
+                "recovery/failure.py", "common/tracing.py", "common/prometheus.py",
+                "ec/schedule.py"):
         assert mod in rel
     mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
     assert {"ceph_tpu_torch.recovery.executor", "ceph_tpu_torch.common.config",

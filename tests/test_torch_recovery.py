@@ -1,9 +1,9 @@
 """The port's recovery pipeline vs the reference package's.
 
 Failure injection produces the same map epochs (``encode()`` bytes);
-the peering pass (fused and staged) gives the same up/acting/flags/
-survivor masks on ``build_osdmap(64, pg_num=128, size=6,
-pool_kind="erasure")`` for an OSD, a host and a rack failure; the
+the peering pass gives the same up/acting/flags/survivor masks as the
+reference's fused and staged paths on ``build_osdmap(64, pg_num=128,
+size=6, pool_kind="erasure")`` for an OSD, a host and a rack failure; the
 planner builds the same pattern groups; and ``RecoveryExecutor.run``
 rebuilds the same bytes as the reference's executor on the identical
 plan (carried across with ``convert.plan_from_reference``) under the
@@ -140,42 +140,35 @@ def _assert_same_peering(got, want):
 
 @pytest.mark.parametrize("spec", SPECS)
 def test_peer_pool_fused_matches_reference(spec):
+    """The port's peering pass against the reference's fused placement→
+    peering program."""
     prev, cur = _port_maps(spec)
     got = rec.peer_pool(prev, cur, 1, device="cpu")
-    assert got.dev_survivor_mask is not None  # the fused pipeline ran
     _assert_same_peering(got, _ref_peering(spec))
     assert got.counts()["degraded"] > 0
 
 
 @pytest.mark.parametrize("spec", SPECS)
 def test_peer_pool_staged_matches_reference(spec, monkeypatch):
-    prev, cur = _port_maps(spec)
-    engine = rec.PeeringEngine(cur, 1, device="cpu")
-    s0 = build_pool_state(prev, prev.pools[1], device="cpu")
-    s1 = build_pool_state(cur, cur.pools[1], device="cpu")
-    staged = engine.run_staged(s0, s1, prev.epoch, cur.epoch)
-    assert staged.dev_survivor_mask is None
-    _assert_same_peering(staged, _ref_peering(spec))
-    # the lever pins the staged path end to end
+    """The port's peering pass against the reference's staged three-call
+    path (its ``CEPH_TPU_FUSED_PIPELINE=0`` lever)."""
+    ref_prev, ref_cur = _maps(spec)
     monkeypatch.setenv("CEPH_TPU_FUSED_PIPELINE", "0")
-    _assert_same_peering(rec.peer_pool(prev, cur, 1, device="cpu"), _ref_peering(spec))
+    want = ref_rec.peer_pool(ref_prev, ref_cur, 1)
+    prev, cur = _port_maps(spec)
+    _assert_same_peering(rec.peer_pool(prev, cur, 1, device="cpu"), want)
 
 
-def test_fused_pipeline_cache_reuses_programs():
-    prev, cur = _port_maps("host:host0_1")
-    cache = rec.PipelineCache()
-    pool = cur.pools[1]
-    dense = cur.crush.to_dense()
-    rule = cur.crush.rules[pool.crush_rule]
-    _, fn = rec.compile_fused_peering(dense, pool, rule, cache=cache, device="cpu")
-    _, again = rec.compile_fused_peering(prev.crush.to_dense(), prev.pools[1], rule,
-                                         cache=cache, device="cpu")
-    assert again is fn and cache.stats() == {"entries": 1, "hits": 1, "misses": 1,
-                                             "evictions": 0}
-    small = rec.PipelineCache(max_entries=1)
-    rec.compile_fused_peering(dense, pool, rule, cache=small, device="cpu")
-    rec.compile_fused_peering(dense, pool, rule, cache=small, mode="draw", device="cpu")
-    assert small.stats()["evictions"] == 1 and len(small) == 1
+def test_peering_result_carries_device_twins():
+    """The classifier's outputs ride along as tensors equal to the host
+    arrays, on the engine's device."""
+    prev, cur = _port_maps("rack:0:down_out")
+    got = rec.peer_pool(prev, cur, 1, device="cpu")
+    for name, host in (("dev_survivor_mask", got.survivor_mask), ("dev_n_alive", got.n_alive),
+                       ("dev_acting_primary", got.acting_primary)):
+        t = getattr(got, name)
+        assert t.device.type == "cpu", name
+        np.testing.assert_array_equal(t.numpy().astype(host.dtype), host, err_msg=name)
 
 
 def test_repeer_reports_changed_pgs():

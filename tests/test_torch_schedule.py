@@ -99,32 +99,34 @@ def _words(n, nw, seed):
 def test_schedule_apply_matches_host_interpreter(name):
     sched = schedule.compile_schedule(BITMATRICES[name]())
     words = _words(sched.n_in, 37, 3)
-    steps = torch.from_numpy(sched.steps.copy())
+    table = kernels.StepTable(sched.steps, sched.n_bufs, "cpu")
     before = dict(kernels.LAUNCHES)
-    got = kernels.schedule_apply(steps, torch.from_numpy(words.view(np.int32)),
-                                 sched.n_out, sched.n_bufs)
+    got = kernels.schedule_apply(table, torch.from_numpy(words.view(np.int32)), sched.n_out)
     assert got.dtype == torch.int32 and got.shape == (sched.n_out, 37)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), sched.execute_host(words))
     assert kernels.LAUNCHES == before  # the CPU runs the plain version, no launch
 
 
 def test_schedule_apply_edges():
-    steps = torch.tensor([[2, 0], [2, 1], [3, 2], [3, 3]], dtype=torch.int32)
+    steps = np.array([[2, 0], [2, 1], [3, 2], [3, 3]], np.int32)
+    table = kernels.StepTable(steps, 4, "cpu")
     words = torch.from_numpy(_words(2, 5, 9).view(np.int32))
-    out = kernels.schedule_apply_plain(steps, words, 2, 4)
+    out = kernels.schedule_apply_plain(table, words, 2)
     np.testing.assert_array_equal(out[0].numpy(), (words[0] ^ words[1]).numpy())
     assert not out[1].any()  # buf ^= itself clears the row
-    empty = kernels.schedule_apply(steps, words[:, :0], 2, 4)
+    empty = kernels.schedule_apply(table, words[:, :0], 2)
     assert empty.shape == (2, 0)
+    assert kernels.StepTable(steps.astype(np.int64), 4, "cpu").steps.dtype == torch.int32
+    for bad in (steps.astype(np.float32), steps[:, :1], steps.reshape(-1)):
+        with pytest.raises(TypeError):
+            kernels.StepTable(bad, 4, "cpu")
     with pytest.raises(TypeError):
-        kernels.schedule_apply(steps.long(), words, 2, 4)
-    with pytest.raises(TypeError):
-        kernels.schedule_apply(steps, words.to(torch.uint8), 2, 4)
-    with pytest.raises(ValueError):
-        kernels.schedule_apply(steps, words, 2, 3)
+        kernels.schedule_apply(table, words.to(torch.uint8), 2)
+    with pytest.raises(ValueError):  # n_in + n_out buffers do not fit n_bufs
+        kernels.schedule_apply(kernels.StepTable(steps[:2], 3, "cpu"), words, 2)
     for bad in ([[2, 0], [4, 1]], [[2, -1]]):  # a buffer index out of [0, n_bufs)
         with pytest.raises(ValueError):
-            kernels.schedule_apply(torch.tensor(bad, dtype=torch.int32), words, 2, 4)
+            kernels.StepTable(np.array(bad, np.int32), 4, "cpu")
 
 
 @pytest.mark.parametrize("n_bufs,cols", [(80, 128), (454, 128), (455, 64), (908, 64),
@@ -176,7 +178,7 @@ def test_packet_encoder_matches_reference(p):
     got = enc.encode(data)
     assert got.shape == (2, size)
     np.testing.assert_array_equal(got, ref.encode(data))
-    np.testing.assert_array_equal(enc._steps.numpy(), ref.schedule.steps)
+    np.testing.assert_array_equal(enc.table.steps.numpy(), ref.schedule.steps)
 
 
 @pytest.mark.parametrize("size", [4096, 131])
