@@ -2,9 +2,10 @@
 
 Two execution strategies behind the plugins:
 
-- :class:`TableEncoder` — GF(2^8) matrix multiply through the 256-entry
-  product table of every coefficient: K4 (``gf_kernels.matrix_encode``)
-  on CUDA, one gather per coefficient on the CPU.  General: works for
+- :class:`TableEncoder` — GF(2^8) matrix multiply through product
+  tables of every coefficient: K4 (``gf_kernels.matrix_encode``, on
+  split nibble tables) on CUDA, one gather per coefficient into the
+  256-entry tables on the CPU.  General: works for
   any coding matrix.  (Replaces the reference's
   ``galois_w08_region_multiply`` SIMD loops, upstream bundled
   gf-complete.)
@@ -72,6 +73,7 @@ class TableEncoder:
         self.m, self.k = self.matrix.shape
         self.device = resolve_device(device)
         self.tables = gf_kernels.mul_tables(self.matrix, self.device)  # [m, k, 256]
+        self.nibbles = gf_kernels.nibble_tables(self.matrix, self.device)  # [m, k, 32]
 
     def encode(self, data: np.ndarray) -> np.ndarray:
         """data [k, S] u8 -> coding [m, S] u8."""
@@ -80,7 +82,7 @@ class TableEncoder:
     def encode_async(self, data) -> torch.Tensor:
         """The encode on the device, without a host sync: ``[k, S]``
         u8 (numpy or tensor) -> ``[m, S]`` u8 tensor on the device."""
-        return gf_kernels.matrix_encode(self.tables, to_device(data, self.device))
+        return gf_kernels.matrix_encode(self.tables, to_device(data, self.device), self.nibbles)
 
 
 class BitmatrixEncoder:

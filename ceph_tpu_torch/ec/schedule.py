@@ -368,7 +368,8 @@ class XorScheduleEncoder:
         self.device = resolve_device(device)
         self.schedule = compile_schedule(self.bitmatrix, max_derived)
         self.n_chunks_out = self.schedule.n_out // self.w
-        self.table = kernels.StepTable(self.schedule.steps, self.schedule.n_bufs, self.device)
+        self.table = kernels.StepTable(self.schedule.steps, self.schedule.n_bufs, self.device,
+                                       self.schedule.n_in, self.schedule.n_out)
 
     def _pack(self, data: torch.Tensor) -> torch.Tensor:
         if self.layout == "packet":

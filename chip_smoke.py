@@ -6,7 +6,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. build: compile the CUDA kernels from ``ceph_tpu_torch/csrc/`` with
    nvcc (sm_90a, one nvcc per source, all at once) and print the build
-   seconds, the card and every library's ptxas report;
+   seconds, the card, every kernel's registers and spills, and one
+   straw2 draw's instructions recounted in the SASS;
 2. kernels: hold K1 (negdraw), K2 (level_choose) and K3 (descend_fused)
    against their plain PyTorch versions on the card, bit for bit, at the
    slice's shapes (1M lanes, build_simple(1024) tables), and time both;
@@ -15,8 +16,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    packetsize 2048, over the same) and K7 (byte_lut: one CLAY repair
    transform, 32 MiB, and the CLAY encode's, 64 MiB; beside the
    ``torch.take`` call), plus each kernel's edge shapes (ragged
-   lengths, K4's global-memory tables, K5 at w = 7 and w = 32,
-   unaligned packets), bit for bit;
+   lengths, K4 at (4, 2, 4100), (5, 1, 131), its global-memory tables
+   (k=128 m=8), empty data and data 1 byte past a 16-byte boundary, K5
+   at w = 7 and w = 32, unaligned packets), bit for bit; K4 and K6 carry
+   ptxas's registers and spills;
 4. crush: ``make_batch_runner`` on build_simple(1024)'s replicated rule
    (3 replicas), 1M objects, in each mode; bit-equal across modes and to
    the C++ reference tier on a 50k sample; placements/s per mode (the
@@ -43,8 +46,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the main shape (the repair schedule of cauchy_good k=8 m=3 w=8
    p=2048 with chunks {0, 8} lost, over [8, 32 MiB]), timed beside K5
    on the same repair, and on its edges (a w = 32 schedule on the
-   global-memory path, a ragged word count, packet sizes 3 and 5, the
-   bit-plane layout at S = 131, S = 0), bit for bit;
+   global-memory path, NW = 1,000,003 and 100, words 4 bytes past a
+   16-byte boundary, packet sizes 3 and 5, the bit-plane layout at S =
+   131, S = 0), bit for bit, with the program's op, level, group and
+   work-slot counts and its launch shape;
 10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
    build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
@@ -66,6 +71,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -78,13 +84,12 @@ SEED = 20261016
 REPLICAS = 3
 OBJECTS = 1 << 20
 
-# ~32-bit integer operations of one straw2 draw, counted from the
-# source of csrc/straw2.cu: hash32_3 = 3 seed xors + 5 mixes x 9 lines x
-# 4 ops (183); crush_ln's shifts, compares, index math, 64-bit multiply
-# and adds (~25); 2^48 - ln (2); the 64x64 high multiply (~6), q*w and
-# the remainder (~5), three corrections (~18); first-index compare and
-# winner select (~6).
-OPS_PER_DRAW = 245
+# Instructions of one straw2 draw as nvcc compiles csrc/straw2.cu for
+# sm_90a, counted in K1's SASS (ceph_tpu_torch/testing/sass.py; the
+# build phase recounts them): the hash's 5 mixes take 3 instructions a
+# line (nvcc folds a - b - c into one IADD3), then crush_ln, the 64x64
+# high multiply and its corrections.
+OPS_PER_DRAW = 197
 ISSUE_LANES_PER_SM = 128  # 4 schedulers x one 32-lane warp instruction a clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 
@@ -163,6 +168,39 @@ def bound_ms(nbytes: float, ops: float, int_rate: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / int_rate * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_name(mangled: str) -> str:
+    """``gf_matrix_kernel<1>`` from ``_ZN<len><namespace><len>gf_matrix_kernelILb1EE...``:
+    the last nested name, with its integer and bool template arguments."""
+    pos, name = 3, mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group(0)
+        name = mangled[pos + len(n):pos + len(n) + int(n)]
+        pos += len(n) + int(n)
+    args = re.match(r"I((?:L[bi]\d+E)+)E", mangled[pos:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[bi](\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(lib: str) -> dict:
+    """Registers and spill bytes of every kernel in ``lib``, from the
+    ptxas report the build kept."""
+    from ceph_tpu_torch import _cuda
+
+    out, name = {}, None
+    with open(os.path.join(_cuda.BUILD_DIR, f"{lib}.ptxas.txt")) as f:
+        for ln in f:
+            if "Compiling entry function" in ln:
+                name = kernel_name(ln.split("'")[1])
+            elif name and "spill stores" in ln:
+                st, ld = re.findall(r"(\d+) bytes spill", ln)
+                out.setdefault(name, {}).update(spill_stores=int(st), spill_loads=int(ld))
+            elif name and "Used" in ln and "registers" in ln:
+                out.setdefault(name, {})["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -295,13 +333,14 @@ def phase_ec_kernels(int_rate: float, dev) -> dict:
     S = EC_OBJECTS * EC_OBJECT_BYTES // 8  # one chunk stream of the k=8 batch
     results, edges = [], []
     for k, m in ((8, 3), (4, 2)):
-        tables = gf_kernels.mul_tables(gf.vandermonde_matrix(k, m), dev)
+        M = gf.vandermonde_matrix(k, m)
+        tables, nibbles = gf_kernels.mul_tables(M, dev), gf_kernels.nibble_tables(M, dev)
         data = card_bytes((k, S), SEED + k, dev)
         rec = kernel_record(
             "matrix_encode", "ceph_tpu/ec/pallas_gf.py:162",
-            lambda: gf_kernels.matrix_encode(tables, data),
+            lambda: gf_kernels.matrix_encode(tables, data, nibbles),
             lambda: gf_kernels.matrix_encode_plain(tables, data),
-            (k + m) * S + m * k * 256, m * k * S + m * (k - 1) * S // 4, int_rate)
+            (k + m) * S + m * k * 32, m * k * S + m * (k - 1) * S // 4, int_rate)
         rec["shape"] = f"k={k} m={m} S={S}"
         results.append(rec)
         del data
@@ -334,12 +373,18 @@ def phase_ec_kernels(int_rate: float, dev) -> dict:
         equal, err = compare(got, want)
         edges.append({"case": label, "bit_equal": equal, "max_abs_err": err})
 
-    for k, m, size in ((8, 3, 1_000_003), (4, 2, 4100), (128, 8, 1 << 20)):
-        tables = gf_kernels.mul_tables(gf.vandermonde_matrix(k, m), dev)
-        data = card_bytes((k, size), SEED + size, dev)
+    for k, m, size in ((8, 3, 1_000_003), (4, 2, 4100), (5, 1, 131), (128, 8, 1 << 20),
+                       (3, 2, 0), (8, 3, -4099)):
+        M = gf.vandermonde_matrix(k, m)
+        tables, nibbles = gf_kernels.mul_tables(M, dev), gf_kernels.nibble_tables(M, dev)
+        data = card_bytes((k, abs(size)), SEED + abs(size), dev)
+        label = f"matrix_encode k={k} m={m} S={abs(size)}"
+        if size < 0:  # data 1 byte past a 16-byte boundary
+            data = card_bytes((k * -size + 1,), SEED, dev)[1:].view(k, -size)
+            label += " unaligned data"
         path = "shared" if gf_kernels.tables_staged(m, k) else "global"
-        edge(f"matrix_encode k={k} m={m} S={size} tables={path}",
-             gf_kernels.matrix_encode(tables, data), gf_kernels.matrix_encode_plain(tables, data))
+        edge(f"{label} tables={path}", gf_kernels.matrix_encode(tables, data, nibbles),
+             gf_kernels.matrix_encode_plain(tables, data))
     rs32 = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(4, 2, 32), 32)
     gen = np.vstack([np.eye(128, dtype=np.uint8), rs32])
     dec32 = gf.invert_bitmatrix(np.vstack([gen[r * 32:(r + 1) * 32] for r in (1, 3, 4, 5)]))
@@ -380,7 +425,8 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
                      gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))])
     repair = repair_bitmatrix(gen, 8, 8, 11, (0, 8))
     sched = schedule.compile_schedule(repair)
-    table = kernels.StepTable(sched.steps, sched.n_bufs, dev)
+    table = kernels.StepTable(sched.steps, sched.n_bufs, dev, sched.n_in, sched.n_out)
+    prog = table.program(sched.n_in, sched.n_out)
     data = card_bytes((8, S), SEED + 6, dev)
     words = schedule.pack_packet_rows_dev(data, 8, 2048)
     nw = words.shape[1]
@@ -396,7 +442,7 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
     rec.update(shape=f"cauchy_good k=8 m=3 w=8 p=2048 lost (0, 8) S={S} NW={nw}",
                n_steps=sched.n_steps, n_bufs=sched.n_bufs, n_in=sched.n_in, n_out=sched.n_out,
                xor_count=sched.xor_count, naive_xor_count=sched.naive_xor_count,
-               smem_cols=kernels.schedule_smem_cols(sched.n_bufs),
+               **program_counts(prog),
                k5_same_repair_ms=time_ms(lambda: kernels.bitmatrix_encode(bm, data, 2048)),
                k5_equal=bool(torch.equal(k5_out, k6_bytes)))
     del data, words, k5_out, k6_bytes
@@ -407,8 +453,8 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
         want = kernels.schedule_apply_plain(table_, w_, sched_.n_out)
         equal, err = compare(got, want)
         e = {"case": label, "n_steps": sched_.n_steps, "n_bufs": sched_.n_bufs,
-             "smem_cols": kernels.schedule_smem_cols(sched_.n_bufs), "words": list(w_.shape),
-             "bit_equal": equal, "max_abs_err": err}
+             **program_counts(table_.program(w_.shape[0], sched_.n_out)),
+             "words": list(w_.shape), "bit_equal": equal, "max_abs_err": err}
         if encoder is not None:  # the encoder's bytes against the numpy host path
             pack = (schedule.pack_bitplanes(host_data) if encoder.layout == "bitplane"
                     else schedule.pack_packet_rows(host_data, 8, encoder.packetsize))
@@ -433,6 +479,10 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
     ragged = torch.from_numpy(rng.integers(0, 2**32, (sched.n_in, 1_000_003), dtype=np.uint32)
                               .view(np.int32)).to(dev)
     edge("main schedule, NW = 1,000,003", table, sched, ragged)
+    edge("main schedule, NW = 100 (below one tile)", table, sched, ragged[:, :100].contiguous())
+    sliced = torch.from_numpy(rng.integers(0, 2**32, sched.n_in * 4096 + 1, dtype=np.uint32)
+                              .view(np.int32)).to(dev)[1:].view(sched.n_in, 4096)
+    edge("main schedule, words 4 bytes past a 16-byte boundary", table, sched, sliced)
     for p in (3, 5):
         enc = schedule.XorScheduleEncoder(repair, "packet", 8, p, device=dev)
         host_data = rng.integers(0, 256, (8, 8 * p * 4099), dtype=np.uint8)
@@ -453,6 +503,18 @@ def phase_schedule_kernel(int_rate: float, dev) -> dict:
         raise AssertionError("schedule_apply launched on an empty word range")
     torch.cuda.synchronize()
     return {"phase": "schedule_kernel", "results": [rec], "edges": edges}
+
+
+def program_counts(prog) -> dict:
+    """K6's program for a table: ops, read-after-write levels, groups,
+    work slots after reuse by liveness, and the launch shape."""
+    from ceph_tpu_torch.ec import kernels
+
+    threads, stages = kernels.schedule_config(prog)
+    return {"program_ops": prog.n_ops, "program_levels": prog.n_levels,
+            "program_terms": prog.n_terms, "program_groups": len(prog.groups),
+            "work_slots": prog.n_work,
+            "path": "shared" if threads else "global", "threads": threads, "stages": stages}
 
 
 def numpy_classify(prev: np.ndarray, up: np.ndarray, acting: np.ndarray, min_size: int):
@@ -841,13 +903,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _cuda.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {}
-    for lib in _cuda.SIGNATURES:
-        with open(os.path.join(_cuda.BUILD_DIR, f"{lib}.ptxas.txt")) as f:
-            ptxas[lib] = [ln.strip() for ln in f
-                          if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    ptxas = {lib: ptxas_report(lib) for lib in _cuda.SIGNATURES}
+    from ceph_tpu_torch.testing import sass
+
+    draw_sass = sass.draw_instructions(
+        sass.cuobjdump_sass(os.path.join(_cuda.BUILD_DIR, "libstraw2.so")))
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": built, "card": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda, "ptxas": ptxas})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "ptxas": ptxas,
+          "ops_per_draw": OPS_PER_DRAW, "ops_per_draw_sass": draw_sass})
 
     int_rate = int32_ops_per_s()
     kernels = phase_kernels(OBJECTS, int_rate, dev)
@@ -857,6 +920,9 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     ec = phase_ec_kernels(int_rate, dev)
+    for r in ec["results"]:
+        if r["name"] == "matrix_encode":
+            r["ptxas"] = {k: v for k, v in ptxas["ec"].items() if k.startswith("gf_matrix")}
     emit(ec)
     bad = [r["name"] for r in ec["results"] if not r["bit_equal"]]
     bad += [e["case"] for e in ec["edges"] if not e["bit_equal"]]
@@ -864,6 +930,8 @@ def main() -> int:
         raise AssertionError(f"EC kernels disagree with their plain versions: {bad}")
 
     sched = phase_schedule_kernel(int_rate, dev)
+    sched["results"][0]["ptxas"] = {k: v for k, v in ptxas["ec"].items()
+                                    if k.startswith("xor_program")}
     emit(sched)
     bad = [r["name"] for r in sched["results"] if not (r["bit_equal"] and r["k5_equal"])]
     bad += [e["case"] for e in sched["edges"] if not e["bit_equal"]]

@@ -5,7 +5,8 @@ and the batch runner's three modes against the CPU plain versions, at a
 small size, and K2/K3 on tables too large for shared memory; the EC
 kernels K4, K5 and K7 against theirs on edge shapes (ragged lengths,
 K4's global-memory table path, K5 at w = 6, 7, 32 and unaligned packet
-sizes), K6 on its shared-memory and global-memory paths, codecs built on
+sizes), K6 on its shared-memory paths (two input stages and one) and its
+global-memory path, codecs built on
 the card against the same on the CPU, and a small ``recover_pool`` on the
 card against the same on the CPU.  Run them
 on a machine with an H100 and nvcc:
@@ -142,21 +143,31 @@ def _bytes(shape, seed, dev):
 
 
 @pytest.mark.parametrize("k,m,size", [(8, 3, 1 << 16), (4, 2, 4096), (5, 1, 131), (4, 2, 4100),
-                                      (128, 8, 4096), (3, 2, 0)])
+                                      (128, 8, 4096), (3, 2, 0), (8, 3, 100_003),
+                                      (6, 4, "unaligned")])
 def test_matrix_encode_matches_plain(card, k, m, size):
-    """Shared-memory tables, ragged and non-16-multiple lengths, and the
-    global-memory table path (k=128 m=8: 256 KB of tables)."""
+    """Shared-memory nibble tables, ragged and non-16-multiple lengths,
+    the global-memory table path (k=128 m=8: 32 KB of nibble tables), and
+    data that starts 1 byte past a 16-byte boundary."""
     from ceph_tpu_torch.ec import gf, gf_kernels
 
     M = gf.vandermonde_matrix(k, m)
     tables = gf_kernels.mul_tables(M, card)
-    data = _bytes((k, size), k + m, card)
+    nibbles = gf_kernels.nibble_tables(M, card)
+    if size == "unaligned":
+        size = 4096
+        data = _bytes((k * size + 1,), k + m, card)[1:].view(k, size)
+        assert data.data_ptr() % 16
+    else:
+        data = _bytes((k, size), k + m, card)
     before = gf_kernels.LAUNCHES["matrix_encode"]
-    got = gf_kernels.matrix_encode(tables, data)
+    got = gf_kernels.matrix_encode(tables, data, nibbles)
     torch.cuda.synchronize()
     assert torch.equal(got, gf_kernels.matrix_encode_plain(tables, data))
     assert gf_kernels.LAUNCHES["matrix_encode"] == before + (size > 0)
-    assert gf_kernels.tables_staged(m, k) == (k * m * 256 <= gf_kernels.SMEM_BYTES)
+    assert gf_kernels.tables_staged(m, k) == (k * m * 32 <= gf_kernels.NIBBLE_SMEM_BYTES)
+    with pytest.raises(ValueError):  # the kernel's operand is the nibble tables
+        gf_kernels.matrix_encode(tables, data)
 
 
 def _bitmatrix(kind):
@@ -230,8 +241,8 @@ def test_codecs_on_the_card_match_cpu(card, profile):
 
 def _w32_repair(missing=(0, 8)):
     """A w = 32 RS k=8 m=3 repair bitmatrix: its schedule has 935 buffers
-    (global-memory path); with (0, 1, 6) of k=6 m=3, 543 (shared, 64
-    columns a block)."""
+    (global-memory path); with (1,) of k=6 m=3, a program whose slots fit
+    a 32-thread block with one input stage."""
     from ceph_tpu_torch.ec import gf, gfw
 
     k, m = (8, 3) if missing == (0, 8) else (6, 3)
@@ -243,27 +254,57 @@ def _w32_repair(missing=(0, 8)):
     return gf.bitmatrix_multiply(need, gf.invert_bitmatrix(sub))
 
 
-@pytest.mark.parametrize("case,nw", [("cauchy", 4099), ("cauchy", 128), ("w32_shared", 1000),
-                                     ("w32_global", 777), ("cauchy", 0)])
-def test_schedule_apply_matches_plain(card, case, nw):
-    from ceph_tpu_torch.ec import gf, kernels, schedule
+def _cauchy_repair():
+    from ceph_tpu_torch.ec import gf
 
-    if case == "cauchy":
-        bits = gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))
-        gen = np.vstack([np.eye(64, dtype=np.uint8), bits])
-        rows = [s for s in range(11) if s not in (0, 8)][:8]
-        bm = gf.bitmatrix_multiply(np.vstack([gen[0:8], gen[64:72]]),
-                                   gf.invert_bitmatrix(np.vstack([gen[r * 8:(r + 1) * 8]
-                                                                  for r in rows])))
+    bits = gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))
+    gen = np.vstack([np.eye(64, dtype=np.uint8), bits])
+    rows = [s for s in range(11) if s not in (0, 8)][:8]
+    return gf.bitmatrix_multiply(np.vstack([gen[0:8], gen[64:72]]),
+                                 gf.invert_bitmatrix(np.vstack([gen[r * 8:(r + 1) * 8]
+                                                                for r in rows])))
+
+
+def _bitplane_repair():
+    from ceph_tpu_torch.ec import gf
+
+    rs = np.vstack([np.eye(8, dtype=np.uint8), gf.vandermonde_matrix(8, 3)])
+    rows = [s for s in range(11) if s not in (0, 8)][:8]
+    return gf.matrix_to_bitmatrix(gf.matrix_encode(rs[[0, 8]], gf.invert_matrix(rs[rows])))
+
+
+@pytest.mark.parametrize("case,nw", [("cauchy", 4099), ("cauchy", 128), ("w32_shared", 1000),
+                                     ("w32_global", 777), ("cauchy", 0), ("cauchy", 100),
+                                     ("cauchy", 1001), ("cauchy_sliced", 4096),
+                                     ("cauchy", 132 * 256 * 3 + 5), ("bitplane", 5000),
+                                     ("w32_global", 40_000)])
+def test_schedule_apply_matches_plain(card, case, nw):
+    """K6's paths: one input stage (the cauchy repair and the k=6 w = 32
+    repair), two stages (the bit-plane RS repair), slots reused by
+    liveness, the global path (k=8 w = 32); NW below one tile, not a
+    multiple of 4 (4-byte copies), words 4 bytes past a 16-byte boundary
+    (a sliced row), and many tiles per block."""
+    from ceph_tpu_torch.ec import kernels, schedule
+
+    if case.startswith("cauchy"):
+        bm = _cauchy_repair()
+    elif case == "bitplane":
+        bm = _bitplane_repair()
     else:
-        bm = _w32_repair((0, 8) if case == "w32_global" else (0, 1, 6))
+        bm = _w32_repair((0, 8) if case == "w32_global" else (1,))
     sched = schedule.compile_schedule(bm)
-    cols = kernels.schedule_smem_cols(sched.n_bufs)
-    assert (cols == 0) == (case == "w32_global")
-    table = kernels.StepTable(sched.steps, sched.n_bufs, card)
+    table = kernels.StepTable(sched.steps, sched.n_bufs, card, sched.n_in, sched.n_out)
+    prog = table.program(sched.n_in, sched.n_out)
+    config = kernels.schedule_config(prog)
+    assert (config == (0, 0)) == (case == "w32_global")
+    assert config[1] == {"bitplane": 2, "w32_global": 0}.get(case, 1)
+    assert prog.n_work < sched.n_bufs - sched.n_in - sched.n_out  # slots reused
     rng = np.random.default_rng(nw)
-    words = torch.from_numpy(rng.integers(0, 2**32, (sched.n_in, nw), dtype=np.uint32)
-                             .view(np.int32)).to(card)
+    host = rng.integers(0, 2**32, sched.n_in * nw + 1, dtype=np.uint32).view(np.int32)
+    words = torch.from_numpy(host).to(card)
+    words = words[1:] if case == "cauchy_sliced" else words[:-1]
+    words = words.view(sched.n_in, nw)
+    assert (words.data_ptr() % 16 != 0) == (case == "cauchy_sliced")
     before = kernels.LAUNCHES["schedule_apply"]
     got = kernels.schedule_apply(table, words, sched.n_out)
     torch.cuda.synchronize()

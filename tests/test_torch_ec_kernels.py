@@ -46,11 +46,14 @@ def test_matrix_encode_rejects_wrong_row_count():
         gf_kernels.matrix_encode(gf_kernels.mul_tables(M, "cpu"), torch.zeros(3, 64, dtype=torch.uint8))
 
 
-def test_tables_staged_threshold():
-    """K4 keeps k=8 m=3's 6 KB of tables in shared memory and reads a
-    k=128 m=8 code's 256 KB from global memory."""
-    assert gf_kernels.tables_staged(3, 8)
-    assert not gf_kernels.tables_staged(8, 128)
+@pytest.mark.parametrize("m,k,staged", [(3, 8, True), (8, 128, False), (2, 4, True),
+                                         (8, 64, True), (4, 129, False)])
+def test_tables_staged_threshold(m, k, staged):
+    """K4 keeps k=8 m=3's 768 bytes of nibble tables in shared memory (up
+    to 16 KB: k=64 m=8) and reads a k=128 m=8 code's 32 KB from global
+    memory."""
+    assert gf_kernels.tables_staged(m, k) == staged
+    assert staged == (m * k * 32 <= gf_kernels.NIBBLE_SMEM_BYTES)
 
 
 # ---------------------------------------------------------------- K5

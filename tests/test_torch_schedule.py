@@ -129,12 +129,31 @@ def test_schedule_apply_edges():
             kernels.StepTable(np.array(bad, np.int32), 4, "cpu")
 
 
-@pytest.mark.parametrize("n_bufs,cols", [(80, 128), (454, 128), (455, 64), (908, 64),
-                                         (909, 0), (1400, 0)])
-def test_schedule_smem_cols(n_bufs, cols):
-    """K6's shared-memory path holds [n_bufs][cols] u32 in one block's
-    227 KB; beyond 64 columns' worth it takes the global path."""
-    assert kernels.schedule_smem_cols(n_bufs) == cols
+@pytest.mark.parametrize("n_in,n_work,n_terms,config", [
+    (64, 57, 282, (32, 1)), (8, 10, 40, (128, 1)), (8, 0, 8, (128, 1)), (64, 130, 400, (64, 1)),
+    (100, 200, 900, (32, 2)), (150, 200, 900, (32, 1)), (256, 434, 2273, (0, 0)),
+    (64, 66, 338, (64, 2))])
+def test_schedule_smem_cols(n_in, n_work, n_terms, config):
+    """K6's shared-memory path holds every slot (work, zero, 16 output
+    slots and one copy of the inputs per stage) of a block's threads x 4
+    words in 227 KB, with the program; of the shapes that fit it takes
+    the one with the most threads an SM can hold, then two stages, then
+    larger blocks; else the global path.  (64, 57, 282) is the main
+    repair's program, (256, 434) the w = 32 repair's, (64, 66) the
+    bit-plane RS repair's."""
+    prog = kernels.XorProgram(terms=np.zeros(n_terms, np.uint32),
+                              groups=np.zeros(-(-n_terms // 16), np.uint16), n_in=n_in, n_out=16,
+                              n_work=n_work, n_ops=0, n_levels=0)
+    assert kernels.schedule_config(prog) == config
+    if config[0]:
+        smem = kernels.program_smem_bytes(prog, *config)
+        assert smem <= kernels.SMEM_BYTES
+        resident = kernels.SM_SMEM_BYTES // (smem + kernels.BLOCK_SMEM_RESERVED) * config[0]
+        for threads in kernels.SCHEDULE_THREADS:
+            for stages in (1, 2):
+                other = kernels.program_smem_bytes(prog, threads, stages)
+                if other <= kernels.SMEM_BYTES:
+                    assert kernels.SM_SMEM_BYTES // (other + 1024) * threads <= resident
 
 
 # ---- device packing vs the numpy host reference ---------------------------
