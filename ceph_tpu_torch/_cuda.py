@@ -35,10 +35,10 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "straw2": {
         "straw2_negdraw": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-        "straw2_level_choose": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
-                                _P, _P, _P, _P, _P, _P],
-        "straw2_descend": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P,
-                           _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "straw2_level_choose": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                                _P, _P],
+        "straw2_descend": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P,
+                           _P, _P, _P, _P, _P],
     },
     "ec": {
         "ec_matrix_encode": [_P, _P, _P, _I, _I, _L, _P],

@@ -18,7 +18,9 @@ Tables: a descent's BFS levels are stacked into flat slot arrays (id,
 weight, magic reciprocal, ``child_type << 16 | next_local_index``) and a
 size array, with one ``(nb, fanout, slot_off, size_off)`` row per level
 (:class:`DescendTables`).  Ids, weights and packed fields are int32
-holding u32 bit patterns, the magic int64 holding u64 bits.
+holding u32 bit patterns, the magic int64 holding u64 bits.  K2 and K3
+read a slot as one 16-byte record (magic low word, magic high word, id,
+weight: ``DescendTables.slots``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ class DescendTables:
         self.ctnl = ctnl          # int32 [S]
         self.size = size          # int32 [NB_total]
         self.meta = tuple(meta)   # ((nb, fanout, slot_off, size_off), ...)
+        # int32 [S, 4]: the kernels' slot records (magic lo, magic hi, id, weight)
+        self.slots = torch.cat([magic.view(I32).view(-1, 2), ids.view(-1, 1),
+                                weights.view(-1, 1)], 1).contiguous()
 
     @property
     def n_levels(self) -> int:
@@ -124,8 +129,8 @@ def _check_cuda(*ts: torch.Tensor) -> None:
 def _tables_args(tb: DescendTables):
     from .. import _cuda
 
-    return (_cuda.ptr(tb.magic), _cuda.ptr(tb.ids), _cuda.ptr(tb.weights),
-            _cuda.ptr(tb.ctnl), _cuda.ptr(tb.size), tb.ids.numel(), tb.size.numel())
+    return (_cuda.ptr(tb.slots), _cuda.ptr(tb.ctnl), _cuda.ptr(tb.size), tb.ids.numel(),
+            tb.size.numel())
 
 
 # ---------------------------------------------------------------- K1
@@ -158,6 +163,101 @@ def negdraw(x, r, ids, weights, magic) -> torch.Tensor:
                  _cuda.ptr(_ln_stacked(x.device)))
     LAUNCHES["negdraw"] += 1
     return out
+
+
+# ---------------------------------------------------------------- the kernels' draw, modelled
+#
+# Plain numpy models of the arithmetic csrc/straw2.cu does for one draw,
+# in the forms the kernels use (the CPU tests hold each against the
+# reference package): the hash with the subtractions of the lines in
+# MIX_MASK as multiply-adds by 0xFFFFFFFF, the crush_ln walk with its
+# 64-bit product taken in 32-bit halves, and the divide by the magic
+# reciprocal with one correction.
+
+MIX_MASK = 0x1FE  # csrc/straw2.cu kMixMask: bit i, line i of each mix on the FMA pipe
+_U32 = np.uint32
+_NEG1 = np.uint32(0xFFFFFFFF)
+_MIX = ((0, 1, 2, ">>", 13), (1, 2, 0, "<<", 8), (2, 0, 1, ">>", 13), (0, 1, 2, ">>", 12),
+        (1, 2, 0, "<<", 16), (2, 0, 1, ">>", 5), (0, 1, 2, ">>", 3), (1, 2, 0, "<<", 10),
+        (2, 0, 1, ">>", 15))
+
+
+def _mix_model(a, b, c, mask: int):
+    v = [a, b, c]
+    for i, (xi, yi, zi, op, k) in enumerate(_MIX):
+        x, y, z = v[xi], v[yi], v[zi]
+        d = (x + y * _NEG1) + z * _NEG1 if mask >> i & 1 else x - y - z
+        v[xi] = d ^ (z >> _U32(k) if op == ">>" else z << _U32(k))
+    return tuple(v)
+
+
+def hash32_3_model(a, b, c, mask: int = MIX_MASK) -> np.ndarray:
+    """``crush_hash32_3`` in the kernels' instruction forms, over uint32
+    arrays (numpy wraps mod 2^32, as the card does)."""
+    with np.errstate(over="ignore"):
+        a, b, c = (np.asarray(t).astype(_U32) for t in np.broadcast_arrays(a, b, c))
+        h = _U32(hashes.CRUSH_HASH_SEED) ^ a ^ b ^ c
+        x = np.full_like(a, 231232)
+        y = np.full_like(a, 1232)
+        a, b, h = _mix_model(a, b, h, mask)
+        c, x, h = _mix_model(c, x, h, mask)
+        y, a, h = _mix_model(y, a, h, mask)
+        b, x, h = _mix_model(b, x, h, mask)
+        y, c, h = _mix_model(y, c, h, mask)
+        return h
+
+
+def ln_neg_model(u) -> np.ndarray:
+    """``2^48 - crush_ln(u)`` as the kernels compute it (uint64): the
+    RH/LH pair at ``(xs >> 8) - 128``, and bits 48..55 of ``xs * rh``
+    from 32-bit halves, ``xs * rh_hi + umulhi(xs, rh_lo)`` mod 2^32."""
+    u = np.asarray(u).astype(np.uint64)
+    xv = u + np.uint64(1)
+    p = (np.frexp(xv.astype(np.float64))[1] - 1).astype(np.uint64)  # floor(log2(xv))
+    iexpon = np.minimum(p, np.uint64(15))
+    xs = xv << (np.uint64(15) - iexpon)
+    pair = (xs >> np.uint64(8)) - np.uint64(128)
+    rh = hashes._RH_LH_NP[2 * pair].astype(np.uint64)
+    lh = hashes._RH_LH_NP[2 * pair + 1].astype(np.uint64)
+    m32 = np.uint64(0xFFFFFFFF)
+    t = (xs * (rh >> np.uint64(32)) + ((xs * (rh & m32)) >> np.uint64(32))) & m32
+    ll = hashes._LL_NP[((t >> np.uint64(16)) & np.uint64(0xFF)).astype(np.int64)].astype(np.uint64)
+    lnv = (iexpon << np.uint64(44)) + ((lh + ll) >> np.uint64(4))
+    return (np.uint64(1) << np.uint64(48)) - lnv
+
+
+def umul64hi_model(a, b) -> np.ndarray:
+    """High 64 bits of the 128-bit product of uint64 arrays, from 32-bit
+    halves (``__umul64hi``)."""
+    a, b = np.asarray(a, np.uint64), np.asarray(b, np.uint64)
+    m32, s32 = np.uint64(0xFFFFFFFF), np.uint64(32)
+    with np.errstate(over="ignore"):
+        a0, a1, b0, b1 = a & m32, a >> s32, b & m32, b >> s32
+        p00, p01, p10, p11 = a0 * b0, a0 * b1, a1 * b0, a1 * b1
+        mid = p01 + (p00 >> s32)             # < 2^64: no carry
+        mid2 = mid + (p10 & m32)             # may carry
+        carry = (mid2 < mid).astype(np.uint64)
+        return p11 + (p10 >> s32) + (mid2 >> s32) + (carry << s32)
+
+
+def div_magic_model(a, magic, w) -> np.ndarray:
+    """The kernels' divide: ``floor(a / w)`` for ``a <= 2^48`` and
+    ``w >= 1`` from ``magic = floor((2^64-1)/w)``: the high product is
+    the quotient or one less (it exceeds ``a/w - 2^-16``), so one
+    correction suffices."""
+    a, w = np.asarray(a, np.uint64), np.asarray(w).astype(np.uint64)
+    q = umul64hi_model(a, magic)
+    with np.errstate(over="ignore"):
+        rem = a - q * w
+    return q + (rem >= w).astype(np.uint64)
+
+
+def draw_model(x, item_id, r, weight, magic, mask: int = MIX_MASK) -> np.ndarray:
+    """One kernel draw (uint64), zero weights as u64 max."""
+    u = hash32_3_model(x, item_id, r, mask) & _U32(0xFFFF)
+    w = np.asarray(weight).astype(np.uint64)
+    nd = div_magic_model(ln_neg_model(u), magic, np.maximum(w, np.uint64(1)))
+    return np.where(w == 0, np.uint64(0xFFFFFFFFFFFFFFFF), nd)
 
 
 _LN_CACHE: dict = {}

@@ -1,5 +1,5 @@
 """Run ``chip_smoke.py`` of several checkouts in turns on one card and
-compare their K4 and K6 times.
+compare their kernel times.
 
     python -m ceph_tpu_torch.testing.ab_kernels DIR_A DIR_B DIR_B DIR_A
 
@@ -8,8 +8,13 @@ unpacked).  In the order given, each checkout's ``python3 chip_smoke.py``
 runs in that directory (it builds the checkout's kernels and drives
 every phase); its output is kept as ``DIR/chip_smoke.out``.  This prints
 one JSON line per run with the card, whether the run ended with
-``"ok": true``, and K4's (k=8 m=3 and k=4 m=2), K5's and K6's times
-with K6's same-repair K5 time, then a summary.  The runs share one
+``"ok": true``, K1's, K2's and K3's times (with their pipe floors where
+the checkout reports them) and each straw2 kernel's instructions per
+draw split by pipe (this checkout's ``testing/sass.py`` applied to the
+library the run built), K4's (k=8 m=3 and k=4 m=2), K5's and K6's times
+with K6's same-repair K5 time, the placements per second of each CRUSH
+mode, the OSDMap update seconds, and each recovery code's
+``recover_pool`` and peering seconds, then a summary.  The runs share one
 card, so the checkouts are compared under one power limit; give them in
 turns (A B B A) so that drift hits both alike.  Exits non-zero if a run
 fails.
@@ -22,6 +27,8 @@ import os
 import subprocess
 import sys
 
+from . import sass
+
 
 def run(checkout: str, timeout: int = 1200) -> dict:
     proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout, capture_output=True,
@@ -32,7 +39,24 @@ def run(checkout: str, timeout: int = 1200) -> dict:
     out = {"checkout": checkout, "exit": proc.returncode,
            "ok": proc.returncode == 0 and '"ok": true' in (lines[-1] if lines else ""),
            "card": lines[-2] if len(lines) > 1 else None}
+    lib = os.path.join(checkout, "ceph_tpu_torch", "_build", "libstraw2.so")
+    if os.path.exists(lib):
+        out["draw_split"] = sass.straw2_splits(sass.cuobjdump_sass(lib))
     for ln in lines:
+        if ln.startswith('{"phase": "kernels"'):
+            for r in json.loads(ln)["results"]:
+                out[r["name"] + "_ms"] = r["ms"]
+                if "pipe_floor_ms" in r:
+                    out[r["name"] + "_pipe_floor_ms"] = r["pipe_floor_ms"]
+        if ln.startswith('{"phase": "crush"'):
+            for mode, v in json.loads(ln)["modes"].items():
+                out[f"placements_per_s_{mode}"] = v["placements_per_s"]
+        if ln.startswith('{"phase": "osdmap"'):
+            out["osdmap_update_s"] = json.loads(ln)["update_s"]
+        if ln.startswith('{"phase": "recovery"'):
+            for code, v in json.loads(ln)["codes"].items():
+                out[f"recover_pool_s_{code}"] = v["recover_pool_s"]
+                out[f"l_peering_s_{code}"] = v["l_peering_s"]
         if not ln.startswith('{"phase": "ec_kernels"') and not ln.startswith(
                 '{"phase": "schedule_kernel"'):
             continue

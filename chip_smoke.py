@@ -6,11 +6,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. build: compile the CUDA kernels from ``ceph_tpu_torch/csrc/`` with
    nvcc (sm_90a, one nvcc per source, all at once) and print the build
-   seconds, the card, every kernel's registers and spills, and one
-   straw2 draw's instructions recounted in the SASS;
+   seconds, the card, every kernel's registers and spills, and each
+   straw2 kernel's instructions per draw in the SASS, split by pipe
+   (ALU, FMA, memory, other);
 2. kernels: hold K1 (negdraw), K2 (level_choose) and K3 (descend_fused)
    against their plain PyTorch versions on the card, bit for bit, at the
-   slice's shapes (1M lanes, build_simple(1024) tables), and time both;
+   slice's shapes (1M lanes, build_simple(1024) tables), time both, and
+   give each its pipe floor; then K1 and K3 on their edges (fanout 1, 5,
+   33, zero weights mid-row, weights 1 and 0xFFFFFFFF, rows off a
+   16-byte boundary, 4099 rows, K3's global-memory tables and
+   ``empty_is_hard`` both ways), bit for bit;
 3. ec_kernels: the same for K4 (matrix_encode: k=8 m=3 and k=4 m=2 over
    32 MiB chunks), K5 (bitmatrix_encode: cauchy_good k=8 m=3 w=8,
    packetsize 2048, over the same) and K7 (byte_lut: one CLAY repair
@@ -84,11 +89,13 @@ SEED = 20261016
 REPLICAS = 3
 OBJECTS = 1 << 20
 
-# Instructions of one straw2 draw as nvcc compiles csrc/straw2.cu for
-# sm_90a, counted in K1's SASS (ceph_tpu_torch/testing/sass.py; the
-# build phase recounts them): the hash's 5 mixes take 3 instructions a
-# line (nvcc folds a - b - c into one IADD3), then crush_ln, the 64x64
-# high multiply and its corrections.
+# Instructions of one straw2 draw as nvcc compiled the port's first
+# csrc/straw2.cu for sm_90a, counted in its K1's SASS: the hash's 5 mixes
+# at 3 instructions a line, then crush_ln, the 64x64 high multiply and
+# its corrections.  K1-K3's bound_ms divides it by the issue rate and
+# stays the kernels' fixed yardstick; the build phase splits each
+# kernel's draw as compiled now by pipe (ceph_tpu_torch/testing/sass.py),
+# and the kernels phase gives each its pipe floor from that split.
 OPS_PER_DRAW = 197
 ISSUE_LANES_PER_SM = 128  # 4 schedulers x one 32-lane warp instruction a clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
@@ -245,13 +252,24 @@ def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int
             "library_ms": time_ms(library) if library is not None else None}
 
 
-def phase_kernels(n: int, int_rate: float, dev) -> list[dict]:
+def pipe_floor_ms(draws: int, split: dict, int_rate: float) -> float:
+    """The floor of a draw-bound kernel's integer pipes: its draws times
+    the larger of its ALU and FMA instructions per draw (its SASS split)
+    over SMs x 64 lanes x max SM clock (each pipe's rate on sm_90, half
+    ``int_rate``)."""
+    return draws * max(split["alu"], split["fma"]) / (int_rate / 2) * 1e3
+
+
+def phase_kernels(n: int, int_rate: float, dev, splits: dict) -> dict:
     """K1-K3 vs their plain versions at the main path's shapes: n lanes
     on build_simple(1024)'s descent tables (root 1x32, racks 32x8,
-    hosts 256x4)."""
+    hosts 256x4), each with its pipe floor from ``splits`` (the build's
+    per-draw SASS split); then K1 and K3 on their edges
+    (``testing/straw2_edges.py``), compared only."""
     from ceph_tpu_torch.core import straw2
     from ceph_tpu_torch.crush import interp_batch
     from ceph_tpu_torch.models.clusters import build_simple
+    from ceph_tpu_torch.testing import straw2_edges
 
     dense = build_simple(1024).to_dense()
     stop = interp_batch._stop_buckets(dense, [0], 3)
@@ -273,26 +291,40 @@ def phase_kernels(n: int, int_rate: float, dev) -> list[dict]:
                        lambda: straw2.negdraw_plain(x, r, *rows),
                        n * 8 + rows[0].numel() * (4 + 4 + 8 + 8),
                        int((rows[1] != 0).sum()) * OPS_PER_DRAW, int_rate)
+    k1["pipe_floor_ms"] = pipe_floor_ms(rows[0].numel(), splits["straw2_negdraw_kernel"],
+                                        int_rate)
     # K2 at the same level: row fetch, draws and argmin in one launch
     fanout = pack.meta[0][1]
     k2 = kernel_record("level_choose", "ceph_tpu/core/pallas_straw2.py:384",
                        lambda: straw2.level_choose(x, r, lidx, pack, 0),
                        lambda: straw2.level_choose_plain(x, r, lidx, pack, 0),
                        n * (3 * 4 + 4 * 4) + table_bytes, n * fanout * OPS_PER_DRAW, int_rate)
+    k2["pipe_floor_ms"] = pipe_floor_ms(n * fanout, splits["straw2_level_kernel"], int_rate)
     # K3: the rule's descent root -> rack -> host for every lane
+    draws = count_descend_draws(x, r, lidx, active, pack, 3, 1024)
     k3 = kernel_record("descend", "ceph_tpu/core/pallas_straw2.py:603",
                        lambda: straw2.descend_fused(x, r, lidx, active, pack, 3, False, 1024),
                        lambda: straw2.descend_plain(x, r, lidx, active, pack, 3, False, 1024),
-                       n * (3 * 4 + 1 + 2 * 4 + 2) + table_bytes,
-                       count_descend_draws(x, r, lidx, active, pack, 3, 1024) * OPS_PER_DRAW,
+                       n * (3 * 4 + 1 + 2 * 4 + 2) + table_bytes, draws * OPS_PER_DRAW,
                        int_rate)
+    k3["pipe_floor_ms"] = pipe_floor_ms(draws, splits["straw2_descend_kernel"], int_rate)
     # and the leaf descent host -> osd from the hosts the lanes reached
     item, ok, hard, nl = straw2.descend_fused(x, r, lidx, active, pack, 3, False, 1024)
     k3["bit_equal"] = k3["bit_equal"] and all(
         bool(torch.equal(a, b)) for a, b in zip(
             straw2.descend_fused(x, r, nl, ok, leaf, 0, False, 1024),
             straw2.descend_plain(x, r, nl, ok, leaf, 0, False, 1024)))
-    return [k1, k2, k3]
+    edges = []
+    for label, args in straw2_edges.negdraw_edges(dev):
+        equal, err = compare(straw2.negdraw(*args), straw2.negdraw_plain(*args))
+        edges.append({"case": label, "bit_equal": equal, "max_abs_err": err})
+    for label, args in straw2_edges.descend_edges(dev):
+        checks = [compare(a, b) for a, b in zip(straw2.descend_fused(*args),
+                                                straw2.descend_plain(*args))]
+        edges.append({"case": label, "bit_equal": all(c[0] for c in checks),
+                      "max_abs_err": max(c[1] for c in checks)})
+    torch.cuda.synchronize()
+    return {"results": [k1, k2, k3], "edges": edges}
 
 
 def count_descend_draws(x, r, lidx0, active, tb, target_type, max_devices) -> int:
@@ -906,17 +938,21 @@ def main() -> int:
     ptxas = {lib: ptxas_report(lib) for lib in _cuda.SIGNATURES}
     from ceph_tpu_torch.testing import sass
 
-    draw_sass = sass.draw_instructions(
+    splits = sass.straw2_splits(
         sass.cuobjdump_sass(os.path.join(_cuda.BUILD_DIR, "libstraw2.so")))
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": built, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda, "ptxas": ptxas,
-          "ops_per_draw": OPS_PER_DRAW, "ops_per_draw_sass": draw_sass})
+          "ops_per_draw": OPS_PER_DRAW, "draw_split_sass": splits})
 
     int_rate = int32_ops_per_s()
-    kernels = phase_kernels(OBJECTS, int_rate, dev)
-    emit({"phase": "kernels", "lanes": OBJECTS, "int32_ops_per_s": int_rate,
-          "results": kernels})
+    straw2_phase = phase_kernels(OBJECTS, int_rate, dev, splits)
+    kernels = straw2_phase["results"]
+    for k in kernels:
+        k["ptxas"] = {n: v for n, v in ptxas["straw2"].items()
+                      if n.startswith("straw2_" + k["name"].split("_")[0])}
+    emit({"phase": "kernels", "lanes": OBJECTS, "int32_ops_per_s": int_rate, **straw2_phase})
     bad = [k["name"] for k in kernels if not k["bit_equal"]]
+    bad += [e["case"] for e in straw2_phase["edges"] if not e["bit_equal"]]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     ec = phase_ec_kernels(int_rate, dev)
@@ -982,7 +1018,8 @@ def main() -> int:
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["name"]],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+         "pipe_floor_ms": k.get("pipe_floor_ms")}
         for k in records]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

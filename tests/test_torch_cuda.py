@@ -2,7 +2,8 @@
 
 Each kernel against its plain PyTorch version on the same card inputs,
 and the batch runner's three modes against the CPU plain versions, at a
-small size, and K2/K3 on tables too large for shared memory; the EC
+small size, K2/K3 on tables too large for shared memory, K1 and K3 on
+their edges (``ceph_tpu_torch/testing/straw2_edges.py``); the EC
 kernels K4, K5 and K7 against theirs on edge shapes (ragged lengths,
 K4's global-memory table path, K5 at w = 6, 7, 32 and unaligned packet
 sizes), K6 on its shared-memory paths (two input stages and one) and its
@@ -86,6 +87,33 @@ def test_large_tables(card, n_osds):
     for a, b in zip(straw2.descend_fused(x, r, zero, active, pack, 0, False, n_osds),
                     straw2.descend_plain(x, r, zero, active, pack, 0, False, n_osds)):
         assert torch.equal(a, b)
+
+
+def test_negdraw_edges_match_plain(card):
+    """K1 on its edges (``testing/straw2_edges.py``): fanout 1, 2, 5, 33
+    and 32 (paired slots), zero weights mid-row, weights 1 and
+    0xFFFFFFFF, rows off a 16-byte boundary (slot by slot), 4099 rows."""
+    from ceph_tpu_torch.testing import straw2_edges
+
+    for label, args in straw2_edges.negdraw_edges(card):
+        before = straw2.LAUNCHES["negdraw"]
+        got = straw2.negdraw(*args)
+        torch.cuda.synchronize()
+        assert straw2.LAUNCHES["negdraw"] == before + 1
+        assert torch.equal(got, straw2.negdraw_plain(*args)), label
+
+
+def test_descend_edges_match_plain(card):
+    """K3 on its edges: fanout 1, 5 and 33 with zero weights, short and
+    empty rows under ``empty_is_hard`` both ways, and tables that
+    outgrow shared memory (the global-memory path)."""
+    from ceph_tpu_torch.testing import straw2_edges
+
+    for label, args in straw2_edges.descend_edges(card):
+        got = straw2.descend_fused(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, straw2.descend_plain(*args)):
+            assert torch.equal(a, b), label
 
 
 def test_wrappers_refuse_wrong_dtypes(card):

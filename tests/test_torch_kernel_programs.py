@@ -286,29 +286,61 @@ def test_table_encoder_holds_both_operands():
 _SASS = """
         Function : _ZN41_GLOBAL__N__b2407e84_9_straw2_cu_6ea3afb419straw2_level_kernelEPKj
         /*0000*/                   LOP3.LUT R15, R6, R4, R17, 0x96, !PT ;
-        Function : _ZN41_GLOBAL__N__b2407e84_9_straw2_cu_6ea3afb421straw2_negdraw_kernelEPKj
+        Function : _ZN41_GLOBAL__N__b2407e84_9_straw2_cu_6ea3afb421straw2_negdraw_kernelILi1EEvPKj
         /*0000*/                   LDG.E.CONSTANT R14, desc[UR8][R14.64] ;
-        /*0010*/              @!P0 BRA 0x1140 ;
+        /*0010*/              @!P0 BRA 0xa0 ;
         /*0020*/                   LOP3.LUT R15, R6, R4, R17, 0x96, !PT ;
         /*0030*/                   IADD3 R15, -R18, R6, -R17 ;
-        /*0040*/                   LEA R16, P0, R13, UR10, 0x3 ;
-        /*0050*/                   LDG.E.64.CONSTANT R16, desc[UR8][R16.64] ;
-        /*0060*/               @P0 VIADD R5, R5, 0x1 ;
-        /*0070*/                   LDS.128 R4, [R6+UR4+-0x800] ;
-        /*0080*/                   BSYNC B0 ;
-        /*0090*/                   STG.E.64 desc[UR8][R6.64], R4 ;
+        /*0040*/                   IMAD R5, R17, c[0x0][0x230], R15 ;
+        /*0050*/                   FLO.U32 R5, R4 ;
+        /*0060*/                   LDS.128 R4, [R6+UR4+-0x800] ;
+        /*0070*/                   IMAD.WIDE.U32 R4, R4, R19, RZ ;
+        /*0080*/                   STG.E.64 desc[UR8][R6.64], R4 ;
+        /*0090*/               @P0 BRA 0x20 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0 ;
+        Function : _ZN41_GLOBAL__N__b2407e84_9_straw2_cu_6ea3afb421straw2_negdraw_kernelILi2EEvPKj
+        /*0000*/                   SHF.R.U32.HI R4, RZ, 0xd, R5 ;
+        /*0010*/                   FLO.U32 R5, R4 ;
+        /*0020*/                   IMAD.SHL.U32 R6, R4, 0x100, RZ ;
+        /*0030*/                   FLO.U32 R7, R6 ;
+        /*0040*/                   S2UR UR6, SR_CgaCtaId ;
+        /*0050*/               @P1 BRA 0x0 ;
+        /*0060*/                   EXIT ;
 """
 
 
 def test_sass_draw_count():
-    """One draw: from the hash's three-input XOR to the first BSYNC, less
-    global loads and address arithmetic (here LOP3, IADD3, VIADD, LDS)."""
+    """One draw: the instructions of the kernel's innermost loop that
+    holds a FLO (one per draw), over the FLOs in it; the forward branch
+    and the self-branch after EXIT are no loops."""
     from ceph_tpu_torch.testing import sass
 
-    assert sass.draw_instructions(_SASS) == 4
+    split = sass.draw_split(_SASS, "straw2_negdraw_kernelILi1E")
+    assert split["total"] == 8 and split["draws_per_loop"] == 1
     assert len(sass.kernel_instructions(_SASS, "straw2_level_kernel")) == 1
     with pytest.raises(ValueError):
         sass.kernel_instructions(_SASS, "no_such_kernel")
+    with pytest.raises(ValueError):  # a loop without a FLO holds no draw
+        sass.draw_split(_SASS, "straw2_level_kernel")
+
+
+def test_sass_pipe_split():
+    """The per-pipe split of a draw: ALU (LOP3, IADD3, SHF, FLO), FMA
+    (IMAD forms), memory (LDS, STG), other (BRA, S2UR); two FLOs in a
+    loop make it two draws."""
+    from ceph_tpu_torch.testing import sass
+
+    one = sass.draw_split(_SASS, "straw2_negdraw_kernelILi1E")
+    assert {p: one[p] for p in sass.PIPES} == {"alu": 3, "fma": 2, "memory": 2, "other": 1}
+    two = sass.draw_split(_SASS, "straw2_negdraw_kernelILi2E")
+    assert two["draws_per_loop"] == 2
+    assert {p: two[p] for p in sass.PIPES} == {"alu": 1.5, "fma": 0.5, "memory": 0, "other": 1}
+    assert [sass.pipe(op) for op in ("IMAD.HI.U32", "VIMNMX.U32", "LDS.64", "BSYNC", "SEL")] == \
+        ["fma", "alu", "memory", "other", "alu"]
+    # straw2_splits takes K1 in its paired form where the SASS has one
+    with pytest.raises(ValueError):  # this snippet's K2 has no draw loop
+        sass.straw2_splits(_SASS)
 
 
 def test_ptxas_kernel_names():
