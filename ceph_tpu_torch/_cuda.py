@@ -42,7 +42,7 @@ SIGNATURES = {
     },
     "ec": {
         "ec_matrix_encode": [_P, _P, _P, _I, _I, _L, _P],
-        "ec_bitmatrix_encode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+        "ec_bitmatrix_encode": [_P, _I, _P, _P, _I, _I, _I, _I, _L, _P],
         "ec_xor_program": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _L, _P],
         "ec_byte_lut": [_P, _P, _P, _L, _P],

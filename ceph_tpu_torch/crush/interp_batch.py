@@ -568,6 +568,11 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                     p["pack"] = pk
                     p["root_ids"] = [-1 - b for b in roots]
                     roots = stop if s.arg2 != 0 else None
+            else:
+                # mapper.c: numrep <= 0 skips every entry, and a choose
+                # over devices (no roots) finds no bucket, so the working
+                # vector comes out empty until the next take
+                roots = None
             plans.append(p)
         elif s.op == OP_EMIT:
             plans.append({"op": "emit"})
@@ -578,7 +583,9 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
     for p in plans:
         if p["op"] == "take":
             width = 1
-        elif p["op"] == "choose" and p["pack"] is not None and width is not None:
+        elif p["op"] == "choose" and p["pack"] is None:
+            width = None
+        elif p["op"] == "choose" and width is not None:
             if width > 1 and width * p["numrep"] > result_max:
                 raise NotImplementedError(
                     "chained choose overflowing result_max trims per-lane "
@@ -612,7 +619,10 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                 take_pending = p["bucket_id"]
                 w_vals = None
             elif p["op"] == "choose":
-                if p["pack"] is None:
+                if p["pack"] is None:  # empties the working vector
+                    take_pending = None
+                    w_vals = None
+                    w_size = torch.zeros(B, dtype=I32, device=dev)
                     continue
                 pack, leaf_pack = packs_[choose_i]
                 choose_i += 1

@@ -4,17 +4,17 @@
 //
 //   K4 gf_matrix_tma_kernel  <- pallas_gf.py _matrix_jit / _make_matrix_kernel
 //      gf_matrix_kernel         (matrix_encode: GF(2^8) matrix x data)
-//   K5 gf2_bitmatrix_kernel  <- pallas_kernels.py _encode_padded_jit / _kernel
-//                               (PallasBitmatrixEncoder: GF(2) bitmatrix x packets)
+//   K5 gf2_bitmatrix_tma_kernel <- pallas_kernels.py _encode_padded_jit / _kernel
+//      gf2_bitmatrix_kernel     (PallasBitmatrixEncoder: GF(2) bitmatrix x packets)
 //   K6 xor_program_smem      <- pallas_kernels.py _schedule_padded_jit / _schedule_kernel
 //      xor_program_global       (schedule_apply: the XOR-schedule interpreter)
-//   K7 byte_lut_kernel       <- pallas_gf.py _byte_lut_jit / _byte_lut_kernel
-//                               (byte_lut: table[x] for every byte)
+//   K7 byte_lut16_kernel     <- pallas_gf.py _byte_lut_jit / _byte_lut_kernel
+//      byte_lut_kernel          (byte_lut: table[x] for every byte)
 //
 // What bounds them: device memory.  Each reads every input byte once and
 // writes every output byte once; per byte they do little: K4 two
 // 4-byte lookups per coefficient per word (m*k per byte column), K5 one
-// masked XOR per bitmatrix entry per 4-byte word, K7 one lookup.  At the
+// XOR per set bitmatrix entry per 4-byte word, K7 one lookup.  At the
 // card's 3.35 TB/s the bytes take longer than the operations at its
 // integer instruction rate, so the designs aim at full-width coalesced loads
 // and keep every table on chip:
@@ -34,16 +34,22 @@
 //   k), so a block has the next tiles in flight while it works one.
 //   Else, and for tables over 16 KB (read from global memory through
 //   L1), a thread loads its columns itself, one load always in flight.
-// - K5: the bitmatrix is held as one 32-bit mask word per input packet
-//   row and tile of RT output rows (bit r = entry (tile*RT + r, s)), in
-//   shared memory.  A thread owns one 4-byte word (1 byte when the
-//   packet size is not a multiple of 4) of one packet column, walks the
-//   k*w input packet rows once, and XORs each into the RT accumulators
-//   its mask selects.  Tiles of output rows (grid y) keep the
-//   accumulators in registers for any w (w = 32 decoders have 256 rows).
-//   It indexes the [k, S] chunk layout directly: row s = j*w + l of
-//   group g is bytes [g*w*p + l*p, +p) of chunk j, so the host does no
-//   packing or transpose.
+// - K5: only the set entries are walked.  The host compiles the
+//   bitmatrix once into per-output-row lists of input rows
+//   (ec/kernels.py Bitmatrix.prog), the rows dealt to 8 groups balanced
+//   by entries; a row costs one XOR per entry per 16 bytes, none for
+//   its zero entries, and no padded rows.  Where packets are whole
+//   16-byte units and the data aligned, a persistent block stages a
+//   tile of 512 columns of every input packet row in shared memory
+//   with TMA bulk copies (K4's ring, 2-4 tiles deep), and each of its 8
+//   warps walks one row group against it, 16 bytes a lane: every input
+//   byte is read from device memory once, for any number of output
+//   rows, so a 64- or 128-row decoder reads its inputs once.  Else (odd
+//   packet sizes, unaligned data, kw over ~200) a thread walks every
+//   row over its own 16, 4 or 1 bytes with loads through L1.  Both
+//   index the [k, S] chunk layout directly: row s = j*w + l of group g
+//   is bytes [g*w*p + l*p, +p) of chunk j, so the host does no packing
+//   or transpose.
 // - K6: the XOR-schedule interpreter over u32 word rows.  The host
 //   compiles the step table into a program (ec/kernels.py
 //   compile_program): one op per run of same-destination steps,
@@ -66,7 +72,10 @@
 //   scratch.  What bounds it: the bytes of the n_in input and n_out
 //   output rows, then latency: shared memory holds a few hundred word
 //   columns of the schedule per SM, so 2-4 warps an SM hide every load.
-// - K7: the 256-byte table in shared memory, one 4-byte word per thread.
+// - K7: the 256-byte table in shared memory; a thread loads two
+//   16-byte units, both issued before its first lookup, and blocks
+//   each take one stretch of the data (a 4-byte word a thread, one load
+//   in flight, before); unaligned data goes 4 or 1 bytes a thread.
 //
 // What the TPU versions needed and these do not: 128-lane table halves
 // selected by compare (tpu.dynamic_gather), bytes packed four to a u32
@@ -371,61 +380,221 @@ gf_matrix_kernel(const uint8_t* __restrict__ nib, const uint8_t* __restrict__ da
   }
 }
 
-// K5.  out row r = XOR over input packet rows s with bitmatrix[r, s] set.
-// masks: [n_tiles, kw] words, bit r of masks[tile*kw + s] = entry
-// (tile*RT + r, s).  data [kw / w, S], out [mw / w, S]; U bytes a unit.
-template <int U, int RT>
+// K5.  out row r = XOR over the input packet rows s whose bitmatrix
+// entry (r, s) is set.  data [kw / w, S], out [mw / w, S]: packet row s
+// = j*w + l of group g is bytes [g*w*p + l*p, +p) of chunk j; "column"
+// x = g*p + c is byte c of group g's packets, cols = S / w of them.
+//
+// prog (ec/kernels.py Bitmatrix.prog), in uint4 units: words 0..kWarpsK5
+// of the first three hold the uint4 index of each row group's first
+// row, then the end; a row is a header {n, i, t, 0} (its n entries,
+// output chunk i, packet t) and ceil(n / 4) uint4 of entries s | j << 16
+// (input row s of chunk j), the last padded.  Row groups are balanced
+// by entries on the host; each warp of a block walks one.
+constexpr int kTileK5 = 512;      // bytes of each packet row in a K5 tile: 32 lanes x 16
+constexpr int kWarpsK5 = 8;       // row groups: the warps of a K5 block
+constexpr int kMaxStagesK5 = 4;   // K5 TMA ring buffers at most
+constexpr int kStageBytesK5 = 108 * 1024;  // K5 ring and prog aimed at (2 blocks an SM)
+static_assert(kThreads == 32 * kWarpsK5, "a K5 block is one warp per row group");
+
+// x / p, in 32 bits while x fits (a 64-bit divide is a long call)
+__device__ __forceinline__ long long div_p(long long x, int p) {
+  return x <= 0xFFFFFFFFll ? (long long)((unsigned)x / (unsigned)p) : x / p;
+}
+
+__device__ __forceinline__ uint4 xor4(uint4 a, uint4 b) {
+  return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+}
+
+// One row's XOR over a staged tile: entries ent[0 .. n), row s of the
+// tile at mine + s * kTileK5; eight loads in flight, then four with the
+// padding masked.
+__device__ __forceinline__ uint4 walk_staged(const uint4* __restrict__ ent, int n,
+                                             const uint8_t* __restrict__ mine) {
+  auto row = [&](uint32_t e) {
+    return *reinterpret_cast<const uint4*>(mine + (e & 0xFFFFu) * kTileK5);
+  };
+  uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+  int e = 0;
+  for (; e + 8 <= n; e += 8, ent += 2) {
+    const uint4 a = ent[0], b = ent[1];
+    const uint4 v0 = row(a.x), v1 = row(a.y), v2 = row(a.z), v3 = row(a.w);
+    const uint4 v4 = row(b.x), v5 = row(b.y), v6 = row(b.z), v7 = row(b.w);
+    acc = xor4(acc, xor4(xor4(xor4(v0, v1), xor4(v2, v3)), xor4(xor4(v4, v5), xor4(v6, v7))));
+  }
+  for (; e < n; e += 4, ++ent) {
+    const uint4 a = ent[0], z = make_uint4(0u, 0u, 0u, 0u);
+    const uint4 v0 = row(a.x), v1 = e + 1 < n ? row(a.y) : z;
+    const uint4 v2 = e + 2 < n ? row(a.z) : z, v3 = e + 3 < n ? row(a.w) : z;
+    acc = xor4(acc, xor4(xor4(v0, v1), xor4(v2, v3)));
+  }
+  return acc;
+}
+
+// The staged path (p % 16 == 0, data and out 16-byte aligned, the ring
+// fits): a persistent block walks tiles of kTileK5 columns; the lanes of
+// warp 0 copy every input row's columns of a tile (split where a packet
+// ends) into a ring of `stages` buffers with TMA bulk copies, so the
+// next tiles are in flight while one is worked.  Each warp walks its row
+// group against the staged tile, lane L on bytes [16 L, 16 L + 16): one
+// conflict-free 16-byte shared load per entry, each input byte read from
+// device memory once however many rows use it.  Shared memory:
+// [stages][kw][kTileK5] tiles, then prog.
 __global__ void __launch_bounds__(kThreads)
-gf2_bitmatrix_kernel(const uint32_t* __restrict__ masks, const uint8_t* __restrict__ data,
-                     uint8_t* __restrict__ out, int kw, int mw, int w, int p, long long S) {
-  extern __shared__ uint32_t smask[];
-  const int tile = blockIdx.y;
-  for (int s = threadIdx.x; s < kw; s += blockDim.x) smask[s] = masks[(size_t)tile * kw + s];
+gf2_bitmatrix_tma_kernel(const uint4* __restrict__ prog, int prog16,
+                         const uint8_t* __restrict__ data, uint8_t* __restrict__ out, int kw,
+                         int w, int p, long long S, int stages) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ uint64_t bar[kMaxStagesK5];
+  uint8_t* tiles = smem;
+  uint4* sprog = reinterpret_cast<uint4*>(smem + (size_t)stages * kw * kTileK5);
+  for (int i = threadIdx.x; i < prog16; i += blockDim.x) sprog[i] = __ldg(prog + i);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&bar[st], 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  const long long nunit = S / w / U;  // units along one packet row
-  const long long wp = (long long)w * p;
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < nunit;
-       c += (long long)gridDim.x * blockDim.x) {
-    const long long pos = c * U;  // byte offset along the packet row
-    const long long g = pos / p;
-    const long long base = g * wp + (pos - g * p);
-    uint32_t acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0u;
-    int j = 0, l = 0;
-    for (int s = 0; s < kw; ++s) {
-      const uint8_t* src = data + (long long)j * S + base + (long long)l * p;
-      uint32_t d;
-      if constexpr (U == 4) {
-        d = __ldg(reinterpret_cast<const uint32_t*>(src));
-      } else {
-        d = (uint32_t)__ldg(src);
-      }
-      const uint32_t msk = smask[s];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] ^= d & (0u - ((msk >> r) & 1u));
-      if (++l == w) {
-        l = 0;
-        ++j;
+  const long long cols = S / w, wp = (long long)w * p;
+  const long long n_tiles = (cols + kTileK5 - 1) / kTileK5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto issue = [&](long long tile, int st) {
+    if (warp != 0) return;
+    const long long x0 = tile * kTileK5;
+    const int len = (int)(cols - x0 < kTileK5 ? cols - x0 : kTileK5);
+    if (lane == 0) mbar_expect_tx(&bar[st], (unsigned)len * (unsigned)kw);
+    __syncwarp();
+    const long long g0 = div_p(x0, p);
+    const int pieces = (int)(div_p(x0 + len - 1, p) - g0 + 1);
+    uint8_t* stage = tiles + (size_t)st * kw * kTileK5;
+    for (int q = lane; q < kw * pieces; q += 32) {
+      const int s = q / pieces, j = s / w;
+      const long long g = g0 + (q - s * pieces);
+      const long long a = g * p > x0 ? g * p : x0;
+      const long long b = (g + 1) * p < x0 + len ? (g + 1) * p : x0 + len;
+      bulk_copy(stage + (size_t)s * kTileK5 + (a - x0),
+                data + j * S + g * wp + (long long)(s - j * w) * p + (a - g * p),
+                (unsigned)(b - a), &bar[st]);
+    }
+  };
+  const long long step = gridDim.x;
+  for (int j = 0; j < stages - 1; ++j)
+    if (blockIdx.x + j * step < n_tiles) issue(blockIdx.x + j * step, j);
+  const uint32_t* groups = reinterpret_cast<const uint32_t*>(sprog);
+  const int h0 = (int)groups[warp], h1 = (int)groups[warp + 1];
+  unsigned phase = 0u;  // bit st: the parity stage st's barrier completes next
+  int st = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += step) {
+    const long long ahead = tile + (stages - 1) * step;
+    if (ahead < n_tiles) issue(ahead, st == 0 ? stages - 1 : st - 1);
+    mbar_wait(&bar[st], (phase >> st) & 1u);
+    phase ^= 1u << st;
+    const long long x = tile * kTileK5 + lane * 16;
+    if (x < cols) {
+      const long long g = div_p(x, p);
+      uint8_t* obase = out + g * wp + (x - g * p);
+      const uint8_t* mine = tiles + (size_t)st * kw * kTileK5 + lane * 16;
+      for (int h = h0; h < h1;) {
+        const uint4 head = sprog[h];
+        const uint4 acc = walk_staged(sprog + h + 1, (int)head.x, mine);
+        __stcs(reinterpret_cast<uint4*>(obase + (long long)head.y * S + (long long)head.z * p),
+               acc);
+        h += 1 + (int)((head.x + 3) >> 2);
       }
     }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const int row = tile * RT + r;
-      if (row < mw) {
-        const int i = row / w;
-        uint8_t* dst = out + (long long)i * S + base + (long long)(row - i * w) * p;
-        if constexpr (U == 4) {
-          *reinterpret_cast<uint32_t*>(dst) = acc[r];
-        } else {
-          *dst = (uint8_t)acc[r];
-        }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+    st = st + 1 == stages ? 0 : st + 1;
+  }
+}
+
+// U bytes at a (aligned to U), widened to a uint4 (U < 16: in x).
+template <int U>
+__device__ __forceinline__ uint4 load_unit(const uint8_t* a) {
+  if constexpr (U == 16) return __ldg(reinterpret_cast<const uint4*>(a));
+  if constexpr (U == 4) return make_uint4(__ldg(reinterpret_cast<const uint32_t*>(a)), 0u, 0u, 0u);
+  if constexpr (U == 1) return make_uint4(__ldg(a), 0u, 0u, 0u);
+}
+
+template <int U>
+__device__ __forceinline__ void store_unit(uint8_t* a, uint4 v) {
+  if constexpr (U == 16) __stcs(reinterpret_cast<uint4*>(a), v);
+  if constexpr (U == 4) *reinterpret_cast<uint32_t*>(a) = v.x;
+  if constexpr (U == 1) *a = (uint8_t)v.x;
+}
+
+// The global-load path, for packets that are not whole 16-byte units,
+// unaligned data, and rings that do not fit (kw > ~200): a thread owns
+// U bytes of one column in a grid-stride loop and walks every row of
+// prog (read through the read-only cache), four loads in flight, each
+// input read through L1 for each row that uses it.
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+gf2_bitmatrix_kernel(const uint4* __restrict__ prog, const uint8_t* __restrict__ data,
+                     uint8_t* __restrict__ out, int w, int p, long long S) {
+  const long long cols = S / w, wp = (long long)w * p, nunit = cols / U;
+  const uint32_t* groups = reinterpret_cast<const uint32_t*>(prog);
+  const int h0 = (int)__ldg(groups), h1 = (int)__ldg(groups + kWarpsK5);
+  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < nunit;
+       c += (long long)gridDim.x * blockDim.x) {
+    const long long x = c * U, g = div_p(x, p);
+    const uint8_t* dbase = data + g * wp + (x - g * p);
+    uint8_t* obase = out + g * wp + (x - g * p);
+    auto row = [&](uint32_t e) {
+      const uint32_t j = e >> 16;
+      return load_unit<U>(dbase + (long long)j * S + (long long)((e & 0xFFFFu) - j * w) * p);
+    };
+    for (int h = h0; h < h1;) {
+      const uint4 head = __ldg(prog + h);
+      const int n = (int)head.x;
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      const uint4 z = acc;
+      for (int e = 0; e < n; e += 4) {
+        const uint4 a = __ldg(prog + h + 1 + (e >> 2));
+        const uint4 v0 = row(a.x), v1 = e + 1 < n ? row(a.y) : z;
+        const uint4 v2 = e + 2 < n ? row(a.z) : z, v3 = e + 3 < n ? row(a.w) : z;
+        acc = xor4(acc, xor4(xor4(v0, v1), xor4(v2, v3)));
       }
+      store_unit<U>(obase + (long long)head.y * S + (long long)head.z * p, acc);
+      h += 1 + ((n + 3) >> 2);
     }
   }
 }
 
-// K7.  out[i] = table[x[i]]; vec: both pointers 4-byte aligned.
+// K7.  out[i] = table[x[i]].  The 16-byte path (x and out 16-byte
+// aligned): each block covers kUnitsK7 * kThreads consecutive 16-byte
+// units, a thread issuing the loads of its kUnitsK7 units before its
+// first lookup; the n % 16 tail bytes go to the first block's first
+// threads.  One block per stretch, not a persistent grid-stride loop:
+// blocks that each move one stretch and exit kept a plain copy's rate,
+// which the persistent loop fell short of.
+constexpr int kUnitsK7 = 2;
+
+__device__ __forceinline__ uint4 lut16(const uint8_t* t, uint4 v) {
+  return make_uint4(lut4(t, v.x), lut4(t, v.y), lut4(t, v.z), lut4(t, v.w));
+}
+
+__global__ void __launch_bounds__(kThreads)
+byte_lut16_kernel(const uint8_t* __restrict__ table, const uint8_t* __restrict__ x,
+                  uint8_t* __restrict__ out, long long n) {
+  __shared__ uint8_t t[256];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) t[i] = table[i];
+  __syncthreads();
+  const long long n16 = n / 16;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* ov = reinterpret_cast<uint4*>(out);
+  const long long c = (long long)blockIdx.x * blockDim.x * kUnitsK7 + threadIdx.x;
+  uint4 v[kUnitsK7];
+#pragma unroll
+  for (int u = 0; u < kUnitsK7; ++u)
+    if (c + u * blockDim.x < n16) v[u] = __ldg(xv + c + u * blockDim.x);
+#pragma unroll
+  for (int u = 0; u < kUnitsK7; ++u)
+    if (c + u * blockDim.x < n16) __stcs(ov + c + u * blockDim.x, lut16(t, v[u]));
+  const long long tail = n16 * 16 + threadIdx.x;
+  if (blockIdx.x == 0 && tail < n) out[tail] = t[x[tail]];
+}
+
+// The edge path (x or out not 16-byte aligned): one 4-byte word a
+// thread (vec: both 4-byte aligned), else bytes.
 __global__ void __launch_bounds__(kThreads)
 byte_lut_kernel(const uint8_t* __restrict__ table, const uint8_t* __restrict__ x,
                 uint8_t* __restrict__ out, long long n, int vec) {
@@ -691,18 +860,14 @@ int grid_for(K kernel, long long n, size_t smem, cudaError_t* err, int block = k
 
 bool aligned(const void* a, uintptr_t to) { return reinterpret_cast<uintptr_t>(a) % to == 0; }
 
-template <int U, int RT>
-int launch_bitmatrix(const void* masks, const void* data, void* out, int kw, int mw, int w, int p,
-                     long long S, cudaStream_t stream) {
-  const long long nunit = S / w / U;
-  const size_t smem = (size_t)kw * 4;
+template <int U>
+int launch_bitmatrix(const uint4* prog, const void* data, void* out, int w, int p, long long S,
+                     cudaStream_t stream) {
   cudaError_t err;
-  int grid = grid_for(gf2_bitmatrix_kernel<U, RT>, nunit, smem, &err);
+  int grid = grid_for(gf2_bitmatrix_kernel<U>, S / w / U, 0, &err);
   if (err != cudaSuccess) return (int)err;
-  dim3 blocks(grid, (mw + RT - 1) / RT);
-  gf2_bitmatrix_kernel<U, RT><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(masks), static_cast<const uint8_t*>(data),
-      static_cast<uint8_t*>(out), kw, mw, w, p, S);
+  gf2_bitmatrix_kernel<U><<<grid, kThreads, 0, stream>>>(
+      prog, static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out), w, p, S);
   return (int)cudaGetLastError();
 }
 
@@ -769,26 +934,41 @@ int ec_matrix_encode(const void* nib, const void* data, void* out, int m, int k,
   return (int)cudaGetLastError();
 }
 
-// K5.  masks: [ceil(mw / rt), kw] u32; data: [kw / w, S] u8; out:
-// [mw / w, S] u8; S a multiple of w * p; rt in {8, 16, 32}.
-int ec_bitmatrix_encode(const void* masks, const void* data, void* out, int kw, int mw, int w,
-                        int p, int rt, long long S, void* stream) {
+// K5.  prog: [prog16] uint4 (ec/kernels.py Bitmatrix.prog), 16-byte
+// aligned; data: [kw / w, S] u8; out: [mw / w, S] u8; S a multiple of
+// w * p.
+int ec_bitmatrix_encode(const void* prog, int prog16, const void* data, void* out, int kw, int mw,
+                        int w, int p, long long S, void* stream) {
   cudaGetLastError();
   if (S <= 0 || mw <= 0) return 0;
-  if (w <= 0 || p <= 0 || kw <= 0 || S % ((long long)w * p) != 0 || (size_t)kw * 4 > 48 * 1024)
+  if (w <= 0 || p <= 0 || kw <= 0 || kw > 0xFFFF || prog16 < 3 || !aligned(prog, 16) ||
+      S % ((long long)w * p) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool word = p % 4 == 0 && aligned(data, 4) && aligned(out, 4);
-  if (word) {
-    if (rt == 8) return launch_bitmatrix<4, 8>(masks, data, out, kw, mw, w, p, S, st);
-    if (rt == 16) return launch_bitmatrix<4, 16>(masks, data, out, kw, mw, w, p, S, st);
-    if (rt == 32) return launch_bitmatrix<4, 32>(masks, data, out, kw, mw, w, p, S, st);
-  } else {
-    if (rt == 8) return launch_bitmatrix<1, 8>(masks, data, out, kw, mw, w, p, S, st);
-    if (rt == 16) return launch_bitmatrix<1, 16>(masks, data, out, kw, mw, w, p, S, st);
-    if (rt == 32) return launch_bitmatrix<1, 32>(masks, data, out, kw, mw, w, p, S, st);
+  const uint4* pr = static_cast<const uint4*>(prog);
+  const bool vec = p % 16 == 0 && aligned(data, 16) && aligned(out, 16);
+  // as many ring stages as fit kStageBytesK5 beside prog, 2 to kMaxStagesK5
+  const size_t pbytes = (size_t)prog16 * 16, stage = (size_t)kw * kTileK5;
+  const long long fit = ((long long)kStageBytesK5 - (long long)pbytes) / (long long)stage;
+  const int stages = (int)(fit < 2 ? 2 : fit > kMaxStagesK5 ? kMaxStagesK5 : fit);
+  const size_t smem = stages * stage + pbytes;
+  if (vec && smem <= (size_t)kMaxSmem - 64) {
+    cudaError_t err = cudaFuncSetAttribute(gf2_bitmatrix_tma_kernel,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    const long long n_tiles = (S / w + kTileK5 - 1) / kTileK5;
+    int grid = grid_for(gf2_bitmatrix_tma_kernel, n_tiles * kThreads, smem, &err);
+    if (err != cudaSuccess) return (int)err;
+    gf2_bitmatrix_tma_kernel<<<grid, kThreads, smem, st>>>(
+        pr, prog16, static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out), kw, w, p, S,
+        stages);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaErrorInvalidValue;
+  if (vec) return launch_bitmatrix<16>(pr, data, out, w, p, S, st);
+  if (p % 4 == 0 && aligned(data, 4) && aligned(out, 4))
+    return launch_bitmatrix<4>(pr, data, out, w, p, S, st);
+  return launch_bitmatrix<1>(pr, data, out, w, p, S, st);
 }
 
 // K6.  threads > 0: the shared-memory path, blocks of threads (<= 128,
@@ -837,13 +1017,22 @@ int ec_xor_program(const void* terms, const void* groups, int n_terms, int n_gro
 int ec_byte_lut(const void* table, const void* x, void* out, long long n, void* stream) {
   cudaGetLastError();
   if (n <= 0) return 0;
-  const int vec = aligned(x, 4) && aligned(out, 4);
-  cudaError_t err;
-  int grid = grid_for(byte_lut_kernel, (n + 3) / 4, 0, &err);
-  if (err != cudaSuccess) return (int)err;
-  byte_lut_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(table), static_cast<const uint8_t*>(x),
-      static_cast<uint8_t*>(out), n, vec);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* t = static_cast<const uint8_t*>(table);
+  const uint8_t* xi = static_cast<const uint8_t*>(x);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (aligned(x, 16) && aligned(out, 16)) {
+    const long long stretch = (long long)kThreads * kUnitsK7 * 16;
+    const long long grid = (n + stretch - 1) / stretch;
+    if (grid > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    byte_lut16_kernel<<<(unsigned)grid, kThreads, 0, st>>>(t, xi, o, n);
+  } else {
+    const int vec = aligned(x, 4) && aligned(out, 4);
+    cudaError_t err;
+    int grid = grid_for(byte_lut_kernel, (n + 3) / 4, 0, &err);
+    if (err != cudaSuccess) return (int)err;
+    byte_lut_kernel<<<grid, kThreads, 0, st>>>(t, xi, o, n, vec);
+  }
   return (int)cudaGetLastError();
 }
 

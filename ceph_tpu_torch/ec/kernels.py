@@ -8,7 +8,12 @@ PyTorch version.  Launches are counted in ``LAUNCHES``.
 - K5 :func:`bitmatrix_encode`: the GF(2) bitmatrix product over packet
   rows, ``out[r] = XOR_s (d[s] & bitmatrix[r, s])``, for any word size
   ``w`` — every bitmatrix codec's encode and decode
-  (``backend.BitmatrixEncoder``).
+  (``backend.BitmatrixEncoder``).  The kernel walks only the set
+  entries: :class:`Bitmatrix` compiles the bitmatrix once into
+  per-output-row lists of input rows in balanced row groups
+  (``Bitmatrix.prog``), which :func:`bitmatrix_walk_plain` interprets
+  in plain PyTorch, tile by tile as the kernel stages them, so the CPU
+  tests hold the lists and the tile order to the reference.
 
 Packet layout (``gfref_bitmatrix_encode``'s, generalised to any w):
 each chunk is groups of ``w`` packets of ``packetsize`` bytes; packet
@@ -46,8 +51,12 @@ import torch
 from .gf_kernels import SMEM_BYTES
 
 U8 = torch.uint8
-ROW_TILES = (8, 16, 32)  # output rows per K5 thread (csrc/ec.cu launch_bitmatrix)
-MAX_KW = 12288  # input packet rows whose masks fit 48 KB of shared memory
+MAX_KW = 0xFFFF  # input packet rows: a K5 entry holds its row in 16 bits
+# K5 (csrc/ec.cu): bytes of each packet row in a staged tile, row groups
+# (one warp each), and the uint4 of group starts before the first row
+K5_TILE = 512  # kTileK5
+K5_GROUPS = 8  # kWarpsK5
+K5_HEAD = 3
 
 # K6 (csrc/ec.cu): threads a block on the shared-memory path, u32 words a
 # thread, terms a group; a term's 16-bit dst code
@@ -72,11 +81,17 @@ def reset_launches() -> None:
 
 class Bitmatrix:
     """A GF(2) bitmatrix ``[MW, KW]`` of a code with word size ``w``,
-    packed for K5 on one device.
+    compiled for K5 on one device.
 
-    ``masks`` is int32 ``[n_tiles, KW]``: bit ``r`` of ``masks[t, s]``
-    is entry ``(t*rt + r, s)``, for the row tile ``rt`` (the smallest
-    of 8, 16, 32 that covers MW, else 32)."""
+    ``prog`` is int32 ``[4 * prog16]``, read as uint4: words 0 to
+    :data:`K5_GROUPS` of the first :data:`K5_HEAD` hold the uint4 index
+    of each row group's first row, then the end.  A row is a header
+    ``(n, i, t, 0)`` (its ``n`` entries, output chunk ``i``, packet
+    ``t``) and ``ceil(n / 4)`` uint4 of entries ``s | (s // w) << 16``,
+    its set input rows in order, the last padded with zeros.  The rows
+    are dealt to the groups longest first, each to the group with the
+    fewest entries (a row's store counts as one), so the kernel's warps
+    finish a tile together."""
 
     def __init__(self, bitmatrix: np.ndarray, w: int, device):
         bits = np.asarray(bitmatrix, np.uint8) & 1
@@ -87,13 +102,29 @@ class Bitmatrix:
             raise ValueError(f"{self.kw} input packet rows; K5 takes at most {MAX_KW}")
         self.w = w
         self.bits = bits
-        self.rt = next((t for t in ROW_TILES if t >= self.mw), ROW_TILES[-1])
-        n_tiles = -(-self.mw // self.rt)
-        padded = np.zeros((n_tiles * self.rt, self.kw), np.uint64)
-        padded[: self.mw] = bits
-        weights = np.uint64(1) << np.arange(self.rt, dtype=np.uint64)
-        words = (padded.reshape(n_tiles, self.rt, self.kw) * weights[None, :, None]).sum(axis=1)
-        self.masks = torch.from_numpy(words.astype(np.uint32).view(np.int32)).to(device)
+        words = [0] * (4 * K5_HEAD)
+        for q, rows in enumerate(_row_groups(bits.sum(axis=1))):
+            words[q] = len(words) // 4
+            for r in rows:
+                cols = np.flatnonzero(bits[r])
+                words += [len(cols), r // w, r % w, 0]
+                words += (cols | (cols // w) << 16).tolist() + [0] * (-len(cols) % 4)
+        words[K5_GROUPS] = len(words) // 4
+        self.prog16 = len(words) // 4
+        self.prog = torch.tensor(np.asarray(words, np.uint32).view(np.int32)).to(device)
+
+
+def _row_groups(counts) -> list[list[int]]:
+    """K5's row groups: rows longest first (then by index), each to the
+    group with the fewest entries so far, a row's store counting as one
+    (the lowest group on a tie); each group's rows in that order."""
+    groups: list[list[int]] = [[] for _ in range(K5_GROUPS)]
+    heap = [(0, q) for q in range(K5_GROUPS)]
+    for r in sorted(range(len(counts)), key=lambda r: (-int(counts[r]), r)):
+        load, q = heapq.heappop(heap)
+        groups[q].append(r)
+        heapq.heappush(heap, (load + int(counts[r]) + 1, q))
+    return groups
 
 
 def _groups(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -> int:
@@ -121,6 +152,78 @@ def bitmatrix_encode_plain(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -
     return out.view(bm.mw // w, data.shape[1])
 
 
+def _prog_rows(bm: Bitmatrix):
+    """(group, output chunk, packet, input rows) of every row of
+    ``bm.prog``, decoded from the words the kernel reads."""
+    words = bm.prog.cpu().numpy().view(np.uint32)
+    quads = words.reshape(-1, 4)
+    for q in range(K5_GROUPS):
+        h = int(words[q])
+        while h < int(words[q + 1]):
+            n, i, t, _ = (int(v) for v in quads[h])
+            ents = quads[h + 1:h + 1 + -(-n // 4)].reshape(-1)[:n]
+            yield q, i, t, ents
+            h += 1 + -(-n // 4)
+
+
+def bitmatrix_walk_plain(bm: Bitmatrix, data: torch.Tensor, packetsize: int,
+                         staged: bool) -> torch.Tensor:
+    """Plain interpreter of K5's walk over ``bm.prog``, as each path of
+    the kernel runs it.  ``staged`` (``packetsize % 16 == 0``): tiles of
+    :data:`K5_TILE` columns, every input row's columns of a tile copied
+    piece by piece (split where a packet ends) into one stage buffer
+    that keeps stale bytes past the ragged end, then each group's rows
+    XOR their entries' staged rows and store 16 bytes a lane where the
+    column is in range.  Else the global walk: every row's entries
+    read from the chunks at each column.  ``[k, S]`` u8 -> ``[MW / w,
+    S]``."""
+    g_count = _groups(bm, data, packetsize)
+    w, p, S = bm.w, packetsize, data.shape[1]
+    d = data.reshape(-1)
+    cols, wp = g_count * p, w * p
+    out = torch.zeros((bm.mw // w) * S, dtype=U8, device=data.device)
+    rows = list(_prog_rows(bm))
+
+    def src(ents, base):
+        """Flat byte offsets in ``data`` of each entry's row at ``base``."""
+        j = torch.from_numpy((ents >> 16).astype(np.int64))
+        s = torch.from_numpy((ents & 0xFFFF).astype(np.int64))
+        return (j * S + (s - j * w) * p)[:, None] + base[None, :]
+
+    if not staged:
+        x = torch.arange(cols, device=data.device)
+        g = x // p
+        base = g * wp + (x - g * p)
+        for _, i, t, ents in rows:
+            acc = torch.zeros(cols, dtype=U8, device=data.device)
+            for e in src(ents, base):
+                acc ^= d[e]
+            out[i * S + base + t * p] = acc
+        return out.view(bm.mw // w, S)
+    if p % 16:
+        raise ValueError(f"the staged walk takes packets of whole 16-byte units, not {p}")
+    stage = torch.full((bm.kw, K5_TILE), 0xA5, dtype=U8, device=data.device)
+    lane_bytes = torch.arange(K5_TILE, device=data.device)
+    for x0 in range(0, cols, K5_TILE):
+        n_cols = min(K5_TILE, cols - x0)
+        for s in range(bm.kw):
+            j, l = divmod(s, w)
+            for g in range(x0 // p, (x0 + n_cols - 1) // p + 1):
+                a, b = max(g * p, x0), min((g + 1) * p, x0 + n_cols)
+                start = j * S + g * wp + l * p + (a - g * p)
+                stage[s, a - x0:b - x0] = d[start:start + b - a]
+        x = x0 + lane_bytes
+        live = x - (lane_bytes % 16) < cols  # a lane stores all 16 bytes or none
+        g = x // p
+        dst = g * wp + (x - g * p)
+        for _, i, t, ents in rows:
+            acc = torch.zeros(K5_TILE, dtype=U8, device=data.device)
+            for s in (ents & 0xFFFF).tolist():
+                acc ^= stage[s]
+            out[(i * S + dst + t * p)[live]] = acc[live]
+    return out.view(bm.mw // w, S)
+
+
 def bitmatrix_encode(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -> torch.Tensor:
     """K5: ``[k, S]`` u8 chunks -> ``[MW / w, S]`` u8 through the GF(2)
     bitmatrix, ``S`` a multiple of ``w * packetsize``."""
@@ -131,14 +234,14 @@ def bitmatrix_encode(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -> torc
 
     if data.dtype != U8 or not data.is_contiguous():
         raise TypeError("bitmatrix_encode takes a contiguous uint8 tensor")
-    if bm.masks.device != data.device:
-        raise ValueError(f"bitmatrix on {bm.masks.device}, data on {data.device}")
+    if bm.prog.device != data.device:
+        raise ValueError(f"bitmatrix on {bm.prog.device}, data on {data.device}")
     S = data.shape[1]
     out = torch.empty((bm.mw // bm.w, S), dtype=U8, device=data.device)
     if S == 0:
         return out
-    _cuda.launch("ec", "ec_bitmatrix_encode", data.device, _cuda.ptr(bm.masks), _cuda.ptr(data),
-                 _cuda.ptr(out), bm.kw, bm.mw, bm.w, packetsize, bm.rt, S)
+    _cuda.launch("ec", "ec_bitmatrix_encode", data.device, _cuda.ptr(bm.prog), bm.prog16,
+                 _cuda.ptr(data), _cuda.ptr(out), bm.kw, bm.mw, bm.w, packetsize, S)
     LAUNCHES["bitmatrix_encode"] += 1
     return out
 

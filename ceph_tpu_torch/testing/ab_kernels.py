@@ -4,20 +4,24 @@ compare their kernel times.
     python -m ceph_tpu_torch.testing.ab_kernels DIR_A DIR_B DIR_B DIR_A
 
 Each DIR is a checkout of the repository (``git archive`` of a commit,
-unpacked).  In the order given, each checkout's ``python3 chip_smoke.py``
-runs in that directory (it builds the checkout's kernels and drives
-every phase); its output is kept as ``DIR/chip_smoke.out``.  This prints
-one JSON line per run with the card, whether the run ended with
-``"ok": true``, K1's, K2's and K3's times (with their pipe floors where
-the checkout reports them) and each straw2 kernel's instructions per
-draw split by pipe (this checkout's ``testing/sass.py`` applied to the
-library the run built), K4's (k=8 m=3 and k=4 m=2), K5's and K6's times
-with K6's same-repair K5 time, the placements per second of each CRUSH
-mode, the OSDMap update seconds, and each recovery code's
-``recover_pool`` and peering seconds, then a summary.  The runs share one
-card, so the checkouts are compared under one power limit; give them in
-turns (A B B A) so that drift hits both alike.  Exits non-zero if a run
-fails.
+unpacked).  In the order given, each checkout's ``chip_smoke.py`` runs
+in that directory (it builds the checkout's kernels and drives every
+phase) with one change: its ``time_ms`` is the one of the
+``chip_smoke.py`` in the current directory, so every checkout's kernels
+and EC rates are timed alike.  Its output is kept as
+``DIR/chip_smoke.out``.  This prints one JSON line per run with the
+card, whether the run ended with ``"ok": true``, K1's, K2's and K3's
+times (with their pipe floors where the checkout reports them) and each
+straw2 kernel's instructions per draw split by pipe (this checkout's
+``testing/sass.py`` applied to the library the run built), K4's (k=8
+m=3 and k=4 m=2), K5's (encode and, where the checkout has it, the
+64-row decoder), K6's and K7's (64 and 32 MiB) times with K6's
+same-repair K5 time, the placements per second of each CRUSH mode, the
+OSDMap update seconds, each EC code's device and interface GB/s and the
+CLAY repair GB/s, and each recovery code's ``recover_pool`` and peering
+seconds, then a summary.  The runs share one card, so the checkouts are
+compared under one power limit; give them in turns (A B B A) so that
+drift hits both alike.  Exits non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -30,9 +34,23 @@ import sys
 from . import sass
 
 
+# the checkout's chip_smoke with this directory's time_ms
+RUNNER = """
+import importlib.util, sys
+sys.path.insert(0, ".")
+import chip_smoke
+spec = importlib.util.spec_from_file_location("chip_smoke_timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+chip_smoke.time_ms = timing.time_ms
+sys.exit(chip_smoke.main())
+"""
+
+
 def run(checkout: str, timeout: int = 1200) -> dict:
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout, capture_output=True,
-                          text=True, timeout=timeout)
+    timing = os.path.abspath("chip_smoke.py")
+    proc = subprocess.run([sys.executable, "-c", RUNNER, timing], cwd=checkout,
+                          capture_output=True, text=True, timeout=timeout)
     with open(os.path.join(checkout, "chip_smoke.out"), "w") as f:
         f.write(proc.stdout + proc.stderr)
     lines = proc.stdout.splitlines()
@@ -53,6 +71,14 @@ def run(checkout: str, timeout: int = 1200) -> dict:
                 out[f"placements_per_s_{mode}"] = v["placements_per_s"]
         if ln.startswith('{"phase": "osdmap"'):
             out["osdmap_update_s"] = json.loads(ln)["update_s"]
+        if ln.startswith('{"phase": "ec_encode"') or ln.startswith('{"phase": "ec_decode"'):
+            kind, iface = (("encode", "encode_object_GBps") if "ec_encode" in ln[:25]
+                           else ("decode", "decode_GBps"))
+            for code, v in json.loads(ln)["codes"].items():
+                out[f"ec_{kind}_device_GBps_{code}"] = v["device_GBps"]
+                out[f"ec_{kind}_GBps_{code}"] = v[iface]
+        if ln.startswith('{"phase": "ec_plugins"'):
+            out["clay_repair_GBps"] = json.loads(ln)["clay"]["repair_GBps"]
         if ln.startswith('{"phase": "recovery"'):
             for code, v in json.loads(ln)["codes"].items():
                 out[f"recover_pool_s_{code}"] = v["recover_pool_s"]
@@ -65,7 +91,9 @@ def run(checkout: str, timeout: int = 1200) -> dict:
             if r["name"] == "matrix_encode":
                 out["matrix_encode_" + ("k8_m3" if "k=8" in shape else "k4_m2") + "_ms"] = r["ms"]
             elif r["name"] == "bitmatrix_encode":
-                out["bitmatrix_encode_ms"] = r["ms"]
+                out["bitmatrix_" + ("decoder" if "decoder" in shape else "encode") + "_ms"] = r["ms"]
+            elif r["name"] == "byte_lut":
+                out["byte_lut_" + ("64MiB" if "encode" in shape else "32MiB") + "_ms"] = r["ms"]
             elif r["name"] == "schedule_apply":
                 out["schedule_apply_ms"] = r["ms"]
                 out["k5_same_repair_ms"] = r["k5_same_repair_ms"]

@@ -18,28 +18,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``empty_is_hard`` both ways), bit for bit;
 3. ec_kernels: the same for K4 (matrix_encode: k=8 m=3 and k=4 m=2 over
    32 MiB chunks), K5 (bitmatrix_encode: cauchy_good k=8 m=3 w=8,
-   packetsize 2048, over the same) and K7 (byte_lut: one CLAY repair
+   packetsize 2048, over the same, and that code's 64-row decoder with
+   data chunks 0 and 1 lost) and K7 (byte_lut: one CLAY repair
    transform, 32 MiB, and the CLAY encode's, 64 MiB; beside the
    ``torch.take`` call), plus each kernel's edge shapes (ragged
    lengths, K4 at (4, 2, 4100), (5, 1, 131), its global-memory tables
    (k=128 m=8), empty data and data 1 byte past a 16-byte boundary, K5
-   at w = 7 and w = 32, unaligned packets), bit for bit; K4 and K6 carry
-   ptxas's registers and spills;
+   at w = 6, 7 and 32, its 64- and 128-row decoders, 256 input rows,
+   packets of 3, 8 and 48 bytes, data 1 and 4 bytes past a 16-byte
+   boundary, K7 at 16 n + 3 bytes, 7 bytes and unaligned), bit for bit;
+   K4-K7 carry ptxas's registers and spills;
 4. crush: ``make_batch_runner`` on build_simple(1024)'s replicated rule
    (3 replicas), 1M objects, in each mode; bit-equal across modes and to
    the C++ reference tier on a 50k sample; placements/s per mode (the
    modes timed in turns, median of 5 calls each), and a torch.profiler
-   breakdown of one call per mode;
+   breakdown of one call per mode; two rules whose choose step has an
+   effective numrep <= 0 place nothing, equal to the C++ tier, in
+   ``descend`` mode;
 5. osdmap: ``OSDMapMapping.update`` on build_osdmap(1024, pg_num=32768)
    with upmap items, a full pg_upmap, pg_temp, primary affinity and one
    OSD down; a sample of PGs must equal the scalar pipeline;
 6. ec_encode: jerasure reed_sol_van k=8 m=3 (BASELINE's headline) and
-   k=4 m=2 (BASELINE config 2) on a batch of 64 objects of 4 MiB with
-   a 4 KiB stripe unit (256 MiB of data per call): data GB/s
-   device-resident (``encode_async``) and through
+   k=4 m=2 (BASELINE config 2) with a 4 KiB stripe unit, and
+   cauchy_good k=8 m=3 packetsize 2048 (K5; a 64 KiB stripe unit, its
+   alignment), on a batch of 64 objects of 4 MiB (256 MiB of data per
+   call): data GB/s device-resident (``encode_async``) and through
    ``stripe.encode_object`` for one 4 MiB object (host copies
-   included); parity equal to the C++ tier on 4 MiB of columns;
-7. ec_decode: both codes with m chunks erased (data chunks first),
+   included); parity equal to the C++ tier on 4 MiB of columns
+   (``cppref.bitmatrix_encode`` for the packet layout);
+7. ec_decode: the three codes with m chunks erased (data chunks first),
    decoded through ``ec.decode`` and device-resident; bit-equal to the
    data; GB/s;
 8. ec_plugins: the 15 profiles of ``nonregression.ec_cases`` built on
@@ -104,9 +111,15 @@ MIB = 1 << 20
 EC_OBJECTS = 64                # objects per encode call
 EC_OBJECT_BYTES = 4 * MIB      # RBD/RGW default object size
 EC_STRIPE_UNIT = 4096          # Ceph's default EC stripe unit (chunk per stripe)
+# name -> (profile, stripe unit); cauchy_good (K5) aligns a stripe to
+# k*w*packetsize*4 bytes, so its chunk per stripe is 64 KiB
 EC_CODES = {
-    "rs_8_3": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
-    "rs_4_2": {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"},
+    "rs_8_3": ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
+               EC_STRIPE_UNIT),
+    "rs_4_2": ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"},
+               EC_STRIPE_UNIT),
+    "cauchy_8_3": ({"plugin": "jerasure", "technique": "cauchy_good", "k": "8", "m": "3",
+                    "packetsize": "2048"}, 64 * 1024),
 }
 # nonregression.ec_cases' profiles and object, restated (tests/golden/archive.json "ec")
 GOLDEN_EC = {
@@ -211,7 +224,31 @@ def ptxas_report(lib: str) -> dict:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events."""
+    """Milliseconds of one call of ``fn`` on the card: CUDA events around
+    ``reps`` calls back to back, over ``reps``, the median of 3 such runs
+    after a warm-up call.  Back to back, a call's host work (the wrapper
+    and the launch) overlaps the card's work on the call before, so a
+    kernel that outlasts it is timed by the card alone (:func:`call_ms`
+    times a lone call, host work included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int = 10) -> float:
+    """Median milliseconds of a lone call of ``fn``: CUDA events around
+    each call, the card idle before it, so the host work before the
+    launch counts too."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -238,8 +275,9 @@ def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int
                   int_rate: float, library=None) -> dict:
     """Run ``kernel`` and ``plain`` on the same card inputs, compare them
     bit for bit, time both (and ``library``, one PyTorch call of the
-    same function, where there is one), and bound the kernel by bytes
-    and operations."""
+    same function, where there is one) back to back, time a lone call of
+    the kernel (``call_ms``), and bound the kernel by bytes and
+    operations."""
     got, want = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -247,6 +285,7 @@ def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int
     bms, by = bound_ms(nbytes, ops, int_rate)
     return {"name": name, "replaces": replaces, "bit_equal": all(c[0] for c in checks),
             "max_abs_err": max(c[1] for c in checks), "ms": time_ms(kernel),
+            "call_ms": call_ms(kernel),
             "plain_ms": time_ms(plain, 3), "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops,
             "library_ms": time_ms(library) if library is not None else None}
@@ -383,8 +422,20 @@ def phase_ec_kernels(int_rate: float, dev) -> dict:
         "bitmatrix_encode", "ceph_tpu/ec/pallas_kernels.py:94",
         lambda: kernels.bitmatrix_encode(bm, data, 2048),
         lambda: kernels.bitmatrix_encode_plain(bm, data, 2048),
-        (8 + 3) * S + bm.masks.numel() * 4, int(bits.sum()) * (S // 8 // 4), int_rate)
+        (8 + 3) * S + bm.prog.numel() * 4, int(bits.sum()) * (S // 8 // 4), int_rate)
     rec["shape"] = f"cauchy_good k=8 m=3 w=8 p=2048 S={S}"
+    results.append(rec)
+    # the decoder of the same code with data chunks 0 and 1 lost, as
+    # MatrixCodec builds it: 64 rows, 48 of them copies
+    gen = np.vstack([np.eye(8, dtype=np.uint8), gf.cauchy_good_matrix(8, 3)])
+    dec_bits = gf.matrix_to_bitmatrix(gf.invert_matrix(gen[2:10]))
+    dm = kernels.Bitmatrix(dec_bits, 8, dev)
+    rec = kernel_record(
+        "bitmatrix_encode", "ceph_tpu/ec/pallas_kernels.py:94",
+        lambda: kernels.bitmatrix_encode(dm, data, 2048),
+        lambda: kernels.bitmatrix_encode_plain(dm, data, 2048),
+        (8 + 8) * S + dm.prog.numel() * 4, int(dec_bits.sum()) * (S // 8 // 4), int_rate)
+    rec["shape"] = f"cauchy_good k=8 m=3 decoder, chunks (0, 1) lost, 64 rows, p=2048 S={S}"
     results.append(rec)
     del data
     table = torch.from_numpy(gf.mul_table()[gf.gf_inv(1 ^ gf.gf_mul(2, 2))].copy()).to(dev)
@@ -420,18 +471,31 @@ def phase_ec_kernels(int_rate: float, dev) -> dict:
     rs32 = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(4, 2, 32), 32)
     gen = np.vstack([np.eye(128, dtype=np.uint8), rs32])
     dec32 = gf.invert_bitmatrix(np.vstack([gen[r * 32:(r + 1) * 32] for r in (1, 3, 4, 5)]))
-    for label, bits, w, p in (("liberation k=4 w=7 p=8", gfw.liberation_bitmatrix(4, 7), 7, 8),
-                              ("blaum_roth k=4 w=6 p=8", gfw.blaum_roth_bitmatrix(4, 6), 6, 8),
-                              ("reed_sol_van k=4 m=2 w=32 p=4", rs32, 32, 4),
-                              ("w=32 decoder (128 rows) p=4", dec32, 32, 4),
-                              ("cauchy_good k=8 m=3 w=8 p=3", gf.matrix_to_bitmatrix(
-                                  gf.cauchy_good_matrix(8, 3)), 8, 3)):
+    cauchy = gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))
+    w8 = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(8, 3, 32), 32)
+    # (label, bitmatrix, w, p, data offset past a 16-byte boundary)
+    for label, bits, w, p, off in (
+            ("liberation k=4 w=7 p=8", gfw.liberation_bitmatrix(4, 7), 7, 8, 0),
+            ("liberation k=4 w=7 p=48 (tiles end mid-packet)", gfw.liberation_bitmatrix(4, 7),
+             7, 48, 0),
+            ("blaum_roth k=4 w=6 p=8", gfw.blaum_roth_bitmatrix(4, 6), 6, 8, 0),
+            ("reed_sol_van k=4 m=2 w=32 p=4", rs32, 32, 4, 0),
+            ("reed_sol_van k=8 m=3 w=32 p=16 (256 input rows: global)", w8, 32, 16, 0),
+            ("w=32 decoder (128 rows) p=4", dec32, 32, 4, 0),
+            ("w=32 decoder (128 rows) p=16 (staged)", dec32, 32, 16, 0),
+            ("cauchy_good k=8 m=3 w=8 p=3", cauchy, 8, 3, 0),
+            ("cauchy_good decoder (64 rows) p=3", dec_bits, 8, 3, 0),
+            ("cauchy_good k=8 m=3 w=8 p=2048, data 1 byte past", cauchy, 8, 2048, 1),
+            ("cauchy_good k=8 m=3 w=8 p=2048, data 4 bytes past", cauchy, 8, 2048, 4)):
         op = kernels.Bitmatrix(bits, w, dev)
-        data = card_bytes((bits.shape[1] // w, w * p * 4099), SEED + w + p, dev)
+        k, size = bits.shape[1] // w, w * p * 4099
+        data = card_bytes((k * size + off,), SEED + w + p, dev)[off:].view(k, size)
         edge(f"bitmatrix_encode {label}", kernels.bitmatrix_encode(op, data, p),
              kernels.bitmatrix_encode_plain(op, data, p))
-    x = card_bytes((64 * MIB + 3,), SEED + 3, dev)
-    edge("byte_lut n=64 MiB + 3", gf_kernels.byte_lut(x, table), gf_kernels.byte_lut_plain(x, table))
+    for n, off in ((64 * MIB + 3, 0), (7, 0), (16 * 4099 + 3, 1), (16 * 4099 + 3, 4)):
+        x = card_bytes((n + off,), SEED + 3, dev)[off:]
+        edge(f"byte_lut n={n}" + (f", {off} bytes past a 16-byte boundary" if off else ""),
+             gf_kernels.byte_lut(x, table), gf_kernels.byte_lut_plain(x, table))
     torch.cuda.synchronize()
     return {"phase": "ec_kernels", "results": results, "edges": edges}
 
@@ -668,12 +732,13 @@ def ec_batch(name: str, dev):
     codes encode the concatenated streams as the objects one by one)."""
     from ceph_tpu_torch.ec import create
 
-    ec = create(EC_CODES[name], device=dev)
+    profile, unit = EC_CODES[name]
+    ec = create(profile, device=dev)
     k = ec.get_data_chunk_count()
-    if ec.get_chunk_size(k * EC_STRIPE_UNIT) != EC_STRIPE_UNIT:
-        raise AssertionError(f"{name}: a {k * EC_STRIPE_UNIT}-byte stripe is not {k} chunks")
+    if ec.get_chunk_size(k * unit) != unit:
+        raise AssertionError(f"{name}: a {k * unit}-byte stripe is not {k} chunks")
     data = card_bytes((k, EC_OBJECTS * EC_OBJECT_BYTES // k), SEED + k, dev)
-    return ec, data
+    return ec, data, unit
 
 
 def host_seconds(fn, reps: int) -> list[float]:
@@ -693,16 +758,20 @@ def phase_ec_encode(dev, batches: dict) -> dict:
 
     out = {}
     for name in EC_CODES:
-        ec, data = ec_batch(name, dev)
+        ec, data, unit = ec_batch(name, dev)
         k, m = ec.get_data_chunk_count(), ec.get_coding_chunk_count()
         parity = ec.codec.encode_async(data)
         cols = -(-4 * MIB // k)  # >= 4 MiB of data columns against the C++ tier
-        want = cppref.matrix_encode(ec.codec.matrix, data[:, :cols].cpu().numpy())
+        sample = data[:, :cols].cpu().numpy()
+        if hasattr(ec.codec, "bitmatrix"):  # the packet layout (K5)
+            want = cppref.bitmatrix_encode(ec.codec.bitmatrix, sample, ec.codec.packetsize)
+        else:
+            want = cppref.matrix_encode(ec.codec.matrix, sample)
         if not np.array_equal(parity[:, :cols].cpu().numpy(), want):
             raise AssertionError(f"{name}: parity differs from the C++ tier")
         ms = time_ms(lambda: ec.codec.encode_async(data))
         obj = np.random.default_rng(SEED).integers(0, 256, EC_OBJECT_BYTES, dtype=np.uint8)
-        sw = k * EC_STRIPE_UNIT
+        sw = k * unit
         iface = host_seconds(lambda: stripe.encode_object(ec, obj, sw), 10)
         sinfo, shards = stripe.encode_object(ec, obj, sw)
         if stripe.decode_object(ec, sinfo, shards, len(obj), failed=set(range(m))) != obj.tobytes():
@@ -877,7 +946,50 @@ def phase_crush(n: int, dev, modes) -> dict:
     if not (np.array_equal(first[0][:k].cpu().numpy(), rr)
             and np.array_equal(first[1][:k].cpu().numpy(), ll)):
         raise AssertionError("device placements differ from the C++ tier")
-    return {"phase": "crush", "objects": n, "modes": out, "cpp_sample": k}
+    edges = emptying_rule_edges(dev)
+    bad = [e["case"] for e in edges if not e["equal_cpp"]]
+    if bad:
+        raise AssertionError(f"rules that empty the working vector differ from the C++ tier: {bad}")
+    return {"phase": "crush", "objects": n, "modes": out, "cpp_sample": k, "edges": edges}
+
+
+def emptying_rule_edges(dev, n: int = 4096) -> list[dict]:
+    """A choose step whose effective numrep (arg1 + result_max) is <= 0
+    empties the working vector, so the emit writes nothing
+    (``mapper.c``, the C++ tier): on ``build_flat(4)`` take, choose
+    firstn -1 type 0, emit, result_max 1; and on ``build_simple(16)``
+    take, choose firstn 2 host, choose firstn -3 osd, emit, result_max
+    3.  Each runs in ``descend`` mode on the card against the C++ tier."""
+    from ceph_tpu_torch.crush.engine import make_batch_runner
+    from ceph_tpu_torch.crush.map import OP_CHOOSE_FIRSTN, OP_EMIT, OP_TAKE, Step
+    from ceph_tpu_torch.models.clusters import build_flat, build_simple
+    from ceph_tpu_torch.testing import cppref
+
+    flat, simple = build_flat(4), build_simple(16)
+    host = simple.type_id("host")
+    cases = {
+        "flat(4): choose firstn -1 type 0, result_max 1": (flat, [
+            Step(OP_TAKE, flat.bucket_by_name("default").id), Step(OP_CHOOSE_FIRSTN, -1, 0),
+            Step(OP_EMIT)], 1),
+        "simple(16): choose firstn 2 host, choose firstn -3 osd, result_max 3": (simple, [
+            Step(OP_TAKE, simple.bucket_by_name("default").id), Step(OP_CHOOSE_FIRSTN, 2, host),
+            Step(OP_CHOOSE_FIRSTN, -3, 0), Step(OP_EMIT)], 3),
+    }
+    xs = np.arange(n, dtype=np.uint32)
+    out = []
+    for label, (m, steps, rm) in cases.items():
+        rule = m.add_rule(f"emptying_{len(out)}", steps)
+        dense = m.to_dense()
+        w = np.full(dense.max_devices, 0x10000, np.uint32)
+        crush_arg, fn = make_batch_runner(dense, rule, rm, mode="descend", device=dev)
+        res, lens = fn(crush_arg, w, xs)
+        cres, clens = cppref.do_rule_batch(dense, [(s.op, s.arg1, s.arg2) for s in steps], xs,
+                                           w, rm)
+        out.append({"case": label, "mode": "descend", "xs": n,
+                    "max_len": int(lens.max()), "cpp_max_len": int(clens.max()),
+                    "equal_cpp": bool(np.array_equal(res.cpu().numpy(), cres)
+                                      and np.array_equal(lens.cpu().numpy(), clens))})
+    return out
 
 
 def phase_osdmap(dev) -> dict:
@@ -956,9 +1068,10 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     ec = phase_ec_kernels(int_rate, dev)
+    prefixes = {"matrix_encode": "gf_matrix", "bitmatrix_encode": "gf2_bitmatrix",
+                "byte_lut": "byte_lut"}
     for r in ec["results"]:
-        if r["name"] == "matrix_encode":
-            r["ptxas"] = {k: v for k, v in ptxas["ec"].items() if k.startswith("gf_matrix")}
+        r["ptxas"] = {k: v for k, v in ptxas["ec"].items() if k.startswith(prefixes[r["name"]])}
     emit(ec)
     bad = [r["name"] for r in ec["results"] if not r["bit_equal"]]
     bad += [e["case"] for e in ec["edges"] if not e["bit_equal"]]
@@ -1011,6 +1124,7 @@ def main() -> int:
     # one record per kernel: K4 at k=8 m=3, K7 over the CLAY encode's 64 MiB
     main_ec = [r for r in ec["results"] if r["name"] != "matrix_encode" or "k=8" in r["shape"]]
     main_ec = [r for r in main_ec if r["name"] != "byte_lut" or "encode" in r["shape"]]
+    main_ec = [r for r in main_ec if r["name"] != "bitmatrix_encode" or "decoder" not in r["shape"]]
     main_ec += sched["results"]
     records = [dict(k, source="ceph_tpu_torch/csrc/straw2.cu") for k in kernels]
     records += [dict(r, source="ceph_tpu_torch/csrc/ec.cu") for r in main_ec]

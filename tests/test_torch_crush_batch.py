@@ -4,7 +4,9 @@ For every rule shape, ``ceph_tpu_torch.crush.engine.make_batch_runner``
 in each mode (on the CPU every mode runs the kernels' plain versions)
 must equal the reference's ``make_batch_runner`` (jnp path, kernel mode
 "0") and ``cppref.do_rule_batch``.  Maps are built in the reference
-package and carried across with ``ceph_tpu_torch.convert``.  All
+package and carried across with ``ceph_tpu_torch.convert``.  Rules
+whose choose step empties the working vector are held against the C++
+tier alone (the reference's engine differs there, ROADMAP's R5).  All
 comparisons are integer: exact equality.
 """
 
@@ -198,3 +200,64 @@ def test_unknown_mode_raises():
     tm, rule, rm, *_ = _reference("flat")
     with pytest.raises(ValueError):
         engine.make_batch_runner(tm.to_dense(), rule, rm, mode="fused", device="cpu")
+
+
+def _emptying(kind: str):
+    """Rules in which a choose step empties the working vector: an
+    effective ``numrep = arg1 + result_max <= 0`` (F1's inputs), or a
+    choose over a vector of devices, where no entry is a bucket."""
+    def build():
+        if kind == "flat_numrep_neg":
+            m = build_flat(4)
+            root = m.bucket_by_name("default").id
+            return m, [Step(OP_TAKE, root), Step(OP_CHOOSE_FIRSTN, -1, 0), Step(OP_EMIT)], 1
+        m = build_simple(16)
+        root, host = m.bucket_by_name("default").id, m.type_id("host")
+        steps = {
+            "chained_numrep_neg": [Step(OP_TAKE, root), Step(OP_CHOOSE_FIRSTN, 2, host),
+                                   Step(OP_CHOOSE_FIRSTN, -3, 0), Step(OP_EMIT)],
+            # the emptied vector, then a new take that places normally
+            "take_after_emptied": [Step(OP_TAKE, root), Step(OP_CHOOSE_FIRSTN, -3, host),
+                                   Step(OP_EMIT), Step(OP_TAKE, root),
+                                   Step(OP_CHOOSELEAF_FIRSTN, 0, host), Step(OP_EMIT)],
+            "choose_after_emptied": [Step(OP_TAKE, root), Step(OP_CHOOSE_FIRSTN, -3, host),
+                                     Step(OP_CHOOSELEAF_FIRSTN, 2, host), Step(OP_EMIT)],
+            "choose_over_devices": [Step(OP_TAKE, root), Step(OP_CHOOSE_FIRSTN, 2, 0),
+                                    Step(OP_CHOOSE_FIRSTN, 1, host), Step(OP_EMIT)],
+            "choose_after_leaf": [Step(OP_TAKE, root), Step(OP_CHOOSELEAF_FIRSTN, 2, host),
+                                  Step(OP_CHOOSE_INDEP, 1, 0), Step(OP_EMIT)],
+        }[kind]
+        return m, steps, 3
+    return build
+
+
+EMPTYING = ("flat_numrep_neg", "chained_numrep_neg", "take_after_emptied",
+            "choose_after_emptied", "choose_over_devices", "choose_after_leaf")
+
+
+@pytest.mark.parametrize("mode", interp_batch.MODES)
+@pytest.mark.parametrize("kind", EMPTYING)
+def test_emptied_working_vector_matches_cpp(kind, mode):
+    """A choose that empties the working vector leaves nothing for a later
+    choose or the emit until the next take (``mapper.c::crush_do_rule``,
+    ``cpp/crush_ref.cpp``'s choose case).  Held against the C++ tier only:
+    the reference engine makes the error logged as R5 and gives ``[-1]``
+    on ``flat_numrep_neg`` and ``[-5, -4]`` on ``chained_numrep_neg``;
+    the port follows the C++ tier there on purpose.  Exact equality."""
+    jm, steps, rm = _emptying(kind)()
+    jrule = jm.add_rule("emptying", steps)
+    xs = np.random.default_rng(len(kind)).integers(0, 2**32, N, dtype=np.uint32)
+    w = np.full(jm.to_dense().max_devices, 0x10000, np.uint32)
+    cres, clens = cppref.do_rule_batch(
+        jm.to_dense(), [(s.op, s.arg1, s.arg2) for s in jrule.steps], xs, w, rm)
+    tm = crushmap_from_reference(jm.to_obj())
+    dense, rule = tm.to_dense(), tm.rules[jrule.id]
+    assert engine.runner_signature(dense, rule, rm, mode)[0] == "fast"
+    ca, fn = engine.make_batch_runner(dense, rule, rm, mode=mode, device="cpu")
+    res, lens = fn(ca, w, xs)
+    np.testing.assert_array_equal(res.numpy(), cres)  # exact
+    np.testing.assert_array_equal(lens.numpy(), clens)
+    if kind != "take_after_emptied":
+        assert not clens.any()
+    else:
+        assert (clens == rm).all()

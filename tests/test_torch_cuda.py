@@ -5,8 +5,9 @@ and the batch runner's three modes against the CPU plain versions, at a
 small size, K2/K3 on tables too large for shared memory, K1 and K3 on
 their edges (``ceph_tpu_torch/testing/straw2_edges.py``); the EC
 kernels K4, K5 and K7 against theirs on edge shapes (ragged lengths,
-K4's global-memory table path, K5 at w = 6, 7, 32 and unaligned packet
-sizes), K6 on its shared-memory paths (two input stages and one) and its
+K4's global-memory table path, K5 at w = 6, 7, 32, its 64- and 128-row
+decoders, unaligned packet sizes and data, K7 at 16 n + 3 bytes and
+on unaligned data), K6 on its shared-memory paths (two input stages and one) and its
 global-memory path, codecs built on
 the card against the same on the CPU, and a small ``recover_pool`` on the
 card against the same on the CPU.  Run them
@@ -210,32 +211,48 @@ def _bitmatrix(kind):
     bm = gfw.matrix_to_bitmatrix(gfw.vandermonde_matrix(4, 2, 32), 32)
     if kind == "rs_w32":
         return bm, 32
+    if kind == "decoder_w8":  # cauchy_good k=8 m=3, data chunks 0 and 1 lost: 64 rows
+        gen = np.vstack([np.eye(64, dtype=np.uint8),
+                         gf.matrix_to_bitmatrix(gf.cauchy_good_matrix(8, 3))])
+        return gf.invert_bitmatrix(gen[16:80]), 8
     # a w = 32 decoder: 128 output rows
     gen = np.vstack([np.eye(128, dtype=np.uint8), bm])
     sub = np.vstack([gen[r * 32:(r + 1) * 32] for r in (1, 3, 4, 5)])
     return gf.invert_bitmatrix(sub), 32
 
 
-@pytest.mark.parametrize("kind,p", [("cauchy_w8", 2048), ("cauchy_w8", 3), ("blaum_roth_w6", 8),
-                                    ("liberation_w7", 8), ("liberation_w7", 5), ("rs_w32", 4),
-                                    ("decoder_w32", 4)])
-def test_bitmatrix_encode_matches_plain(card, kind, p):
+@pytest.mark.parametrize("kind,p,offset", [
+    ("cauchy_w8", 2048, 0), ("cauchy_w8", 3, 0), ("blaum_roth_w6", 8, 0), ("liberation_w7", 8, 0),
+    ("liberation_w7", 5, 0), ("liberation_w7", 48, 0), ("rs_w32", 4, 0), ("rs_w32", 16, 0),
+    ("decoder_w32", 4, 0), ("decoder_w32", 16, 0), ("decoder_w8", 2048, 0),
+    ("cauchy_w8", 2048, 4), ("cauchy_w8", 2048, 1), ("decoder_w8", 16, 1),
+])
+def test_bitmatrix_encode_matches_plain(card, kind, p, offset):
+    """Both paths of K5 (staged: p a multiple of 16 and the data
+    16-byte aligned; else the global walk), data ``offset`` bytes past
+    a 16-byte boundary."""
     from ceph_tpu_torch.ec import kernels
 
     bits, w = _bitmatrix(kind)
     bm = kernels.Bitmatrix(bits, w, card)
-    data = _bytes((bits.shape[1] // w, w * p * 37), w + p, card)
+    k, size = bits.shape[1] // w, w * p * 37
+    data = _bytes((k * size + offset,), w + p, card)[offset:].view(k, size)
     got = kernels.bitmatrix_encode(bm, data, p)
     torch.cuda.synchronize()
     assert torch.equal(got, kernels.bitmatrix_encode_plain(bm, data, p))
 
 
-@pytest.mark.parametrize("shape", [(7,), (3, 1001), (1 << 20,), (0,)])
-def test_byte_lut_matches_plain(card, shape):
+@pytest.mark.parametrize("shape,offset", [((7,), 0), ((3, 1001), 0), ((1 << 20,), 0), ((0,), 0),
+                                          ((16 * 4099 + 3,), 0), ((16 * 4099 + 3,), 1),
+                                          ((16 * 4099 + 3,), 4)])
+def test_byte_lut_matches_plain(card, shape, offset):
+    """K7's 16-byte path and its tail, and its edge path on data 1 or 4
+    bytes past a 16-byte boundary."""
     from ceph_tpu_torch.ec import gf, gf_kernels
 
     table = torch.from_numpy(gf.mul_table()[0x8E].copy()).to(card)
-    x = _bytes(shape, 5, card)
+    n = int(np.prod(shape))
+    x = _bytes((n + offset,), 5, card)[offset:].view(shape)
     got = gf_kernels.byte_lut(x, table)
     torch.cuda.synchronize()
     assert torch.equal(got, gf_kernels.byte_lut_plain(x, table))

@@ -5,7 +5,9 @@ and the C++ tier, with the cases of ``tests/test_pallas_gf.py``; K5
 (``kernels.bitmatrix_encode``) against ``gf.bitmatrix_encode`` and the
 C++ tier at w = 8 and against the reference's ``BitmatrixEncoder`` at
 w in {6, 7, 16, 32} and for square decoder bitmatrices, with the packet
-sizes of ``tests/test_ec_pallas.py``; K7 (``gf_kernels.byte_lut``)
+sizes of ``tests/test_ec_pallas.py``, and the kernel's walk over its
+compiled row lists (``kernels.bitmatrix_walk_plain``) on both of its
+paths against the reference's ``BitmatrixEncoder``; K7 (``gf_kernels.byte_lut``)
 against ``mul_table()`` rows indexed in numpy.  On CPU tensors each
 wrapper runs its plain version.  All comparisons are integer: exact
 equality.
@@ -109,19 +111,74 @@ def test_bitmatrix_encode_any_w_matches_reference_encoder(name, p, decoder):
     np.testing.assert_array_equal(got, want)
 
 
-def test_bitmatrix_row_tiles_and_masks():
-    """Row tiles: 8, 16 or 32 output rows per tile; every mask bit is
-    its bitmatrix entry."""
-    rng = np.random.default_rng(3)
-    for mw, rt in ((8, 8), (16, 16), (24, 32), (64, 32), (256, 32)):
-        bits = rng.integers(0, 2, (mw, 32), dtype=np.uint8)
-        bm = kernels.Bitmatrix(bits, 8, "cpu")
-        assert bm.rt == rt
-        masks = bm.masks.numpy().view(np.uint32)
-        assert masks.shape == (-(-mw // rt), 32)
-        r = np.arange(mw)
-        got = (masks[r // rt] >> (r % rt)[:, None].astype(np.uint32)) & 1
-        np.testing.assert_array_equal(got, bits)
+@pytest.mark.parametrize("mw,kw", [(8, 32), (16, 32), (24, 32), (64, 32), (256, 32), (24, 64)])
+def test_bitmatrix_prog_lists_every_set_entry(mw, kw):
+    """K5's operand: every output row once, in one of the 8 row groups,
+    with its output chunk and packet and exactly its set input rows in
+    order (row and chunk packed as ``s | (s // w) << 16``, padding zero);
+    the groups' entries (a row's store counting one) differ by at most
+    one row's."""
+    rng = np.random.default_rng(mw * 7 + kw)
+    bits = rng.integers(0, 2, (mw, kw), dtype=np.uint8)
+    bits[3] = 0  # an empty row stores zeros
+    bm = kernels.Bitmatrix(bits, 8, "cpu")
+    words = bm.prog.numpy().view(np.uint32)
+    assert words.size == 4 * bm.prog16 and words[0] == kernels.K5_HEAD
+    assert words[kernels.K5_GROUPS] == bm.prog16
+    seen, loads = [], [0] * kernels.K5_GROUPS
+    for q, i, t, ents in kernels._prog_rows(bm):
+        r = i * 8 + t
+        s = ents & 0xFFFF
+        np.testing.assert_array_equal(s, np.flatnonzero(bits[r]))
+        np.testing.assert_array_equal(ents >> 16, s // 8)
+        seen.append(r)
+        loads[q] += len(ents) + 1
+    assert sorted(seen) == list(range(mw))
+    assert max(loads) - min(loads) <= int(bits.sum(axis=1).max()) + 1
+    quads = words.reshape(-1, 4)
+    h = kernels.K5_HEAD
+    while h < bm.prog16:  # padding after each row's entries is zero
+        n = int(quads[h, 0])
+        assert not quads[h + 1:h + 1 + -(-n // 4)].reshape(-1)[n:].any() and quads[h, 3] == 0
+        h += 1 + -(-n // 4)
+
+
+def _walk_case(name: str) -> tuple[np.ndarray, int]:
+    if name == "cauchy_good_w8":
+        return ref_gf.matrix_to_bitmatrix(ref_gf.cauchy_good_matrix(8, 3)), 8
+    if name == "decoder_w32":
+        return _decoder("rs_w32")
+    return _native(name)
+
+
+@pytest.mark.parametrize("name,p", [
+    ("liberation_w7", 8), ("liberation_w7", 48), ("blaum_roth_w6", 8), ("blaum_roth_w6", 16),
+    ("cauchy_good_w8", 2048), ("cauchy_good_w8", 3), ("rs_w32", 4), ("rs_w32", 16),
+    ("decoder_w32", 16),
+])
+def test_bitmatrix_walk_matches_reference_encoder(name, p):
+    """K5's walk over its row lists (``bitmatrix_walk_plain``), on the
+    kernel's staged path (tiles of 512 columns copied piece by piece,
+    stale bytes past the ragged end) where the packets are whole 16-byte
+    units and on its global path always, against the reference's
+    ``BitmatrixEncoder``; the 128-row w = 32 decoder and p = 48 (tiles
+    that end mid-packet) included."""
+    bm, w = _walk_case(name)
+    k = bm.shape[1] // w
+    rng = np.random.default_rng(w * 7 + p)
+    groups = 3 if p == 2048 else 37  # at least one ragged tile either way
+    data = rng.integers(0, 256, (k, w * p * groups), dtype=np.uint8)
+    want = RefBitmatrixEncoder(bm, p, w).encode(data)
+    op = kernels.Bitmatrix(bm, w, "cpu")
+    for staged in ((False, True) if p % 16 == 0 else (False,)):
+        got = kernels.bitmatrix_walk_plain(op, _t(data), p, staged).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_bitmatrix_walk_staged_needs_whole_units():
+    op = kernels.Bitmatrix(ref_gf.matrix_to_bitmatrix(ref_gf.cauchy_matrix(4, 2)), 8, "cpu")
+    with pytest.raises(ValueError):
+        kernels.bitmatrix_walk_plain(op, torch.zeros(4, 8 * 24, dtype=torch.uint8), 24, True)
 
 
 def test_bitmatrix_encode_rejects_ragged_chunks():
