@@ -88,6 +88,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -837,25 +839,86 @@ xor_program_global(const uint32_t* __restrict__ terms, const uint16_t* __restric
   }
 }
 
+// Launch settings, made once: per kernel and device, the dynamic
+// shared memory it is lifted to and whether it prefers shared memory
+// over L1; per kernel, device, shared memory and block, the blocks that
+// can be resident.  A launch that finds its entry makes no driver call
+// besides the launch.
+struct Lifted {
+  const void* fn;
+  int dev;
+  size_t smem;  // the kernel's dynamic shared-memory limit as set
+  bool carveout;
+};
+
+struct Resident {
+  const void* fn;
+  int dev;
+  size_t smem;
+  int block;
+  int blocks;  // SMs x blocks per SM
+};
+
+std::mutex g_launch_mu;
+Lifted g_lifted[16];
+int g_n_lifted = 0;
+Resident g_resident[64];
+int g_n_resident = 0;
+
+cudaError_t lift(const void* fn, int dev, size_t smem, bool carveout) {
+  constexpr size_t kDefault = 48 * 1024;
+  Lifted* e = nullptr;
+  for (int i = 0; i < g_n_lifted; ++i)
+    if (g_lifted[i].fn == fn && g_lifted[i].dev == dev) e = &g_lifted[i];
+  if (!e && g_n_lifted < 16) {
+    e = &g_lifted[g_n_lifted++];
+    *e = Lifted{fn, dev, kDefault, false};
+  }  // else: untracked, so set again by every launch that needs it
+  if (carveout && !(e && e->carveout)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (e) e->carveout = true;
+  }
+  if (smem > (e ? e->smem : kDefault)) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    if (e) e->smem = smem;
+  }
+  return cudaSuccess;
+}
+
 // Grid of a grid-stride launch: no more blocks than can be resident at
 // once (each block stages its tables once), no more than the work needs.
+// carveout: the kernel prefers shared memory over L1.
 template <typename K>
-int grid_for(K kernel, long long n, size_t smem, cudaError_t* err, int block = kThreads) {
-  int dev = 0, sms = 0, per_sm = 0;
+int grid_for(K kernel, long long n, size_t smem, cudaError_t* err, int block = kThreads,
+             bool carveout = false) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int dev = 0, blocks = 0;
   *err = cudaGetDevice(&dev);
   if (*err != cudaSuccess) return 0;
-  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (*err != cudaSuccess) return 0;
-  if (smem > 48 * 1024) {
-    *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  {
+    std::lock_guard<std::mutex> lock(g_launch_mu);
+    *err = lift(fn, dev, smem, carveout);
     if (*err != cudaSuccess) return 0;
+    for (int i = 0; i < g_n_resident && !blocks; ++i) {
+      const Resident& e = g_resident[i];
+      if (e.fn == fn && e.dev == dev && e.smem == smem && e.block == block) blocks = e.blocks;
+    }
+    if (!blocks) {
+      int sms = 0, per_sm = 0;
+      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (*err != cudaSuccess) return 0;
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
+      if (*err != cudaSuccess) return 0;
+      blocks = sms * (per_sm < 1 ? 1 : per_sm);
+      if (g_n_resident < 64) g_resident[g_n_resident++] = Resident{fn, dev, smem, block, blocks};
+    }
   }
-  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, smem);
-  if (*err != cudaSuccess) return 0;
-  if (per_sm < 1) per_sm = 1;
-  long long need = (n + block - 1) / block;
-  long long cap = (long long)sms * per_sm;
-  return (int)(need < cap ? need : cap);
+  const long long need = (n + block - 1) / block;
+  return (int)(need < blocks ? need : blocks);
 }
 
 bool aligned(const void* a, uintptr_t to) { return reinterpret_cast<uintptr_t>(a) % to == 0; }
@@ -875,13 +938,10 @@ template <bool kBulk>
 int launch_program(const uint4* terms, int n_groups, const uint32_t* in, uint32_t* out, int n_in,
                    int n_out, int n_slots, int zero_slot, int out_slot0, int in_slot0, int stages,
                    long long nw, int threads, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(xor_program_smem<kBulk>,
-                                         cudaFuncAttributePreferredSharedMemoryCarveout,
-                                         cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
   const long long tile = (long long)threads * kWords;
   int grid = grid_for(xor_program_smem<kBulk>, (nw + tile - 1) / tile * threads, smem, &err,
-                      threads);
+                      threads, true);
   if (err != cudaSuccess) return (int)err;
   xor_program_smem<kBulk><<<grid, threads, smem, st>>>(terms, n_groups, in, out, n_in, n_out,
                                                        n_slots, zero_slot, out_slot0, in_slot0,
@@ -953,12 +1013,9 @@ int ec_bitmatrix_encode(const void* prog, int prog16, const void* data, void* ou
   const int stages = (int)(fit < 2 ? 2 : fit > kMaxStagesK5 ? kMaxStagesK5 : fit);
   const size_t smem = stages * stage + pbytes;
   if (vec && smem <= (size_t)kMaxSmem - 64) {
-    cudaError_t err = cudaFuncSetAttribute(gf2_bitmatrix_tma_kernel,
-                                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                                           cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
+    cudaError_t err;
     const long long n_tiles = (S / w + kTileK5 - 1) / kTileK5;
-    int grid = grid_for(gf2_bitmatrix_tma_kernel, n_tiles * kThreads, smem, &err);
+    int grid = grid_for(gf2_bitmatrix_tma_kernel, n_tiles * kThreads, smem, &err, kThreads, true);
     if (err != cudaSuccess) return (int)err;
     gf2_bitmatrix_tma_kernel<<<grid, kThreads, smem, st>>>(
         pr, prog16, static_cast<const uint8_t*>(data), static_cast<uint8_t*>(out), kw, w, p, S,

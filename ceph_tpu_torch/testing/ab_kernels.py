@@ -4,24 +4,22 @@ compare their kernel times.
     python -m ceph_tpu_torch.testing.ab_kernels DIR_A DIR_B DIR_B DIR_A
 
 Each DIR is a checkout of the repository (``git archive`` of a commit,
-unpacked).  In the order given, each checkout's ``chip_smoke.py`` runs
-in that directory (it builds the checkout's kernels and drives every
-phase) with one change: its ``time_ms`` is the one of the
-``chip_smoke.py`` in the current directory, so every checkout's kernels
-and EC rates are timed alike.  Its output is kept as
-``DIR/chip_smoke.out``.  This prints one JSON line per run with the
-card, whether the run ended with ``"ok": true``, K1's, K2's and K3's
-times (with their pipe floors where the checkout reports them) and each
-straw2 kernel's instructions per draw split by pipe (this checkout's
-``testing/sass.py`` applied to the library the run built), K4's (k=8
-m=3 and k=4 m=2), K5's (encode and, where the checkout has it, the
-64-row decoder), K6's and K7's (64 and 32 MiB) times with K6's
-same-repair K5 time, the placements per second of each CRUSH mode, the
-OSDMap update seconds, each EC code's device and interface GB/s and the
-CLAY repair GB/s, and each recovery code's ``recover_pool`` and peering
-seconds, then a summary.  The runs share one card, so the checkouts are
-compared under one power limit; give them in turns (A B B A) so that
-drift hits both alike.  Exits non-zero if a run fails.
+unpacked).  In the order given, each checkout's ``python3 chip_smoke.py``
+runs in that directory (it builds the checkout's kernels and drives
+every phase); its output is kept as ``DIR/chip_smoke.out``.
+This prints one JSON line per run with the card, whether the run ended
+with ``"ok": true``, K1's, K2's and K3's times (with their pipe floors
+where the checkout reports them) and each straw2 kernel's instructions
+per draw split by pipe (this checkout's ``testing/sass.py`` applied to
+the library the run built), K4's (k=8 m=3 and k=4 m=2), K5's (encode
+and, where the checkout has it, the 64-row decoder), K6's and K7's (64
+and 32 MiB) times with K6's same-repair K5 time, the placements per
+second of each CRUSH mode, the OSDMap update seconds, each EC code's
+device and interface GB/s and the CLAY repair GB/s, and each recovery
+code's ``recover_pool`` and peering seconds, then a summary.  The runs
+share one card, so the checkouts are compared under one power limit;
+give them in turns (A B B A) so that drift hits both alike.  Exits
+non-zero if a run fails.
 """
 
 from __future__ import annotations
@@ -34,23 +32,9 @@ import sys
 from . import sass
 
 
-# the checkout's chip_smoke with this directory's time_ms
-RUNNER = """
-import importlib.util, sys
-sys.path.insert(0, ".")
-import chip_smoke
-spec = importlib.util.spec_from_file_location("chip_smoke_timing", sys.argv[1])
-timing = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(timing)
-chip_smoke.time_ms = timing.time_ms
-sys.exit(chip_smoke.main())
-"""
-
-
 def run(checkout: str, timeout: int = 1200) -> dict:
-    timing = os.path.abspath("chip_smoke.py")
-    proc = subprocess.run([sys.executable, "-c", RUNNER, timing], cwd=checkout,
-                          capture_output=True, text=True, timeout=timeout)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=checkout, capture_output=True,
+                          text=True, timeout=timeout)
     with open(os.path.join(checkout, "chip_smoke.out"), "w") as f:
         f.write(proc.stdout + proc.stderr)
     lines = proc.stdout.splitlines()

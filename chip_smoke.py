@@ -34,7 +34,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    modes timed in turns, median of 5 calls each), and a torch.profiler
    breakdown of one call per mode; two rules whose choose step has an
    effective numrep <= 0 place nothing, equal to the C++ tier, in
-   ``descend`` mode;
+   ``descend`` mode (run before the path's launch counts start);
 5. osdmap: ``OSDMapMapping.update`` on build_osdmap(1024, pg_num=32768)
    with upmap items, a full pg_upmap, pg_temp, primary affinity and one
    OSD down; a sample of PGs must equal the scalar pipeline;
@@ -224,31 +224,7 @@ def ptxas_report(lib: str) -> dict:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Milliseconds of one call of ``fn`` on the card: CUDA events around
-    ``reps`` calls back to back, over ``reps``, the median of 3 such runs
-    after a warm-up call.  Back to back, a call's host work (the wrapper
-    and the launch) overlaps the card's work on the call before, so a
-    kernel that outlasts it is timed by the card alone (:func:`call_ms`
-    times a lone call, host work included)."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return float(np.median(times))
-
-
-def call_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of a lone call of ``fn``: CUDA events around
-    each call, the card idle before it, so the host work before the
-    launch counts too."""
+    """Median milliseconds of ``fn`` on the card, by CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -275,9 +251,8 @@ def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int
                   int_rate: float, library=None) -> dict:
     """Run ``kernel`` and ``plain`` on the same card inputs, compare them
     bit for bit, time both (and ``library``, one PyTorch call of the
-    same function, where there is one) back to back, time a lone call of
-    the kernel (``call_ms``), and bound the kernel by bytes and
-    operations."""
+    same function, where there is one), and bound the kernel by bytes
+    and operations."""
     got, want = kernel(), plain()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -285,7 +260,6 @@ def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int
     bms, by = bound_ms(nbytes, ops, int_rate)
     return {"name": name, "replaces": replaces, "bit_equal": all(c[0] for c in checks),
             "max_abs_err": max(c[1] for c in checks), "ms": time_ms(kernel),
-            "call_ms": call_ms(kernel),
             "plain_ms": time_ms(plain, 3), "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops,
             "library_ms": time_ms(library) if library is not None else None}
@@ -946,11 +920,7 @@ def phase_crush(n: int, dev, modes) -> dict:
     if not (np.array_equal(first[0][:k].cpu().numpy(), rr)
             and np.array_equal(first[1][:k].cpu().numpy(), ll)):
         raise AssertionError("device placements differ from the C++ tier")
-    edges = emptying_rule_edges(dev)
-    bad = [e["case"] for e in edges if not e["equal_cpp"]]
-    if bad:
-        raise AssertionError(f"rules that empty the working vector differ from the C++ tier: {bad}")
-    return {"phase": "crush", "objects": n, "modes": out, "cpp_sample": k, "edges": edges}
+    return {"phase": "crush", "objects": n, "modes": out, "cpp_sample": k}
 
 
 def emptying_rule_edges(dev, n: int = 4096) -> list[dict]:
@@ -1098,8 +1068,14 @@ def main() -> int:
     # each main path from 0: placement (raw CRUSH in every mode, then the
     # OSDMap), EC (encode, decode, the plugins), recovery
     paths = {}
+    # the crush phase's edges run before the counts start: their launches
+    # are checks, not the main path's
+    edges = emptying_rule_edges(dev)
+    bad = [e["case"] for e in edges if not e["equal_cpp"]]
+    if bad:
+        raise AssertionError(f"rules that empty the working vector differ from the C++ tier: {bad}")
     reset()
-    emit(phase_crush(OBJECTS, dev, interp_batch.MODES))
+    emit({**phase_crush(OBJECTS, dev, interp_batch.MODES), "edges": edges})
     emit(phase_osdmap(dev))
     paths["placement"] = counts()
     reset()
