@@ -68,12 +68,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``recovery_xor_schedule=on`` (K6, bit-plane) and cauchy_good k=8
    m=3 p=2048 under ``auto`` (K6, packet): every rebuilt shard equals
    the stored one, one launch per pattern, the peering equals a numpy
-   classification; timed (median of 3) and profiled.
+   classification; timed (median of 3) and profiled;
+11. balancer: BASELINE config 3 — five bulk remaps of
+   build_osdmap(1024, pg_num=10240), one reweight toggled before each
+   (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
+   entries a plan) on build_skewed_osdmap(1024, pg_num=10240) until a
+   plan is empty, per plan its entries, seconds, rounds, launches, the
+   device scorer's ms by CUDA events and the remaps' seconds; the
+   final table's SHA-256 equal to the reference's
+   (``testing/golden.py``), converged, the first plan equal to each
+   scorer's (device and numpy, both timed), a profiled first
+   ``optimize()``; one crush-compat
+   tick, not worse; each map's mapping against the scalar pipeline on
+   256 PGs;
+12. cli: crushtool ``--test --show-statistics --show-mappings`` over
+   65536 x on build_simple(1024) on the card, equal to ``--cpu``;
+   osdmaptool ``--createsimple 1024 --pg-num 10240``,
+   ``--test-map-pgs`` and ``--upmap`` (2000 entries), whose command
+   file must hold ``calc_pg_upmaps``'s plan for the saved map (the
+   file's text is held to the reference's in ``tests/test_torch_cli.py``);
+   ec_bench for reed_sol_van and cauchy_good (packetsize 2048) k=8 m=3,
+   and one object of its size encoded on the card equal to the CPU's.
 
 Then the launch counts of each main path (phases 4-5: placement; 6-8:
-EC; 10: recovery, each from 0), the kernels line (each kernel's
-launches summed over the paths; every kernel must launch on its
-paths, K6 on the recovery path), the card's name and power limit, and
+EC; 10: recovery; 11: balancer; 12: cli, each from 0), the kernels
+line (each kernel's launches summed over the paths; every kernel must
+launch on its paths, K6 on the recovery path, K3 on the balancer's),
+the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is present.
@@ -160,6 +181,15 @@ RECOVERY_CODES = {
     "cauchy_good_8_3_auto": ({"plugin": "jerasure", "technique": "cauchy_good", "k": "8",
                               "m": "3", "packetsize": "2048"}, "auto"),
 }
+
+# phase balancer: BASELINE config 3, the mgr balancer's upmap optimizer on
+# a 10k-PG pool of a 1024-OSD map, to convergence
+BALANCER_OSDS = 1024
+BALANCER_PGS = 10240
+BALANCER_MAX_DEVIATION = 1.0
+BALANCER_MAX_OPTIMIZATIONS = 2000
+BALANCER_REMAPS = 5            # bulk remaps, each after one reweight toggle
+SCALAR_SAMPLE = 256            # PGs held against the scalar pipeline
 
 
 def emit(obj) -> None:
@@ -1002,6 +1032,320 @@ def phase_osdmap(dev) -> dict:
             "first_update_s": first, "update_s": again, "pgs_per_s": pg_num / again}
 
 
+def scalar_sample(m, mp, rng, pool_id: int = 1) -> int:
+    """Hold ``SCALAR_SAMPLE`` PGs of the mapping ``mp`` against the scalar
+    pipeline (``pg_to_up_acting_osds``, CRUSH on the C++ tier)."""
+    from ceph_tpu_torch.osdmap import PGId
+
+    pg_num = m.pools[pool_id].pg_num
+    for ps in sorted(int(v) for v in rng.choice(pg_num, SCALAR_SAMPLE, replace=False)):
+        pg = PGId(pool_id, ps)
+        if mp.get(pg) != m.pg_to_up_acting_osds(pg):
+            raise AssertionError(f"pg {pg}: {mp.get(pg)} != {m.pg_to_up_acting_osds(pg)}")
+    return SCALAR_SAMPLE
+
+
+def plan_rows(inc) -> tuple[list, list]:
+    return (sorted((pg.pool, pg.ps, tuple(v)) for pg, v in inc.new_pg_upmap_items.items()),
+            sorted((pg.pool, pg.ps) for pg in inc.old_pg_upmap_items))
+
+
+def scorer_plan(start, scorer: str, dev) -> tuple:
+    """The first plan of ``calc_pg_upmaps`` with ``scorer`` on a copy of
+    ``start`` whose mapping is already built on ``dev``, and its times:
+    the call's seconds and each scorer call's ms on the host's clock
+    (the device scorer's call ends with its copy back, so the clock
+    holds its device work)."""
+    import copy
+
+    from ceph_tpu_torch.balancer import calc_pg_upmaps, upmap
+    from ceph_tpu_torch.osdmap import OSDMapMapping
+
+    m = copy.deepcopy(start)
+    mp = OSDMapMapping(m, device=dev)
+    mp.update()
+    fn_name = {"device": "_score_candidate_moves_device",
+               "numpy": "_score_candidate_moves_np"}[scorer]
+    inner = getattr(upmap, fn_name)
+    calls_ms: list[float] = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        calls_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(upmap, fn_name, timed)
+    try:
+        t0 = time.perf_counter()
+        plan = calc_pg_upmaps(m, max_deviation=BALANCER_MAX_DEVIATION,
+                              max_entries=BALANCER_MAX_OPTIMIZATIONS, mapping=mp,
+                              scorer=scorer)
+        secs = time.perf_counter() - t0
+    finally:
+        setattr(upmap, fn_name, inner)
+    return plan, {"seconds": secs, "scorer_ms": float(sum(calls_ms)), "scorer_calls_ms": calls_ms}
+
+
+def phase_balancer(dev, launch_counts, reset_launches, n_osds: int = BALANCER_OSDS,
+                   pg_num: int = BALANCER_PGS, golden_sha: str | None = None) -> dict:
+    """BASELINE config 3 on the card: (a) bulk remaps of
+    ``build_osdmap(n_osds, pg_num)``, one reweight toggled before each,
+    as PG mappings/s; (b) the upmap balancer on
+    ``build_skewed_osdmap(n_osds, pg_num)`` (``optimize`` + ``execute``
+    until a plan is empty), its table's SHA-256 against
+    ``golden_sha`` (default: the stored config-3 digest), converged, its
+    first plan equal to the first plan of each scorer, timed side by
+    side (``scorer_plan``), its mapping equal to the scalar pipeline; (c) one crush-compat tick on a fresh skewed map,
+    not worse, equal to the C++ tier under the new weight set.  The
+    launch counts cover (a), (b)'s loop and (c), not the checks."""
+    import copy
+
+    from ceph_tpu_torch.balancer import Balancer, upmap
+    from ceph_tpu_torch.models.clusters import build_osdmap, build_skewed_osdmap
+    from ceph_tpu_torch.osdmap import OSDMapMapping
+    from ceph_tpu_torch.testing import golden
+
+    rng = np.random.default_rng(SEED + 3)
+    path_counts: dict[str, int] = {}
+
+    def tally() -> None:
+        for kname, v in launch_counts().items():
+            path_counts[kname] = path_counts.get(kname, 0) + v
+
+    # (a) bulk remap
+    m = build_osdmap(n_osds, pg_num=pg_num)
+    reset_launches()
+    t0 = time.perf_counter()
+    mp = OSDMapMapping(m, device=dev)
+    mp.update()
+    first_s = time.perf_counter() - t0
+    secs = []
+    for i in range(BALANCER_REMAPS):
+        m.osd_weight[i] = 0xFFFF if m.osd_weight[i] == 0x10000 else 0x10000
+        t0 = time.perf_counter()
+        mp.update()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    tally()
+    rates = [pg_num / s for s in secs]
+    remap = {"pgs": pg_num, "first_update_s": first_s, "update_s": secs,
+             "pg_mappings_per_s": float(np.median(rates)),
+             "pg_mappings_per_s_low_high": [min(rates), max(rates)],
+             "sample_checked": scalar_sample(m, mp, rng)}
+    del m, mp
+
+    # (b) the optimizer loop, the device scorer timed by CUDA events
+    ms = build_skewed_osdmap(n_osds, pg_num=pg_num)
+    start = copy.deepcopy(ms)
+    score_ms: list[float] = []
+    admissible: list[int] = []
+    remap_s: list[float] = []
+    inner = upmap._score_candidate_moves_device
+
+    def timed_scorer(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(*args, **kwargs)
+        b.record()
+        b.synchronize()
+        score_ms.append(a.elapsed_time(b))
+        admissible.append(len(out[0]))
+        return out
+
+    bal = Balancer(ms, max_deviation=BALANCER_MAX_DEVIATION,
+                   max_optimizations=BALANCER_MAX_OPTIMIZATIONS, device=dev)
+    update = bal.mapping.update
+
+    def timed_update(*args, **kwargs):
+        t0 = time.perf_counter()
+        update(*args, **kwargs)
+        remap_s.append(time.perf_counter() - t0)
+
+    dev_before = max(bal.evaluate().pool_max_deviation.values())
+    plans, first_plan = [], None
+    upmap._score_candidate_moves_device = timed_scorer
+    bal.mapping.update = timed_update
+    reset_launches()
+    try:
+        t_loop = time.perf_counter()
+        for _ in range(32):
+            score_ms.clear()
+            admissible.clear()
+            remap_s.clear()
+            t0 = time.perf_counter()
+            plan = bal.optimize()
+            sec = time.perf_counter() - t0
+            st = upmap.LAST_RUN_STATS
+            first_plan = first_plan or plan
+            plans.append({"new": len(plan.new_pg_upmap_items),
+                          "removed": len(plan.old_pg_upmap_items), "seconds": sec,
+                          **st.as_dict(), "scorer_device_ms": float(sum(score_ms)),
+                          "scorer_calls_ms": list(score_ms), "admissible": list(admissible),
+                          "remaps": len(remap_s), "remap_s": float(sum(remap_s)),
+                          "host_rest_s": sec - float(sum(remap_s)) - float(sum(score_ms)) / 1e3})
+            if not bal.execute(plan):
+                break
+        loop_s = time.perf_counter() - t_loop
+    finally:
+        upmap._score_candidate_moves_device = inner
+        del bal.mapping.update
+    tally()
+    ev = bal.evaluate()
+    final_dev = max(ev.pool_max_deviation.values())
+    sha = golden.upmap_table_sha256(ms.pg_upmap_items)
+    want_sha = golden_sha or golden.CONFIG3_UPMAP_SHA256
+    if sha != want_sha:
+        raise AssertionError(f"config-3 upmap table {sha} != {want_sha}")
+    if final_dev > BALANCER_MAX_DEVIATION:
+        raise AssertionError(f"balancer did not converge: max deviation {final_dev}")
+    scorers = {name: scorer_plan(start, name, dev) for name in upmap.SCORERS}
+    for name, (plan, _) in scorers.items():
+        if plan_rows(plan) != plan_rows(first_plan):
+            raise AssertionError(f"the {name} scorer's first plan differs from the loop's")
+    bal.mapping.update()
+    optimizer = {
+        "osds": n_osds, "pgs": pg_num, "max_deviation_before": dev_before,
+        "plans": plans, "loop_s": loop_s, "max_deviation_after": final_dev,
+        "converged": True, "epoch": ms.epoch, "upmap_pgs": len(ms.pg_upmap_items),
+        "upmap_pairs": sum(len(v) for v in ms.pg_upmap_items.values()),
+        "table_sha256": sha, "numpy_plan_equal": True,
+        "first_plan_by_scorer": {name: t for name, (_, t) in scorers.items()},
+        "sample_checked": scalar_sample(ms, bal.mapping, rng),
+    }
+    prof_map = copy.deepcopy(start)
+    prof_bal = Balancer(prof_map, max_deviation=BALANCER_MAX_DEVIATION,
+                        max_optimizations=BALANCER_MAX_OPTIMIZATIONS, device=dev)
+    prof_plans = []
+    optimizer["profile_first_optimize"] = profile_call(
+        lambda: prof_plans.append(prof_bal.optimize()))
+    if plan_rows(prof_plans[0]) != plan_rows(first_plan):
+        raise AssertionError("the profiled first optimize() gave another plan")
+    del ms, start, bal, prof_map, prof_bal
+
+    # (c) crush-compat: one tick on a fresh skewed map
+    mc = build_skewed_osdmap(n_osds, pg_num=pg_num)
+    cbal = Balancer(mc, mode="crush-compat", max_deviation=BALANCER_MAX_DEVIATION, device=dev)
+    before = max(cbal.evaluate().pool_max_deviation.values())
+    version = mc.crush.version
+    reset_launches()
+    t0 = time.perf_counter()
+    changed = cbal.tick()
+    tick_s = time.perf_counter() - t0
+    tally()
+    after = max(cbal.evaluate().pool_max_deviation.values())
+    if after > before:
+        raise AssertionError(f"crush-compat made the deviation worse: {before} -> {after}")
+    cbal.mapping.update()
+    compat = {"tick_s": tick_s, "changed": changed, "max_deviation_before": before,
+              "max_deviation_after": after, "crush_versions": mc.crush.version - version,
+              "sample_checked": scalar_sample(mc, cbal.mapping, rng)}
+    return {"phase": "balancer", "bulk_remap": remap, "optimizer": optimizer,
+            "crush_compat": compat, "launches": path_counts}
+
+
+def run_cli(main_fn, argv) -> tuple[int, str, float]:
+    """(exit code, standard output, seconds) of one CLI ``main(argv)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_cli(dev, launch_counts, reset_launches, work_dir: str,
+              n_osds: int = BALANCER_OSDS, pg_num: int = BALANCER_PGS,
+              max_x: int = 65535, ec_size: int = 16 * MIB) -> dict:
+    """The harnesses through their ``main()`` on the card: crushtool
+    ``--test`` on build_simple(n_osds) equal to ``--cpu``; osdmaptool
+    ``--createsimple``, ``--test-map-pgs`` and ``--upmap``, whose command
+    file must hold ``calc_pg_upmaps``'s plan for the same saved map (the
+    gate checks the plan; the file's text is held to the reference's in
+    ``tests/test_torch_cli.py``); ec_bench for reed_sol_van and
+    cauchy_good k=8 m=3, then one ``ec_size`` object encoded on the card
+    equal to the CPU's encode.  The launch counts cover the CLIs' runs,
+    not the checks (``--cpu``, the plan, the encodes)."""
+    from ceph_tpu_torch.balancer import calc_pg_upmaps
+    from ceph_tpu_torch.cli import crushtool, ec_bench, osdmaptool
+    from ceph_tpu_torch.ec import create
+    from ceph_tpu_torch.models.clusters import build_simple
+
+    path_counts: dict[str, int] = {}
+
+    def tally() -> None:
+        for kname, v in launch_counts().items():
+            path_counts[kname] = path_counts.get(kname, 0) + v
+
+    crush_path = os.path.join(work_dir, "simple.json")
+    with open(crush_path, "wb") as f:
+        f.write(build_simple(n_osds).encode())
+    argv = ["-i", crush_path, "--test", "--show-statistics", "--show-mappings",
+            "--max-x", str(max_x)]
+    on_dev = ["--device", dev.type]
+    reset_launches()
+    rc, card_out, card_s = run_cli(crushtool.main, argv + on_dev)
+    tally()
+    rc_cpu, cpu_out, cpu_s = run_cli(crushtool.main, argv + ["--cpu"])
+    if rc or rc_cpu or card_out != cpu_out or card_out.count("\n") != max_x + 2:
+        raise AssertionError("crushtool --test on the card differs from --cpu")
+    out = {"phase": "cli", "crushtool": {
+        "map": f"build_simple({n_osds})", "xs": max_x + 1, "card_s": card_s, "cpu_s": cpu_s,
+        "statistics": [ln for ln in card_out.splitlines() if ln.startswith("rule ")],
+        "equal_cpu": True}}
+
+    map_path = os.path.join(work_dir, "osdmap.json")
+    cmd_path = os.path.join(work_dir, "upmap.sh")
+    reset_launches()
+    rc, _, create_s = run_cli(osdmaptool.main, [map_path, "--createsimple", str(n_osds),
+                                                "--pg-num", str(pg_num)])
+    rc2, test_out, test_s = run_cli(osdmaptool.main, [map_path, "--test-map-pgs"] + on_dev)
+    rc3, upmap_out, upmap_s = run_cli(osdmaptool.main, [map_path, "--upmap", cmd_path,
+                                                        "--upmap-max", "2000"] + on_dev)
+    tally()
+    with open(cmd_path) as f:
+        written = f.read()
+    plan = calc_pg_upmaps(osdmaptool.load(map_path), max_deviation=1.0, max_entries=2000,
+                          device=dev)
+    want = "".join(ln + "\n" for ln in osdmaptool.upmap_commands(plan))
+    if rc or rc2 or rc3 or written != want or not written:
+        raise AssertionError("osdmaptool --upmap's command file is not calc_pg_upmaps's plan")
+    out["osdmaptool"] = {
+        "osds": n_osds, "pgs": pg_num, "createsimple_s": create_s, "test_map_pgs_s": test_s,
+        "test_map_pgs": [ln for ln in test_out.splitlines()
+                         if ln.startswith(("avg", "min", "mapping time"))],
+        "upmap_s": upmap_s, "upmap": upmap_out.strip(), "commands": written.count("\n"),
+        "rm_commands": written.count("rm-pg-upmap-items"), "file_equal_plan": True}
+
+    out["ec_bench"] = {}
+    obj = np.random.default_rng(SEED + 4).integers(0, 256, ec_size, dtype=np.uint8)
+    for name, params in (("reed_sol_van_8_3", ["technique=reed_sol_van"]),
+                         ("cauchy_good_8_3_p2048", ["technique=cauchy_good", "packetsize=2048"])):
+        kvs = ["k=8", "m=3"] + params
+        profile = {"plugin": "jerasure", **dict(kv.split("=") for kv in kvs)}
+        args = ["--plugin", "jerasure", "--size", str(ec_size), "--iterations", "10"] + on_dev
+        args += [a for kv in kvs for a in ("--parameter", kv)]
+        reset_launches()
+        rc, line, _ = run_cli(ec_bench.main, args)
+        tally()
+        fields = line.strip().split("\t")
+        if rc or len(fields) != 2 or not fields[1].endswith(" MB/s"):
+            raise AssertionError(f"ec_bench {name} printed {line!r}")
+        want_chunks, got_chunks = (create(profile, device=d).encode(set(range(11)), obj)
+                                   for d in ("cpu", dev))
+        chunk = len(got_chunks[0])
+        if sorted(got_chunks) != sorted(want_chunks) or any(
+                not np.array_equal(got_chunks[i], want_chunks[i]) for i in want_chunks):
+            raise AssertionError(f"ec_bench {name}: the card's encode differs from the CPU's")
+        out["ec_bench"][name] = {"size": ec_size, "line": line.strip(), "chunk_bytes": chunk,
+                                 "encode_equal_cpu": True}
+    out["launches"] = path_counts
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1088,10 +1432,21 @@ def main() -> int:
     recovery = phase_recovery(dev, counts, reset)
     emit(recovery)
     paths["recovery"] = recovery["launches"]
+    balancer = phase_balancer(dev, counts, reset)
+    emit(balancer)
+    paths["balancer"] = balancer["launches"]
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as work_dir:
+        cli = phase_cli(dev, counts, reset, work_dir)
+    emit(cli)
+    paths["cli"] = cli["launches"]
     emit({"launches_by_path": paths})
     need = {"placement": ("negdraw", "level_choose", "descend"),
             "ec": ("matrix_encode", "bitmatrix_encode", "byte_lut"),
-            "recovery": ("descend", "matrix_encode", "schedule_apply")}
+            "recovery": ("descend", "matrix_encode", "schedule_apply"),
+            "balancer": ("descend",),
+            "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"a kernel of a main path never launched: {missing}")

@@ -416,3 +416,45 @@ def test_recover_pool_on_the_card_matches_cpu(card, profile, mode):
     bit_level = mode == "on" or "cauchy" in profile.get("technique", "")
     if bit_level and mode != "off":
         assert kernels.LAUNCHES["schedule_apply"] == before["schedule_apply"] + plan.n_patterns
+
+
+@pytest.mark.parametrize("seed,shrunk", [(0, False), (1, False), (2, True)])
+def test_device_scorer_on_the_card_matches_numpy(card, monkeypatch, seed, shrunk):
+    """The upmap scorer's float64/int64 broadcasts on the card give the
+    numpy scorer's candidate stream, gains bit for bit, order included."""
+    from ceph_tpu_torch.balancer import upmap
+
+    if shrunk:
+        monkeypatch.setattr(upmap, "MAX_ROWS", 16)
+        monkeypatch.setattr(upmap, "MAX_UNDER", 8)
+    rng = np.random.default_rng(seed)
+    n_osd = 300
+    up = np.stack([rng.choice(n_osd, 3, replace=False) for _ in range(4000)]).astype(np.int32)
+    up[rng.random(up.shape) < 0.05] = 0x7FFFFFFF
+    deviation = rng.integers(-9, 10, n_osd) / 2.0 + rng.integers(0, 3, n_osd) / 3.0
+    dom = rng.integers(-1, 40, n_osd).astype(np.int64)
+    under = np.nonzero(deviation < 0)[0]
+    args = (up, deviation, dom, under, 1.0, n_osd)
+    want = upmap._score_candidate_moves_np(*args)
+    got = upmap._score_candidate_moves_device(*args, card)
+    assert len(want[0]) > 0
+    assert np.array_equal(got[0].view(np.int64), want[0].view(np.int64))
+    for a, b in zip(got[1:], want[1:]):
+        assert np.array_equal(a, b)
+
+
+def test_calc_pg_upmaps_on_the_card_matches_cpu(card):
+    from ceph_tpu_torch.balancer import calc_pg_upmaps, upmap
+    from ceph_tpu_torch.models.clusters import build_skewed_osdmap
+
+    plans, stats = [], []
+    for dev, scorer in ((card, "device"), ("cpu", "numpy")):
+        m = build_skewed_osdmap(256, pg_num=2048)
+        before = straw2.LAUNCHES["descend"]
+        inc = calc_pg_upmaps(m, max_entries=300, device=dev, scorer=scorer)
+        plans.append(sorted((pg.ps, items) for pg, items in inc.new_pg_upmap_items.items()))
+        stats.append(upmap.LAST_RUN_STATS)
+        if dev is card:
+            assert straw2.LAUNCHES["descend"] > before
+    assert plans[0] == plans[1] and len(plans[0]) == 300
+    assert stats[0].score_launches == stats[1].np_score_calls > 0

@@ -118,3 +118,59 @@ def test_convert_carries_the_reference_state():
     assert json.loads(crush.encode()) == json.loads(ref.crush.encode())
     assert type(crush).__module__.startswith("ceph_tpu_torch.")
     assert ceph_tpu_torch.__version__
+
+
+def test_scan_covers_the_balancer_and_cli_subpackages():
+    """The balancer and CLI slice (``balancer/``, ``cli/``, the text
+    crushmap compiler, ``common/log.py``) is in both scans."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("balancer/__init__.py", "balancer/upmap.py", "balancer/module.py",
+                "balancer/crush_compat.py", "balancer/pg_autoscaler.py", "cli/__init__.py",
+                "cli/crushtool.py", "cli/osdmaptool.py", "cli/ec_bench.py",
+                "crush/compiler.py", "common/log.py", "testing/golden.py"):
+        assert mod in rel
+    mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
+    assert {"ceph_tpu_torch.balancer.upmap", "ceph_tpu_torch.balancer.crush_compat",
+            "ceph_tpu_torch.cli.crushtool", "ceph_tpu_torch.cli.osdmaptool",
+            "ceph_tpu_torch.cli.ec_bench", "ceph_tpu_torch.crush.compiler"} <= mods
+
+
+def _device_default(fn):
+    import inspect
+
+    return inspect.signature(fn).parameters["device"].default
+
+
+def test_balancer_and_clis_default_to_the_card(tmp_path):
+    """``Balancer``, ``calc_pg_upmaps``, ``do_crush_compat`` and the three
+    CLIs run on the card unless asked for the CPU, and raise without one."""
+    from ceph_tpu_torch.balancer import Balancer, calc_pg_upmaps
+    from ceph_tpu_torch.balancer.crush_compat import do_crush_compat
+    from ceph_tpu_torch.cli import crushtool, ec_bench, osdmaptool
+    from ceph_tpu_torch.models.clusters import build_osdmap as port_build_osdmap
+
+    for fn in (Balancer, calc_pg_upmaps, do_crush_compat):
+        assert _device_default(fn) == "cuda"
+    m = port_build_osdmap(16, pg_num=32)
+    path = str(tmp_path / "m.json")
+    with open(path, "wb") as f:
+        f.write(m.encode())
+    calls = [
+        lambda: Balancer(m),
+        lambda: Balancer(m, mode="crush-compat"),
+        lambda: calc_pg_upmaps(m),
+        lambda: do_crush_compat(m),
+        lambda: osdmaptool.main([path, "--test-map-pgs"]),
+        lambda: osdmaptool.main([path, "--upmap", str(tmp_path / "out.sh")]),
+        lambda: osdmaptool.main([path, "--crush-compat"]),
+        lambda: crushtool.main(["-i", path.replace("m.json", "c.json"), "--test"]),
+        lambda: ec_bench.main(["--size", "4096", "--iterations", "1"]),
+    ]
+    with open(path.replace("m.json", "c.json"), "wb") as f:
+        f.write(m.crush.encode())
+    if torch.cuda.is_available():
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert Balancer(m, device="cpu").mapping.device.type == "cpu"
