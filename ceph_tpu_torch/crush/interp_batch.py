@@ -18,11 +18,25 @@ crush_choose_indep``), lane for lane, restructured batch-first:
   - ``"descend"``: the whole descent in one K3 launch.
 
   On CPU tensors every mode runs the kernels' plain versions.
-- **Masked whole-batch retry rounds.**  The reference's per-replica
+- **Retry ladders over the batch.**  The reference's per-replica
   retry ladder (``r' = r + ftotal``) is a Python loop whose body
-  re-descends the full batch with per-lane r; settled lanes are masked.
-  Each loop test is one ``.any()`` on the device, one host sync per
-  round (counted in ``HOST_SYNCS``).
+  re-descends the batch with per-lane r.  The ladders take the descent
+  as a function, so the general engine (``interp.py``) runs the same
+  ones over its own descent.  This engine runs every round masked over
+  the whole batch; each loop test after the first round is one
+  ``.any()`` on the device, one host sync (counted in ``HOST_SYNCS``).
+- **Compacted-straggler retry** (the ladders' ``compact``, which the
+  general engine sets for large batches): round 1 runs on the whole
+  batch and every later round only on the lanes still unsettled.  One
+  ``torch.nonzero`` a round takes the exact straggler set (the round's
+  host sync); their seeds and state are gathered, the round runs, and
+  the results are scattered back.  Each lane keeps its own round count,
+  so its r sequence and its results are those of the masked rounds, bit
+  for bit.  (The reference's fixed window of ``max(B // 16, 8192)`` lanes
+  with a filler index is a static-shape workaround, not carried over.)
+  This engine does not compact: its round is one K3 launch, the call is
+  host-bound, and on the H100 the gathers and scatters cost the host
+  more than the card saves (PERF.md).
 - **General rule programs.**  Multi-TAKE chains and chained choose
   steps run natively: each choose consumes the working vector entry by
   entry.  Working-vector bucket ids are translated to the next pack's
@@ -101,6 +115,15 @@ def _any(t: torch.Tensor) -> bool:
     global HOST_SYNCS
     HOST_SYNCS += 1
     return bool(t.any())
+
+
+def _stragglers(mask: torch.Tensor) -> torch.Tensor | None:
+    """Indices (int64) of the lanes in ``mask``, or None when there are
+    none: one host sync."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    idx = torch.nonzero(mask).squeeze(1)
+    return idx if idx.numel() else None
 
 
 def check_mode(mode: str | None) -> str:
@@ -282,54 +305,70 @@ def _full(B, value, device, dtype=I32):
     return torch.full((B,), value, dtype=dtype, device=device)
 
 
-def _leaf_firstn(
-    leaf_pack, osd_weight, x, leaf_lidx, has_bucket, sub_r,
-    recurse_tries: int, out2, outpos, stable: int, max_devices: int, mode: str,
-):
-    """Batched leaf recursion of ``choose_firstn``. Returns (leaf, ok)."""
-    B = x.shape[0]
-    dev = x.device
-    rep = torch.zeros(B, dtype=I32, device=dev) if stable else outpos
-    ftotal = 0
-    settled = torch.zeros(B, dtype=torch.bool, device=dev)
-    leaf_ok = torch.zeros_like(settled)
-    leaf = _full(B, ITEM_NONE, dev)
+# A descent, as the retry ladders below call it:
+# ``descent(x, start, base, ft, active) -> (item, ok, hard, leaf_start, r)``
+# walks each lane from its ``start`` bucket, for ``active`` lanes, at the
+# r of retry round ``ft`` (an int or a per-lane tensor) over ``base``:
+# ``base + ft`` for firstn, ``base + numrep * ft`` for indep (the general
+# engine spaces indep by ``numrep + 1`` in a uniform bucket whose size
+# numrep divides).  ``leaf_start`` is the chosen bucket's start for the leaf
+# descent, ``r`` the r of the level where the walk stopped.  The fast
+# engine builds its descents with :func:`_pack_descent`, the general
+# engine (``interp.py``) over its per-lane bucket indices.
 
-    def body():
-        nonlocal ftotal, settled, leaf_ok, leaf
+
+def _pack_descent(pack, target_type: int, empty_is_hard: bool, spacing: int,
+                  max_devices: int, mode: str):
+    """The fast engine's descent over one stacked pack (lane starts are
+    level-0 local indices; r is the same at every level)."""
+    def run(x, start, base, ft, active):
+        r = base + spacing * ft
+        item, ok, hard, nlidx = descend(pack, x, start, r, target_type, empty_is_hard,
+                                        active, max_devices, mode)
+        return item, ok, hard, nlidx, r
+    return run
+
+
+def _leaf_firstn(leaf, osd_weight, x, start, has_bucket, base, recurse_tries: int,
+                 out2, outpos):
+    """The leaf recursion of ``choose_firstn`` for the lanes in
+    ``has_bucket``: one slot, target type 0, r = base + ftotal (base =
+    the slot's rep plus the parent's sub-r).  Collisions are checked
+    against the leaves ``out2[:, :outpos]``; a hard failure ends the
+    slot.  Returns (leaf, ok)."""
+    settled = torch.zeros_like(has_bucket)
+    leaf_ok = torch.zeros_like(has_bucket)
+    found = torch.full_like(x, ITEM_NONE)
+    for ft in range(recurse_tries):
+        if ft and not _any(has_bucket & ~settled):
+            break
         active = has_bucket & ~settled
-        r = rep + sub_r + ftotal
-        it, ok, hard, _ = descend(
-            leaf_pack, x, leaf_lidx, r, 0, False, active, max_devices, mode
-        )
-        collide = ok & _collides(out2, outpos, it)
-        rejected = ok & (collide | _is_out(osd_weight, it, x))
+        it, ok, hard, _, _ = leaf(x, start, base, ft, active)
+        rejected = ok & (_collides(out2, outpos, it) | _is_out(osd_weight, it, x))
         good = active & ok & ~rejected
-        stop = active & hard  # hard leaf failure abandons the slot
-        ftotal += 1
-        settled = settled | good | stop
+        settled = settled | good | (active & hard)
         leaf_ok = leaf_ok | good
-        leaf = torch.where(good, it, leaf)
-
-    if recurse_tries == 1:
-        body()
-    else:
-        while ftotal < recurse_tries and _any(has_bucket & ~settled):
-            body()
-    return leaf, leaf_ok
+        found = torch.where(good, it, found)
+    return found, leaf_ok
 
 
-def _choose_firstn_batch(
-    pack, leaf_pack, osd_weight, x, lidx0, start_active,
-    numrep: int, target_type: int, cap: int, tries: int,
-    recurse_tries: int, vary_r: int, stable: int, max_devices: int, mode: str,
-):
-    """Batched ``choose_firstn`` for one working-vector entry.
+def _choose_firstn_batch(top, leaf, osd_weight, x, start, start_active,
+                         numrep: int, target_type: int, cap: int, tries: int,
+                         recurse_tries: int, vary_r: int, stable: int, compact: bool):
+    """Batched ``choose_firstn`` from each lane's ``start`` (one
+    working-vector entry), through the descents ``top`` and ``leaf``
+    (None: no leaf recursion).
 
-    Entry-local state, like the reference's per-entry
-    ``choose_firstn(..., o + osize, /*outpos=*/0, ...)`` call: collision
-    scope and the stable=0 leaf replica seed cover only this entry's
-    segment.  Returns (out [B, cap], out2 [B, cap], outpos [B]).
+    Runs every one of the numrep replica slots but places at most
+    ``cap``; a slot whose retries run out is skipped.  Entry-local state,
+    like the reference's per-entry ``choose_firstn(..., o + osize,
+    /*outpos=*/0, ...)`` call: collision scope and the stable=0 leaf
+    replica seed cover only this entry's segment.  Each slot's ladder
+    visits r = rep + ftotal: masked rounds over the whole batch, or, with
+    ``compact``, round 1 over the batch and each later round over the
+    lanes still unsettled, each lane counting its own rounds (the same r
+    sequence, so the same results bit for bit).
+    Returns (out [B, cap], out2 [B, cap], outpos [B]).
     """
     B = x.shape[0]
     dev = x.device
@@ -338,83 +377,99 @@ def _choose_firstn_batch(
     outpos = torch.zeros(B, dtype=I32, device=dev)
     col_ids = torch.arange(cap, dtype=I32, device=dev)[None, :]
 
+    def one_round(idx, rep, ft, active):
+        """One retry round for the lanes ``idx`` (None: all) at round
+        ``ft``; returns (good, stop, item, leaf), all lane-local."""
+        take = (lambda t: t) if idx is None else (lambda t: t.index_select(0, idx))
+        xv, outv, out2v, outposv = take(x), take(out), take(out2), take(outpos)
+        item, ok, hard, lstart, r = top(xv, take(start), torch.full_like(xv, rep), ft, active)
+        collide = ok & _collides(outv, outposv, item)
+        reject = torch.zeros_like(collide)
+        found = item
+        if leaf is not None:
+            is_bucket = item < 0
+            sub_r = (r >> (vary_r - 1)) if vary_r else torch.zeros_like(r)
+            lf, lok = _leaf_firstn(
+                leaf, osd_weight, xv, lstart, active & ok & ~collide & is_bucket,
+                (0 if stable else outposv) + sub_r, recurse_tries, out2v, outposv)
+            reject = reject | (ok & ~collide & is_bucket & ~lok)
+            found = torch.where(is_bucket, lf, item)
+        if target_type == 0:
+            reject = reject | (ok & ~collide & _is_out(osd_weight, item, xv))
+        good = active & ok & ~collide & ~reject
+        stop = active & hard  # skip_rep: abandon this slot
+        return good, stop, item, found
+
+    compacted = compact and tries > 0
     for rep in range(numrep):
-        ftotal = 0
-        settled = torch.zeros(B, dtype=torch.bool, device=dev)
-        item_acc = _full(B, ITEM_NONE, dev)
-        leaf_acc = _full(B, ITEM_NONE, dev)
-        placed = torch.zeros_like(settled)
-        while ftotal < tries and _any(start_active & ~settled):
-            active = start_active & ~settled
-            r = _full(B, rep + ftotal, dev)
-            item, ok, hard, nlidx = descend(
-                pack, x, lidx0, r, target_type, False, active, max_devices, mode
-            )
-            collide = ok & _collides(out, outpos, item)
-            reject = torch.zeros_like(collide)
-            leaf = item
-            if leaf_pack is not None:
-                is_bucket = item < 0
-                sub_r = (r >> (vary_r - 1)) if vary_r else torch.zeros_like(r)
-                lf, lok = _leaf_firstn(
-                    leaf_pack, osd_weight, x, nlidx,
-                    active & ok & ~collide & is_bucket,
-                    sub_r, recurse_tries, out2, outpos, stable, max_devices, mode,
-                )
-                leaf_ok = torch.where(is_bucket, lok, torch.ones_like(lok))
-                leaf = torch.where(is_bucket, lf, item)
-                reject = reject | (ok & ~collide & ~leaf_ok)
-            if target_type == 0:
-                reject = reject | (ok & ~collide & _is_out(osd_weight, item, x))
-            good = active & ok & ~collide & ~reject
-            stop = active & hard  # skip_rep: abandon this slot
-            ftotal += 1
-            settled = settled | good | stop
-            item_acc = torch.where(good, item, item_acc)
-            leaf_acc = torch.where(good, leaf, leaf_acc)
-            placed = placed | good
+        if compacted:
+            good, stop, item, found = one_round(None, rep, 0, start_active)
+            settled = ~start_active | good | stop
+            item_acc = torch.where(good, item, ITEM_NONE)
+            leaf_acc = torch.where(good, found, ITEM_NONE)
+            placed = good
+            ftl = torch.ones(B, dtype=I32, device=dev)  # rounds each lane has run
+            while (idx := _stragglers(~settled & (ftl < tries))) is not None:
+                ftl_v = ftl.index_select(0, idx)
+                good, stop, item, found = one_round(
+                    idx, rep, ftl_v, torch.ones_like(idx, dtype=torch.bool))
+                item_acc[idx] = torch.where(good, item, item_acc.index_select(0, idx))
+                leaf_acc[idx] = torch.where(good, found, leaf_acc.index_select(0, idx))
+                placed[idx] = placed.index_select(0, idx) | good
+                settled[idx] = good | stop
+                ftl[idx] = ftl_v + 1
+        else:
+            settled = torch.zeros(B, dtype=torch.bool, device=dev)
+            item_acc = _full(B, ITEM_NONE, dev)
+            leaf_acc = _full(B, ITEM_NONE, dev)
+            placed = torch.zeros_like(settled)
+            for ft in range(tries):
+                if ft and not _any(start_active & ~settled):
+                    break
+                active = start_active & ~settled
+                good, stop, item, found = one_round(None, rep, ft, active)
+                settled = settled | good | stop
+                item_acc = torch.where(good, item, item_acc)
+                leaf_acc = torch.where(good, found, leaf_acc)
+                placed = placed | good
 
         place = (placed & (outpos < cap))[:, None] & (col_ids == outpos[:, None])
         out = torch.where(place, item_acc[:, None], out)
-        if leaf_pack is not None:
+        if leaf is not None:
             out2 = torch.where(place, leaf_acc[:, None], out2)
         outpos = outpos + place.any(dim=1).to(I32)
     return out, out2, outpos
 
 
-def _leaf_indep(
-    leaf_pack, osd_weight, x, leaf_lidx, has_bucket, rep: int,
-    numrep: int, parent_r, recurse_tries: int, max_devices: int, mode: str,
-):
-    """Batched leaf recursion of ``choose_indep``. Returns (leaf, ok)."""
-    B = x.shape[0]
-    dev = x.device
-    ft = 0
-    settled = torch.zeros(B, dtype=torch.bool, device=dev)
-    got = torch.zeros_like(settled)
-    leaf = _full(B, ITEM_NONE, dev)
-    while ft < recurse_tries and _any(has_bucket & ~settled):
+def _leaf_indep(leaf, osd_weight, x, start, has_bucket, base, recurse_tries: int):
+    """The leaf recursion of ``choose_indep`` for the lanes in
+    ``has_bucket``: one slot, target type 0, base = the parent's r plus
+    the slot.  A hard failure fails the slot for good.  Returns (leaf,
+    ok)."""
+    settled = torch.zeros_like(has_bucket)
+    got = torch.zeros_like(has_bucket)
+    found = torch.full_like(x, ITEM_NONE)
+    for ft in range(recurse_tries):
+        if ft and not _any(has_bucket & ~settled):
+            break
         active = has_bucket & ~settled
-        r = parent_r + (rep + numrep * ft)
-        it, ok, hard, _ = descend(
-            leaf_pack, x, leaf_lidx, r, 0, True, active, max_devices, mode
-        )
-        ok = ok & ~_is_out(osd_weight, it, x)
-        newly = active & ok
-        fail_now = active & hard  # permanent failure in the reference
-        ft += 1
-        settled = settled | newly | fail_now
+        it, ok, hard, _, _ = leaf(x, start, base, ft, active)
+        newly = active & ok & ~_is_out(osd_weight, it, x)
+        settled = settled | newly | (active & hard)
         got = got | newly
-        leaf = torch.where(newly, it, leaf)
-    return torch.where(got, leaf, torch.full_like(leaf, ITEM_NONE)), got
+        found = torch.where(newly, it, found)
+    return torch.where(got, found, ITEM_NONE), got
 
 
-def _choose_indep_batch(
-    pack, leaf_pack, osd_weight, x, lidx0, start_active,
-    out_size: int, numrep: int, target_type: int,
-    tries: int, recurse_tries: int, max_devices: int, mode: str,
-):
-    """Batched ``choose_indep`` for one working entry.
+def _choose_indep_batch(top, leaf, osd_weight, x, start, start_active,
+                        out_size: int, target_type: int, tries: int, recurse_tries: int,
+                        compact: bool):
+    """Batched ``choose_indep`` (positional, EC; NONE holes on failure)
+    from each lane's ``start`` (one working-vector entry), through the
+    descents ``top`` and ``leaf`` (None: no leaf recursion).  Each round
+    retries every slot still UNDEF at r = rep + numrep * ftotal; rounds
+    are masked, or with ``compact`` run on the lanes that still hold an
+    UNDEF slot, as in :func:`_choose_firstn_batch`.
     Returns (out [B, out_size], out2 [B, out_size])."""
     B = x.shape[0]
     dev = x.device
@@ -424,39 +479,52 @@ def _choose_indep_batch(
         torch.full((B, out_size), ITEM_NONE, dtype=I32, device=dev),
     )
     out2 = out.clone()
-    none = _full(B, ITEM_NONE, dev)
 
-    ftotal = 0
-    while ftotal < tries and _any(out == ITEM_UNDEF):
+    def one_round(idx, ft, activev, outv, out2v):
+        """One retry round (every slot) for the lanes ``idx`` (None: all)
+        at round ``ft``; updates ``outv``/``out2v`` (those lanes' rows of
+        out/out2) in place."""
+        take = (lambda t: t) if idx is None else (lambda t: t.index_select(0, idx))
+        xv, startv = take(x), take(start)
+        none = torch.full_like(xv, ITEM_NONE)
         for rep in range(out_size):
-            active = start_active & (out[:, rep] == ITEM_UNDEF)
-            r = _full(B, rep + numrep * ftotal, dev)
-            item, ok, hard, nlidx = descend(
-                pack, x, lidx0, r, target_type, True, active, max_devices, mode
-            )
+            active = activev & (outv[:, rep] == ITEM_UNDEF)
+            item, ok, hard, lstart, r = top(xv, startv, torch.full_like(xv, rep), ft, active)
             # collisions see this round's earlier slots (in-place columns)
-            collide = ok & (out == item[:, None]).any(dim=1)
-            good = ok & ~collide
-            leaf = item
-            if leaf_pack is not None:
+            good = ok & ~(outv == item[:, None]).any(dim=1)
+            found = item
+            if leaf is not None:
                 is_bucket = item < 0
-                lf, lok = _leaf_indep(
-                    leaf_pack, osd_weight, x, nlidx,
-                    active & good & is_bucket,
-                    rep, numrep, r, recurse_tries, max_devices, mode,
-                )
-                leaf_ok = torch.where(is_bucket, lok, torch.ones_like(lok))
-                leaf = torch.where(is_bucket, lf, item)
-                good = good & leaf_ok
+                lf, lok = _leaf_indep(leaf, osd_weight, xv, lstart, active & good & is_bucket,
+                                      r + rep, recurse_tries)
+                good = good & (lok | ~is_bucket)
+                found = torch.where(is_bucket, lf, item)
             if target_type == 0:
-                good = good & ~_is_out(osd_weight, item, x)
+                good = good & ~_is_out(osd_weight, item, xv)
             write_item = active & good
-            write_none = active & hard
-            out[:, rep] = torch.where(
-                write_item, item, torch.where(write_none, none, out[:, rep]))
-            out2[:, rep] = torch.where(
-                write_item, leaf, torch.where(write_none, none, out2[:, rep]))
-        ftotal += 1
+            write_none = active & hard  # permanent NONE on a hard failure
+            outv[:, rep] = torch.where(
+                write_item, item, torch.where(write_none, none, outv[:, rep]))
+            out2v[:, rep] = torch.where(
+                write_item, found, torch.where(write_none, none, out2v[:, rep]))
+
+    if compact and tries > 0:
+        # a lane out of rounds keeps its UNDEF slots, which turn NONE
+        # below, as the masked rounds leave them
+        one_round(None, 0, start_active, out, out2)
+        ftl = torch.ones(B, dtype=I32, device=dev)  # rounds each lane has run
+        while (idx := _stragglers((out == ITEM_UNDEF).any(dim=1) & (ftl < tries))) is not None:
+            out_v, out2_v = out.index_select(0, idx), out2.index_select(0, idx)
+            ftl_v = ftl.index_select(0, idx)
+            one_round(idx, ftl_v, torch.ones_like(idx, dtype=torch.bool), out_v, out2_v)
+            out[idx] = out_v
+            out2[idx] = out2_v
+            ftl[idx] = ftl_v + 1
+    else:
+        for ft in range(tries):
+            if ft and not _any(out == ITEM_UNDEF):
+                break
+            one_round(None, ft, start_active, out, out2)
     out = torch.where(out == ITEM_UNDEF, ITEM_NONE, out)
     out2 = torch.where(out2 == ITEM_UNDEF, ITEM_NONE, out2)
     return out, out2
@@ -656,14 +724,14 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                         if p["chooseleaf_tries"]
                         else (1 if tun.chooseleaf_descend_once else p["tries"])
                     )
+                    top = _pack_descent(pack, p["type"], False, 1, max_devices, mode)
+                    leaf = (_pack_descent(leaf_pack, 0, False, 1, max_devices, mode)
+                            if p["recurse"] else None)
                     for e in range(entries):
                         out, out2, outpos = _choose_firstn_batch(
-                            pack,
-                            leaf_pack if p["recurse"] else None,
-                            osd_weight, x, ent_lidx[e], ent_active[e],
-                            p["numrep"], p["type"], cap,
-                            p["tries"], recurse_tries,
-                            p["vary_r"], p["stable"], max_devices, mode,
+                            top, leaf, osd_weight, x, ent_lidx[e], ent_active[e],
+                            p["numrep"], p["type"], cap, p["tries"], recurse_tries,
+                            p["vary_r"], p["stable"], False,
                         )
                         vals = out2 if p["recurse"] else out
                         acc, acc_pos = _append_rows(acc, acc_pos, vals, outpos)
@@ -672,13 +740,13 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                     recurse_tries = (
                         p["chooseleaf_tries"] if p["chooseleaf_tries"] else 1
                     )
+                    top = _pack_descent(pack, p["type"], True, p["numrep"], max_devices, mode)
+                    leaf = (_pack_descent(leaf_pack, 0, True, p["numrep"], max_devices, mode)
+                            if p["recurse"] else None)
                     for e in range(entries):
                         o, o2 = _choose_indep_batch(
-                            pack,
-                            leaf_pack if p["recurse"] else None,
-                            osd_weight, x, ent_lidx[e], ent_active[e],
-                            os_e, p["numrep"], p["type"],
-                            p["tries"], recurse_tries, max_devices, mode,
+                            top, leaf, osd_weight, x, ent_lidx[e], ent_active[e],
+                            os_e, p["type"], p["tries"], recurse_tries, False,
                         )
                         vals = o2 if p["recurse"] else o
                         width = torch.where(ent_active[e], os_e, 0).to(I32)
@@ -718,8 +786,7 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
 _PACK_CACHE: dict = {}
 
 
-def _packs_for(dense: DenseCrushMap, rule: Rule, result_max: int, device,
-               mode: str):
+def _packs_for(dense: DenseCrushMap, rule: Rule, result_max: int, device, mode: str):
     dev = torch.device(device)
     pkey = (id(dense), rule_signature(rule), result_max, str(dev), mode)
     hit = _PACK_CACHE.get(pkey)

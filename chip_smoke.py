@@ -29,15 +29,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
    boundary, K7 at 16 n + 3 bytes, 7 bytes and unaligned), bit for bit;
    K4-K7 carry ptxas's registers and spills;
 4. crush: ``make_batch_runner`` on build_simple(1024)'s replicated rule
-   (3 replicas), 1M objects, in each mode; bit-equal across modes and to
-   the C++ reference tier on a 50k sample; placements/s per mode (the
-   modes timed in turns, median of 5 calls each), and a torch.profiler
-   breakdown of one call per mode; two rules whose choose step has an
+   (3 replicas), 1M objects, in each mode; bit-equal across them and to
+   the C++ reference tier on a 50k sample; placements/s for each (timed
+   in turns, median of 6 calls each), and a torch.profiler
+   breakdown of one call each; two rules whose choose step has an
    effective numrep <= 0 place nothing, equal to the C++ tier, in
    ``descend`` mode (run before the path's launch counts start);
 5. osdmap: ``OSDMapMapping.update`` on build_osdmap(1024, pg_num=32768)
    with upmap items, a full pg_upmap, pg_temp, primary affinity and one
    OSD down; a sample of PGs must equal the scalar pipeline;
+5a. general: the general engine (``crush/interp.py``) on 1M objects of
+   (a) a uniform 1024-OSD hierarchy (32 racks, 8 hosts, 4 OSDs) under
+   its replicated rule and (b) the same shape with straw2 root and racks
+   over uniform hosts, 32 OSDs out, under a replicated and an EC rule
+   (6 slots): the router's tier, host syncs and K1 launches per call
+   (K1 > 0 on (b)), placements/s with the compacted-straggler rounds it
+   runs at this size and with masked ones (:func:`masked_rounds`; in
+   turns, median of 6 each; equal results), 65,536 placements each way
+   equal to the C++ tier;
+5b. rebalance: BASELINE config 5, ``parallel/placement.py::
+   sharded_rebalance_sim`` on build_simple(10000, 8 OSDs a host, 16
+   hosts a rack) with 100 OSDs out: 12 launches of 8 chunks of 2^20
+   objects (100,663,296): placements/s, moved fraction beside the
+   ideal 3.0%, K3 launches, host syncs and peak memory; 65,536 objects
+   at the start of the first and of the last launch placed and counted
+   as the C++ tier does;
 6. ec_encode: jerasure reed_sol_van k=8 m=3 (BASELINE's headline) and
    k=4 m=2 (BASELINE config 2) with a 4 KiB stripe unit, and
    cauchy_good k=8 m=3 packetsize 2048 (K5; a 64 KiB stripe unit, its
@@ -90,10 +106,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ec_bench for reed_sol_van and cauchy_good (packetsize 2048) k=8 m=3,
    and one object of its size encoded on the card equal to the CPU's.
 
-Then the launch counts of each main path (phases 4-5: placement; 6-8:
-EC; 10: recovery; 11: balancer; 12: cli, each from 0), the kernels
-line (each kernel's launches summed over the paths; every kernel must
-launch on its paths, K6 on the recovery path, K3 on the balancer's),
+Then the launch counts of each main path (phases 4-5: placement; 5a:
+general; 5b: rebalance; 6-8: EC; 10: recovery; 11: balancer; 12: cli,
+each from 0), the kernels line (each kernel's launches summed over the
+paths; every kernel must launch on its paths, K1 on the general path,
+K3 on the rebalance path, K6 on the recovery path, K3 on the
+balancer's),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -102,6 +120,7 @@ no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -900,7 +919,46 @@ def profile_call(fn) -> dict:
             "top": rows[:10]}
 
 
+@contextlib.contextmanager
+def masked_rounds():
+    """Run the general engine's retry rounds masked over the whole batch,
+    whatever its size: the comparison for its compacted-straggler rounds,
+    which it runs from ``interp.COMPACT_MIN_BATCH`` lanes up."""
+    from ceph_tpu_torch.crush import interp
+
+    keep = interp.COMPACT_MIN_BATCH
+    interp.COMPACT_MIN_BATCH = 1 << 62
+    try:
+        yield
+    finally:
+        interp.COMPACT_MIN_BATCH = keep
+
+
+def masked(fn):
+    """``fn`` with its retry rounds masked (:func:`masked_rounds`)."""
+    def run():
+        with masked_rounds():
+            return fn()
+    return run
+
+
+def in_turns(runners: dict, reps: int) -> dict:
+    """Host seconds of ``reps`` calls of each runner, in turns, the order
+    reversed every other turn (A B, B A, ...), so that drift on the host
+    hits them alike."""
+    labels = list(runners)
+    times = {label: [] for label in labels}
+    for i in range(reps):
+        for label in (labels if i % 2 == 0 else labels[::-1]):
+            t0 = time.perf_counter()
+            runners[label]()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    return times
+
+
 def phase_crush(n: int, dev, modes) -> dict:
+    """Every mode of the fast engine on config 1."""
     from ceph_tpu_torch.core import straw2
     from ceph_tpu_torch.crush import interp_batch
     from ceph_tpu_torch.crush.engine import make_batch_runner
@@ -912,32 +970,26 @@ def phase_crush(n: int, dev, modes) -> dict:
     dense = m.to_dense()
     w = np.full(dense.max_devices, 0x10000, np.uint32)
     xs = torch.arange(n, dtype=torch.int64, device=dev)
+    labels = list(modes)
     out, first, runners = {}, None, {}
-    for mode in modes:
-        crush_arg, fn = make_batch_runner(dense, rule, REPLICAS, mode=mode, device=dev)
-        runners[mode] = lambda fn=fn, crush_arg=crush_arg: fn(crush_arg, w, xs)
+    for label in labels:
+        crush_arg, fn = make_batch_runner(dense, rule, REPLICAS, mode=label, device=dev)
+        runners[label] = lambda fn=fn, crush_arg=crush_arg: fn(crush_arg, w, xs)
         before = dict(straw2.LAUNCHES)
         syncs = interp_batch.HOST_SYNCS
-        res, lens = runners[mode]()
+        res, lens = runners[label]()
         torch.cuda.synchronize()
-        out[mode] = {"launches": {k: straw2.LAUNCHES[k] - before[k] for k in before},
-                     "host_syncs": interp_batch.HOST_SYNCS - syncs}
+        out[label] = {"launches": {k: straw2.LAUNCHES[k] - before[k] for k in before},
+                      "host_syncs": interp_batch.HOST_SYNCS - syncs}
         if first is None:
             first = (res, lens)
         elif not (torch.equal(res, first[0]) and torch.equal(lens, first[1])):
-            raise AssertionError(f"mode {mode} disagrees with mode {modes[0]}")
-    # the modes take turns, so drift on the host hits all of them alike
-    times = {mode: [] for mode in modes}
-    for _ in range(5):
-        for mode in modes:
-            t0 = time.perf_counter()
-            runners[mode]()
-            torch.cuda.synchronize()
-            times[mode].append(time.perf_counter() - t0)
-    for mode in modes:
-        sec = float(np.median(times[mode]))
-        out[mode].update(placements_per_s=n / sec, seconds=sec, all_seconds=times[mode],
-                         profile=profile_call(runners[mode]))
+            raise AssertionError(f"{label} disagrees with mode {labels[0]}")
+    times = in_turns(runners, 6)
+    for label in labels:
+        sec = float(np.median(times[label]))
+        out[label].update(placements_per_s=n / sec, seconds=sec, all_seconds=times[label],
+                          profile=profile_call(runners[label]))
     res, lens = first
     placed = res[:, :REPLICAS].to(torch.int64)
     if (res.shape != (n, REPLICAS) or not bool((lens == REPLICAS).all())
@@ -1030,6 +1082,188 @@ def phase_osdmap(dev) -> dict:
         raise AssertionError("mapping has the wrong shape or an out-of-range OSD")
     return {"phase": "osdmap", "pgs": pg_num, "sample_checked": len(sample),
             "first_update_s": first, "update_s": again, "pgs_per_s": pg_num / again}
+
+
+def mixed_hierarchy(racks: int, hosts: int, osds: int):
+    """straw2 root and racks over uniform hosts of ``osds`` OSDs each (the
+    shape of build_hierarchy([("rack", racks), ("host", hosts)], osds)),
+    with its replicated rule (chooseleaf firstn host) and an EC rule
+    (set_chooseleaf_tries 5, chooseleaf indep 0 type host)."""
+    from ceph_tpu_torch.crush.map import ALG_STRAW2, ALG_UNIFORM, CrushMap
+
+    m = CrushMap()
+    for tid, name in ((1, "root"), (2, "rack"), (3, "host")):
+        m.add_type(tid, name)
+    root = m.add_bucket("default", "root", alg=ALG_STRAW2)
+    osd = 0
+    for r in range(racks):
+        rack = m.add_bucket(f"rack{r}", "rack", alg=ALG_STRAW2)
+        for h in range(hosts):
+            host = m.add_bucket(f"host{r}_{h}", "host", alg=ALG_UNIFORM)
+            for _ in range(osds):
+                m.insert_item(host.id, osd, 0x10000)
+                osd += 1
+            m.insert_item(rack.id, host.id, osds * 0x10000)
+        m.insert_item(root.id, rack.id, hosts * osds * 0x10000)
+    m.make_replicated_rule("replicated_rule", "default", "host")
+    m.make_erasure_rule("ec_rule", "default", "host")
+    return m
+
+
+def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
+    """The general engine on the card: (a) a uniform 1024-OSD hierarchy
+    (32 racks of 8 hosts of 4 OSDs) under its replicated rule; (b) the
+    same shape with straw2 root and racks over uniform hosts, 32 OSDs
+    reweighted to 0, under a replicated and an EC rule (6 slots).  Each:
+    the router's tier, host syncs and K1 launches of one call, n objects
+    timed with compacted retry rounds (the default at this size) and
+    masked ones in turns (median of 6 each, host clock; the two results
+    equal), a profile of one call each way, and 65,536 placements
+    (compacted, the threshold) and the same masked equal to the C++
+    tier.  Returns the path's launch counts (one call of each map)."""
+    from ceph_tpu_torch.crush import interp, interp_batch
+    from ceph_tpu_torch.crush.engine import make_batch_runner, runner_signature
+    from ceph_tpu_torch.crush.map import ALG_UNIFORM
+    from ceph_tpu_torch.models.clusters import build_hierarchy
+    from ceph_tpu_torch.testing import cppref
+
+    uniform = build_hierarchy([("rack", 32), ("host", 8)], osds_per_leaf=4, alg=ALG_UNIFORM)
+    mixed = mixed_hierarchy(32, 8, 4)
+    out_w = np.full(1024, 0x10000, np.uint32)
+    out_w[np.random.default_rng(SEED).choice(1024, 32, replace=False)] = 0
+    cases = {
+        "a_uniform_replicated": (uniform, "replicated_rule", REPLICAS,
+                                 np.full(1024, 0x10000, np.uint32)),
+        "b_mixed_replicated": (mixed, "replicated_rule", REPLICAS, out_w),
+        "b_mixed_ec": (mixed, "ec_rule", 6, out_w),
+    }
+    xs = torch.arange(n, dtype=torch.int64, device=dev)
+    out, runs = {}, {}
+    for label, (m, rule_name, rm, w) in cases.items():
+        dense, rule = m.to_dense(), m.rule_by_name(rule_name)
+        tier = runner_signature(dense, rule, rm)[0]
+        if tier != "general":
+            raise AssertionError(f"{label}: routed to the {tier} tier")
+        crush_arg, fn = make_batch_runner(dense, rule, rm, device=dev)
+        runs[label] = (dense, rule, rm, w, fn, crush_arg)
+    reset()
+    results = {}
+    for label, (dense, rule, rm, w, fn, crush_arg) in runs.items():
+        before, syncs = counts()["negdraw"], interp_batch.HOST_SYNCS
+        results[label] = fn(crush_arg, w, xs)
+        torch.cuda.synchronize()
+        out[label] = {"rule": rule.name, "result_max": rm,
+                      "k1_launches_per_call": counts()["negdraw"] - before,
+                      "host_syncs_per_call": interp_batch.HOST_SYNCS - syncs,
+                      "out_osds": int((w == 0).sum())}
+    launches = counts()
+    steps_of = lambda rule: [(s.op, s.arg1, s.arg2) for s in rule.steps]
+    k = interp.COMPACT_MIN_BATCH
+    for label, (dense, rule, rm, w, fn, crush_arg) in runs.items():
+        run = lambda fn=fn, ca=crush_arg, w=w: fn(ca, w, xs)
+        syncs = interp_batch.HOST_SYNCS
+        with masked_rounds():
+            res_m, lens_m = run()
+        out[label]["masked_host_syncs_per_call"] = interp_batch.HOST_SYNCS - syncs
+        res, lens = results[label]
+        if not (torch.equal(res, res_m) and torch.equal(lens, lens_m)):
+            raise AssertionError(f"{label}: compacted and masked rounds differ")
+        times = in_turns({"compacted": run, "masked": masked(run)}, 6)
+        for way, secs in times.items():
+            sec = float(np.median(secs))
+            out[label][way] = {"seconds": sec, "all_seconds": secs, "placements_per_s": n / sec}
+        out[label]["placements_per_s"] = out[label]["compacted"]["placements_per_s"]
+        out[label]["profile"] = profile_call(run)
+        out[label]["masked"]["profile"] = profile_call(masked(run))
+        sample = np.arange(k, dtype=np.uint32)
+        rr, ll = cppref.do_rule_batch(dense, steps_of(rule), sample, w, rm)
+        for way, call in (("compacted", lambda: fn(crush_arg, w, sample)),
+                          ("masked", masked(lambda: fn(crush_arg, w, sample)))):
+            sres, slens = call()
+            if not (np.array_equal(sres.cpu().numpy(), rr)
+                    and np.array_equal(slens.cpu().numpy(), ll)):
+                raise AssertionError(f"{label}: the general engine ({way}) differs from C++")
+        if res.shape != (n, rm) or not np.array_equal(res[:k].cpu().numpy(), rr):
+            raise AssertionError(f"{label}: the 1M-object run differs from the C++ tier")
+        out[label].update(cpp_sample=k, equal_cpp=True,
+                          none_slots=int((res == 0x7FFFFFFF).sum()))
+        if label.startswith("b_") and out[label]["k1_launches_per_call"] <= 0:
+            raise AssertionError(f"{label}: the straw2 levels never launched K1")
+    return {"phase": "general", "objects": n, "tier": "general", "maps": out,
+            "launches": launches}
+
+
+# BASELINE config 5: a failure-driven rebalance of 100M objects on a
+# 10k-OSD straw2 map (bench/config5_rebalance_sim.py's configuration)
+REBALANCE_OSDS = 10_000
+REBALANCE_FAILED = 100          # 1% of the OSDs out
+REBALANCE_CHUNK = 1 << 20
+REBALANCE_CHUNKS_PER_LAUNCH = 8
+REBALANCE_LAUNCHES = 12         # 12 x 8 x 2^20 = 100,663,296 objects >= 100M
+REBALANCE_SAMPLE = 65_536
+
+
+def phase_rebalance(dev, counts, reset) -> dict:
+    """Config 5 at its own size: build_simple(10000, 8 OSDs a host, 16
+    hosts a rack), 3 replicas, 100 OSDs out; 12 launches of 8 chunks of
+    2^20 objects (every object of 100M placed): placements/s (2 x objects
+    / seconds), the moved count and fraction beside the ideal 3.0%, K3
+    launches, host syncs and peak memory; a profile of one launch (after
+    the counts).  Gate: 65,536 objects at the start of the first launch
+    and of the last are placed as the C++ tier places them, before and
+    after, and their moved count is the C++ tier's."""
+    from ceph_tpu_torch.crush import interp_batch
+    from ceph_tpu_torch.crush.engine import make_batch_runner
+    from ceph_tpu_torch.models.clusters import build_simple
+    from ceph_tpu_torch.parallel.placement import sharded_rebalance_sim
+    from ceph_tpu_torch.testing import cppref
+
+    m = build_simple(REBALANCE_OSDS, osds_per_host=8, hosts_per_rack=16)
+    rule = m.rule_by_name("replicated_rule")
+    dense = m.to_dense()
+    w_before = np.full(dense.max_devices, 0x10000, np.uint32)
+    w_after = w_before.copy()
+    failed = np.random.default_rng(0).choice(REBALANCE_OSDS, REBALANCE_FAILED, replace=False)
+    w_after[failed] = 0
+    per_launch = REBALANCE_CHUNK * REBALANCE_CHUNKS_PER_LAUNCH
+    objects = per_launch * REBALANCE_LAUNCHES
+    ideal = REBALANCE_FAILED * REPLICAS / REBALANCE_OSDS
+    step = sharded_rebalance_sim(dense, rule, REPLICAS, REBALANCE_CHUNK,
+                                 REBALANCE_CHUNKS_PER_LAUNCH, dev)
+    reset()
+    syncs = interp_batch.HOST_SYNCS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moved = int(sum(step(w_before, w_after, i * per_launch) for i in range(REBALANCE_LAUNCHES)))
+    sec = time.perf_counter() - t0
+    launches = counts()
+    out = {"seconds": sec, "placements_per_s": 2 * objects / sec, "moved": moved,
+           "moved_fraction": moved / objects, "k3_launches": launches["descend"],
+           "host_syncs": interp_batch.HOST_SYNCS - syncs,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "profile_one_launch": profile_call(lambda: step(w_before, w_after, 0))}
+    steps = [(s.op, s.arg1, s.arg2) for s in rule.steps]
+    crush_arg, fn = make_batch_runner(dense, rule, REPLICAS, device=dev)
+    sample_sim = sharded_rebalance_sim(dense, rule, REPLICAS, REBALANCE_SAMPLE, 1, dev)
+    samples = []
+    for start in (0, (REBALANCE_LAUNCHES - 1) * per_launch):
+        xs = np.arange(start, start + REBALANCE_SAMPLE, dtype=np.uint32)
+        cpp = [cppref.do_rule_batch(dense, steps, xs, w, REPLICAS) for w in (w_before, w_after)]
+        card = [fn(crush_arg, w, xs) for w in (w_before, w_after)]
+        equal = all(np.array_equal(c[0].cpu().numpy(), p[0]) and
+                    np.array_equal(c[1].cpu().numpy(), p[1]) for c, p in zip(card, cpp))
+        cpp_moved = int((cpp[0][0] != cpp[1][0]).any(axis=1).sum())
+        sim_moved = int(sample_sim(w_before, w_after, start))
+        samples.append({"start": start, "objects": REBALANCE_SAMPLE, "equal_cpp": equal,
+                        "moved": sim_moved, "cpp_moved": cpp_moved})
+        if not equal or sim_moved != cpp_moved:
+            raise AssertionError(f"rebalance sample at {start} differs from the C++ tier")
+    return {"phase": "rebalance", "osds": REBALANCE_OSDS, "failed_osds": REBALANCE_FAILED,
+            "objects": objects, "launches_of_the_sim": REBALANCE_LAUNCHES,
+            "chunk": REBALANCE_CHUNK, "chunks_per_launch": REBALANCE_CHUNKS_PER_LAUNCH,
+            "devices": 1, "ideal_moved_fraction": ideal, **out, "samples": samples,
+            "launches": launches}
 
 
 def scalar_sample(m, mp, rng, pool_id: int = 1) -> int:
@@ -1247,7 +1481,6 @@ def phase_balancer(dev, launch_counts, reset_launches, n_osds: int = BALANCER_OS
 
 def run_cli(main_fn, argv) -> tuple[int, str, float]:
     """(exit code, standard output, seconds) of one CLI ``main(argv)``."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -1422,6 +1655,12 @@ def main() -> int:
     emit({**phase_crush(OBJECTS, dev, interp_batch.MODES), "edges": edges})
     emit(phase_osdmap(dev))
     paths["placement"] = counts()
+    general = phase_general(dev, counts, reset)
+    emit(general)
+    paths["general"] = general["launches"]
+    rebalance = phase_rebalance(dev, counts, reset)
+    emit(rebalance)
+    paths["rebalance"] = rebalance["launches"]
     reset()
     batches = {}
     emit(phase_ec_encode(dev, batches))
@@ -1443,6 +1682,7 @@ def main() -> int:
     paths["cli"] = cli["launches"]
     emit({"launches_by_path": paths})
     need = {"placement": ("negdraw", "level_choose", "descend"),
+            "general": ("negdraw",), "rebalance": ("descend",),
             "ec": ("matrix_encode", "bitmatrix_encode", "byte_lut"),
             "recovery": ("descend", "matrix_encode", "schedule_apply"),
             "balancer": ("descend",),

@@ -9,8 +9,11 @@ K4's global-memory table path, K5 at w = 6, 7, 32, its 64- and 128-row
 decoders, unaligned packet sizes and data, K7 at 16 n + 3 bytes and
 on unaligned data), K6 on its shared-memory paths (two input stages and one) and its
 global-memory path, codecs built on
-the card against the same on the CPU, and a small ``recover_pool`` on the
-card against the same on the CPU.  Run them
+the card against the same on the CPU, a small ``recover_pool`` on the
+card against the same on the CPU, the general engine (uniform and mixed
+maps, K1 on the straw2 levels) against the CPU and the C++ tier, and
+its compacted-straggler retry against its masked rounds and the C++
+tier.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -458,3 +461,115 @@ def test_calc_pg_upmaps_on_the_card_matches_cpu(card):
             assert straw2.LAUNCHES["descend"] > before
     assert plans[0] == plans[1] and len(plans[0]) == 300
     assert stats[0].score_launches == stats[1].np_score_calls > 0
+
+
+def _mixed_map():
+    """straw2 root and racks over uniform hosts (4 x 4 x 4 OSDs), with a
+    replicated and an EC rule."""
+    from ceph_tpu_torch.crush.map import ALG_STRAW2, ALG_UNIFORM, CrushMap
+
+    m = CrushMap()
+    for tid, name in ((1, "root"), (2, "rack"), (3, "host")):
+        m.add_type(tid, name)
+    root = m.add_bucket("default", "root", alg=ALG_STRAW2)
+    osd = 0
+    for r in range(4):
+        rack = m.add_bucket(f"rack{r}", "rack", alg=ALG_STRAW2)
+        for h in range(4):
+            host = m.add_bucket(f"host{r}_{h}", "host", alg=ALG_UNIFORM)
+            for _ in range(4):
+                m.insert_item(host.id, osd, 0x10000)
+                osd += 1
+            m.insert_item(rack.id, host.id, 4 * 0x10000)
+        m.insert_item(root.id, rack.id, 16 * 0x10000)
+    m.make_replicated_rule("replicated_rule", "default", "host")
+    m.make_erasure_rule("ec", "default", "host")
+    return m
+
+
+@pytest.mark.parametrize("rule_name,rm", [("replicated_rule", 3), ("ec", 6)])
+@pytest.mark.parametrize("kind", ["uniform", "mixed"])
+def test_general_engine_on_the_card_matches_cpu(card, kind, rule_name, rm):
+    """The general engine on the card (K1 on its straw2 levels) gives the
+    CPU's placements and the C++ tier's."""
+    from ceph_tpu_torch.crush import engine, interp
+    from ceph_tpu_torch.crush.map import ALG_UNIFORM
+    from ceph_tpu_torch.models.clusters import build_hierarchy
+    from ceph_tpu_torch.testing import cppref
+
+    if kind == "uniform":
+        m = build_hierarchy([("rack", 4), ("host", 4)], 4, alg=ALG_UNIFORM)
+        m.make_erasure_rule("ec", "default", "host")
+    else:
+        m = _mixed_map()
+    dense, rule = m.to_dense(), m.rule_by_name(rule_name)
+    assert engine.runner_signature(dense, rule, rm)[0] == "general"
+    w = np.full(dense.max_devices, 0x10000, np.uint32)
+    w[[3, 17, 40]] = 0
+    w[9] = 0x8000
+    xs = np.random.default_rng(1).integers(0, 2**32, 20_000, dtype=np.uint32)
+    before = straw2.LAUNCHES["negdraw"]
+    got = interp.batch_do_rule(interp.StaticCrushMap(dense, card), rule, xs, w, rm)
+    assert (straw2.LAUNCHES["negdraw"] > before) == (kind == "mixed")
+    want = interp.batch_do_rule(interp.StaticCrushMap(dense, "cpu"), rule, xs, w, rm)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    cres, clens = cppref.do_rule_batch(dense, [(s.op, s.arg1, s.arg2) for s in rule.steps],
+                                       xs, w, rm)
+    assert np.array_equal(got[0].cpu().numpy(), cres)
+    assert np.array_equal(got[1].cpu().numpy(), clens)
+
+
+@pytest.mark.parametrize("rule_name,rm", [("replicated_rule", 3), ("ec", 6)])
+def test_compacted_retry_on_the_card_matches_masked_rounds(card, monkeypatch, rule_name, rm):
+    """At the compaction threshold on a straw2 map: the general engine's
+    compacted rounds on the card equal its masked rounds (the threshold
+    raised above the batch) and the C++ tier, as the fast engine's
+    masked rounds do in every mode."""
+    from ceph_tpu_torch.crush import engine, interp
+    from ceph_tpu_torch.models.clusters import build_skewed
+    from ceph_tpu_torch.testing import cppref
+
+    m = build_skewed(96, seed=1)
+    m.make_erasure_rule("ec", "default", "host")
+    dense, rule = m.to_dense(), m.rule_by_name(rule_name)
+    w = np.full(dense.max_devices, 0x10000, np.uint32)
+    w[[3, 7, 11, 40, 41]] = 0
+    B = interp.COMPACT_MIN_BATCH
+    xs = np.random.default_rng(2).integers(0, 2**32, B, dtype=np.uint32)
+    cres, clens = cppref.do_rule_batch(dense, [(s.op, s.arg1, s.arg2) for s in rule.steps],
+                                       xs, w, rm)
+    for mode in interp_batch.MODES:
+        res, lens = engine.run_batch(dense, rule, xs, w, rm, mode=mode, device=card)
+        assert np.array_equal(res.cpu().numpy(), cres), mode
+        assert np.array_equal(lens.cpu().numpy(), clens), mode
+    smap = interp.StaticCrushMap(dense, card)
+    for threshold in (B, B + 1):
+        monkeypatch.setattr(interp, "COMPACT_MIN_BATCH", threshold)
+        res, lens = interp.batch_do_rule(smap, rule, xs, w, rm)
+        assert np.array_equal(res.cpu().numpy(), cres), threshold
+        assert np.array_equal(lens.cpu().numpy(), clens), threshold
+
+
+@pytest.mark.parametrize("rule_name,rm", [("replicated_rule", 3), ("ec", 6)])
+def test_general_engine_compacted_retry_on_the_card(card, monkeypatch, rule_name, rm):
+    """The general engine's compacted rounds on a mixed map on the card
+    equal its masked rounds and the C++ tier at the compaction
+    threshold."""
+    from ceph_tpu_torch.crush import interp
+    from ceph_tpu_torch.testing import cppref
+
+    m = _mixed_map()
+    dense, rule = m.to_dense(), m.rule_by_name(rule_name)
+    w = np.full(dense.max_devices, 0x10000, np.uint32)
+    w[[3, 17, 40]] = 0
+    w[9] = 0x8000
+    B = interp.COMPACT_MIN_BATCH
+    xs = np.random.default_rng(3).integers(0, 2**32, B, dtype=np.uint32)
+    cres, clens = cppref.do_rule_batch(dense, [(s.op, s.arg1, s.arg2) for s in rule.steps],
+                                       xs, w, rm)
+    smap = interp.StaticCrushMap(dense, card)
+    for threshold in (B, B + 1):
+        monkeypatch.setattr(interp, "COMPACT_MIN_BATCH", threshold)
+        res, lens = interp.batch_do_rule(smap, rule, xs, w, rm)
+        assert np.array_equal(res.cpu().numpy(), cres), threshold
+        assert np.array_equal(lens.cpu().numpy(), clens), threshold

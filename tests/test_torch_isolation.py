@@ -174,3 +174,36 @@ def test_balancer_and_clis_default_to_the_card(tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert Balancer(m, device="cpu").mapping.device.type == "cpu"
+
+
+def test_scan_covers_the_rest_of_placement():
+    """The general engine, the placement module and the table generator
+    are in both scans."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("crush/interp.py", "parallel/__init__.py", "parallel/placement.py",
+                "core/lutgen.py"):
+        assert mod in rel
+    mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
+    assert {"ceph_tpu_torch.crush.interp", "ceph_tpu_torch.parallel.placement",
+            "ceph_tpu_torch.core.lutgen"} <= mods
+
+
+def test_placement_entry_points_default_to_the_card():
+    """The general engine's map and the placement module run on the card
+    unless asked for the CPU, and raise without one."""
+    from ceph_tpu_torch.crush.interp import StaticCrushMap
+    from ceph_tpu_torch.models.clusters import build_simple
+    from ceph_tpu_torch.parallel import placement
+
+    for fn in (StaticCrushMap, placement.sharded_placement_step,
+               placement.sharded_rebalance_sim):
+        assert _device_default(fn) == "cuda"
+    if torch.cuda.is_available():
+        return
+    m = build_simple(8)
+    dense, rule = m.to_dense(), m.rule_by_name("replicated_rule")
+    for call in (lambda: StaticCrushMap(dense),
+                 lambda: placement.sharded_placement_step(dense, rule, 3),
+                 lambda: placement.sharded_rebalance_sim(dense, rule, 3, 16, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
