@@ -47,6 +47,9 @@ SIGNATURES = {
                            _L, _P],
         "ec_byte_lut": [_P, _P, _P, _L, _P],
     },
+    "scrub": {
+        "scrub_crc32c_rows": [_P, _L, _L, _P, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

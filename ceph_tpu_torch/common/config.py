@@ -81,9 +81,13 @@ SCHEMA: list[Option] = [
            "throttle stall to max_debt/rate seconds",
            min=1, see_also=("recovery_burst_bytes",)),
     Option("recovery_retry_max", OPT_INT, 4, LEVEL_ADVANCED,
-           "re-derivations of a pattern group whose decode fails "
-           "verification before its PGs are reported inconsistent "
-           "(0 disables retry)", min=0),
+           "decode-launch retries before a pattern group's PGs are "
+           "reported failed (0 disables retry)", min=0,
+           see_also=("recovery_backoff_base_ms",)),
+    Option("recovery_backoff_base_ms", OPT_FLOAT, 50.0, LEVEL_ADVANCED,
+           "base delay for exponential backoff between decode-launch "
+           "retries (milliseconds); doubled per attempt plus seeded "
+           "jitter", min=0.0, see_also=("recovery_retry_max",)),
     Option("recovery_xor_schedule", OPT_STR, "auto", LEVEL_ADVANCED,
            "batched-repair decode engine for pattern groups: 'auto' "
            "runs CSE-shrunk XOR schedules for bit-level (bitmatrix/"
@@ -95,8 +99,112 @@ SCHEMA: list[Option] = [
     Option("recovery_schedule_cache_max", OPT_INT, 64, LEVEL_ADVANCED,
            "bound on cached decode engines per ScheduleCache (compiled "
            "XOR schedules + dense adapters), evicted LRU; 0 removes "
-           "the bound", min=0,
+           "the bound.  Long chaos timelines visit many erasure "
+           "patterns — without a bound the cache grows for the life "
+           "of the run", min=0,
            see_also=("recovery_xor_schedule",)),
+    Option("recovery_coschedule_max", OPT_INT, 4, LEVEL_ADVANCED,
+           "small pattern groups dispatched back-to-back per "
+           "supervised scheduling window when a mesh is attached "
+           "(async launches round-robined over local devices); 1 "
+           "serializes launches as before", min=1),
+    Option("recovery_work_stealing", OPT_STR, "auto", LEVEL_ADVANCED,
+           "route byte-level pattern groups through the fault-tolerant "
+           "work-stealing dispatcher (over-decomposed sub-shards, "
+           "greedy assignment as chips drain, straggler hedging, "
+           "chip conviction): 'auto' enables it on real multi-chip "
+           "meshes and keeps the static sharded path on CPU hosts; "
+           "'on' forces it everywhere (tests/benches); 'off' pins the "
+           "static path", enum_allowed=("auto", "on", "off"),
+           see_also=("recovery_subshards_per_chip",
+                     "recovery_dispatch_hedge_factor",
+                     "recovery_chip_fail_threshold")),
+    Option("osd_op_complaint_time", OPT_FLOAT, 30.0, LEVEL_ADVANCED,
+           "an op in flight (or completed) at least this old (seconds) "
+           "is a slow op: counted, kept in the slow-op history, and "
+           "surfaced by dump_slow_ops_in_flight / "
+           "dump_historic_slow_ops (reference analog of the same name)",
+           min=0.0),
+    Option("osd_mclock_client_res_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "mclock reservation for client traffic (bytes/s guaranteed); "
+           "0 disables the reservation term",
+           min=0.0, see_also=("osd_mclock_client_wgt",
+                              "osd_mclock_client_lim_bps")),
+    Option("osd_mclock_client_wgt", OPT_FLOAT, 1.0, LEVEL_ADVANCED,
+           "mclock weight for client traffic (relative share of "
+           "capacity past reservations)", min=0.0),
+    Option("osd_mclock_client_lim_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "mclock limit for client traffic (bytes/s hard cap); 0 "
+           "means uncapped", min=0.0),
+    Option("osd_mclock_recovery_res_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "mclock reservation for recovery (bytes/s guaranteed so "
+           "client load can never starve repair); 0 disables",
+           min=0.0, see_also=("osd_mclock_recovery_wgt",
+                              "osd_mclock_recovery_lim_bps")),
+    Option("osd_mclock_recovery_wgt", OPT_FLOAT, 1.0, LEVEL_ADVANCED,
+           "mclock weight for recovery traffic", min=0.0),
+    Option("osd_mclock_recovery_lim_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "mclock limit for recovery (bytes/s hard cap bounding its "
+           "interference with client tail latency); 0 means uncapped",
+           min=0.0),
+    Option("osd_mclock_scrub_res_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "mclock reservation for scrub traffic (bytes/s guaranteed "
+           "so client/recovery load can never starve integrity "
+           "checking); 0 disables",
+           min=0.0, see_also=("osd_mclock_scrub_wgt",
+                              "osd_mclock_scrub_lim_bps")),
+    Option("osd_mclock_scrub_wgt", OPT_FLOAT, 0.5, LEVEL_ADVANCED,
+           "mclock weight for scrub traffic (background work: half a "
+           "client share by default)", min=0.0),
+    Option("osd_mclock_scrub_lim_bps", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "mclock limit for scrub traffic (bytes/s hard cap bounding "
+           "a scrub storm's interference with client tail latency); 0 "
+           "means uncapped", min=0.0),
+    Option("osd_heartbeat_interval", OPT_FLOAT, 6.0, LEVEL_ADVANCED,
+           "seconds between OSD heartbeat pings (drives the liveness "
+           "detector's polling cadence when nothing else advances the "
+           "virtual clock)", min=0.001,
+           see_also=("osd_heartbeat_grace",)),
+    Option("osd_heartbeat_grace", OPT_FLOAT, 20.0, LEVEL_ADVANCED,
+           "seconds without an ack before the detector may mark an "
+           "OSD down (the mon/OSD heartbeat grace of the same name)",
+           min=0.0, see_also=("mon_osd_adjust_heartbeat_grace",)),
+    Option("mon_osd_down_out_interval", OPT_FLOAT, 600.0, LEVEL_ADVANCED,
+           "seconds a detector-marked-down OSD stays down before it "
+           "is automatically marked out (0 disables auto-out); "
+           "map-event downs are never auto-outed", min=0.0,
+           see_also=("mon_osd_min_in_ratio",)),
+    Option("mon_osd_min_in_ratio", OPT_FLOAT, 0.75, LEVEL_ADVANCED,
+           "auto-out stops once it would push the in-OSD fraction "
+           "below this floor (reference analog of the same name)",
+           min=0.0, max=1.0),
+    Option("mon_osd_min_down_reporters", OPT_INT, 2, LEVEL_ADVANCED,
+           "distinct peer failure reports required before a "
+           "heartbeat-silent OSD can be marked down", min=1),
+    Option("mon_osd_laggy_halflife", OPT_FLOAT, 3600.0, LEVEL_ADVANCED,
+           "decay halflife (seconds) for the per-OSD laggy score and "
+           "the markdown (flap) count", min=0.001),
+    Option("mon_osd_laggy_weight", OPT_FLOAT, 0.3, LEVEL_ADVANCED,
+           "EWMA weight a slow-but-acking OSD's laggy score gains per "
+           "heartbeat tick", min=0.0, max=1.0),
+    Option("mon_osd_adjust_heartbeat_grace", OPT_BOOL, True,
+           LEVEL_ADVANCED,
+           "scale the effective heartbeat grace by 2^markdowns for "
+           "repeat offenders (the markdown-log flap damper); off = "
+           "flat grace",
+           see_also=("mon_osd_grace_doublings_max",)),
+    Option("mon_osd_grace_doublings_max", OPT_FLOAT, 5.0, LEVEL_ADVANCED,
+           "cap on markdown-log grace doublings (effective grace <= "
+           "grace * 2^cap)", min=0.0),
+    Option("osd_scrub_stagger_period", OPT_FLOAT, 0.0, LEVEL_ADVANCED,
+           "deep-scrub stagger period (seconds): each PG scrubs in a "
+           "hashed phase window inside the period so pool-wide scrub "
+           "bandwidth is flat instead of one burst; 0 scrubs the "
+           "whole pool every pass", min=0.0),
+    Option("osd_max_backfills", OPT_INT, 1, LEVEL_ADVANCED,
+           "backfill pattern groups admitted per repair group in the "
+           "supervised scheduler (the reference's backfill reservation "
+           "analog); repair and backfill share one token bucket", min=1),
 ]
 
 

@@ -1,0 +1,51 @@
+"""Cluster-health telemetry: PG-state time series, SLOs, event journal.
+
+The observability layer over the recovery/chaos machinery:
+
+- :mod:`~ceph_tpu_torch.obs.pg_states` — survivor-bitmask -> PG-state
+  histogram as torch ops on one device.
+- :mod:`~ceph_tpu_torch.obs.timeline` — :class:`HealthTimeline`, the
+  per-epoch series on the chaos engine's virtual clock.
+- :mod:`~ceph_tpu_torch.obs.slo` — declarative :class:`SLOSpec` budgets
+  graded into ``HEALTH_OK/WARN/ERR`` healthchecks.
+- :mod:`~ceph_tpu_torch.obs.journal` — correlated JSONL span/event log.
+- :mod:`~ceph_tpu_torch.obs.status` — ``ceph -s`` analog + admin-socket
+  trio.
+
+The flight recorder and the trace exporter are not ported yet (ROADMAP
+§1, item 3).
+"""
+
+from .journal import EventJournal
+from .pg_states import N_STATES, STATE_NAMES, PGStateClassifier, pg_state_step
+from .slo import HealthCheck, HealthReport, SLOSpec, evaluate
+from .status import register_admin_hooks, render_status, status_dict
+from .timeline import (
+    HEALTH_ERR,
+    HEALTH_OK,
+    HEALTH_WARN,
+    HealthSample,
+    HealthTimeline,
+    worst_status,
+)
+
+__all__ = [
+    "EventJournal",
+    "HEALTH_ERR",
+    "HEALTH_OK",
+    "HEALTH_WARN",
+    "HealthCheck",
+    "HealthReport",
+    "HealthSample",
+    "HealthTimeline",
+    "N_STATES",
+    "PGStateClassifier",
+    "SLOSpec",
+    "STATE_NAMES",
+    "evaluate",
+    "pg_state_step",
+    "register_admin_hooks",
+    "render_status",
+    "status_dict",
+    "worst_status",
+]

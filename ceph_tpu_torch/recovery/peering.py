@@ -162,6 +162,25 @@ class PeeringResult:
         deg = (self.flags & PG_STATE_DEGRADED) != 0
         return int((self.size - self.n_survivors()[deg]).sum())
 
+    def peer_counts(self, n_osds: int) -> np.ndarray:
+        """Per-OSD count of distinct co-serving peers ([n_osds] i32):
+        OSDs that share at least one acting set.  This is the failure-
+        reporter pool the liveness detector consults — only heartbeat
+        peers can report an OSD down, so an OSD nobody co-serves with
+        can never collect ``mon_osd_min_down_reporters`` reports."""
+        adj = np.zeros((n_osds, n_osds), bool)
+        act = self.acting
+        for i in range(self.size):
+            a = act[:, i]
+            av = a != ITEM_NONE
+            for j in range(self.size):
+                if i == j:
+                    continue
+                b = act[:, j]
+                both = av & (b != ITEM_NONE)
+                adj[a[both], b[both]] = True
+        return adj.sum(axis=1).astype(np.int32)
+
 
 def _host(t: torch.Tensor, dtype=None) -> np.ndarray:
     a = t.cpu().numpy()

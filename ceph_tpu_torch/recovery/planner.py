@@ -170,7 +170,7 @@ def build_plan(
     where only the epoch delta's invalidated PGs need fresh groups.
 
     ``inconsistent`` is a scrub pass's per-PG damage bitmask
-    (the reference's ``recovery.scrub.ScrubResult``): inconsistent PGs
+    (:class:`ceph_tpu_torch.recovery.scrub.ScrubResult`): inconsistent PGs
     join the degraded set, and a damaged shard is struck from its PG's
     survivor mask — it can never be a decode source, and it lands in
     the group's ``missing`` set so the same batched launch that heals

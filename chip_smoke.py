@@ -78,6 +78,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    16-byte boundary, packet sizes 3 and 5, the bit-plane layout at S =
    131, S = 0), bit for bit, with the program's op, level, group and
    work-slot counts and its launch shape;
+9a. scrub_kernel: K8 (crc32c_rows, ``csrc/scrub.cu``) against its plain
+   version at a scrub pass of the supervised store (8192 x 11 rows of 32
+   KiB), timed, with ptxas's registers and spills, and on its edges (L =
+   0, 1, 3, 15, 17, 4097, rows 1 and 3 bytes past a 16-byte boundary,
+   one row, more rows than one grid covers, the check value
+   0xE3069283), bit for bit;
 10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
    build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
@@ -85,6 +91,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    m=3 p=2048 under ``auto`` (K6, packet): every rebuilt shard equals
    the stored one, one launch per pattern, the peering equals a numpy
    classification; timed (median of 3) and profiled;
+10a. supervised: ``SupervisedRecovery`` on the same map and RS k=8 m=3
+   with every shard of the pool stored (32 KiB each): mid-repair-loss,
+   scrub-storm (a ``Scrubber`` riding the loop, ``write_shard`` writing
+   repairs back) and flapping-osd (0.5 s heartbeat grace), each with an
+   EventJournal, a HealthTimeline graded by an SLO and an OpTracker on
+   the virtual clock, each counted from 0 (launches, host syncs by
+   torch's sync-debug warnings, wall seconds) and gated (converged,
+   every rebuilt shard equal to the store, the unrecoverable PGs exactly
+   those left below k, every corruption found and a clean closing scrub,
+   a detection); a profiled mid-repair-loss pass; the three scenarios at
+   128 PGs on the card and the CPU with equal ``summary()``;
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -107,11 +124,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and one object of its size encoded on the card equal to the CPU's.
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
-general; 5b: rebalance; 6-8: EC; 10: recovery; 11: balancer; 12: cli,
-each from 0), the kernels line (each kernel's launches summed over the
-paths; every kernel must launch on its paths, K1 on the general path,
-K3 on the rebalance path, K6 on the recovery path, K3 on the
-balancer's),
+general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised; 11:
+balancer; 12: cli, each from 0), the kernels line (each kernel's
+launches summed over the paths; every kernel must launch on its paths,
+K1 on the general path, K3 on the rebalance path, K6 on the recovery
+path, K3, K4 and K8 on the supervised path, K3 on the balancer's),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -747,6 +764,221 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
     out["launches"] = path_counts
     return out
 
+
+SCRUB_EDGES = [  # (rows, L, bytes the first row starts past a 16-byte boundary)
+    (5, 0, 0), (7, 1, 0), (9, 3, 0), (33, 15, 0), (33, 17, 0), (257, 4097, 0),
+    (64, 4096, 1), (31, 4101, 3), (1, 32768, 0), (1, 9, 0),
+    ((1 << 20) * 128 + 5, 1, 0),  # more rows than one grid of K8 covers
+]
+SUPERVISED_PASSES = ("mid-repair-loss", "scrub-storm", "flapping-osd")
+SUPERVISED_GRACE = 0.5          # heartbeat grace of flapping-osd (the scenario's 0.75 s drops)
+SUPERVISED_SEED = 7             # retry-jitter seed
+SUPERVISED_SMALL = (128, 128, 1024)  # OSDs, PGs, chunk of the card-vs-CPU replay
+
+
+def phase_scrub_kernel(int_rate: float, dev, n_pgs: int = RECOVERY_PGS,
+                       chunk: int = RECOVERY_CHUNK) -> dict:
+    """K8 (the scrub's CRC32C of rows) vs its plain version, bit for bit:
+    at the supervised store's shape (n_pgs x 11 rows of ``chunk`` bytes:
+    a scrub pass), timed, and on its edges (SCRUB_EDGES, the check
+    value), compared only."""
+    from ceph_tpu_torch.recovery import scrub
+
+    rows = n_pgs * 11
+    data = card_bytes((rows, chunk), SEED + 12, dev)
+    rec = kernel_record("crc32c_rows", "ceph_tpu/recovery/scrub.py:120",
+                        lambda: scrub.crc_rows(data), lambda: scrub.crc_rows_plain(data),
+                        rows * chunk + rows * 8, rows * chunk, int_rate)
+    rec.update(shape=f"[{rows}, {chunk}] u8 (a scrub pass of {n_pgs} PGs x 11 shards)",
+               bound_note="bytes read at HBM rate; ops = one table lookup a byte")
+    del data
+    edges = []
+    for n, length, offset in SCRUB_EDGES:
+        g = torch.Generator(device=dev).manual_seed(SEED + n + length)
+        flat = torch.randint(0, 256, (n * length + offset,), generator=g, device=dev,
+                             dtype=torch.uint8)
+        x = flat[offset:].view(n, length)
+        equal, err = compare(scrub.crc_rows(x), scrub.crc_rows_plain(x))
+        edges.append({"case": f"{n} rows x {length} bytes, +{offset}", "bit_equal": equal,
+                      "max_abs_err": err})
+        del flat, x
+    check = torch.tensor(list(b"123456789"), dtype=torch.uint8, device=dev)[None, :]
+    edges.append({"case": "check value crc32c('123456789') = 0xE3069283",
+                  "bit_equal": int(scrub.crc_rows(check)[0]) == 0xE3069283, "max_abs_err": 0})
+    torch.cuda.synchronize()
+    return {"phase": "scrub_kernel", "results": [rec], "edges": edges}
+
+
+@contextlib.contextmanager
+def count_syncs(out: dict):
+    """Count the host syncs of a block: torch's sync-debug mode warns on
+    every synchronizing CUDA call (a copy to the host, ``.item()``,
+    ``nonzero``), and the warnings are counted into ``out["host_syncs"]``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    out["host_syncs"] = sum(1 for w in seen if "synchroniz" in str(w.message))
+
+
+def supervised_store(codec, pg_num: int, chunk: int, dev):
+    """Every shard of every PG: seeded data made on the card, parity from
+    one batched encode there, brought to one host array ``[k + m,
+    pg_num * chunk]``; returns it with ``read_shard``/``write_shard``."""
+    k = codec.get_data_chunk_count()
+    data = card_bytes((k, pg_num * chunk), SEED + 13, dev)
+    full = torch.cat([data, codec.codec.encode_async(data)]).cpu().numpy()
+    del data
+
+    def cols(pg):
+        return slice(pg * chunk, (pg + 1) * chunk)
+
+    def write(pg, s, buf):
+        full[s, cols(pg)] = buf
+
+    return full, (lambda pg, s: full[s, cols(pg)]), write
+
+
+def supervised_run(scenario: str, m, codec, read_shard, write_shard, dev, n_pgs: int,
+                   scrub: bool = False):
+    """One pass of SupervisedRecovery under ``scenario`` on a deepcopy of
+    ``m``, with an EventJournal, a HealthTimeline graded by an SLO and
+    an OpTracker on the virtual clock (and a Scrubber riding the loop
+    when ``scrub``).  Returns (result, chaos, journal, timeline, spec,
+    scrubber)."""
+    import copy
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.common.op_tracker import OpTracker
+    from ceph_tpu_torch.obs import EventJournal, HealthTimeline, SLOSpec
+
+    cur, prev = copy.deepcopy(m), m
+    cfg = Config(env={})
+    cfg.set("osd_heartbeat_grace", SUPERVISED_GRACE)
+    clock = rec.VirtualClock()
+    journal = EventJournal(clock=clock.now, trace_id=f"chip-{scenario}")
+    spec = SLOSpec(max_inactive_seconds=10.0, min_availability_fraction=0.99,
+                   max_time_to_zero_degraded_s=60.0, max_inconsistent_seconds=10.0)
+    health = HealthTimeline(clock.now, k=codec.get_data_chunk_count(),
+                            sample_status=spec.sample_status, device=dev)
+
+    def corrupt(pg, s, off, mask):
+        rec.apply_bitrot(read_shard(pg, s), off, mask)
+
+    chaos = rec.ChaosEngine(cur, rec.build_scenario(scenario, cur), clock=clock,
+                            journal=journal, corrupt=corrupt, config=cfg, device=dev)
+    scrubber = (rec.Scrubber(n_pgs, cur.pools[1].size, journal=journal, clock=clock.now,
+                             device=dev) if scrub else None)
+    sup = rec.SupervisedRecovery(codec, chaos, config=cfg, seed=SUPERVISED_SEED,
+                                 journal=journal, health=health,
+                                 op_tracker=OpTracker(clock=clock.now, config=cfg),
+                                 scrubber=scrubber, write_shard=write_shard if scrub else None,
+                                 device=dev)
+    res = sup.run(prev, 1, read_shard)
+    return res, chaos, journal, health, spec, scrubber
+
+
+def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OSDS,
+                     pg_num: int = RECOVERY_PGS, chunk: int = RECOVERY_CHUNK,
+                     small=SUPERVISED_SMALL) -> dict:
+    """SupervisedRecovery on the recovery phase's map and code (RS k=8
+    m=3, one ``chunk`` a PG shard), three passes in SUPERVISED_PASSES,
+    each counted from 0 (its launches, host syncs and wall seconds), with
+    its gates; then a profiled mid-repair-loss pass, and the same three
+    scenarios at the ``small`` size on the card and on the CPU, whose
+    summaries must be equal (those runs are checks: outside the counts)."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.crush import interp_batch
+    from ceph_tpu_torch.ec import create
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.obs import evaluate
+
+    profile = RECOVERY_CODES["rs_8_3_auto"][0]
+    m = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
+    codec = create(profile, device=dev)
+    k = codec.get_data_chunk_count()
+    full, read_shard, write_shard = supervised_store(codec, pg_num, chunk, dev)
+    out = {"phase": "supervised", "osds": n_osds, "pgs": pg_num, "chunk_bytes": chunk,
+           "store_bytes": int(full.nbytes), "profile": profile, "passes": {}}
+    path: dict[str, int] = {}
+    for scenario in SUPERVISED_PASSES:
+        scrub = scenario == "scrub-storm"
+        info: dict = {}
+        syncs = interp_batch.HOST_SYNCS
+        reset_launches()
+        t0 = time.perf_counter()
+        with count_syncs(info):
+            res, chaos, journal, health, spec, scrubber = supervised_run(
+                scenario, m, codec, read_shard, write_shard, dev, pg_num, scrub)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        crush_syncs = interp_batch.HOST_SYNCS - syncs
+        for kname, v in launches.items():
+            path[kname] = path.get(kname, 0) + v
+        s = res.summary()
+        final = rec.peer_pool(m, chaos.osdmap, 1, device=dev)
+        surv = final.n_survivors()
+        below_k = {int(p) for p in final.pgs_with(rec.PG_STATE_DEGRADED) if surv[p] < k}
+        wrong = [(pg, sh) for pg, shards in res.shards.items() for sh, buf in shards.items()
+                 if not np.array_equal(buf, read_shard(pg, sh))]
+        info.update(
+            wall_s=wall, launches=launches, crush_host_syncs=crush_syncs,
+            summary={key: s[key] for key in (
+                "converged", "launches", "retries", "stale_launches", "salvaged_pgs",
+                "plan_revisions", "time_to_zero_degraded_s", "epochs_observed",
+                "completed_pgs", "schedule_launches", "bytes_recovered", "scrub_passes",
+                "scrubbed_bytes", "inconsistencies_found", "verify_retries",
+                "time_to_zero_inconsistent_s")},
+            unrecoverable_pgs=s["unrecoverable_pgs"], below_k_pgs=sorted(below_k),
+            failed_pgs=s["failed_pgs"], shards_checked=sum(len(v) for v in res.shards.values()),
+            shards_wrong=len(wrong), slo=evaluate(health, spec).to_dict()["status"],
+            health_samples=len(health), journal_records=len(journal.records))
+        gates = {"converged": s["converged"], "shards_equal_store": not wrong,
+                 "unrecoverable_is_below_k": set(s["unrecoverable_pgs"]) == below_k,
+                 "no_failed_pgs": not s["failed_pgs"]}
+        if scrub:
+            rotted = {c.event.pg for c in chaos.corruptions}
+            found = {p for r in journal.by_name("scrub.inconsistent") for p in r["attrs"]["pgs"]}
+            after = scrubber.scrub(read_shard).n_inconsistent  # a check pass, after the counts
+            info.update(corruptions=len(chaos.corruptions), corrupted_pgs=len(rotted),
+                        found_pgs=len(found & rotted), closing_check_inconsistent=after,
+                        scrub_GBps=s["scrubbed_bytes"] / wall / 1e9)
+            gates.update(every_corruption_found=rotted <= found, scrubbed_clean=after == 0,
+                         none_inconsistent_unrecoverable=not s["inconsistent_unrecoverable_pgs"])
+        if scenario == "flapping-osd":
+            det = chaos.liveness.summary()
+            info.update(liveness=det, detector_epochs=[r["attrs"]["epoch"] for r in
+                                                       journal.by_name("chaos.detected")])
+            gates["detected"] = det["downs"] >= 1
+        info["gates"] = gates
+        out["passes"][scenario] = info
+        print(json.dumps({"supervised_pass": scenario, "wall_s": wall,
+                          "host_syncs": info["host_syncs"], "gates": gates}), flush=True)
+    out["launches"] = path
+    out["profile_mid_repair_loss"] = profile_call(lambda: supervised_run(
+        "mid-repair-loss", m, codec, read_shard, write_shard, dev, pg_num))
+    del full
+    # the same seeded runs at a small size on the card and on the CPU
+    n_small, pgs_small, chunk_small = small
+    m_small = build_osdmap(n_small, pg_num=pgs_small, size=11, pool_kind="erasure")
+    replay = {}
+    for scenario in SUPERVISED_PASSES:
+        sums = []
+        for d in (dev, torch.device("cpu")):
+            c = create(profile, device=d)
+            _, rd, wr = supervised_store(c, pgs_small, chunk_small, d)
+            sums.append(supervised_run(scenario, m_small, c, rd, wr, d, pgs_small,
+                                       scenario == "scrub-storm")[0].summary())
+        replay[scenario] = {"equal": sums[0] == sums[1], "card": sums[0]}
+    out["card_equals_cpu"] = replay
+    return out
 
 def ec_batch(name: str, dev):
     """A codec on the card and one encode call's data: EC_OBJECTS objects
@@ -1588,6 +1820,7 @@ def main() -> int:
     from ceph_tpu_torch.core import straw2
     from ceph_tpu_torch.crush import interp_batch
     from ceph_tpu_torch.ec import gf_kernels, kernels as ec_kernels
+    from ceph_tpu_torch.recovery import scrub as scrub_mod
 
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
@@ -1633,14 +1866,23 @@ def main() -> int:
     bad += [e["case"] for e in sched["edges"] if not e["bit_equal"]]
     if bad:
         raise AssertionError(f"K6 disagrees with its plain version: {bad}")
+    scrub_phase = phase_scrub_kernel(int_rate, dev)
+    scrub_phase["results"][0]["ptxas"] = ptxas["scrub"]
+    emit(scrub_phase)
+    bad = [r["name"] for r in scrub_phase["results"] if not r["bit_equal"]]
+    bad += [e["case"] for e in scrub_phase["edges"] if not e["bit_equal"]]
+    if bad:
+        raise AssertionError(f"K8 disagrees with its plain version: {bad}")
 
     def counts() -> dict:
-        return {**straw2.LAUNCHES, **gf_kernels.LAUNCHES, **ec_kernels.LAUNCHES}
+        return {**straw2.LAUNCHES, **gf_kernels.LAUNCHES, **ec_kernels.LAUNCHES,
+                **scrub_mod.LAUNCHES}
 
     def reset() -> None:
         straw2.reset_launches()
         gf_kernels.reset_launches()
         ec_kernels.reset_launches()
+        scrub_mod.reset_launches()
 
     # each main path from 0: placement (raw CRUSH in every mode, then the
     # OSDMap), EC (encode, decode, the plugins), recovery
@@ -1671,6 +1913,15 @@ def main() -> int:
     recovery = phase_recovery(dev, counts, reset)
     emit(recovery)
     paths["recovery"] = recovery["launches"]
+    supervised = phase_supervised(dev, counts, reset)
+    emit(supervised)
+    paths["supervised"] = supervised["launches"]
+    bad = [(p, g) for p, info in supervised["passes"].items()
+           for g, ok in info["gates"].items() if not ok]
+    bad += [(s_, "card_equals_cpu") for s_, r in supervised["card_equals_cpu"].items()
+            if not r["equal"]]
+    if bad:
+        raise AssertionError(f"supervised recovery failed its gates: {bad}")
     balancer = phase_balancer(dev, counts, reset)
     emit(balancer)
     paths["balancer"] = balancer["launches"]
@@ -1685,6 +1936,7 @@ def main() -> int:
             "general": ("negdraw",), "rebalance": ("descend",),
             "ec": ("matrix_encode", "bitmatrix_encode", "byte_lut"),
             "recovery": ("descend", "matrix_encode", "schedule_apply"),
+            "supervised": ("descend", "matrix_encode", "crc32c_rows"),
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
@@ -1699,6 +1951,7 @@ def main() -> int:
     main_ec += sched["results"]
     records = [dict(k, source="ceph_tpu_torch/csrc/straw2.cu") for k in kernels]
     records += [dict(r, source="ceph_tpu_torch/csrc/ec.cu") for r in main_ec]
+    records += [dict(r, source="ceph_tpu_torch/csrc/scrub.cu") for r in scrub_phase["results"]]
     emit({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["name"]],

@@ -3,9 +3,11 @@
 ``crushtool`` (``--test`` with ``--show-mappings``,
 ``--show-statistics`` and ``--show-bad-mappings``, ``-c`` and ``-d``),
 ``osdmaptool`` (``--createsimple``, ``--print``, ``--test-map-pgs``,
-``--test-map-object``, ``--upmap`` with its command file) and
-``ec_bench`` run through their ``main()`` with ``--device cpu``; their
-output must equal the reference's, except for wall-clock fields.  The
+``--test-map-object``, ``--upmap`` with its command file), ``ec_bench``
+and ``recovery`` (``--inject``/``--plan``/``--execute``, ``--chaos``)
+run through their ``main()`` with ``--device cpu``; their output must
+equal the reference's, except for wall-clock fields.  ``recovery``'s
+multi-device flags exit non-zero.  The
 port's CRUSH engine (``run_batch`` on the CPU, every mode) also
 reproduces the three ``"crush"`` digests of ``tests/golden/archive.json``.
 """
@@ -13,13 +15,16 @@ reproduces the three ``"crush"`` digests of ``tests/golden/archive.json``.
 import hashlib
 import json
 import os
+import re
 
 import numpy as np
 import pytest
 
 from ceph_tpu.cli import crushtool as ref_crushtool
 from ceph_tpu.cli import osdmaptool as ref_osdmaptool
+from ceph_tpu.cli import recovery as ref_recovery_cli
 from ceph_tpu_torch.cli import crushtool, ec_bench, osdmaptool
+from ceph_tpu_torch.cli import recovery as recovery_cli
 from ceph_tpu_torch.crush.engine import run_batch
 from ceph_tpu_torch.crush.interp_batch import MODES
 from ceph_tpu_torch.models.clusters import build_flat, build_hierarchy
@@ -96,13 +101,17 @@ def _reference_caches_left_as_found():
     module (see tests/test_torch_osdmap.py)."""
     from ceph_tpu.crush import interp, interp_batch as ib
     from ceph_tpu.osdmap import mapping
+    from ceph_tpu.recovery import pipeline
 
-    caches = (ib._FAST_CACHE, ib._PACK_CACHE, interp._BATCH_CACHE, mapping._POOL_FN_CACHE)
+    caches = (ib._FAST_CACHE, ib._PACK_CACHE, interp._BATCH_CACHE, mapping._POOL_FN_CACHE,
+              pipeline.PIPELINES._entries)
     saved = [dict(c) for c in caches]
+    counts = (pipeline.PIPELINES.hits, pipeline.PIPELINES.misses, pipeline.PIPELINES.evictions)
     yield
     for cache, before in zip(caches, saved):
         cache.clear()
         cache.update(before)
+    pipeline.PIPELINES.hits, pipeline.PIPELINES.misses, pipeline.PIPELINES.evictions = counts
 
 
 @pytest.fixture(autouse=True)
@@ -287,3 +296,37 @@ def test_engine_reproduces_golden_crush_digests(name, mode):
     assert res.dtype == lens.dtype and res.numpy().dtype == np.int32
     assert digest(res) == want["mappings_sha256"]
     assert digest(lens) == want["lens_sha256"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--inject", "rack:0", "--plan"],
+    ["--inject", "host:host0_1:down_out", "--inject", "osd:40", "--execute"],
+    ["--flap", "osd:3", "--cycles", "2", "--plan", "--num-osd", "32", "--pg-num", "64"],
+])
+def test_recovery_plan_and_execute_match_reference(capsys, argv):
+    want = _run(capsys, ref_recovery_cli.main, argv)
+    got = _run(capsys, recovery_cli.main, argv + ["--device", "cpu"])
+    wall = lambda text: re.sub(r"[0-9.]+ MB/s decode", "MB/s decode", text)  # noqa: E731
+    assert got[0] == want[0] == 0
+    assert wall(got[1]) == wall(want[1])
+    assert "plan:" in got[1]
+
+
+@pytest.mark.parametrize("scenario", ["mid-repair-loss", "flap"])
+def test_recovery_chaos_json_line_matches_reference(capsys, scenario):
+    argv = ["--chaos", scenario, "--pg-num", "64", "--chunk-size", "512", "--seed", "3"]
+    want = _run(capsys, ref_recovery_cli.main, argv)
+    got = _run(capsys, recovery_cli.main, argv + ["--device", "cpu"])
+    assert got == want  # the summary holds no wall-clock field
+    line = json.loads(got[1].strip().splitlines()[-1])
+    assert line["scenario"] == scenario and line["converged"] and line["launches"] > 0
+
+
+@pytest.mark.parametrize("flags", [["--mesh", "0"], ["--work-stealing", "on"],
+                                   ["--chip-fault", "chipstall:1.0"],
+                                   ["--shard-min-bytes", "1024"]])
+def test_recovery_multi_device_flags_exit_non_zero(capsys, flags):
+    with pytest.raises(SystemExit) as exc:
+        recovery_cli.main(["--chaos", "mid-repair-loss", "--device", "cpu"] + flags)
+    assert exc.value.code != 0
+    assert "item 4" in capsys.readouterr().err

@@ -13,7 +13,10 @@ the card against the same on the CPU, a small ``recover_pool`` on the
 card against the same on the CPU, the general engine (uniform and mixed
 maps, K1 on the straw2 levels) against the CPU and the C++ tier, and
 its compacted-straggler retry against its masked rounds and the C++
-tier.  Run them
+tier, K8 (the scrub's CRC32C of rows) against its plain version on its
+edges (L = 0, 1, 3, 15, 17, 4097, rows off a 16-byte boundary, one row,
+the check value), and a small supervised ``scrub-storm`` run on the
+card against the same run on the CPU.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -573,3 +576,62 @@ def test_general_engine_compacted_retry_on_the_card(card, monkeypatch, rule_name
         res, lens = interp.batch_do_rule(smap, rule, xs, w, rm)
         assert np.array_equal(res.cpu().numpy(), cres), threshold
         assert np.array_equal(lens.cpu().numpy(), clens), threshold
+
+
+@pytest.mark.parametrize("n,length,offset", [
+    (5, 0, 0), (7, 1, 0), (9, 3, 0), (33, 15, 0), (33, 17, 0), (257, 4097, 0),
+    (64, 4096, 1), (31, 4101, 3), (1, 32768, 0), (70000, 64, 0)])
+def test_crc_rows_kernel_matches_plain_version(card, n, length, offset):
+    from ceph_tpu_torch.recovery import scrub
+
+    g = torch.Generator(device=card).manual_seed(n * 7919 + length)
+    flat = torch.randint(0, 256, (n * length + offset,), generator=g, device=card,
+                         dtype=torch.uint8)
+    data = flat[offset:].view(n, length)
+    before = scrub.LAUNCHES["crc32c_rows"]
+    got = scrub.crc_rows(data)
+    assert scrub.LAUNCHES["crc32c_rows"] == before + 1
+    sample = data[: min(n, 64)]
+    assert torch.equal(got[: sample.shape[0]], scrub.crc_rows_plain(sample))
+    check = torch.tensor(list(b"123456789"), dtype=torch.uint8, device=card)[None, :]
+    assert int(scrub.crc_rows(check)[0]) == 0xE3069283
+
+
+def test_supervised_scrub_storm_on_the_card_matches_cpu(card):
+    import copy
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.ec import create
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery.planner import _planning_codec
+
+    profile = {"plugin": "jerasure", "technique": "reed_sol_van", "k": "4", "m": "2"}
+
+    def run(dev):
+        m = build_osdmap(64, pg_num=64, size=6, pool_kind="erasure")
+        m_prev = copy.deepcopy(m)
+        raw, _ = _planning_codec(create(profile, device="cpu"))
+        rng = np.random.default_rng(3)
+        store = {}
+        for pg in range(64):
+            data = rng.integers(0, 256, (4, 512), dtype=np.uint8)
+            store[pg] = np.vstack([data, raw.encode(data)])
+        chaos = rec.ChaosEngine(
+            m, rec.build_scenario("scrub-storm", m, cycles=3), device=dev,
+            corrupt=lambda pg, s, off, mask: rec.apply_bitrot(store[pg][s], off, mask))
+        sup = rec.SupervisedRecovery(
+            create(profile, device=dev), chaos, config=Config(env={}), seed=7, device=dev,
+            scrubber=rec.Scrubber(64, 6, clock=chaos.clock.now, device=dev),
+            write_shard=lambda pg, s, buf: store[pg].__setitem__(s, buf))
+        return sup.run(m_prev, 1, lambda pg, s: store[pg][s]).summary(), store
+
+    from ceph_tpu_torch.recovery import scrub
+
+    before = scrub.LAUNCHES["crc32c_rows"]
+    got, got_store = run(card)
+    assert scrub.LAUNCHES["crc32c_rows"] > before
+    want, want_store = run("cpu")
+    assert got == want and got["converged"] and got["inconsistencies_found"] >= 8
+    for pg in want_store:
+        np.testing.assert_array_equal(got_store[pg], want_store[pg])
