@@ -48,7 +48,7 @@ SIGNATURES = {
         "ec_byte_lut": [_P, _P, _P, _L, _P],
     },
     "scrub": {
-        "scrub_crc32c_rows": [_P, _L, _L, _P, _P],
+        "scrub_crc32c_rows": [_P, _L, _L, _I, _L, _P, _L, _P, _P],
     },
 }
 

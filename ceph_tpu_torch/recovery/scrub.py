@@ -34,6 +34,7 @@ mesh-sharded scrub (ROADMAP §1, item 4) and stripe-buffer scrub (item
 
 from __future__ import annotations
 
+import functools
 from contextlib import nullcontext
 from dataclasses import dataclass, field
 
@@ -115,7 +116,127 @@ def scrub_phases(n_pgs: int, period_s: float) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# CRC32C algebra (zlib's crc32_combine, for the Castagnoli polynomial)
+#
+# A CRC register in the reflected form is a polynomial of degree < 32
+# with bit 31 the coefficient of x^0.  Let R(c, M) be the register after
+# the bytes M from state c (no final XOR) and S_n(c) = c * x^(8n) mod P,
+# the register after n zero bytes.  CRC is linear, so R(c, M) =
+# S_|M|(c) ^ R(0, M), R(0, A||B) = S_|B|(R(0, A)) ^ R(0, B) and
+# crc32c(M) = R(0, M) ^ S_|M|(0xFFFFFFFF) ^ 0xFFFFFFFF.  K8 folds segments
+# of a row at once and combines them by these identities.
+
+_X2N: list[int] = []
+
+
+def gf2_multmodp(a: int, b: int) -> int:
+    """``a * b mod P`` for two registers in the reflected form (zlib's
+    ``multmodp``)."""
+    p = 0
+    for j in range(32):
+        if a & (0x80000000 >> j):
+            p ^= b
+        b = (b >> 1) ^ (CRC32C_POLY if b & 1 else 0)
+    return p
+
+
+def crc32c_x8n(n: int) -> int:
+    """``x^(8n) mod P``, the multiplier of S_n (zlib's ``x2nmodp(n, 3)``)."""
+    if not _X2N:
+        p = 1 << 30  # x^1
+        for _ in range(64):
+            _X2N.append(p)  # x^(2^k)
+            p = gf2_multmodp(p, p)
+    p, k = 1 << 31, 3  # x^0; 8n = n << 3
+    while n:
+        if n & 1:
+            p = gf2_multmodp(_X2N[k], p)
+        n >>= 1
+        k += 1
+    return p
+
+
+def crc32c_shift(c: int, n: int) -> int:
+    """S_n(c): the register ``c`` after ``n`` zero bytes."""
+    return gf2_multmodp(crc32c_x8n(n), c)
+
+
+def crc32c_combine(a: int, b: int, len_b: int) -> int:
+    """crc32c(A||B) from ``a = crc32c(A)``, ``b = crc32c(B)`` and
+    ``len_b = |B|`` (the conditioning terms cancel); the same holds for
+    raw registers R(0, .)."""
+    return crc32c_shift(a, len_b) ^ b
+
+
+def crc32c_shift_tables(n: int) -> np.ndarray:
+    """S_n as byte tables, ``[4, 256]`` u32: ``t[k, i] = S_n(i << 8k)``,
+    so ``S_n(c) = t[0, c & 255] ^ t[1, c >> 8 & 255] ^ t[2, c >> 16 & 255]
+    ^ t[3, c >> 24]``."""
+    a = (np.arange(256, dtype=np.uint64)[None, :] << (8 * np.arange(4, dtype=np.uint64))[:, None])
+    a = a.astype(np.uint32)
+    p, b = np.zeros_like(a), crc32c_x8n(n)
+    for j in range(32):
+        p ^= np.where(a & np.uint32(0x80000000 >> j), np.uint32(b), np.uint32(0))
+        b = (b >> 1) ^ (CRC32C_POLY if b & 1 else 0)
+    return p
+
+
+def crc32c_slice_tables() -> np.ndarray:
+    """Slicing-by-4 tables, ``[4, 256]`` u32: ``t[0]`` the byte table,
+    ``t[k][i]`` the register of byte ``i`` followed by ``k`` zero bytes,
+    so a little-endian word ``w`` folds as ``c = crc ^ w; crc = t[3][c &
+    255] ^ t[2][c >> 8 & 255] ^ t[1][c >> 16 & 255] ^ t[0][c >> 24]``."""
+    t = np.empty((4, 256), np.uint32)
+    t[0] = crc32c_table()
+    for k in range(1, 4):
+        t[k] = (t[k - 1] >> np.uint32(8)) ^ t[0][t[k - 1] & 0xFF]
+    return t
+
+
+# ---------------------------------------------------------------------------
 # K8: CRC32C of rows
+
+#: lanes K8 aims to keep busy: 132 SMs x 512 threads (one H100)
+K8_FILL_LANES = 132 * 512
+#: a lane's share of a long row, in bytes
+K8_LANE_BYTES = 1024
+#: at most one block (512 lanes, 2^9) a row
+K8_MAX_LOG_LANES = 9
+
+
+def _log2_ceil(x: int) -> int:
+    return (max(int(x), 1) - 1).bit_length()
+
+
+def crc_segments(n: int, L: int) -> tuple[int, int]:
+    """K8's cut of ``[n, L]`` rows, from the shape alone: ``(log_w,
+    seg)``, ``2^log_w`` lanes a row, each folding a segment of ``seg``
+    bytes (a multiple of 16; ``seg << log_w >= L``).  Lanes go up until
+    ``n`` rows fill :data:`K8_FILL_LANES` or a lane has about
+    :data:`K8_LANE_BYTES` of a long row, but never past one block a row
+    or below 16 bytes a lane: ``[90112, 32768]`` (a scrub pass) gives a
+    warp a row, 1 KiB a lane; ``[32, 32768]`` (a decode-verify call) a
+    block a row, 64 bytes a lane."""
+    log_w = max(_log2_ceil(-(-L // K8_LANE_BYTES)), _log2_ceil(-(-K8_FILL_LANES // max(n, 1))))
+    log_w = min(log_w, _log2_ceil(-(-L // 16)), K8_MAX_LOG_LANES)
+    seg = -(-L // (1 << log_w))
+    return log_w, max(16, -(-seg // 16) * 16)
+
+
+def crc_operand(L: int, log_w: int, seg: int) -> tuple[np.ndarray, int]:
+    """K8's operand for rows of ``L`` bytes cut as ``(log_w, seg)``:
+    ``(words, init)``, ``words`` u32 the slicing tables then the byte
+    tables of S_{seg 2^d} for each tree level ``d < log_w`` (``[1 +
+    log_w, 4, 256]`` flattened), ``init = S_L(0xFFFFFFFF) ^
+    0xFFFFFFFF``."""
+    tables = [crc32c_slice_tables()] + [crc32c_shift_tables(seg << d) for d in range(log_w)]
+    return np.concatenate(tables).reshape(-1), crc32c_shift(0xFFFFFFFF, L) ^ 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=64)
+def _device_operand(L: int, log_w: int, seg: int, device: torch.device):
+    words, init = crc_operand(L, log_w, seg)
+    return torch.from_numpy(words.view(np.int32)).to(device), init
 
 
 def crc_rows_plain(data: torch.Tensor) -> torch.Tensor:
@@ -129,11 +250,52 @@ def crc_rows_plain(data: torch.Tensor) -> torch.Tensor:
     return crc ^ 0xFFFFFFFF
 
 
+def crc_rows_segmented_plain(data: torch.Tensor, seg: int, log_w: int | None = None
+                             ) -> torch.Tensor:
+    """K8's decomposition as int64 torch ops (a CPU model of the kernel,
+    for tests): each row cut into ``2^log_w`` segments of ``seg`` bytes
+    aligned to its end (zero bytes in front of a short first segment, or
+    as empty lanes, change no R(0, .)), each segment's R(0, .) folded by
+    the slicing tables a word at a time (bytes past the last whole word
+    by the byte table), then the kernel's tree: level ``d`` takes ``a <-
+    S_{seg 2^d}(a) ^ right`` by the operand's byte tables, and the root
+    XORs in ``init``.  ``log_w`` defaults to the fewest levels that hold
+    every segment."""
+    n, L = data.shape
+    if log_w is None:
+        log_w = _log2_ceil(-(-L // seg))
+    W = 1 << log_w
+    if seg * W < L:
+        raise ValueError(f"{W} segments of {seg} bytes do not hold {L}")
+    words, init = crc_operand(L, log_w, seg)
+    ops = torch.from_numpy(words.astype(np.int64)).view(1 + log_w, 4, 256)
+    rows = torch.zeros((n, W * seg), dtype=U8, device=data.device)
+    rows[:, W * seg - L:] = data
+    segs = rows.view(n * W, seg).to(I64)
+    t = ops[0].to(data.device)
+    a = torch.zeros(n * W, dtype=I64, device=data.device)
+    whole = seg - seg % 4
+    for i in range(0, whole, 4):
+        c = a ^ segs[:, i] ^ (segs[:, i + 1] << 8) ^ (segs[:, i + 2] << 16) ^ (segs[:, i + 3] << 24)
+        a = t[3][c & 0xFF] ^ t[2][(c >> 8) & 0xFF] ^ t[1][(c >> 16) & 0xFF] ^ t[0][c >> 24]
+    for i in range(whole, seg):
+        a = t[0][(a ^ segs[:, i]) & 0xFF] ^ (a >> 8)
+    a = a.view(n, W)
+    for d in range(log_w):
+        m = ops[1 + d].to(data.device)
+        left, right = a[:, 0::2], a[:, 1::2]
+        a = (m[0][left & 0xFF] ^ m[1][(left >> 8) & 0xFF] ^ m[2][(left >> 16) & 0xFF]
+             ^ m[3][left >> 24] ^ right)
+    return a[:, 0] ^ init
+
+
 def crc_rows(data: torch.Tensor) -> torch.Tensor:
     """K8: the CRC32C of every row of a ``[n, L]`` u8 tensor, as ``[n]``
     int64 (u32 values).  On a CUDA tensor it launches
-    ``csrc/scrub.cu``'s kernel (or raises); on a CPU tensor it runs
-    :func:`crc_rows_plain`.  Rows may start at any byte address."""
+    ``csrc/scrub.cu``'s kernel (or raises) cut as :func:`crc_segments`
+    says, with the operand of :func:`crc_operand` (built once a shape and
+    device); on a CPU tensor it runs :func:`crc_rows_plain`.  Rows may
+    start at any byte address."""
     if data.dim() != 2 or data.dtype != U8:
         raise ValueError(f"crc_rows takes a [n, L] uint8 tensor, got "
                          f"{tuple(data.shape)} {data.dtype}")
@@ -147,8 +309,10 @@ def crc_rows(data: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=I64, device=data.device)
     if n == 0:
         return out
-    _cuda.launch("scrub", "scrub_crc32c_rows", data.device, _cuda.ptr(data), n, L,
-                 _cuda.ptr(out))
+    log_w, seg = crc_segments(n, L)
+    consts, init = _device_operand(L, log_w, seg, data.device)
+    _cuda.launch("scrub", "scrub_crc32c_rows", data.device, _cuda.ptr(data), n, L, log_w, seg,
+                 _cuda.ptr(consts), init, _cuda.ptr(out))
     LAUNCHES["crc32c_rows"] += 1
     return out
 

@@ -16,7 +16,13 @@ and, where the checkout has it, the 64-row decoder), K6's and K7's (64
 and 32 MiB) times with K6's same-repair K5 time, the placements per
 second of each CRUSH mode, the OSDMap update seconds, each EC code's
 device and interface GB/s and the CLAY repair GB/s, and each recovery
-code's ``recover_pool`` and peering seconds, then a summary.  The runs
+code's ``recover_pool`` and peering seconds, and K8's times at a scrub
+pass (``[90112, 32768]``) and a decode-verify group (``[32, 32768]``),
+then a summary.  K8 is timed after the checkout's ``chip_smoke.py`` by
+one more process in its directory (``K8_PROBE``: the checkout's own
+``crc_rows`` through its own ``chip_smoke.time_ms``, three times a
+shape), so a checkout whose script times one shape is measured at both;
+its ``scrub_kernel`` records are read too where it has them.  The runs
 share one card, so the checkouts are compared under one power limit;
 give them in turns (A B B A) so that drift hits both alike.  Exits
 non-zero if a run fails.
@@ -30,6 +36,30 @@ import subprocess
 import sys
 
 from . import sass
+
+K8_PROBE = """
+import json, sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from ceph_tpu_torch.recovery import scrub
+out = {}
+for key, rows in (("scrub", 90112), ("verify", 32)):
+    data = cs.card_bytes((rows, 32768), cs.SEED + 12, torch.device("cuda"))
+    out[f"crc32c_rows_{key}_ms"] = [cs.time_ms(lambda: scrub.crc_rows(data)) for _ in range(3)]
+    del data
+print(json.dumps(out))
+"""
+
+
+def k8_times(checkout: str, timeout: int = 300) -> dict:
+    """K8's times in ``checkout`` by ``K8_PROBE`` (its library is built
+    already by the checkout's ``chip_smoke.py``)."""
+    proc = subprocess.run([sys.executable, "-c", K8_PROBE], cwd=checkout, capture_output=True,
+                          text=True, timeout=timeout)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        return {"k8_probe_error": (proc.stderr or proc.stdout)[-2000:]}
+    return json.loads(lines[-1])
 
 
 def run(checkout: str, timeout: int = 1200) -> dict:
@@ -67,6 +97,10 @@ def run(checkout: str, timeout: int = 1200) -> dict:
             for code, v in json.loads(ln)["codes"].items():
                 out[f"recover_pool_s_{code}"] = v["recover_pool_s"]
                 out[f"l_peering_s_{code}"] = v["l_peering_s"]
+        if ln.startswith('{"phase": "scrub_kernel"'):
+            for r in json.loads(ln)["results"]:
+                key = "verify" if r.get("shape", "").startswith("[32,") else "scrub"
+                out[f"chip_smoke_crc32c_rows_{key}_ms"] = r["ms"]
         if not ln.startswith('{"phase": "ec_kernels"') and not ln.startswith(
                 '{"phase": "schedule_kernel"'):
             continue
@@ -81,6 +115,7 @@ def run(checkout: str, timeout: int = 1200) -> dict:
             elif r["name"] == "schedule_apply":
                 out["schedule_apply_ms"] = r["ms"]
                 out["k5_same_repair_ms"] = r["k5_same_repair_ms"]
+    out.update(k8_times(checkout))
     return out
 
 

@@ -10,7 +10,9 @@ instructions, one per draw (the clz of ``crush_ln``).  Everything in
 the loop counts, loads, stores and loop control included, divided by
 the draws in it; for K2 and K3 that is the row loop (draw, record load,
 compare and select), for K1 the slot loop (draw, loads, store; in the
-port's first kernel also its per-slot ``i / fanout``).
+port's first kernel also its per-slot ``i / fanout``).  K8's fold loop is
+counted per byte (``crc_split``): the innermost loop that holds the most
+``LDS``, one 32-bit table lookup a byte.
 
 Pipes (sm_90; the CUDA C++ Programming Guide's throughput table for
 compute capability 9.0 gives each integer pipe 64 lanes a clock per SM,
@@ -81,9 +83,9 @@ def pipe(op: str) -> str:
     return "other"
 
 
-def draw_loop(insns: list[tuple[int, str]]) -> tuple[list[str], int]:
+def draw_loop(insns: list[tuple[int, str]], marker: str = "FLO") -> tuple[list[str], int]:
     """(opcodes, draws) of the draw loop: among the innermost loops that
-    hold a ``FLO``, the one holding the most."""
+    hold a ``marker`` instruction, the one holding the most."""
     loops = []
     for addr, insn in insns:
         if not opcode(insn).startswith("BRA"):
@@ -97,18 +99,18 @@ def draw_loop(insns: list[tuple[int, str]]) -> tuple[list[str], int]:
         if any(lo <= a < b <= hi and (a, b) != (lo, hi) for a, b in loops):
             continue  # holds an inner loop
         body = [opcode(s) for a, s in insns if lo <= a <= hi]
-        draws = sum(1 for op in body if op.startswith("FLO"))
+        draws = sum(1 for op in body if op.startswith(marker))
         if draws and (best is None or (draws, -len(body)) > best[:2]):
             best = (draws, -len(body), body)
     if best is None:
-        raise ValueError("no loop with a FLO in the kernel")
+        raise ValueError(f"no loop with a {marker} in the kernel")
     return best[2], best[0]
 
 
-def draw_split(sass: str, kernel: str = "straw2_negdraw_kernel") -> dict:
-    """Instructions per draw in ``kernel``'s draw loop, by pipe, with
-    their total."""
-    body, draws = draw_loop(kernel_instructions(sass, kernel))
+def draw_split(sass: str, kernel: str = "straw2_negdraw_kernel", marker: str = "FLO") -> dict:
+    """Instructions per draw (per ``marker`` instruction) in ``kernel``'s
+    draw loop, by pipe, with their total."""
+    body, draws = draw_loop(kernel_instructions(sass, kernel), marker)
     split = {p: 0 for p in PIPES}
     for op in body:
         split[pipe(op)] += 1
@@ -124,6 +126,21 @@ def straw2_splits(sass: str) -> dict:
     out = {}
     for k, form in STRAW2_KERNELS.items():
         out[k] = draw_split(sass, k + form if k + form in sass else k)
+    return out
+
+
+def crc_split(sass: str) -> dict:
+    """Instructions per byte in K8's fold loop (the innermost loop with the
+    most ``LDS``), by pipe, with their total; a byte is one 32-bit table
+    ``LDS`` (the loop's ``LDS.128`` read staged lines)."""
+    body, _ = draw_loop(kernel_instructions(sass, "crc32c_rows_kernel"), "LDS")
+    lookups = sum(1 for op in body if op == "LDS")
+    split = {p: 0 for p in PIPES}
+    for op in body:
+        split[pipe(op)] += 1
+    out = {p: n / lookups for p, n in split.items()}
+    out["total"] = len(body) / lookups
+    out["bytes_per_loop"] = lookups
     return out
 
 

@@ -80,10 +80,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
    work-slot counts and its launch shape;
 9a. scrub_kernel: K8 (crc32c_rows, ``csrc/scrub.cu``) against its plain
    version at a scrub pass of the supervised store (8192 x 11 rows of 32
-   KiB), timed, with ptxas's registers and spills, and on its edges (L =
-   0, 1, 3, 15, 17, 4097, rows 1 and 3 bytes past a 16-byte boundary,
-   one row, more rows than one grid covers, the check value
-   0xE3069283), bit for bit;
+   KiB: a warp a row) and at one decode-verify group (32 rows of 32 KiB:
+   a block a row), each timed with its bound and its cut (lanes a row,
+   segment bytes), with ptxas's registers, spills and shared memory and
+   the fold loop's instructions a byte by pipe (``testing/sass.py``), and
+   on its edges (SCRUB_EDGES: L = 0, below 16, one below, at and above
+   each timed shape's segment and twice it, rows 1-15 bytes past a
+   16-byte boundary across segments, one row of 64 MiB held against the
+   plain version on its 32 KiB pieces combined on the host, more rows
+   than one grid covers, the check value 0xE3069283), bit for bit;
 10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
    build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
@@ -100,8 +105,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    torch's sync-debug warnings, wall seconds) and gated (converged,
    every rebuilt shard equal to the store, the unrecoverable PGs exactly
    those left below k, every corruption found and a clean closing scrub,
-   a detection); a profiled mid-repair-loss pass; the three scenarios at
-   128 PGs on the card and the CPU with equal ``summary()``;
+   a detection); the [rows, L] of every K8 launch of the three passes
+   (min, median, max, count by shape); a profiled mid-repair-loss pass;
+   the three scenarios at 128 PGs on the card and the CPU with equal
+   ``summary()``;
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -286,6 +293,8 @@ def ptxas_report(lib: str) -> dict:
             elif name and "Used" in ln and "registers" in ln:
                 out.setdefault(name, {})["registers"] = int(
                     re.search(r"Used (\d+) registers", ln).group(1))
+                smem = re.search(r"(\d+) bytes smem", ln)
+                out[name]["static_smem_bytes"] = int(smem.group(1)) if smem else 0
     return out
 
 
@@ -765,48 +774,122 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
     return out
 
 
+VERIFY_ROWS = 32                # one decode-verify group of host0_0's loss
 SCRUB_EDGES = [  # (rows, L, bytes the first row starts past a 16-byte boundary)
-    (5, 0, 0), (7, 1, 0), (9, 3, 0), (33, 15, 0), (33, 17, 0), (257, 4097, 0),
+    (5, 0, 0), (7, 1, 0), (9, 3, 0), (33, 15, 0), (33, 16, 0), (33, 17, 0), (257, 4097, 0),
     (64, 4096, 1), (31, 4101, 3), (1, 32768, 0), (1, 9, 0),
-    ((1 << 20) * 128 + 5, 1, 0),  # more rows than one grid of K8 covers
+    # the scrub pass's cut (1 KiB segments) at rows that need no more lanes
+    (67584, 1023, 0), (67584, 1024, 0), (67584, 1025, 0), (67584, 2048, 0),
+    (2112, 32767, 0), (2112, 32769, 0), (2112, 40960, 0),  # the last: five staged steps
+    # the decode-verify cut (a block a row, 64-byte segments)
+    (VERIFY_ROWS, 63, 0), (VERIFY_ROWS, 64, 0), (VERIFY_ROWS, 65, 0), (VERIFY_ROWS, 128, 0),
+    (VERIFY_ROWS, 32767, 0), (VERIFY_ROWS, 32769, 0), (VERIFY_ROWS, 65536, 0),
+    # rows 1-15 bytes past a boundary, 4101 bytes across 512 segments of 16
+    *[(VERIFY_ROWS, 4101, off) for off in range(1, 16)],
+    (1, 64 * MIB, 0),               # 512 segments of 128 KiB, nine tree levels
+    ((1 << 20) * 128 + 5, 1, 0),    # more rows than one grid of K8 covers
 ]
+LONG_ROW = 32768                # rows over 1 MiB are held in pieces of this, combined on the host
 SUPERVISED_PASSES = ("mid-repair-loss", "scrub-storm", "flapping-osd")
 SUPERVISED_GRACE = 0.5          # heartbeat grace of flapping-osd (the scenario's 0.75 s drops)
 SUPERVISED_SEED = 7             # retry-jitter seed
 SUPERVISED_SMALL = (128, 128, 1024)  # OSDs, PGs, chunk of the card-vs-CPU replay
 
 
-def phase_scrub_kernel(int_rate: float, dev, n_pgs: int = RECOVERY_PGS,
-                       chunk: int = RECOVERY_CHUNK) -> dict:
-    """K8 (the scrub's CRC32C of rows) vs its plain version, bit for bit:
-    at the supervised store's shape (n_pgs x 11 rows of ``chunk`` bytes:
-    a scrub pass), timed, and on its edges (SCRUB_EDGES, the check
-    value), compared only."""
+def crc_rows_plain_long(x: torch.Tensor) -> torch.Tensor:
+    """The plain K8 of rows too long for its byte loop: each row's
+    LONG_ROW-byte pieces (the last one shorter) through
+    ``crc_rows_plain`` at once, combined on the host by
+    ``crc32c_combine`` (both held to the reference on the CPU)."""
     from ceph_tpu_torch.recovery import scrub
 
-    rows = n_pgs * 11
-    data = card_bytes((rows, chunk), SEED + 12, dev)
-    rec = kernel_record("crc32c_rows", "ceph_tpu/recovery/scrub.py:120",
-                        lambda: scrub.crc_rows(data), lambda: scrub.crc_rows_plain(data),
-                        rows * chunk + rows * 8, rows * chunk, int_rate)
-    rec.update(shape=f"[{rows}, {chunk}] u8 (a scrub pass of {n_pgs} PGs x 11 shards)",
-               bound_note="bytes read at HBM rate; ops = one table lookup a byte")
-    del data
-    edges = []
-    for n, length, offset in SCRUB_EDGES:
+    n, L = x.shape
+    whole = L - L % LONG_ROW
+    pieces = scrub.crc_rows_plain(x[:, :whole].reshape(-1, LONG_ROW)).view(n, -1).tolist()
+    tail = scrub.crc_rows_plain(x[:, whole:]).tolist()
+    crcs = []
+    for row, last in zip(pieces, tail):
+        crc = row[0]
+        for c in row[1:]:
+            crc = scrub.crc32c_combine(crc, c, LONG_ROW)
+        crcs.append(scrub.crc32c_combine(crc, last, L - whole))
+    return torch.tensor(crcs, dtype=torch.int64, device=x.device)
+
+
+def phase_scrub_kernel(int_rate: float, dev, n_pgs: int = RECOVERY_PGS,
+                       chunk: int = RECOVERY_CHUNK, edges=SCRUB_EDGES) -> dict:
+    """K8 (the scrub's CRC32C of rows) vs its plain version, bit for bit:
+    at the supervised store's shape (n_pgs x 11 rows of ``chunk`` bytes:
+    a scrub pass) and at one decode-verify group (VERIFY_ROWS rows),
+    timed, each with its cut (``scrub.crc_segments``), and on ``edges``
+    and the check value, compared only."""
+    from ceph_tpu_torch.recovery import scrub
+
+    results = []
+    for rows, label in ((n_pgs * 11, f"a scrub pass of {n_pgs} PGs x 11 shards"),
+                        (VERIFY_ROWS, "one decode-verify group")):
+        data = card_bytes((rows, chunk), SEED + 12, dev)
+        rec = kernel_record("crc32c_rows", "ceph_tpu/recovery/scrub.py:120",
+                            lambda: scrub.crc_rows(data), lambda: scrub.crc_rows_plain(data),
+                            rows * chunk + rows * 8, rows * chunk, int_rate)
+        log_w, seg = scrub.crc_segments(rows, chunk)
+        rec.update(shape=f"[{rows}, {chunk}] u8 ({label})", lanes_a_row=1 << log_w,
+                   segment_bytes=seg,
+                   bound_note="bytes read at HBM rate; ops = one table lookup a byte")
+        results.append(rec)
+        del data
+    out_edges = []
+    for n, length, offset in edges:
         g = torch.Generator(device=dev).manual_seed(SEED + n + length)
         flat = torch.randint(0, 256, (n * length + offset,), generator=g, device=dev,
                              dtype=torch.uint8)
         x = flat[offset:].view(n, length)
-        equal, err = compare(scrub.crc_rows(x), scrub.crc_rows_plain(x))
-        edges.append({"case": f"{n} rows x {length} bytes, +{offset}", "bit_equal": equal,
-                      "max_abs_err": err})
+        plain = crc_rows_plain_long if length > MIB else scrub.crc_rows_plain
+        equal, err = compare(scrub.crc_rows(x), plain(x))
+        log_w, seg = scrub.crc_segments(n, length)
+        out_edges.append({"case": f"{n} rows x {length} bytes, +{offset}", "bit_equal": equal,
+                          "max_abs_err": err, "lanes_a_row": 1 << log_w, "segment_bytes": seg})
         del flat, x
     check = torch.tensor(list(b"123456789"), dtype=torch.uint8, device=dev)[None, :]
-    edges.append({"case": "check value crc32c('123456789') = 0xE3069283",
-                  "bit_equal": int(scrub.crc_rows(check)[0]) == 0xE3069283, "max_abs_err": 0})
+    out_edges.append({"case": "check value crc32c('123456789') = 0xE3069283",
+                      "bit_equal": int(scrub.crc_rows(check)[0]) == 0xE3069283,
+                      "max_abs_err": 0})
     torch.cuda.synchronize()
-    return {"phase": "scrub_kernel", "results": [rec], "edges": edges}
+    return {"phase": "scrub_kernel", "results": results, "edges": out_edges}
+
+
+@contextlib.contextmanager
+def k8_launch_shapes(shapes: list):
+    """Append the ``(rows, L)`` of every K8 launch in a block to
+    ``shapes``: the scrub module's callers look ``crc_rows`` up when they
+    call it, so it is wrapped for the block (the wrapper's count is
+    untouched)."""
+    from ceph_tpu_torch.recovery import scrub
+
+    inner = scrub.crc_rows
+
+    def recording(data):
+        if data.is_cuda and data.dim() == 2 and data.shape[0]:
+            shapes.append(tuple(data.shape))
+        return inner(data)
+
+    scrub.crc_rows = recording
+    try:
+        yield
+    finally:
+        scrub.crc_rows = inner
+
+
+def shape_summary(shapes: list) -> dict:
+    """Min, median and max of the rows and of L over K8 launches, and the
+    launches of each shape."""
+    out: dict = {"launches": len(shapes), "by_shape": {}}
+    for i, key in ((0, "rows"), (1, "L")):
+        v = [s[i] for s in shapes] or [0]
+        out[key] = {"min": min(v), "median": float(np.median(v)), "max": max(v)}
+    for s in shapes:
+        out["by_shape"][f"[{s[0]}, {s[1]}]"] = out["by_shape"].get(f"[{s[0]}, {s[1]}]", 0) + 1
+    return out
 
 
 @contextlib.contextmanager
@@ -907,13 +990,14 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
     out = {"phase": "supervised", "osds": n_osds, "pgs": pg_num, "chunk_bytes": chunk,
            "store_bytes": int(full.nbytes), "profile": profile, "passes": {}}
     path: dict[str, int] = {}
+    k8_shapes: list = []
     for scenario in SUPERVISED_PASSES:
         scrub = scenario == "scrub-storm"
         info: dict = {}
         syncs = interp_batch.HOST_SYNCS
         reset_launches()
         t0 = time.perf_counter()
-        with count_syncs(info):
+        with count_syncs(info), k8_launch_shapes(k8_shapes):
             res, chaos, journal, health, spec, scrubber = supervised_run(
                 scenario, m, codec, read_shard, write_shard, dev, pg_num, scrub)
             torch.cuda.synchronize()
@@ -962,6 +1046,7 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
         print(json.dumps({"supervised_pass": scenario, "wall_s": wall,
                           "host_syncs": info["host_syncs"], "gates": gates}), flush=True)
     out["launches"] = path
+    out["k8_launch_shapes"] = shape_summary(k8_shapes)
     out["profile_mid_repair_loss"] = profile_call(lambda: supervised_run(
         "mid-repair-loss", m, codec, read_shard, write_shard, dev, pg_num))
     del full
@@ -1867,7 +1952,13 @@ def main() -> int:
     if bad:
         raise AssertionError(f"K6 disagrees with its plain version: {bad}")
     scrub_phase = phase_scrub_kernel(int_rate, dev)
-    scrub_phase["results"][0]["ptxas"] = ptxas["scrub"]
+    fold_split = sass.crc_split(sass.cuobjdump_sass(os.path.join(_cuda.BUILD_DIR,
+                                                                 "libscrub.so")))
+    for r in scrub_phase["results"]:
+        # dynamic shared memory: csrc/scrub.cu's kSmemBytes (T0..T3 one copy a
+        # bank, 128 KiB; the staged lines, 72 KiB)
+        r["ptxas"] = {k: dict(v, dynamic_smem_bytes=204800) for k, v in ptxas["scrub"].items()}
+        r["fold_split_sass"] = fold_split
     emit(scrub_phase)
     bad = [r["name"] for r in scrub_phase["results"] if not r["bit_equal"]]
     bad += [e["case"] for e in scrub_phase["edges"] if not e["bit_equal"]]
@@ -1951,13 +2042,18 @@ def main() -> int:
     main_ec += sched["results"]
     records = [dict(k, source="ceph_tpu_torch/csrc/straw2.cu") for k in kernels]
     records += [dict(r, source="ceph_tpu_torch/csrc/ec.cu") for r in main_ec]
-    records += [dict(r, source="ceph_tpu_torch/csrc/scrub.cu") for r in scrub_phase["results"]]
+    # K8 at the scrub pass, with its decode-verify shape beside it
+    scrub_pass, verify = scrub_phase["results"]
+    records.append(dict(scrub_pass, source="ceph_tpu_torch/csrc/scrub.cu", at_verify_shape={
+        key: verify[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}))
     emit({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["name"]],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
          "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-         "pipe_floor_ms": k.get("pipe_floor_ms")}
+         "pipe_floor_ms": k.get("pipe_floor_ms"),
+         **({"at_verify_shape": k["at_verify_shape"]} if "at_verify_shape" in k else {})}
         for k in records]})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,11 @@ card against the same on the CPU, the general engine (uniform and mixed
 maps, K1 on the straw2 levels) against the CPU and the C++ tier, and
 its compacted-straggler retry against its masked rounds and the C++
 tier, K8 (the scrub's CRC32C of rows) against its plain version on its
-edges (L = 0, 1, 3, 15, 17, 4097, rows off a 16-byte boundary, one row,
-the check value), and a small supervised ``scrub-storm`` run on the
+edges (``K8_EDGES``: L = 0 and below 16, about the segment lengths of
+the scrub pass's and a decode-verify group's cuts, rows off a 16-byte
+boundary across segments, a 64 MiB row checked by 32 KiB pieces
+combined on the host, more rows than one grid, the check value), and a
+small supervised ``scrub-storm`` run on the
 card against the same run on the CPU.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ceph_tpu_torch.core import straw2
 from ceph_tpu_torch.crush import interp_batch
 from ceph_tpu_torch.crush.engine import make_batch_runner
@@ -578,9 +582,13 @@ def test_general_engine_compacted_retry_on_the_card(card, monkeypatch, rule_name
         assert np.array_equal(lens.cpu().numpy(), clens), threshold
 
 
-@pytest.mark.parametrize("n,length,offset", [
-    (5, 0, 0), (7, 1, 0), (9, 3, 0), (33, 15, 0), (33, 17, 0), (257, 4097, 0),
-    (64, 4096, 1), (31, 4101, 3), (1, 32768, 0), (70000, 64, 0)])
+# chip_smoke.SCRUB_EDGES (L = 0 and below 16, about the scrub pass's and
+# a decode-verify group's cuts, rows off a 16-byte boundary across
+# segments, a 64 MiB row, more rows than one grid) and many rows of 64
+K8_EDGES = chip_smoke.SCRUB_EDGES + [(70000, 64, 0)]
+
+
+@pytest.mark.parametrize("n,length,offset", K8_EDGES)
 def test_crc_rows_kernel_matches_plain_version(card, n, length, offset):
     from ceph_tpu_torch.recovery import scrub
 
@@ -592,7 +600,8 @@ def test_crc_rows_kernel_matches_plain_version(card, n, length, offset):
     got = scrub.crc_rows(data)
     assert scrub.LAUNCHES["crc32c_rows"] == before + 1
     sample = data[: min(n, 64)]
-    assert torch.equal(got[: sample.shape[0]], scrub.crc_rows_plain(sample))
+    plain = chip_smoke.crc_rows_plain_long if length > chip_smoke.MIB else scrub.crc_rows_plain
+    assert torch.equal(got[: sample.shape[0]], plain(sample))
     check = torch.tensor(list(b"123456789"), dtype=torch.uint8, device=card)[None, :]
     assert int(scrub.crc_rows(check)[0]) == 0xE3069283
 
