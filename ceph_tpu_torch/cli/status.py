@@ -1,0 +1,384 @@
+"""Cluster status CLI (the ``ceph -s`` analog).
+
+Two modes::
+
+    # query a live daemon's admin socket (the obs trio registered via
+    # ceph_tpu_torch.obs.register_admin_hooks)
+    python -m ceph_tpu_torch.cli.status --socket /tmp/ceph-tpu.asok
+    python -m ceph_tpu_torch.cli.status --socket /tmp/ceph-tpu.asok health
+
+    # no socket: demo mode — drive a seeded chaos scenario through the
+    # supervised executor in-process on --device (cuda by default, which
+    # needs a card; --device cpu runs the plain versions) and report its
+    # health timeline, SLO verdict, and event journal
+    python -m ceph_tpu_torch.cli.status --device cpu
+    python -m ceph_tpu_torch.cli.status timeline --scenario flap --json --device cpu
+    python -m ceph_tpu_torch.cli.status --traffic --device cpu
+
+Commands: ``status`` (default; the ``ceph -s`` shape), ``health``
+(SLO healthchecks), ``timeline`` (the per-epoch PG-state series, with a
+client-io column under ``--traffic``), ``journal`` (correlated
+span/event records; demo mode only unless the daemon registered a
+journal) and ``caches`` (the EC schedule cache's hit/miss/eviction
+counters).  ``caches`` reports the schedule cache alone: the reference
+package's fused placement->peering pipeline cache is not ported, on
+purpose (ROADMAP §1).
+
+The reference's bench-record and flight-dump panels wait for paths the
+port does not run yet; each exits non-zero and names its ROADMAP §1
+item: ``fleet`` (item 2b), ``ranks`` (item 4), ``checkpoint`` (item
+2d), ``writepath`` (item 3) and ``crash`` / ``--crash`` (item 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+COMMANDS = ("status", "health", "timeline", "journal", "caches",
+            "fleet", "ranks", "checkpoint", "writepath", "crash")
+
+#: command -> the ROADMAP §1 item whose path it renders
+WAITING = {
+    "fleet": "item 2b: the fleet simulator",
+    "ranks": "item 4: multi-device (divergent ranks)",
+    "checkpoint": "item 2d: durable checkpoints",
+    "writepath": "item 3: the online EC write path",
+    "crash": "item 3: the flight recorder",
+}
+
+#: CLI command -> admin-socket prefix (identity unless listed)
+_SOCKET_PREFIX = {
+    "caches": "dump_ec_schedules",
+}
+
+
+def schedule_panel(counters: dict) -> dict:
+    """The ``caches`` reply: the EC schedule cache's aggregate counters
+    (``schedule_counters().dump()``) in the reference's ``"schedule"``
+    shape."""
+    sched = counters.get("ec_schedule", {})
+    return {
+        "schedule": {
+            "hits": int(sched.get("schedule_cache_hits", 0)),
+            "misses": int(sched.get("schedules_compiled", 0)),
+            "evictions": int(sched.get("schedule_cache_evictions", 0)),
+        },
+    }
+
+
+def _render(cmd: str, reply: dict, as_json: bool, out) -> None:
+    from ..obs.status import render_status
+
+    if as_json:
+        print(json.dumps(reply, sort_keys=True), file=out)
+        return
+    if cmd == "status":
+        print(render_status(reply), file=out)
+    elif cmd == "health":
+        print(reply.get("status", "?"), file=out)
+        for name, check in sorted(reply.get("checks", {}).items()):
+            print(f"  {name} {check['status']}: {check['detail']}",
+                  file=out)
+    elif cmd == "caches":
+        for name, c in sorted(reply.items()):
+            if not isinstance(c, dict):
+                continue
+            print(
+                f"{name}: {c.get('hits', 0)} hits, "
+                f"{c.get('misses', 0)} misses, "
+                f"{c.get('evictions', 0)} evictions"
+                + (f", {c['entries']} entries" if "entries" in c else ""),
+                file=out,
+            )
+    elif cmd == "timeline":
+        for s in reply.get("series", []):
+            states = " ".join(
+                f"{n}={c}" for n, c in s["pgs"].items() if c
+            )
+            tr = s.get("traffic")
+            io = (
+                f" p99={tr['p99_ms']:g}ms "
+                f"blocked={tr['blocked_fraction']:.4f}"
+                if tr else ""
+            )
+            print(
+                f"t={s['t']:g} epoch={s['epoch']} {s['health']} "
+                f"avail={s['availability']:.4f} "
+                f"degraded_objs={s['degraded_objects']} "
+                f"bw={s['repair_bandwidth_bps']:.0f}B/s{io}  {states}",
+                file=out,
+            )
+    else:  # journal
+        for r in reply.get("records", []):
+            print(json.dumps(r, sort_keys=True), file=out)
+
+
+def _demo(args) -> dict:
+    """Seeded in-process chaos run on ``args.device`` -> replies for
+    every command."""
+    import copy
+
+    import numpy as np
+
+    from ..ec.backend import MatrixCodec
+    from ..ec.gf import vandermonde_matrix
+    from ..ec.schedule import schedule_counters
+    from ..models.clusters import build_osdmap
+    from ..obs import (
+        EventJournal,
+        HealthTimeline,
+        SLOSpec,
+        evaluate,
+        status_dict,
+    )
+    from ..recovery import (
+        ChaosEngine,
+        SupervisedRecovery,
+        VirtualClock,
+        build_scenario,
+    )
+
+    dev = args.device
+    m = build_osdmap(
+        args.num_osd,
+        pg_num=args.pg_num,
+        size=args.ec_k + args.ec_m,
+        pool_kind="erasure",
+    )
+    m_prev = copy.deepcopy(m)
+    clock = VirtualClock()
+    journal = EventJournal(
+        path=args.journal_path,
+        clock=clock.now,
+        trace_id=f"status-demo-{args.scenario}",
+    )
+    flags = None
+    if args.flag:
+        from ..recovery import ClusterFlags
+
+        flags = ClusterFlags(*args.flag)
+    chaos = ChaosEngine(
+        m, build_scenario(args.scenario, m), clock=clock, journal=journal,
+        flags=flags, device=dev,
+    )
+    scrub_on = args.scrub or args.scenario in (
+        "silent-bitrot", "scrub-storm"
+    )
+    spec = SLOSpec(
+        max_inactive_seconds=args.max_inactive_seconds,
+        min_availability_fraction=args.min_availability,
+        max_time_to_zero_degraded_s=args.max_recovery_seconds,
+        max_p99_latency_ms=args.max_p99_ms if args.traffic else None,
+        max_slow_op_fraction=(
+            args.max_slow_fraction if args.traffic else None
+        ),
+        max_inconsistent_seconds=(
+            args.max_inconsistent_seconds if scrub_on else None
+        ),
+        max_scrub_age_s=args.max_scrub_age if scrub_on else None,
+        max_detection_latency_s=args.max_detection_latency,
+    )
+    timeline = HealthTimeline(
+        clock.now, k=args.ec_k, sample_status=spec.sample_status, device=dev
+    )
+    traffic = None
+    if args.traffic:
+        from ..workload import TrafficEngine
+
+        traffic = TrafficEngine(
+            clock.now,
+            args.num_osd,
+            args.pg_num,
+            args.ec_k,
+            args.ec_k + args.ec_m,
+            args.ec_k + 1,
+            ops_per_step=args.ops_per_step,
+            seed=args.seed,
+            journal=journal,
+            flags=chaos.flags,
+            device=dev,
+        )
+    codec = MatrixCodec(vandermonde_matrix(args.ec_k, args.ec_m), device=dev)
+    rng = np.random.default_rng(args.seed)
+    chunks: dict[tuple[int, int], np.ndarray] = {}
+
+    def read_shard(pg: int, s: int) -> np.ndarray:
+        key = (int(pg), int(s))
+        if key not in chunks:
+            chunks[key] = rng.integers(0, 256, 1024, dtype=np.uint8)
+        return chunks[key]
+
+    scrubber = None
+    write_shard = None
+    if scrub_on:
+        from ..recovery import Scrubber, apply_bitrot
+
+        # a verified store must be EC-consistent (decode-verify
+        # recomputes write-time checksums, so parity has to actually
+        # encode the data): materialize every stripe up front instead
+        # of lazily minting independent random chunks
+        for pg in range(args.pg_num):
+            data = rng.integers(
+                0, 256, (args.ec_k, 1024), dtype=np.uint8
+            )
+            parity = np.asarray(codec.encode(data), np.uint8)
+            for s in range(args.ec_k):
+                chunks[(pg, s)] = data[s].copy()
+            for j in range(args.ec_m):
+                chunks[(pg, args.ec_k + j)] = parity[j].copy()
+
+        scrubber = Scrubber(
+            args.pg_num, args.ec_k + args.ec_m,
+            journal=journal, clock=clock.now, device=dev,
+        )
+        # bitrot events flip real bytes in the demo's host shard store;
+        # verified repair writes the decoded chunks back through it
+        chaos.corrupt = lambda pg, s, off, mask: apply_bitrot(
+            read_shard(pg, s), off, mask
+        )
+
+        def write_shard(pg: int, s: int, buf) -> None:
+            chunks[(int(pg), int(s))] = np.asarray(buf, np.uint8).copy()
+
+        if traffic is not None:
+            # checksum-at-write + degraded-read verification: client
+            # writes refresh the scrubber's table, degraded reads
+            # CRC-check the surviving shards they serve from
+            traffic.scrubber = scrubber
+            traffic.read_shard = read_shard
+
+    sup = SupervisedRecovery(
+        codec, chaos, seed=args.seed, journal=journal, health=timeline,
+        traffic=traffic, scrubber=scrubber, write_shard=write_shard,
+        device=dev,
+    )
+    res = sup.run(m_prev, 1, read_shard)
+    journal.close()
+    print(
+        f"demo {args.scenario}: "
+        f"{'converged' if res.converged else 'NOT converged'}, "
+        f"{len(timeline)} samples, {len(journal.records)} journal records",
+        file=sys.stderr,
+    )
+    scrub_panel = None
+    if scrub_on:
+        scrub_panel = {
+            "passes": res.scrub_passes,
+            "scrubbed_bytes": res.scrubbed_bytes,
+            "inconsistencies_found": res.inconsistencies_found,
+            "verify_retries": res.verify_retries,
+            "inconsistent_unrecoverable": sorted(
+                res.inconsistent_unrecoverable
+            ),
+            "time_to_zero_inconsistent_s": round(
+                res.time_to_zero_inconsistent_s, 6
+            ),
+        }
+    liveness_panel = chaos.liveness.summary()
+    # the schedule cache's counters are process-global; this is their
+    # runtime window
+    caches = schedule_panel(schedule_counters().dump())
+    return {
+        "status": status_dict(
+            timeline, spec, scrub=scrub_panel, liveness=liveness_panel,
+            caches=caches,
+        ),
+        "health": evaluate(timeline, spec).to_dict(),
+        "timeline": {"series": timeline.to_dicts()},
+        "journal": {"records": journal.records},
+        "caches": caches,
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="status")
+    p.add_argument("command", nargs="?", default="status",
+                   choices=COMMANDS)
+    p.add_argument("--socket", metavar="PATH", default=None,
+                   help="admin socket of a live daemon; omitted -> "
+                        "seeded in-process chaos demo")
+    p.add_argument("--json", action="store_true", dest="as_json",
+                   help="raw JSON reply instead of text rendering")
+    # demo-mode knobs
+    p.add_argument("--device", default="cuda",
+                   help="device of the demo run (cuda or cpu)")
+    p.add_argument("--scenario", default="flap",
+                   help="chaos scenario for the demo run")
+    p.add_argument("--num-osd", type=int, default=64)
+    p.add_argument("--pg-num", type=int, default=128)
+    p.add_argument("--ec-k", type=int, default=4)
+    p.add_argument("--ec-m", type=int, default=2)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--journal-path", default=None,
+                   help="also append demo journal records to this "
+                        "JSONL file")
+    p.add_argument("--max-inactive-seconds", type=float, default=30.0)
+    p.add_argument("--min-availability", type=float, default=0.75)
+    p.add_argument("--max-recovery-seconds", type=float, default=30.0)
+    p.add_argument("--scrub", action="store_true",
+                   help="ride a CRC32C scrubber on the demo run (on by "
+                        "default for the bitrot scenarios): checksum "
+                        "the store, verify repairs, and render the "
+                        "scrub panel")
+    p.add_argument("--max-inconsistent-seconds", type=float, default=30.0)
+    p.add_argument("--max-scrub-age", type=float, default=60.0)
+    p.add_argument("--traffic", action="store_true",
+                   help="ride a client-traffic engine on the demo run: "
+                        "per-sample latency percentiles, outcome "
+                        "fractions, and the client-io panel")
+    p.add_argument("--ops-per-step", type=int, default=65536)
+    p.add_argument("--max-p99-ms", type=float, default=50.0)
+    p.add_argument("--max-slow-fraction", type=float, default=0.02)
+    p.add_argument("--flag", action="append", default=[],
+                   metavar="NAME",
+                   help="raise a cluster flag on the demo run "
+                        "(noout/norecover/nobackfill/norebalance/pause; "
+                        "repeatable)")
+    p.add_argument("--max-detection-latency", type=float, default=None,
+                   help="SLO budget on failure-to-mark-down latency "
+                        "(virtual seconds); default: check disabled")
+    p.add_argument("--crash", action="store_true",
+                   help="alias for the 'crash' command (not ported yet: "
+                        "ROADMAP §1, item 3)")
+    args = p.parse_args(argv)
+    out = sys.stdout
+    if args.crash:
+        args.command = "crash"
+
+    if args.command in WAITING:
+        print(
+            f"status: {args.command}: not ported yet (ROADMAP §1, "
+            f"{WAITING[args.command]})",
+            file=sys.stderr,
+        )
+        return 1
+
+    if args.socket is not None:
+        from ..common.admin_socket import ask
+
+        try:
+            reply = ask(
+                args.socket,
+                _SOCKET_PREFIX.get(args.command, args.command),
+            )
+        except OSError as e:
+            print(f"status: cannot reach {args.socket}: {e}",
+                  file=sys.stderr)
+            return 1
+        if "error" in reply and len(reply) == 1:
+            print(f"status: {reply['error']}", file=sys.stderr)
+            return 1
+        if args.command == "caches":
+            reply = schedule_panel(reply.get("counters", {}))
+        _render(args.command, reply, args.as_json, out)
+        return 0
+
+    replies = _demo(args)
+    _render(args.command, replies[args.command], args.as_json, out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -664,8 +664,7 @@ class SupervisedRecovery:
     Peering, decodes, the scrubber's CRCs and the verifier run on
     ``device`` (the card by default).  One device means a scheduling
     window of one group; ``mesh=`` and ``chip_faults=`` raise
-    (:data:`MULTI_DEVICE`), and so does ``traffic=``: the
-    foreground-traffic engine is not ported yet (ROADMAP §1, item 1b).
+    (:data:`MULTI_DEVICE`).
     """
 
     def __init__(
@@ -689,10 +688,6 @@ class SupervisedRecovery:
         chip_faults=None,
         device="cuda",
     ):
-        if traffic is not None:
-            raise NotImplementedError(
-                "SupervisedRecovery traffic= (the foreground-traffic "
-                "engine) is not ported yet (ROADMAP §1, item 1b)")
         self.codec = codec
         self.chaos = chaos
         self.cfg = config or global_config()
@@ -713,11 +708,16 @@ class SupervisedRecovery:
         # timeline snapshots the PG-state histogram at every observed
         # epoch, and the op tracker (on the virtual clock) keeps
         # per-launch lifecycle dumps — all optional, all no-ops when
-        # None.  An mclock arbiter makes recovery share bandwidth under
-        # policy.
+        # None.  With a traffic engine (ceph_tpu_torch.workload.
+        # TrafficEngine) attached, every health snapshot ALSO drives a
+        # foreground-traffic step against the live degraded state and
+        # records the resulting latency/outcome sample; an mclock
+        # arbiter makes recovery and that client traffic share
+        # bandwidth under policy.
         self.journal = journal
         self.health = health
         self.op_tracker = op_tracker
+        self.traffic = traffic
         self.arbiter = arbiter
         # degraded-mode gating: the chaos engine's cluster flags
         # (norecover / nobackfill / norebalance) hold pattern groups
@@ -759,6 +759,13 @@ class SupervisedRecovery:
         return nullcontext()
 
     def _snapshot(self, peering: PeeringResult, bytes_recovered: int) -> None:
+        sample = None
+        if self.traffic is not None:
+            sample = self.traffic.observe(
+                peering,
+                epoch=self.chaos.epoch,
+                bytes_recovered=bytes_recovered,
+            )
         if self.health is not None:
             liveness = getattr(self.chaos, "liveness", None)
             kw = {}
@@ -775,6 +782,7 @@ class SupervisedRecovery:
                 peering,
                 epoch=self.chaos.epoch,
                 bytes_recovered=bytes_recovered,
+                traffic=sample,
                 **kw,
             )
 
@@ -1291,6 +1299,11 @@ class SupervisedRecovery:
             rot = poll_rot()
             if incs or rot:
                 revise()
+            elif self.traffic is not None:
+                # no epoch advance, but the window still carried client
+                # load: sample traffic every scheduling window so the
+                # series is dense enough to catch transient overload
+                self._snapshot(peering, inner.bytes_recovered)
 
         if scrubber is not None:
             # closing pass: confirm the STORE (not just the in-memory

@@ -1,14 +1,55 @@
-"""Foreground-client workload pieces.
+"""Foreground client traffic: workload generation, per-op outcome
+classification, device-resident latency percentiles, and the mclock QoS
+arbiter that shares bandwidth between clients and recovery.
 
+- :mod:`~ceph_tpu_torch.workload.traffic` — the traffic step (route via
+  CRUSH hash -> classify from survivor bitmasks -> queue model ->
+  log-bucket histograms) as torch ops on one device, and the
+  :class:`TrafficEngine` that drives it per health sample.
 - :mod:`~ceph_tpu_torch.workload.qos` — :class:`MClockArbiter`, the
-  reservation/weight/limit admission gate (dmClock analog) that the
-  recovery executor and the scrubber take (a copy of the reference
-  package's).
+  reservation/weight/limit admission gate (dmClock analog).
+- :mod:`~ceph_tpu_torch.workload.histogram` — the log2 bucket ladder
+  and the host-side percentile merge.
 
-The traffic model (``histogram``, ``traffic``) and the online write
-path are not ported yet (ROADMAP §1, items 1b and 3).
+The online write path (``writepath``) is not ported yet (ROADMAP §1,
+item 3), and ``sharded_traffic_step`` raises (item 4).
 """
 
+from .histogram import (
+    LAT_MIN_MS,
+    N_BUCKETS,
+    bucket_edges,
+    count_at_least,
+    percentile,
+    percentiles,
+)
 from .qos import MClockArbiter, QoSClass
+from .traffic import (
+    TRAFFIC_MIXES,
+    TrafficEngine,
+    TrafficMix,
+    TrafficSample,
+    resolve_mix,
+    sharded_traffic_step,
+    traffic_step,
+    workload_counters,
+)
 
-__all__ = ["MClockArbiter", "QoSClass"]
+__all__ = [
+    "LAT_MIN_MS",
+    "MClockArbiter",
+    "N_BUCKETS",
+    "QoSClass",
+    "TRAFFIC_MIXES",
+    "TrafficEngine",
+    "TrafficMix",
+    "TrafficSample",
+    "bucket_edges",
+    "count_at_least",
+    "percentile",
+    "percentiles",
+    "resolve_mix",
+    "sharded_traffic_step",
+    "traffic_step",
+    "workload_counters",
+]

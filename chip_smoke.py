@@ -107,8 +107,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
    those left below k, every corruption found and a clean closing scrub,
    a detection); the [rows, L] of every K8 launch of the three passes
    (min, median, max, count by shape); a profiled mid-repair-loss pass;
-   the three scenarios at 128 PGs on the card and the CPU with equal
-   ``summary()``;
+   then config 6's traffic pass (``traffic``: mid-repair-loss with a
+   ``TrafficEngine`` of 65,536 ops a step riding every health sample,
+   then a 40x overload over 10 one-second steps on the converged map)
+   and its scrub pass (``scrub_qos``: scrub-storm with a ``Scrubber``, an
+   engine of 16,384 ops a step and its integrity loop), each run without
+   and with config 6's mclock arbiter (the scrub pass's with three
+   classes), each pass counted from 0 and gated (both runs converged,
+   rebuilt bytes and the same unrecoverable PGs in both, rebuilt shards
+   equal to the store, every
+   sample's ops accounted for; the arbiter's lower recovery-phase p99,
+   client grants of 64 bytes an op, recovery grants covering the bytes
+   rebuilt, OK -> WARN -> OK across the overload; the scrub gates, the
+   client p99 under scrub load within its SLO, the integrity loop's
+   checksummed writes and verified degraded reads), and one ``observe``
+   measured alone (kernel launches, host syncs, CUDA-event ms); the
+   three scenarios and the traffic pass at 128 PGs on the card and the
+   CPU with equal ``summary()`` (the traffic pass: equal samples and
+   histograms, ``mean_ms`` within ``TRAFFIC_REPLAY_RTOL``);
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -131,11 +147,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and one object of its size encoded on the card equal to the CPU's.
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
-general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised; 11:
-balancer; 12: cli, each from 0), the kernels line (each kernel's
+general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
+traffic and scrub_qos; 11: balancer; 12: cli, each from 0), the kernels
+line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
 K1 on the general path, K3 on the rebalance path, K6 on the recovery
-path, K3, K4 and K8 on the supervised path, K3 on the balancer's),
+path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
+on the traffic path, K3 on the balancer's),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -794,6 +812,29 @@ SUPERVISED_PASSES = ("mid-repair-loss", "scrub-storm", "flapping-osd")
 SUPERVISED_GRACE = 0.5          # heartbeat grace of flapping-osd (the scenario's 0.75 s drops)
 SUPERVISED_SEED = 7             # retry-jitter seed
 SUPERVISED_SMALL = (128, 128, 1024)  # OSDs, PGs, chunk of the card-vs-CPU replay
+# config 6's foreground-traffic pass (bench/config6_recovery.py:390-404)
+TRAFFIC_SCENARIO = "mid-repair-loss"
+TRAFFIC_OPS = 65536
+TRAFFIC_OP_BYTES = 64
+TRAFFIC_SERVICE_MS = 0.5
+TRAFFIC_OSD_CAP_OPS = 6000.0
+TRAFFIC_REC_CAP_BPS = 4e6       # repair bandwidth that saturates the fabric
+TRAFFIC_ARBITER_CAP_BPS = 8e6
+TRAFFIC_SLOW_MS = 10.0
+TRAFFIC_SEED = 6
+OVERLOAD_FACTOR = 40.0
+OVERLOAD_START_S, OVERLOAD_END_S = 3.0, 6.0  # after convergence
+POST_STEPS = 10                 # 1 s pure-traffic steps after convergence
+TRAFFIC_SLO = {"max_p99_latency_ms": 8.0, "max_slow_op_fraction": 0.02}
+# config 6's scrub pass (:573-580, :650-718): the three-class arbiter
+SCRUB_QOS_SCENARIO = "scrub-storm"
+SCRUB_OPS = 16384
+SCRUB_SLO = {"max_inconsistent_seconds": 60.0, "max_scrub_age_s": 120.0,
+             "max_p99_latency_ms": 20.0}
+TRAFFIC_SMALL_OPS = 4096        # ops a step of the card-vs-CPU traffic replay
+# the replay's mean_ms: a float32 sum of 4,096 latencies reduced in
+# another order on the card (a tree of about 12 levels, float32 eps 1.2e-7)
+TRAFFIC_REPLAY_RTOL = 1e-5
 
 
 def crc_rows_plain_long(x: torch.Tensor) -> torch.Tensor:
@@ -967,6 +1008,379 @@ def supervised_run(scenario: str, m, codec, read_shard, write_shard, dev, n_pgs:
     return res, chaos, journal, health, spec, scrubber
 
 
+def traffic_arbiter(clock, scrub: bool):
+    """Config 6's mclock arbiter over TRAFFIC_ARBITER_CAP_BPS: client
+    reservation 1/2 and recovery reservation 1/8, then a recovery limit
+    of 1/4 (the traffic pass) or a scrub reservation of 1/16 and a scrub
+    limit of 1/4 (the scrub pass's three classes)."""
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.workload import MClockArbiter
+
+    cap = TRAFFIC_ARBITER_CAP_BPS
+    cfg = Config(env={})
+    cfg.set("osd_mclock_client_res_bps", cap / 2)
+    cfg.set("osd_mclock_recovery_res_bps", cap / 8)
+    if scrub:
+        cfg.set("osd_mclock_scrub_res_bps", cap / 16)
+        cfg.set("osd_mclock_scrub_lim_bps", cap / 4)
+    else:
+        cfg.set("osd_mclock_recovery_lim_bps", cap / 4)
+    return MClockArbiter.from_config(cap, cfg, clock=clock.now, sleep=clock.sleep)
+
+
+def traffic_run(scenario: str, m, codec, read_shard, write_shard, dev, n_pgs: int, ops: int,
+                arbiter_on: bool, scrub: bool = False, overload: bool = False) -> dict:
+    """One pass of config 6's traffic run (``bench/config6_recovery.py::
+    _traffic_pass``) or, with ``scrub``, of its scrub run (``_scrub_pass``)
+    on a deepcopy of ``m``: a TrafficEngine of ``ops`` ops a step riding
+    every health sample of SupervisedRecovery (with config 6's arbiter
+    when ``arbiter_on``), an EventJournal and a HealthTimeline graded by
+    TRAFFIC_SLO (SCRUB_SLO).  ``scrub`` adds a Scrubber (admitted through
+    the arbiter's scrub class) and the engine's integrity loop;
+    ``overload`` adds POST_STEPS one-second steps on the converged map
+    with a 40x overload inside them.  Records which rotted PGs had their
+    checksum row refreshed by the integrity loop while the rot was in the
+    store (``refreshed``), each rotted shard's clean bytes, and the
+    engine's latency histogram after every sample."""
+    import copy
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.obs import EventJournal, HealthTimeline, SLOSpec, evaluate
+    from ceph_tpu_torch.workload import TrafficEngine
+
+    cur, prev = copy.deepcopy(m), m
+    clock = rec.VirtualClock()
+    journal = EventJournal(clock=clock.now, trace_id=f"chip-traffic-{scenario}")
+    spec = SLOSpec(**(SCRUB_SLO if scrub else TRAFFIC_SLO))
+    k, size = codec.get_data_chunk_count(), cur.pools[1].size
+    health = HealthTimeline(clock.now, k=k, sample_status=spec.sample_status, device=dev)
+    arbiter = traffic_arbiter(clock, scrub) if arbiter_on else None
+    rotted: set = set()
+    refreshed: set = set()
+    clean_bytes: dict = {}
+
+    def corrupt(pg, s, off, mask):
+        clean_bytes.setdefault((pg, s), np.array(read_shard(pg, s)))
+        rotted.add((pg, s))
+        rec.apply_bitrot(read_shard(pg, s), off, mask)
+
+    def write_back(pg, s, buf):
+        rotted.discard((int(pg), int(s)))
+        write_shard(pg, s, buf)
+
+    chaos = rec.ChaosEngine(cur, rec.build_scenario(scenario, cur), clock=clock,
+                            journal=journal, corrupt=corrupt, device=dev)
+    scrubber = None
+    if scrub:
+        scrubber = rec.Scrubber(n_pgs, size, arbiter=arbiter, journal=journal,
+                                clock=clock.now, device=dev)
+        note_write = scrubber.note_write
+
+        def noting(pg, rs):
+            if any(p == pg for p, _ in rotted):
+                refreshed.add(int(pg))
+            note_write(pg, rs)
+
+        scrubber.note_write = noting
+    traffic = TrafficEngine(
+        clock.now, cur.max_osd, n_pgs, k, size, k + 1, ops_per_step=ops,
+        service_ms=TRAFFIC_SERVICE_MS, osd_capacity_ops_per_s=TRAFFIC_OSD_CAP_OPS,
+        recovery_capacity_bps=TRAFFIC_REC_CAP_BPS, op_bytes=TRAFFIC_OP_BYTES,
+        slow_ms=TRAFFIC_SLOW_MS, seed=TRAFFIC_SEED, arbiter=arbiter, journal=journal,
+        scrubber=scrubber, read_shard=read_shard if scrub else None, device=dev)
+    hists = []
+    observe = traffic.observe
+
+    def observing(*args, **kwargs):
+        sample = observe(*args, **kwargs)
+        hists.append(traffic._cum_lat_hist.copy())
+        return sample
+
+    traffic.observe = observing
+    sup = rec.SupervisedRecovery(codec, chaos, config=Config(env={}), seed=0, journal=journal,
+                                 health=health, traffic=traffic, arbiter=arbiter,
+                                 scrubber=scrubber, write_shard=write_back if scrub else None,
+                                 device=dev)
+    res = sup.run(prev, 1, read_shard)
+    if overload:
+        # an induced overload on the converged cluster: the health grade
+        # of these samples is traffic's alone (OK -> WARN -> OK)
+        clean = rec.peer_pool(chaos.osdmap, chaos.osdmap, 1, device=dev)
+        t0 = clock.now()
+        traffic.set_overload(t0 + OVERLOAD_START_S, t0 + OVERLOAD_END_S, OVERLOAD_FACTOR)
+        for _ in range(POST_STEPS):
+            clock.advance(1.0)
+            sample = traffic.observe(clean, epoch=chaos.epoch,
+                                     bytes_recovered=res.bytes_recovered)
+            health.snapshot(clean, epoch=chaos.epoch, bytes_recovered=res.bytes_recovered,
+                            traffic=sample)
+    return {"res": res, "traffic": traffic, "health": health, "report": evaluate(health, spec),
+            "arbiter": arbiter, "chaos": chaos, "journal": journal, "scrubber": scrubber,
+            "refreshed": refreshed, "clean_bytes": clean_bytes, "lat_hists": hists}
+
+
+def observe_probe(peering, n_osds: int, k: int, size: int, dev) -> dict:
+    """One ``TrafficEngine.observe`` at TRAFFIC_OPS on ``peering``'s device
+    tensors, after a warm-up: its kernel launches and copies and their
+    device ms (torch.profiler), its host syncs, and its ms by CUDA events
+    and by the host clock (median of 10 each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ceph_tpu_torch.workload import TrafficEngine
+
+    eng = TrafficEngine(lambda: 0.0, n_osds, peering.pg_num, k, size, k + 1,
+                        ops_per_step=TRAFFIC_OPS, service_ms=TRAFFIC_SERVICE_MS,
+                        osd_capacity_ops_per_s=TRAFFIC_OSD_CAP_OPS, device=dev)
+    eng.observe(peering)
+    torch.cuda.synchronize()
+    out: dict = {}
+    with count_syncs(out):
+        eng.observe(peering)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.observe(peering)
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    device_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.key.startswith("Memcpy") or e.key.startswith("Memset"):
+            copies += e.count
+        elif not getattr(e, "is_user_annotation", False):
+            kernels += e.count
+        device_us += getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        eng.observe(peering)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out.update(kernel_launches=kernels, copies=copies, device_ms=device_us / 1e3,
+               ms=time_ms(lambda: eng.observe(peering)), wall_ms=float(np.median(walls)),
+               ops=TRAFFIC_OPS)
+    return out
+
+
+def traffic_record(runs: dict) -> dict:
+    """Config 6's ``traffic_*`` fields (``build_traffic_record``) from the
+    no-arbiter and arbiter runs, with the overload steps' health grades."""
+    arb, noarb = runs[True], runs[False]
+
+    def recovery_p99(eng) -> float:
+        # the pre-overload samples: where QoS policy, not the induced
+        # incident, sets the tail
+        return max((t.p99_ms for t in eng.samples[:max(len(eng.samples) - POST_STEPS, 0)]),
+                   default=0.0)
+
+    s = arb["traffic"].summary()
+    report = arb["report"]
+    return {
+        "traffic_scenario": TRAFFIC_SCENARIO,
+        "traffic_ops": s["ops"],
+        "traffic_ops_per_sec": s["ops_per_sec_wall"],
+        "traffic_p99_ms": round(arb["health"].max_traffic_p99_ms(), 6),
+        "traffic_recovery_p99_ms": round(recovery_p99(arb["traffic"]), 6),
+        "traffic_recovery_p99_ms_no_arbiter": round(recovery_p99(noarb["traffic"]), 6),
+        "traffic_degraded_fraction": s["degraded_fraction"],
+        "traffic_blocked_fraction": s["blocked_fraction"],
+        "traffic_slow_ops": s["slow_ops"],
+        "traffic_slow_fraction": round(s["slow_ops"] / max(s["ops"], 1), 9),
+        "traffic_health_status": report.status,
+        "traffic_slo_checks": {c.name: c.status for c in report.checks},
+        "traffic_time_to_zero_degraded_s": round(arb["res"].time_to_zero_degraded_s, 6),
+        "traffic_time_to_zero_degraded_s_no_arbiter": round(
+            noarb["res"].time_to_zero_degraded_s, 6),
+        "traffic_qos": arb["arbiter"].summary(),
+        "traffic_overload_healths": [
+            x.health for x in arb["health"].samples if x.traffic is not None][-POST_STEPS:],
+    }
+
+
+def scrub_record(runs: dict) -> dict:
+    """Config 6's ``scrub_*`` fields (``build_scrub_record``, less the
+    standalone CRC rate: phase ``scrub_kernel`` times K8) from the
+    arbiter and no-arbiter runs, with the engine's integrity counters."""
+    arb, noarb = runs[True], runs[False]
+    res, report = arb["res"], arb["report"]
+    s = arb["traffic"].summary()
+    return {
+        "scrub_scenario": SCRUB_QOS_SCENARIO,
+        "scrub_converged": res.converged,
+        "scrub_passes": int(res.scrub_passes),
+        "scrub_scrubbed_bytes": int(res.scrubbed_bytes),
+        "scrub_inconsistencies_found": int(res.inconsistencies_found),
+        "scrub_verify_retries": int(res.verify_retries),
+        "scrub_unrecoverable": int(len(res.inconsistent_unrecoverable)),
+        "scrub_time_to_zero_inconsistent_s": round(res.time_to_zero_inconsistent_s, 6),
+        "scrub_time_to_zero_inconsistent_s_no_arbiter": round(
+            noarb["res"].time_to_zero_inconsistent_s, 6),
+        "scrub_p99_ms": round(arb["health"].max_traffic_p99_ms(), 6),
+        "scrub_p99_ms_no_arbiter": round(noarb["health"].max_traffic_p99_ms(), 6),
+        "scrub_health_status": report.status,
+        "scrub_slo_checks": {c.name: c.status for c in report.checks},
+        "scrub_qos": arb["arbiter"].summary(),
+        "traffic_ops": s["ops"],
+        "traffic_ops_per_sec": s["ops_per_sec_wall"],
+        "writes_checksummed": s["writes_checksummed"],
+        "degraded_reads_verified": s["degraded_reads_verified"],
+        "read_verify_failures": s["read_verify_failures"],
+    }
+
+
+def phase_traffic(dev, launch_counts, reset_launches, m, codec, read_shard, write_shard,
+                  pg_num: int) -> dict:
+    """Config 6's traffic pass (TRAFFIC_SCENARIO, TRAFFIC_OPS a step, the
+    overload after convergence) and its scrub pass (SCRUB_QOS_SCENARIO,
+    SCRUB_OPS a step, the three-class arbiter, the integrity loop), each
+    without and with the arbiter, on the supervised phase's map and
+    store; each pass is one main path, its runs counted from 0 (launches,
+    host syncs, wall seconds) and gated after the counts are read.  The
+    scrub runs' rot is undone in the store before the next run."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.obs import HEALTH_OK, HEALTH_WARN
+
+    k = codec.get_data_chunk_count()
+    out = {}
+    for name, scenario, ops, scrub in (("traffic", TRAFFIC_SCENARIO, TRAFFIC_OPS, False),
+                                       ("scrub_qos", SCRUB_QOS_SCENARIO, SCRUB_OPS, True)):
+        path: dict = {}
+        runs, info = {}, {"runs": {}}
+        gates: dict = {}
+        for arb in (False, True):
+            run_info: dict = {}
+            reset_launches()
+            t0 = time.perf_counter()
+            with count_syncs(run_info):
+                r = traffic_run(scenario, m, codec, read_shard, write_shard, dev, pg_num, ops,
+                                arb, scrub=scrub, overload=not scrub)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for kname, v in launch_counts().items():
+                path[kname] = path.get(kname, 0) + v
+            runs[arb] = r
+            res, eng = r["res"], r["traffic"]
+            s = res.summary()
+            final = rec.peer_pool(m, r["chaos"].osdmap, 1, device=dev)
+            surv = final.n_survivors()
+            below_k = {int(p) for p in final.pgs_with(rec.PG_STATE_DEGRADED) if surv[p] < k}
+            wrong = [(pg, sh) for pg, shards in res.shards.items() for sh, buf in shards.items()
+                     if not np.array_equal(buf, read_shard(pg, sh))]
+            tag = "arbiter" if arb else "no_arbiter"
+            run_info.update(wall_s=wall, samples=len(eng.samples), engine=eng.summary(),
+                            bytes_recovered=int(res.bytes_recovered),
+                            stale_launches=s["stale_launches"], salvaged_pgs=s["salvaged_pgs"],
+                            time_to_zero_degraded_s=res.time_to_zero_degraded_s,
+                            unrecoverable_pgs=s["unrecoverable_pgs"], below_k_pgs=sorted(below_k),
+                            shards_wrong=len(wrong), slo=r["report"].status)
+            gates[f"converged_{tag}"] = bool(res.converged)
+            gates[f"shards_equal_store_{tag}"] = not wrong
+            gates[f"unrecoverable_is_below_k_{tag}"] = set(s["unrecoverable_pgs"]) == below_k
+            gates[f"no_failed_pgs_{tag}"] = not s["failed_pgs"]
+            gates[f"every_sample_completes_ops_{tag}"] = all(
+                x.completed > 0 and x.served + x.degraded + x.blocked == x.ops
+                for x in eng.samples)
+            if scrub:
+                chaos, journal, scrubber = r["chaos"], r["journal"], r["scrubber"]
+                rotted = {c.event.pg for c in chaos.corruptions}
+                found = {p for j in journal.by_name("scrub.inconsistent") for p in j["attrs"]["pgs"]}
+                after = scrubber.scrub(read_shard).n_inconsistent  # a check pass, after the counts
+                run_info.update(corrupted_pgs=sorted(rotted), refreshed_while_rotted=sorted(
+                    r["refreshed"]), inconsistent_unrecoverable=sorted(
+                    res.inconsistent_unrecoverable), closing_check_inconsistent=after,
+                    p99_ms=r["health"].max_traffic_p99_ms())
+                gates[f"every_corruption_found_{tag}"] = rotted <= found
+                gates[f"scrubbed_clean_{tag}"] = after == 0
+                # the integrity loop refreshes a written PG's checksum row
+                # from the store's bytes, rot included (the reference's
+                # Scrubber.note_write); such a PG ends inconsistent-
+                # unrecoverable, and no other one may
+                gates[f"inconsistent_unrecoverable_is_refreshed_rot_{tag}"] = (
+                    set(res.inconsistent_unrecoverable) == r["refreshed"])
+                gates[f"client_p99_within_slo_{tag}"] = (
+                    r["health"].max_traffic_p99_ms() <= SCRUB_SLO["max_p99_latency_ms"])
+                gates[f"writes_checksummed_{tag}"] = eng.writes_checksummed > 0
+                gates[f"degraded_reads_verified_{tag}"] = eng.degraded_reads_verified > 0
+                for (pg, sh), clean in r["clean_bytes"].items():  # undo the rot
+                    write_shard(pg, sh, clean)
+            info["runs"][tag] = run_info
+            print(json.dumps({"traffic_pass": name, "arbiter": arb, "wall_s": wall,
+                              "host_syncs": run_info["host_syncs"], "samples": len(eng.samples)}),
+                  flush=True)
+        arb_run, noarb_run = runs[True], runs[False]
+        # the two runs need not rebuild the same bytes: where the arbiter
+        # slows recovery, an epoch can land on a launch in flight and its
+        # salvage commits fewer shards (the reference does the same:
+        # tests/test_torch_traffic.py::test_traffic_pass_matches_reference)
+        gates["bytes_recovered_in_both"] = (
+            arb_run["res"].bytes_recovered > 0 and noarb_run["res"].bytes_recovered > 0)
+        gates["same_unrecoverable_pgs"] = (
+            arb_run["res"].summary()["unrecoverable_pgs"]
+            == noarb_run["res"].summary()["unrecoverable_pgs"])
+        if scrub:
+            info.update(scrub_record(runs))
+            gates["scrub_class_admitted"] = arb_run["arbiter"].granted("scrub") > 0
+        else:
+            info.update(traffic_record(runs))
+            healths = info["traffic_overload_healths"]
+            gates["recovery_p99_below_no_arbiter"] = (
+                info["traffic_recovery_p99_ms"] < info["traffic_recovery_p99_ms_no_arbiter"])
+            gates["client_granted_is_ops_bytes"] = arb_run["arbiter"].granted("client") == (
+                TRAFFIC_OP_BYTES * sum(x.ops for x in arb_run["traffic"].samples))
+            gates["recovery_granted_covers_bytes"] = (
+                arb_run["arbiter"].granted("recovery") >= arb_run["res"].bytes_recovered)
+            gates["overload_ok_warn_ok"] = (
+                len(healths) == POST_STEPS and healths[0] == HEALTH_OK
+                and HEALTH_WARN in healths and healths[-1] == HEALTH_OK)
+            peering = rec.peer_pool(m, arb_run["chaos"].osdmap, 1, device=dev)
+            info["observe"] = observe_probe(peering, m.max_osd, k, m.pools[1].size, dev)
+        info["launches"] = path
+        info["gates"] = gates
+        out[name] = info
+    return out
+
+
+def traffic_replay(profile: dict, m_small, pgs_small: int, chunk_small: int, dev) -> dict:
+    """The traffic pass (with the arbiter and the overload) at the small
+    size on the card and on the CPU: the engine's ``summary()`` but the
+    wall rate, every sample's fields but the wall rate (``mean_ms`` within
+    TRAFFIC_REPLAY_RTOL), its latency histogram after every sample, the
+    supervised summary, the health series and the SLO report equal."""
+    from ceph_tpu_torch.ec import create
+
+    got = []
+    for d in (dev, torch.device("cpu")):
+        c = create(profile, device=d)
+        _, rd, wr = supervised_store(c, pgs_small, chunk_small, d)
+        r = traffic_run(TRAFFIC_SCENARIO, m_small, c, rd, wr, d, pgs_small, TRAFFIC_SMALL_OPS,
+                        True, overload=True)
+        got.append(r)
+    card, cpu = got
+
+    def samples(r):
+        return [{key: v for key, v in vars(x).items() if key != "ops_per_sec_wall"}
+                for x in r["traffic"].samples]
+
+    def summary(r):
+        return {key: v for key, v in r["traffic"].summary().items() if key != "ops_per_sec_wall"}
+
+    sc, sp = samples(card), samples(cpu)
+    means = all(np.isclose(a.pop("mean_ms"), b.pop("mean_ms"), rtol=TRAFFIC_REPLAY_RTOL, atol=0)
+                for a, b in zip(sc, sp))
+    checks = {
+        "summary": summary(card) == summary(cpu),
+        "samples": len(sc) == len(sp) and sc == sp,
+        "mean_ms": len(sc) == len(sp) and means,
+        "lat_hists": len(card["lat_hists"]) == len(cpu["lat_hists"]) and all(
+            np.array_equal(a, b) for a, b in zip(card["lat_hists"], cpu["lat_hists"])),
+        "supervised_summary": card["res"].summary() == cpu["res"].summary(),
+        "health_series": card["health"].series() == cpu["health"].series(),
+        "slo": card["report"].to_dict() == cpu["report"].to_dict(),
+    }
+    return {"equal": all(checks.values()), "checks": checks, "card": summary(card),
+            "samples": len(sc)}
+
+
 def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OSDS,
                      pg_num: int = RECOVERY_PGS, chunk: int = RECOVERY_CHUNK,
                      small=SUPERVISED_SMALL) -> dict:
@@ -1049,6 +1463,8 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
     out["k8_launch_shapes"] = shape_summary(k8_shapes)
     out["profile_mid_repair_loss"] = profile_call(lambda: supervised_run(
         "mid-repair-loss", m, codec, read_shard, write_shard, dev, pg_num))
+    out.update(phase_traffic(dev, launch_counts, reset_launches, m, codec, read_shard,
+                             write_shard, pg_num))
     del full
     # the same seeded runs at a small size on the card and on the CPU
     n_small, pgs_small, chunk_small = small
@@ -1062,6 +1478,7 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
             sums.append(supervised_run(scenario, m_small, c, rd, wr, d, pgs_small,
                                        scenario == "scrub-storm")[0].summary())
         replay[scenario] = {"equal": sums[0] == sums[1], "card": sums[0]}
+    replay["traffic"] = traffic_replay(profile, m_small, pgs_small, chunk_small, dev)
     out["card_equals_cpu"] = replay
     return out
 
@@ -2007,8 +2424,12 @@ def main() -> int:
     supervised = phase_supervised(dev, counts, reset)
     emit(supervised)
     paths["supervised"] = supervised["launches"]
+    paths["traffic"] = supervised["traffic"]["launches"]
+    paths["scrub_qos"] = supervised["scrub_qos"]["launches"]
     bad = [(p, g) for p, info in supervised["passes"].items()
            for g, ok in info["gates"].items() if not ok]
+    bad += [(p, g) for p in ("traffic", "scrub_qos")
+            for g, ok in supervised[p]["gates"].items() if not ok]
     bad += [(s_, "card_equals_cpu") for s_, r in supervised["card_equals_cpu"].items()
             if not r["equal"]]
     if bad:
@@ -2028,6 +2449,8 @@ def main() -> int:
             "ec": ("matrix_encode", "bitmatrix_encode", "byte_lut"),
             "recovery": ("descend", "matrix_encode", "schedule_apply"),
             "supervised": ("descend", "matrix_encode", "crc32c_rows"),
+            "traffic": ("descend", "matrix_encode"),
+            "scrub_qos": ("descend", "matrix_encode", "crc32c_rows"),
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]

@@ -17,13 +17,15 @@ tier, K8 (the scrub's CRC32C of rows) against its plain version on its
 edges (``K8_EDGES``: L = 0 and below 16, about the segment lengths of
 the scrub pass's and a decode-verify group's cuts, rows off a 16-byte
 boundary across segments, a 64 MiB row checked by 32 KiB pieces
-combined on the host, more rows than one grid, the check value), and a
+combined on the host, more rows than one grid, the check value), a
 small supervised ``scrub-storm`` run on the
-card against the same run on the CPU.  Run them
+card against the same run on the CPU, and the foreground-traffic step
+(torch ops) on the card against the same call on the CPU.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
-comparisons are integer: exact equality.
+comparisons are exact equality, but the traffic step's two float32 sums
+(``rtol=1e-5``).
 """
 
 import numpy as np
@@ -644,3 +646,31 @@ def test_supervised_scrub_storm_on_the_card_matches_cpu(card):
     assert got == want and got["converged"] and got["inconsistencies_found"] >= 8
     for pg in want_store:
         np.testing.assert_array_equal(got_store[pg], want_store[pg])
+
+
+@pytest.mark.parametrize("k,size,min_size,pg_num,n_osds", [(4, 6, 5, 1000, 96),
+                                                           (8, 11, 9, 8192, 1024)])
+def test_traffic_step_on_the_card_matches_cpu(card, k, size, min_size, pg_num, n_osds):
+    """The traffic step's torch ops on the card against the same call on
+    the CPU: counts, histograms (``bucketize`` through ``frexp`` on both),
+    ``written``, ``deg_read`` and ``max_rho`` equal; the float32 ``sums``
+    within ``rtol=1e-5`` (two reduction orders over 65,536 ops)."""
+    from ceph_tpu_torch.workload import traffic
+
+    rng = np.random.default_rng(pg_num)
+    mask = np.where(rng.random(pg_num) < 0.5, (1 << size) - 1,
+                    rng.integers(0, 1 << size, pg_num)).astype(np.int64)
+    host = (torch.from_numpy(mask), torch.from_numpy(rng.integers(0, size + 1, pg_num, dtype=np.int32)),
+            torch.from_numpy(rng.integers(-1, n_osds, pg_num, dtype=np.int32)))
+    bmask = (1 << max(pg_num - 1, 1).bit_length()) - 1
+    scalars = (12345, pg_num, bmask, k, size, min_size, 250, 0.5, 6000.0 / 16, 0.125)
+    step = traffic.traffic_step(1 << 16, n_osds)
+    got = [t.cpu() for t in step(*(t.to(card) for t in host), *scalars)]
+    want = step(*host, *scalars)
+    for name, g, w in zip(("counts", "lat_hist", "qd_hist", "sums", "max_rho", "written",
+                           "deg_read"), got, want):
+        if name == "sums":
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+    assert int(got[0].sum()) == 1 << 16 and int(got[1].sum()) > 0

@@ -1,0 +1,231 @@
+"""The port's status CLI (``python -m ceph_tpu_torch.cli.status``) vs the
+reference package's.
+
+Demo mode: the same arguments (the reference tests' 64-OSD, 32-PG seeded
+flap demo, and again with ``--traffic --ops-per-step 2048``) through
+both CLIs, the port's with ``--device cpu``.  ``status`` text, ``health
+--json``, ``timeline --json`` and ``journal --json`` must be equal,
+except: the ``caches`` panel (the port has no fused placement pipeline
+cache, and both packages' cache counters are process-wide), each traffic
+sample's ``ops_per_sec_wall`` (a wall-clock rate) and the journal's wall
+times, left out; each traffic sample's ``mean_ms`` within ``rtol=1e-6``
+(a float32 sum reduced in another order).  Socket mode: both CLIs against
+a daemon of their own package serving equal timelines.  The commands
+that wait for paths the port does not run yet exit non-zero and name
+their ROADMAP item.
+"""
+
+import copy
+import json
+
+import numpy as np
+import pytest
+
+from ceph_tpu.cli import status as ref_cli
+from ceph_tpu.common import admin_socket as ref_asok
+from ceph_tpu.obs import EventJournal as RefJournal
+from ceph_tpu_torch.cli import status as cli
+from ceph_tpu_torch.common import admin_socket
+from ceph_tpu_torch.obs import EventJournal
+
+DEMO = ["--num-osd", "64", "--pg-num", "32", "--seed", "1"]
+VARIANTS = {"plain": [], "traffic": ["--traffic", "--ops-per-step", "2048"]}
+RTOL = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_caches_left_as_found():
+    """Put the reference's program caches back after this module."""
+    from ceph_tpu.crush import interp, interp_batch as ib
+    from ceph_tpu.osdmap import mapping
+    from ceph_tpu.recovery import pipeline
+
+    caches = (ib._FAST_CACHE, ib._PACK_CACHE, interp._BATCH_CACHE, mapping._POOL_FN_CACHE,
+              pipeline.PIPELINES._entries)
+    saved = [copy.copy(c) for c in caches]
+    counts = (pipeline.PIPELINES.hits, pipeline.PIPELINES.misses, pipeline.PIPELINES.evictions)
+    yield
+    for cache, before in zip(caches, saved):
+        cache.clear()
+        cache.update(before)
+    pipeline.PIPELINES.hits, pipeline.PIPELINES.misses, pipeline.PIPELINES.evictions = counts
+
+
+def _both(capsys, argv):
+    """(reference stdout, port stdout) of one command line."""
+    assert ref_cli.main(argv) == 0
+    ref = capsys.readouterr().out
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    return ref, capsys.readouterr().out
+
+
+def _without_caches(text: str) -> list[str]:
+    lines = text.splitlines()
+    return lines[:lines.index("  caches:")] if "  caches:" in lines else lines
+
+
+def assert_series_equal(port: list, ref: list) -> None:
+    assert len(port) == len(ref)
+    for p, r in zip(port, ref):
+        p, r = dict(p), dict(r)
+        pt, rt = p.pop("traffic", None), r.pop("traffic", None)
+        assert p == r
+        assert (pt is None) == (rt is None)
+        if pt is not None:
+            pt, rt = dict(pt), dict(rt)
+            for d in (pt, rt):
+                d.pop("ops_per_sec_wall")
+            assert pt.pop("mean_ms") == pytest.approx(rt.pop("mean_ms"), rel=RTOL)
+            assert pt == rt
+
+
+def _journal_view(records):
+    return [{k: v for k, v in r.items() if k not in ("wall", "wall_end")} for r in records]
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_status_text_matches_reference(capsys, variant):
+    ref, port = _both(capsys, ["status"] + DEMO + VARIANTS[variant])
+    assert _without_caches(port) == _without_caches(ref)
+    assert "cluster:" in port and "health:" in port and "pgs: 32" in port
+    assert "SLO_INACTIVE" in port
+    assert port.splitlines()[-1].strip().startswith("schedule:")
+    if variant == "traffic":
+        assert "io:" in port and "client:" in port and "outcomes:" in port
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_health_json_matches_reference(capsys, variant):
+    ref, port = _both(capsys, ["health", "--json"] + DEMO + VARIANTS[variant])
+    health = json.loads(port)
+    assert health == json.loads(ref)
+    assert set(health["checks"]) >= {"SLO_INACTIVE", "SLO_AVAILABILITY", "SLO_RECOVERY_TIME"}
+    if variant == "traffic":
+        assert {"SLO_P99_LATENCY", "SLO_SLOW_OPS"} <= set(health["checks"])
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_timeline_json_matches_reference(capsys, variant):
+    ref, port = _both(capsys, ["timeline", "--json"] + DEMO + VARIANTS[variant])
+    series = json.loads(port)["series"]
+    assert_series_equal(series, json.loads(ref)["series"])
+    assert len(series) >= 3
+    assert {"t", "epoch", "health", "pgs", "availability"} <= set(series[0])
+    health_seq = [s["health"] for s in series]
+    assert variant == "traffic" or (health_seq[0] == health_seq[-1] == "HEALTH_OK"
+                                    and "HEALTH_WARN" in health_seq)
+    assert all(s.get("traffic") for s in series) == (variant == "traffic")
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_journal_json_matches_reference(tmp_path, capsys, variant):
+    paths = [str(tmp_path / f"{n}.jsonl") for n in ("ref", "port")]
+    assert ref_cli.main(["journal", "--json", "--journal-path", paths[0]]
+                        + DEMO + VARIANTS[variant]) == 0
+    ref = json.loads(capsys.readouterr().out)["records"]
+    assert cli.main(["journal", "--json", "--journal-path", paths[1], "--device", "cpu"]
+                    + DEMO + VARIANTS[variant]) == 0
+    port = json.loads(capsys.readouterr().out)["records"]
+    assert _journal_view(port) == _journal_view(ref)
+    names = {r["name"] for r in port}
+    assert {"chaos.inject", "decode.launch", "recovery.revise"} <= names
+    assert ("traffic.step" in names) == (variant == "traffic")
+    # the on-disk journal matches what the command printed
+    assert EventJournal.read(paths[1]) == port
+    assert RefJournal.read(paths[0]) == ref
+
+
+def test_timeline_text_and_determinism(capsys):
+    argv = ["timeline", "--device", "cpu"] + DEMO + VARIANTS["traffic"]
+    assert cli.main(argv) == 0
+    first = capsys.readouterr().out
+    assert " p99=" in first and "blocked=" in first
+    assert cli.main(argv) == 0
+    assert capsys.readouterr().out == first
+    assert ref_cli.main(argv[:1] + argv[3:]) == 0
+    assert capsys.readouterr().out == first
+
+
+def test_caches_panel_is_the_schedule_cache(capsys):
+    assert cli.main(["caches", "--json", "--device", "cpu"] + DEMO) == 0
+    reply = json.loads(capsys.readouterr().out)
+    assert list(reply) == ["schedule"]
+    assert set(reply["schedule"]) == {"hits", "misses", "evictions"}
+    assert all(isinstance(v, int) and v >= 0 for v in reply["schedule"].values())
+    assert cli.main(["caches", "--device", "cpu"] + DEMO) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("schedule: ") and "hits" in out and "evictions" in out
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["fleet"], "item 2b"), (["ranks"], "item 4"), (["checkpoint"], "item 2d"),
+    (["writepath"], "item 3"), (["crash"], "item 3"), (["--crash"], "item 3"),
+    (["writepath", "--socket", "/nonexistent.asok"], "item 3"),
+])
+def test_waiting_commands_exit_nonzero_and_name_their_item(capsys, argv, item):
+    assert cli.main(argv + ["--device", "cpu"]) != 0
+    err = capsys.readouterr().err
+    assert "not ported yet" in err and f"ROADMAP §1, {item}" in err
+
+
+def _daemon_timeline(port: bool):
+    """A small timeline with traffic samples, built in either package."""
+    from ceph_tpu import obs as ref_obs, recovery as ref_rec, workload as ref_wl
+    from ceph_tpu.recovery.peering import PeeringResult as RefPeeringResult
+    from ceph_tpu_torch import obs, recovery as rec, workload as wl
+    from ceph_tpu_torch.recovery.peering import PeeringResult
+
+    O, R, W = (obs, rec, wl) if port else (ref_obs, ref_rec, ref_wl)
+    dev = {"device": "cpu"} if port else {}
+    clock = R.VirtualClock()
+    spec = O.SLOSpec(max_inactive_seconds=3.0, max_p99_latency_ms=2.0)
+    tl = O.HealthTimeline(clock.now, k=4, sample_status=spec.sample_status, **dev)
+    eng = W.TrafficEngine(clock.now, 8, 32, 4, 6, 5, ops_per_step=1024,
+                          osd_capacity_ops_per_s=2e3, seed=3, **dev)
+    z = np.zeros((32, 6), np.int32)
+    zp = np.arange(32, dtype=np.int32) % 8
+    for i, masks in enumerate(([0b111111] * 32, [0b011111, 0b000111] * 16, [0b111111] * 32)):
+        peering = (PeeringResult if port else RefPeeringResult)(
+            pool_id=1, epoch_prev=1, epoch_cur=2 + i, size=6, min_size=5, up=z,
+            up_primary=zp, acting=z, acting_primary=zp, prev_acting=z,
+            flags=np.zeros(32, np.int32), survivor_mask=np.array(masks, np.uint32),
+            n_alive=np.full(32, 6 - (i == 1), np.int32))
+        tl.snapshot(peering, bytes_recovered=4096 * i, traffic=eng.observe(peering))
+        clock.advance(1.0)
+    return tl, spec
+
+
+def test_socket_mode_matches_reference(tmp_path, capsys):
+    from ceph_tpu.obs import register_admin_hooks as ref_hooks
+    from ceph_tpu_torch.obs import register_admin_hooks
+
+    outs = []
+    for name, mod, hooks, main in (("p", admin_socket, register_admin_hooks, cli.main),
+                                   ("r", ref_asok, ref_hooks, ref_cli.main)):
+        path = str(tmp_path / f"{name}.asok")
+        daemon = mod.AdminSocket(path)
+        tl, spec = _daemon_timeline(name == "p")
+        hooks(daemon, tl, spec)
+        daemon.start()
+        try:
+            got = {}
+            for cmd in (["status"], ["health", "--json"], ["timeline", "--json"]):
+                assert main(cmd + ["--socket", path]) == 0
+                got[cmd[0]] = capsys.readouterr().out
+            if name == "p":
+                assert main(["caches", "--json", "--socket", path]) == 0
+                got["caches"] = json.loads(capsys.readouterr().out)
+            # the journal hook is registered only with a journal
+            assert main(["journal", "--socket", path]) == 1
+            assert "unknown command" in capsys.readouterr().err
+        finally:
+            daemon.stop()
+        outs.append(got)
+    port, ref = outs
+    assert port["status"] == ref["status"] and "io:" in port["status"]
+    assert json.loads(port["health"]) == json.loads(ref["health"])
+    assert_series_equal(json.loads(port["timeline"])["series"],
+                        json.loads(ref["timeline"])["series"])
+    assert set(port["caches"]) == {"schedule"}
+    assert cli.main(["status", "--socket", str(tmp_path / "none.asok")]) == 1
+    assert "cannot reach" in capsys.readouterr().err

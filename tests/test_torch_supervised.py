@@ -45,6 +45,7 @@ from ceph_tpu_torch.common.config import Config
 from ceph_tpu_torch.common.op_tracker import OpTracker
 from ceph_tpu_torch.ec import create
 from ceph_tpu_torch.obs import EventJournal, HealthTimeline, SLOSpec, evaluate
+from ceph_tpu_torch.workload import TrafficEngine
 
 K, M, CHUNK = 4, 2, 256
 N_OSDS, PG_NUM = 64, 64
@@ -191,9 +192,12 @@ def test_supervised_rejects_multi_device_and_traffic():
         ref_build_osdmap(16, pg_num=16, size=K + M, pool_kind="erasure").encode())
     codec = create(PROFILES["rs"], device="cpu")
     chaos = rec.ChaosEngine(m, rec.ChaosTimeline(), device="cpu")
-    for kw in ({"mesh": object()}, {"chip_faults": ["chipstall:0"]}, {"traffic": object()}):
+    for kw in ({"mesh": object()}, {"chip_faults": ["chipstall:0"]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rec.SupervisedRecovery(codec, chaos, device="cpu", **kw)
+    # traffic= is ported (tests/test_torch_traffic.py); its mesh is not
+    with pytest.raises(NotImplementedError, match="ROADMAP §1, item 4"):
+        TrafficEngine(chaos.clock.now, 16, 16, K, K + M, K + 1, mesh=object(), device="cpu")
     cfg = Config(env={})
     cfg.set("recovery_work_stealing", "on")
     with pytest.raises(NotImplementedError, match="item 4"):
