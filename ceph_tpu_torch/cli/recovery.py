@@ -101,6 +101,8 @@ def _run_chaos(args, m, m_prev, pool_id, out) -> int:
     cfg = Config()
     if args.max_bytes_per_sec is not None:
         cfg.set("recovery_max_bytes_per_sec", args.max_bytes_per_sec)
+    if args.dirty_compaction is not None:
+        cfg.set("sparse_dirty_compaction", args.dirty_compaction)
     sup = SupervisedRecovery(codec, chaos, config=cfg, seed=args.seed, device=args.device)
     res = sup.run(m_prev, pool_id, _chunk_reader(args.chunk_size))
     for ev in chaos.applied:
@@ -163,6 +165,13 @@ def main(argv=None) -> int:
                         "seed, same run)")
     p.add_argument("--device", default="cuda",
                    help="device of peering and the decodes (cuda or cpu)")
+    p.add_argument("--dirty-compaction", choices=("auto", "on", "off"),
+                   default=None,
+                   help="dirty-set compaction for the epoch engines "
+                        "(sparse_dirty_compaction): peer/classify only "
+                        "the gathered dirty PG bucket instead of every "
+                        "PG; default 'auto' keeps small demo geometries "
+                        "on the dense reference path")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
                    help="not ported yet (ROADMAP §1, item 4): exits non-zero")
     p.add_argument("--shard-min-bytes", type=int, default=None,

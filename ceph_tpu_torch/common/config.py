@@ -205,6 +205,44 @@ SCHEMA: list[Option] = [
            "backfill pattern groups admitted per repair group in the "
            "supervised scheduler (the reference's backfill reservation "
            "analog); repair and backfill share one token bucket", min=1),
+    Option("sparse_dirty_compaction", OPT_STR, "auto", LEVEL_ADVANCED,
+           "route peering, PG classification and pg_hist refolds "
+           "through the compacted dirty-set path (gather dirty lanes, "
+           "compute on a power-of-two bucket, scatter back) instead of "
+           "dense full-width launches: 'auto' enables it when the "
+           "geometry is large enough for the ladder to have at least "
+           "one rung below the dense width; 'on' forces it everywhere "
+           "(tests/benches); 'off' pins the dense reference path",
+           enum_allowed=("auto", "on", "off"),
+           see_also=("sparse_min_bucket", "sparse_ladder_rungs")),
+    Option("sparse_min_bucket", OPT_INT, 32, LEVEL_ADVANCED,
+           "smallest power-of-two bucket width in the dirty-set "
+           "compaction ladder; dirty sets smaller than this still pay "
+           "for min_bucket lanes.  The rung is picked on the host from "
+           "one read of the dirty count, so each width is one more "
+           "launch shape, never a recompile", min=1,
+           see_also=("sparse_dirty_compaction",)),
+    Option("sparse_ladder_rungs", OPT_INT, 4, LEVEL_ADVANCED,
+           "maximum number of compacted bucket widths below the dense "
+           "width (each 4x the last, starting at sparse_min_bucket); "
+           "the dense full-width branch is always appended as the "
+           "ladder's top rung and bit-equality reference", min=1,
+           see_also=("sparse_dirty_compaction", "sparse_min_bucket")),
+    Option("flight_recorder", OPT_STR, "auto", LEVEL_ADVANCED,
+           "device-resident flight recorder: a fixed-shape ring of "
+           "per-epoch telemetry lanes recorded inside the epoch loop "
+           "and drained at snapshot boundaries: 'on' records "
+           "everywhere (not ported: ROADMAP §1 item 3), 'off' pins the "
+           "recorder-free loop, 'auto' follows the bench-decided "
+           "default (bench/flight_defaults.json; absent -> off)",
+           enum_allowed=("auto", "on", "off"),
+           see_also=("flight_ring_epochs",)),
+    Option("flight_ring_epochs", OPT_INT, 1024, LEVEL_ADVANCED,
+           "rows in the flight recorder's device ring (one telemetry "
+           "row per epoch; power of two).  Once the ring wraps, older "
+           "epochs overwrite: crash dumps carry the last ring_epochs "
+           "epochs", min=2,
+           see_also=("flight_recorder",)),
 ]
 
 

@@ -109,12 +109,25 @@ def pg_state_step(mask, n_alive, flags, k: int, size: int):
     PGs]`` (lost shard-slots across degraded PGs, the degraded-object
     ratio's numerator in shard units; remapped-but-complete PGs, the
     misplaced-object analog)."""
-    codes = _classify_rows(mask, n_alive, flags, k, size)
-    hist = torch.bincount(codes.to(I64), minlength=N_STATES).to(I32)
+    return pg_state_reduce(mask, n_alive, flags, k, size)
+
+
+def pg_state_reduce(mask, n_alive, flags, k: int, size: int, in_range=None):
+    """:func:`pg_state_step` over the rows where ``in_range`` ([pg] bool;
+    None: every row), the reference's ``_reduce``: rows outside it (a
+    compacted bucket's pad lanes) count in neither the histogram nor
+    ``aux``.  Exact integers, so bucket deltas refold exactly."""
+    codes = _classify_rows(mask, n_alive, flags, k, size).to(I64)
     nsurv = popcount32(mask)
-    degraded_slots = torch.where(nsurv < size, size - nsurv, 0).sum()
-    misplaced = ((nsurv >= size) & ((flags & PG_STATE_REMAPPED) != 0)).sum()
-    return hist, torch.stack([degraded_slots, misplaced]).to(I32)
+    degraded = torch.where(nsurv < size, size - nsurv, 0)
+    misplaced = (nsurv >= size) & ((flags & PG_STATE_REMAPPED) != 0)
+    if in_range is not None:
+        # rows outside the range vote into a spare bin that is cut off
+        codes = torch.where(in_range, codes, N_STATES)
+        degraded = torch.where(in_range, degraded, 0)
+        misplaced = misplaced & in_range
+    hist = torch.bincount(codes, minlength=N_STATES + 1)[:N_STATES].to(I32)
+    return hist, torch.stack([degraded.sum(), misplaced.sum()]).to(I32)
 
 
 class PGStateClassifier:

@@ -45,6 +45,7 @@ class PoolMapState:
 
     osd_weight: torch.Tensor  # int32 [n_osd]  in/out reweight, 16.16
     osd_up: torch.Tensor  # bool [n_osd]  exists & up
+    osd_exists: torch.Tensor  # bool [n_osd]  (the epoch loop's tape and tick read it)
     primary_affinity: torch.Tensor  # int64 [n_osd]
     upmap_full: torch.Tensor  # int32 [pg_num, size]  ITEM_NONE pad
     has_upmap: torch.Tensor  # bool [pg_num]
@@ -107,6 +108,7 @@ def build_pool_state(m: OSDMap, pool: Pool, max_items: int = 8,
     return PoolMapState(
         osd_weight=as_i32(weight, dev),
         osd_up=t((state & (EXISTS | UP)) == (EXISTS | UP)),
+        osd_exists=t((state & EXISTS) != 0),
         primary_affinity=t(aff),
         upmap_full=t(upmap_full),
         has_upmap=t(has_upmap),

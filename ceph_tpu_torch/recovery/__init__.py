@@ -27,12 +27,17 @@ one device:
 - :mod:`~ceph_tpu_torch.recovery.liveness` — mon-style failure
   detection on the virtual clock: heartbeat grace, the markdown flap
   damper, down→out policy, and the cluster flag set.
+- :mod:`~ceph_tpu_torch.recovery.superstep` — the epoch loop: an event
+  tape, liveness, peering (with the dirty-set ladder), PG states,
+  traffic and scrub windows over one resident
+  :class:`~ceph_tpu_torch.core.cluster_state.ClusterState`.
 
 ``recover_pool(m_prev, m_cur, pool_id, codec, read_shard,
 device="cuda")`` runs the whole pipeline once;
 ``SupervisedRecovery(codec, ChaosEngine(m, build_scenario(name, m),
 device=...), device=...).run(m_prev, pool_id, read_shard)`` runs it
-under a chaos timeline.
+under a chaos timeline; ``run_epochs(m, timeline, n_epochs,
+device=...)`` runs the epoch loop.
 """
 
 from .chaos import (
@@ -104,6 +109,16 @@ from .planner import (
     invalidated_groups,
     mask_to_shards,
 )
+from .superstep import (
+    EpochDriver,
+    EpochSeries,
+    EventTape,
+    build_epoch_driver,
+    compile_epoch_superstep,
+    compile_event_tape,
+    epoch_superstep_enabled,
+    run_epochs,
+)
 from .scrub import (
     DecodeVerifier,
     ScrubResult,
@@ -146,6 +161,9 @@ __all__ = [
     "ClusterFlags",
     "DecodeVerifier",
     "Detection",
+    "EpochDriver",
+    "EpochSeries",
+    "EventTape",
     "FailureSpec",
     "FlapRecord",
     "LaunchError",
@@ -165,14 +183,18 @@ __all__ = [
     "VerifyReport",
     "VirtualClock",
     "apply_bitrot",
+    "build_epoch_driver",
     "build_incremental",
     "build_plan",
     "build_scenario",
     "classify_rows",
+    "compile_epoch_superstep",
+    "compile_event_tape",
     "crc32c",
     "crc32c_rows",
     "crc_rows",
     "crc_rows_plain",
+    "epoch_superstep_enabled",
     "flap",
     "heartbeat_step",
     "inject",
@@ -185,6 +207,7 @@ __all__ = [
     "recover_pool",
     "recovery_counters",
     "resolve_targets",
+    "run_epochs",
     "scrub_counters",
     "scrub_step",
 ]

@@ -142,7 +142,8 @@ def heartbeat_step(
     dev = last_ack.device
 
     def f32(v):
-        return torch.tensor(float(v), dtype=F32, device=dev)
+        # a fill, not a copy from the host (which would sync the card)
+        return torch.full((), float(v), dtype=F32, device=dev)
 
     now = f32(now)
     ack = ~suppressed

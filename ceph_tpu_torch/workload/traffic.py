@@ -204,11 +204,11 @@ def _queue_model(load, idx, is_write, degraded, k: int, service_ms,
     return rho, qd, lat
 
 
-def _traffic_reduce(pg, idx, is_write, blocked, degraded, load, n_pgs: int,
-                    k: int, service_ms, cap_ops, rho_recovery,
-                    n_buckets: int, lat_min: float):
-    """Outcome counts + histograms for one routed op batch, given the
-    per-OSD load and the primaries' indices into it."""
+def _traffic_outcomes(idx, is_write, blocked, degraded, load, k: int, service_ms,
+                      cap_ops, rho_recovery, n_buckets: int, lat_min: float):
+    """``(counts [3], lat_hist, qd_hist, sums [2], max_rho)`` of one
+    routed op batch, given the per-OSD load and the primaries' indices
+    into it."""
     rho, qd, lat = _queue_model(load, idx, is_write, degraded, k, service_ms,
                                 cap_ops, rho_recovery)
     ok = ~blocked
@@ -218,10 +218,35 @@ def _traffic_reduce(pg, idx, is_write, blocked, degraded, load, n_pgs: int,
     ]).to(I32)
     lat_hist = scatter_hist(bucketize(lat, n_buckets, lat_min), okw, n_buckets)
     qd_hist = scatter_hist(bucketize(qd, n_buckets, lat_min), okw, n_buckets)
-    sums = torch.stack([
-        torch.where(ok, lat, 0.0).sum(), torch.where(ok, qd, 0.0).sum(),
-    ]).to(F32)
-    max_rho = rho.max()
+    sums = _pairwise_sum(torch.stack([
+        torch.where(ok, lat, 0.0), torch.where(ok, qd, 0.0),
+    ])).to(F32)
+    return counts, lat_hist, qd_hist, sums, rho.max()
+
+
+def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis in one fixed pairwise order (zero-padded to
+    a power of two, then halved by elementwise adds), so the CPU and the
+    card round every partial sum alike; ``torch.sum`` orders its partial
+    sums differently on each."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    if width != n:
+        x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def _traffic_reduce(pg, idx, is_write, blocked, degraded, load, n_pgs: int,
+                    k: int, service_ms, cap_ops, rho_recovery,
+                    n_buckets: int, lat_min: float):
+    """Outcome counts + histograms for one routed op batch, given the
+    per-OSD load and the primaries' indices into it."""
+    counts, lat_hist, qd_hist, sums, max_rho = _traffic_outcomes(
+        idx, is_write, blocked, degraded, load, k, service_ms, cap_ops, rho_recovery,
+        n_buckets, lat_min)
+    ok = ~blocked
     # per-PG integrity feed: which PGs took a committed write (their
     # checksum rows must refresh: checksum-at-write) and which served
     # a degraded read (verify against the table before trusting the

@@ -106,7 +106,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    every rebuilt shard equal to the store, the unrecoverable PGs exactly
    those left below k, every corruption found and a clean closing scrub,
    a detection); the [rows, L] of every K8 launch of the three passes
-   (min, median, max, count by shape); a profiled mid-repair-loss pass;
+   (min, median, max, count by shape);
    then config 6's traffic pass (``traffic``: mid-repair-loss with a
    ``TrafficEngine`` of 65,536 ops a step riding every health sample,
    then a 40x overload over 10 one-second steps on the converged map)
@@ -121,10 +121,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
    rebuilt, OK -> WARN -> OK across the overload; the scrub gates, the
    client p99 under scrub load within its SLO, the integrity loop's
    checksummed writes and verified degraded reads), and one ``observe``
-   measured alone (kernel launches, host syncs, CUDA-event ms); the
-   three scenarios and the traffic pass at 128 PGs on the card and the
-   CPU with equal ``summary()`` (the traffic pass: equal samples and
-   histograms, ``mean_ms`` within ``TRAFFIC_REPLAY_RTOL``);
+   measured alone (kernel launches, host syncs, CUDA-event ms);
+   scrub-storm, flapping-osd and the traffic pass at 128 PGs on the card
+   and the CPU with equal ``summary()`` (the traffic pass: equal samples
+   and histograms, ``mean_ms`` within ``TRAFFIC_REPLAY_RTOL``);
+10b. epoch: the epoch loop (``recovery/superstep.py::EpochDriver``) at
+   BASELINE config 7 (build_osdmap(1024, pg_num=8192, size=6, erasure),
+   two slow OSDs, 64 ops a step): 1024 superstep epochs in chunks of 256
+   and 128 staged epochs, epochs/s and host syncs an epoch each (at most
+   one on a quiet superstep epoch, the chunk copies apart); a
+   rack-cascade walk on the same map with compaction auto and off, each
+   through both paths (the four series bit-equal, K3 launched, the rungs
+   taken); the staged series over one chunk equal to the superstep's;
+   launches an epoch by piece (tape, liveness, peering, traffic, scrub,
+   row) from torch.profiler spans over 8 config-7 epochs and the walk's
+   first three dirty epochs, host ms an epoch by piece and the two paths'
+   rates in turns over 128 config-7 epochs each; the walk at 64 OSDs and
+   128 PGs equal on the card and the CPU, every lane;
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -148,12 +161,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
 general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
-traffic and scrub_qos; 11: balancer; 12: cli, each from 0), the kernels
+traffic and scrub_qos; 10b: epoch; 11: balancer; 12: cli, each from 0),
+each phase's wall seconds, the kernels
 line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
 K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
-on the traffic path, K3 on the balancer's),
+on the traffic path, K3 on the epoch and balancer paths),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -253,7 +267,18 @@ BALANCER_REMAPS = 5            # bulk remaps, each after one reweight toggle
 SCALAR_SAMPLE = 256            # PGs held against the scalar pipeline
 
 
+#: wall seconds from the end of the previous phase's line to the end of each
+#: phase's own (build: from the start of main)
+PHASE_WALLS: dict = {}
+T_START = time.perf_counter()
+_LAST_EMIT = [T_START]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        now = time.perf_counter()
+        PHASE_WALLS[obj["phase"]] = now - _LAST_EMIT[0]
+        _LAST_EMIT[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -812,6 +837,9 @@ SUPERVISED_PASSES = ("mid-repair-loss", "scrub-storm", "flapping-osd")
 SUPERVISED_GRACE = 0.5          # heartbeat grace of flapping-osd (the scenario's 0.75 s drops)
 SUPERVISED_SEED = 7             # retry-jitter seed
 SUPERVISED_SMALL = (128, 128, 1024)  # OSDs, PGs, chunk of the card-vs-CPU replay
+#: the scenarios replayed at SUPERVISED_SMALL (mid-repair-loss rides the
+#: traffic replay)
+SUPERVISED_REPLAY = ("scrub-storm", "flapping-osd")
 # config 6's foreground-traffic pass (bench/config6_recovery.py:390-404)
 TRAFFIC_SCENARIO = "mid-repair-loss"
 TRAFFIC_OPS = 65536
@@ -1387,9 +1415,10 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
     """SupervisedRecovery on the recovery phase's map and code (RS k=8
     m=3, one ``chunk`` a PG shard), three passes in SUPERVISED_PASSES,
     each counted from 0 (its launches, host syncs and wall seconds), with
-    its gates; then a profiled mid-repair-loss pass, and the same three
-    scenarios at the ``small`` size on the card and on the CPU, whose
-    summaries must be equal (those runs are checks: outside the counts)."""
+    its gates; then config 6's traffic and scrub passes, and the
+    SUPERVISED_REPLAY scenarios and the traffic pass at the ``small``
+    size on the card and on the CPU, whose summaries must be equal
+    (those runs are checks: outside the counts)."""
     from ceph_tpu_torch import recovery as rec
     from ceph_tpu_torch.crush import interp_batch
     from ceph_tpu_torch.ec import create
@@ -1461,8 +1490,6 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
                           "host_syncs": info["host_syncs"], "gates": gates}), flush=True)
     out["launches"] = path
     out["k8_launch_shapes"] = shape_summary(k8_shapes)
-    out["profile_mid_repair_loss"] = profile_call(lambda: supervised_run(
-        "mid-repair-loss", m, codec, read_shard, write_shard, dev, pg_num))
     out.update(phase_traffic(dev, launch_counts, reset_launches, m, codec, read_shard,
                              write_shard, pg_num))
     del full
@@ -1470,17 +1497,294 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
     n_small, pgs_small, chunk_small = small
     m_small = build_osdmap(n_small, pg_num=pgs_small, size=11, pool_kind="erasure")
     replay = {}
-    for scenario in SUPERVISED_PASSES:
+    for scenario in SUPERVISED_REPLAY:
         sums = []
+        t0 = time.perf_counter()
         for d in (dev, torch.device("cpu")):
             c = create(profile, device=d)
             _, rd, wr = supervised_store(c, pgs_small, chunk_small, d)
             sums.append(supervised_run(scenario, m_small, c, rd, wr, d, pgs_small,
                                        scenario == "scrub-storm")[0].summary())
-        replay[scenario] = {"equal": sums[0] == sums[1], "card": sums[0]}
+        replay[scenario] = {"equal": sums[0] == sums[1], "card": sums[0],
+                            "check_wall_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     replay["traffic"] = traffic_replay(profile, m_small, pgs_small, chunk_small, dev)
+    replay["traffic"]["check_wall_s"] = time.perf_counter() - t0
     out["card_equals_cpu"] = replay
     return out
+
+EPOCH_OSDS = 1024               # BASELINE config 7's acceptance geometry
+EPOCH_PGS = 8192
+EPOCH_OPS = 64                  # ops a traffic step (config 7's)
+EPOCH_EPOCHS = 1024             # superstep epochs timed, after a warm-up chunk
+EPOCH_CHUNK = 256               # epochs a chunk (a snapshot, one copy back)
+EPOCH_STAGED = 128              # staged epochs timed, after EPOCH_STAGED_WARM
+EPOCH_STAGED_WARM = 8
+EPOCH_PROFILED = 8              # config 7 epochs under torch.profiler for the split
+EPOCH_TURN = 128                # epochs a run of the in-turns rates and the host split
+EPOCH_WALK = "rack-cascade"     # the dirty walk's zoo scenario
+EPOCH_SMALL = (64, 128)         # OSDs, PGs of the card-vs-CPU replay
+EPOCH_SMALL_OPS = 256
+#: the epoch body's pieces, each a span for the launch split
+EPOCH_PIECES = {"tape": ("_tape_apply",), "liveness": ("_live",),
+                "peering": ("_peer_hist", "_peer_hist_compact"),
+                "traffic": ("_traffic_apply",), "scrub": ("_scrub_due",), "row": ("_row",)}
+
+
+def series_head(series, n: int):
+    """The first ``n`` epochs of an EpochSeries."""
+    import dataclasses
+
+    return type(series)(**{f.name: getattr(series, f.name)[:n]
+                           for f in dataclasses.fields(series)})
+
+
+@contextlib.contextmanager
+def pieces_wrapped(driver, wrap):
+    """Each piece method of ``driver`` (EPOCH_PIECES) replaced, on the
+    instance, by ``wrap(piece, method)`` for the block."""
+    for piece, methods in EPOCH_PIECES.items():
+        for meth in methods:
+            setattr(driver, meth, wrap(piece, getattr(driver, meth)))
+    try:
+        yield
+    finally:
+        for methods in EPOCH_PIECES.values():
+            for meth in methods:
+                delattr(driver, meth)
+
+
+def piece_host_ms(driver, run, n_epochs: int) -> dict:
+    """Host milliseconds an epoch in each piece of ``run()`` (host clock,
+    no profiler; a piece called inside itself is timed once)."""
+    acc = {p: 0.0 for p in EPOCH_PIECES}
+    active: set = set()
+
+    def timed(piece, fn):
+        def call(*a, **kw):
+            if piece in active:
+                return fn(*a, **kw)
+            active.add(piece)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[piece] += time.perf_counter() - t0
+                active.discard(piece)
+        return call
+
+    with pieces_wrapped(driver, timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    return {"by_piece": {p: v / n_epochs * 1e3 for p, v in acc.items()},
+            "epoch_ms": total / n_epochs * 1e3, "epochs": n_epochs}
+
+
+def piece_launches(driver, run) -> dict:
+    """Kernel launches, copies and memsets of ``run()`` split by the epoch
+    body's pieces (EPOCH_PIECES): each piece of ``driver`` runs inside a
+    ``torch.profiler.record_function`` span, and every runtime launch call
+    the profiler saw is given to the innermost span around it.  Also the
+    device's busy share of the run."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def spanned(name, fn):
+        def call(*a, **kw):
+            with record_function("epoch:" + name):
+                return fn(*a, **kw)
+        return call
+
+    with pieces_wrapped(driver, spanned):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end, e.name[len("epoch:"):])
+                   for e in events if e.name.startswith("epoch:"))
+    calls = []
+    for e in events:
+        kind = ("kernels" if "LaunchKernel" in e.name else
+                "copies" if e.name.startswith("cudaMemcpy") else
+                "memsets" if e.name.startswith("cudaMemset") else None)
+        if kind is not None and e.device_type == torch.autograd.DeviceType.CPU:
+            calls.append((e.time_range.start, kind))
+    split = {p: {"kernels": 0, "copies": 0, "memsets": 0} for p in (*EPOCH_PIECES, "other")}
+    # one sweep in time order: the open spans form a stack (a dense
+    # re-peer nests inside the compacted one), its top the innermost
+    stack: list = []
+    nxt = 0
+    for t, kind in sorted(calls):
+        while nxt < len(spans) and spans[nxt][0] <= t:
+            stack.append(spans[nxt])
+            nxt += 1
+        stack = [sp for sp in stack if sp[1] >= t]
+        split[stack[-1][2] if stack else "other"][kind] += 1
+    device_us = sum(
+        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("epoch:"))
+    return {"split": split, "wall_ms": wall_ms, "device_ms": device_us / 1e3,
+            "device_busy": device_us / 1e3 / wall_ms if wall_ms else None}
+
+
+def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
+                pg_num: int = EPOCH_PGS, epochs: int = EPOCH_EPOCHS, chunk: int = EPOCH_CHUNK,
+                staged: int = EPOCH_STAGED, small=EPOCH_SMALL) -> dict:
+    """The epoch loop (``recovery/superstep.py``): (a) BASELINE config 7 as
+    ``bench/config7_epoch_loop.py`` runs it — ``build_osdmap(n_osds,
+    pg_num, size=6, erasure)``, ``slow:5`` and ``slow:17`` at t=0.1,
+    EPOCH_OPS ops a step; ``epochs`` superstep epochs in chunks of
+    ``chunk`` after a warm-up chunk, ``staged`` staged epochs after
+    EPOCH_STAGED_WARM: epochs/s, host syncs an epoch; (b) a dirty walk
+    (EPOCH_WALK over enough epochs that every event lands) with
+    compaction ``auto`` and ``off``, each through both paths; these runs
+    are the path's launch counts.  Then the checks, outside the counts:
+    the staged series over one chunk equal to the superstep's; the
+    launches an epoch by piece (torch.profiler) over EPOCH_PROFILED
+    config-7 epochs and over the auto walk; the walk at ``small`` size on
+    the card and on the CPU, every lane equal."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery.failure import parse_spec
+
+    m = build_osdmap(n_osds, pg_num=pg_num, size=6, pool_kind="erasure")
+
+    def config7():
+        return rec.ChaosTimeline([rec.ChaosEvent(0.1, (parse_spec("slow:5"),
+                                                       parse_spec("slow:17")))])
+
+    out: dict = {"phase": "epoch", "osds": n_osds, "pgs": pg_num, "size": 6,
+                 "n_ops": EPOCH_OPS, "chunk": chunk}
+    path: dict[str, int] = {}
+
+    def add(counts):
+        for kname, v in counts.items():
+            path[kname] = path.get(kname, 0) + v
+
+    def timed(run, n: int) -> tuple:
+        info: dict = {}
+        with count_syncs(info):
+            t0 = time.perf_counter()
+            series = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        info.update(epochs=n, wall_s=wall, epochs_per_s=n / wall,
+                    host_syncs_per_epoch=info["host_syncs"] / n,
+                    dirty_epochs=int(series.dirty.sum()))
+        return series, info
+
+    walls: dict[str, float] = {}
+    t_last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t_last[0]
+        t_last[0] = now
+
+    # (a) config 7
+    t0 = time.perf_counter()
+    driver = rec.EpochDriver(m, config7(), n_ops=EPOCH_OPS, device=dev)
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    driver.run_superstep(chunk, snapshot_every=chunk)
+    torch.cuda.synchronize()
+    sup, sup_info = timed(lambda: driver.run_superstep(epochs, snapshot_every=chunk), epochs)
+    pulls = -(-epochs // chunk)
+    # the chunk pulls are a chunk's, not an epoch's: one copy back each
+    sup_info.update(chunk_pulls=pulls,
+                    host_syncs_per_epoch_less_pulls=(sup_info["host_syncs"] - pulls) / epochs)
+    driver.run_staged(EPOCH_STAGED_WARM)
+    torch.cuda.synchronize()
+    stg, stg_info = timed(lambda: driver.run_staged(staged), staged)
+    add(launch_counts())
+    out["config7"] = {"build_s": build_s, "superstep": sup_info, "staged": stg_info,
+                      "ratio": sup_info["epochs_per_s"] / stg_info["epochs_per_s"]}
+    lap("config7")
+
+    # (b) the dirty walk, compaction auto and off, each through both paths
+    tape = rec.compile_event_tape(rec.build_scenario(EPOCH_WALK, m), m)
+    n_walk = int(np.ceil(float(tape.t.max()) / driver.dt)) + 8
+    walks, walk_info, rungs, drivers = {}, {}, {}, {}
+    for mode in ("auto", "off"):
+        cfg = Config(env={})
+        cfg.set("sparse_dirty_compaction", mode)
+        d = rec.EpochDriver(m, rec.build_scenario(EPOCH_WALK, m), n_ops=EPOCH_OPS, config=cfg,
+                            device=dev)
+        for how in ("superstep", "staged"):
+            reset_launches()
+            series, info = timed(lambda: getattr(d, "run_" + how)(n_walk), n_walk)
+            info["launches"] = launch_counts()
+            add(info["launches"])
+            walks[(mode, how)] = series
+            walk_info[f"{mode}/{how}"] = info
+        rungs[mode] = {"compaction_enabled": d.compaction_enabled, "ladder": d._dirty_ladder,
+                       "rungs_taken": d.rungs_taken}
+        drivers[mode] = d
+    ref = walks[("off", "staged")]
+    diffs = {f"{mode}/{how}": s.diff(ref) for (mode, how), s in walks.items()}
+    walk_k3 = sum(i["launches"].get("descend", 0) for i in walk_info.values())
+    out["walk"] = {"scenario": EPOCH_WALK, "epochs": n_walk, "tape_rows": len(tape),
+                   "dirty_epochs": int(ref.dirty.sum()),
+                   "dirty_at": np.nonzero(ref.dirty)[0].tolist(), "runs": walk_info,
+                   "ladder": rungs, "diffs": diffs, "k3_launches": walk_k3}
+    out["launches"] = path
+    lap("walk")
+
+    # the checks, outside the counts
+    one_chunk = driver.run_staged(chunk).diff(series_head(sup, chunk))
+    out["config7"]["staged_vs_superstep_one_chunk"] = one_chunk
+    lap("staged_check")
+    out["launch_split_config7"] = piece_launches(
+        driver, lambda: driver.run_superstep(EPOCH_PROFILED))
+    out["launch_split_config7"]["epochs"] = EPOCH_PROFILED
+    out["host_ms_config7"] = piece_host_ms(driver, lambda: driver.run_superstep(EPOCH_TURN),
+                                           EPOCH_TURN)
+    # the two paths in turns, to read the rate's spread
+    turns = []
+    for how in ("superstep", "staged", "staged", "superstep"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(driver, "run_" + how)(EPOCH_TURN)
+        torch.cuda.synchronize()
+        turns.append([how, EPOCH_TURN / (time.perf_counter() - t0)])
+    out["config7"]["epochs_per_s_in_turns"] = turns
+    # the auto walk's first epochs, through its third dirty one
+    d = drivers["auto"]
+    n_prof = int(np.nonzero(ref.dirty)[0][:3][-1]) + 1
+    out["launch_split_walk"] = piece_launches(d, lambda: d.run_superstep(n_prof))
+    out["launch_split_walk"].update(epochs=n_prof, dirty_epochs=int(ref.dirty[:n_prof].sum()))
+    lap("profiles")
+
+    n_small, pgs_small = small
+    m_small = build_osdmap(n_small, pg_num=pgs_small, size=6, pool_kind="erasure")
+    small_runs = [rec.EpochDriver(m_small, rec.build_scenario(EPOCH_WALK, m_small),
+                                  n_ops=EPOCH_SMALL_OPS, device=d_).run_superstep(n_walk)
+                  for d_ in (dev, torch.device("cpu"))]
+    out["card_equals_cpu"] = {"osds": n_small, "pgs": pgs_small, "epochs": n_walk,
+                              "dirty_epochs": int(small_runs[1].dirty.sum()),
+                              "diff": small_runs[0].diff(small_runs[1])}
+    lap("card_equals_cpu")
+    out["walls_s"] = walls
+    quiet = sup_info["dirty_epochs"] == 0
+    out["gates"] = {
+        "config7_quiet": quiet,
+        "config7_one_sync_a_quiet_epoch": quiet and sup_info["host_syncs_per_epoch_less_pulls"] <= 1,
+        "config7_staged_equals_superstep": one_chunk == [],
+        "walk_four_series_equal": all(v == [] for v in diffs.values()),
+        "walk_dirty": int(ref.dirty.sum()) > 0,
+        "walk_k3_launched": walk_k3 > 0,
+        "walk_compacted": rungs["auto"]["compaction_enabled"],
+        "card_equals_cpu": out["card_equals_cpu"]["diff"] == []
+        and out["card_equals_cpu"]["dirty_epochs"] > 0,
+    }
+    return out
+
 
 def ec_batch(name: str, dev):
     """A codec on the card and one encode call's data: EC_OBJECTS objects
@@ -2434,6 +2738,12 @@ def main() -> int:
             if not r["equal"]]
     if bad:
         raise AssertionError(f"supervised recovery failed its gates: {bad}")
+    epoch = phase_epoch(dev, counts, reset)
+    emit(epoch)
+    paths["epoch"] = epoch["launches"]
+    bad = [g for g, ok in epoch["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the epoch loop failed its gates: {bad}")
     balancer = phase_balancer(dev, counts, reset)
     emit(balancer)
     paths["balancer"] = balancer["launches"]
@@ -2444,6 +2754,8 @@ def main() -> int:
     emit(cli)
     paths["cli"] = cli["launches"]
     emit({"launches_by_path": paths})
+    print(json.dumps({"phase_walls_s": PHASE_WALLS,
+                      "total_s": time.perf_counter() - T_START}), flush=True)
     need = {"placement": ("negdraw", "level_choose", "descend"),
             "general": ("negdraw",), "rebalance": ("descend",),
             "ec": ("matrix_encode", "bitmatrix_encode", "byte_lut"),
@@ -2451,6 +2763,7 @@ def main() -> int:
             "supervised": ("descend", "matrix_encode", "crc32c_rows"),
             "traffic": ("descend", "matrix_encode"),
             "scrub_qos": ("descend", "matrix_encode", "crc32c_rows"),
+            "epoch": ("descend",),
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
