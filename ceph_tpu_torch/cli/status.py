@@ -19,15 +19,24 @@ Commands: ``status`` (default; the ``ceph -s`` shape), ``health``
 (SLO healthchecks), ``timeline`` (the per-epoch PG-state series, with a
 client-io column under ``--traffic``), ``journal`` (correlated
 span/event records; demo mode only unless the daemon registered a
-journal) and ``caches`` (the EC schedule cache's hit/miss/eviction
-counters).  ``caches`` reports the schedule cache alone: the reference
-package's fused placement->peering pipeline cache is not ported, on
-purpose (ROADMAP §1).
+journal), ``caches`` (the EC schedule cache's hit/miss/eviction
+counters), ``fleet`` (the Monte Carlo durability panel from the latest
+``fleet_epoch_rate_per_sec`` record — per-scenario survival fraction,
+MTTDL confidence interval, worst-cluster health) and ``ranks`` (the
+divergent-rank panel from the latest
+``divergent_detect_to_converge_rounds`` record — detection-to-
+convergence latency, retries, per-rank final progress).  ``fleet`` and
+``ranks`` read JSON lines from ``--bench-log`` files (default:
+``BENCH*.json`` in the working directory; ``chip_smoke.py``'s output
+holds one line of each), never run a demo, and render a record as the
+reference's CLI does.  ``caches`` reports the schedule cache alone: the
+reference package's fused placement->peering pipeline cache is not
+ported, on purpose (ROADMAP §1).
 
-The reference's bench-record and flight-dump panels wait for paths the
-port does not run yet; each exits non-zero and names its ROADMAP §1
-item: ``fleet`` (item 2b), ``ranks`` (item 4), ``checkpoint`` (item
-2d), ``writepath`` (item 3) and ``crash`` / ``--crash`` (item 3).
+The reference's other bench-record and flight-dump panels wait for
+paths the port does not run yet; each exits non-zero and names its
+ROADMAP §1 item: ``checkpoint`` (item 2d), ``writepath`` (item 3) and
+``crash`` / ``--crash`` (item 3).
 """
 
 from __future__ import annotations
@@ -41,8 +50,6 @@ COMMANDS = ("status", "health", "timeline", "journal", "caches",
 
 #: command -> the ROADMAP §1 item whose path it renders
 WAITING = {
-    "fleet": "item 2b: the fleet simulator",
-    "ranks": "item 4: multi-device (divergent ranks)",
     "checkpoint": "item 2d: durable checkpoints",
     "writepath": "item 3: the online EC write path",
     "crash": "item 3: the flight recorder",
@@ -113,6 +120,129 @@ def _render(cmd: str, reply: dict, as_json: bool, out) -> None:
     else:  # journal
         for r in reply.get("records", []):
             print(json.dumps(r, sort_keys=True), file=out)
+
+
+def _load_bench_record(metric: str, paths=None) -> dict | None:
+    """Latest JSON line with the given ``metric`` from the bench logs.
+
+    ``paths`` defaults to ``BENCH*.json`` in the working directory;
+    within them, the last matching line wins (the latest record per
+    metric).
+    """
+    import glob
+
+    if not paths:
+        paths = sorted(glob.glob("BENCH*.json"))
+    rec = None
+    for path in paths:
+        try:
+            lines = open(path).read().splitlines()
+        except OSError:
+            continue
+        for line in lines:
+            line = line.strip()
+            if not line.startswith("{"):
+                continue
+            try:
+                d = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if d.get("metric") == metric:
+                rec = d
+    return rec
+
+
+def load_fleet_record(paths=None) -> dict | None:
+    """Latest fleet record (see :func:`_load_bench_record`)."""
+    return _load_bench_record("fleet_epoch_rate_per_sec", paths)
+
+
+def load_divergent_record(paths=None) -> dict | None:
+    """Latest divergent-rank record."""
+    return _load_bench_record("divergent_detect_to_converge_rounds",
+                              paths)
+
+
+def render_fleet(rec: dict, out) -> None:
+    """Text panel for one fleet record: the headline rate plus
+    per-scenario survival / MTTDL CI / worst-cluster health."""
+    bitequal = rec.get("fleet_bitequal")
+    print(
+        f"fleet: {rec.get('fleet_n_clusters', '?')} clusters x "
+        f"{rec.get('fleet_n_epochs', '?')} epochs "
+        f"({rec.get('fleet_scenario', '?')}) on "
+        f"{rec.get('platform', '?')}: "
+        f"{rec.get('value', 0):,} cluster-epochs/s "
+        f"({rec.get('vs_baseline', 0)}x sequential), "
+        f"bitequal={'ok' if bitequal else 'FAIL'}",
+        file=out,
+    )
+    if rec.get("fleet_best_down_out_interval_s") is not None:
+        print(
+            f"  sweep picks: mon_osd_down_out_interval="
+            f"{rec['fleet_best_down_out_interval_s']:g}s, "
+            f"recovery_share="
+            f"{rec.get('fleet_best_recovery_share', 0):g}",
+            file=out,
+        )
+    panel = rec.get("fleet_scenario_panel") or []
+    for row in panel:
+        ci = (
+            f"[{row.get('mttdl_ci_lo_s', 0):.4g}, "
+            f"{row.get('mttdl_ci_hi_s', 0):.4g}]"
+        )
+        cens = " (censored)" if row.get("mttdl_censored") else ""
+        print(
+            f"  {row.get('scenario', '?'):<12} "
+            f"survival={row.get('survival_fraction', 0):.4f} "
+            f"mttdl={row.get('mttdl_s', 0):.4g}s {ci}{cens} "
+            f"worst=#{row.get('worst_cluster', 0)} "
+            f"avail={row.get('worst_availability', 0):.6f}",
+            file=out,
+        )
+
+
+def render_ranks(rec: dict, out) -> None:
+    """Text panel for one divergent-rank record: detection-to-
+    convergence headline plus the per-rank final progress rows."""
+    stalled = rec.get("divergent_stalled")
+    print(
+        f"ranks: {rec.get('divergent_n_ranks', '?')} rank views x "
+        f"{rec.get('divergent_n_epochs', '?')} epochs "
+        f"({rec.get('divergent_scenario', '?')}) on "
+        f"{rec.get('platform', '?')}: detection->convergence "
+        f"{rec.get('value', 0):g} rounds over "
+        f"{rec.get('divergent_rounds', '?')} total, "
+        f"converged={'yes' if rec.get('divergent_converged') else 'NO'}"
+        + (", RANK STALLED" if stalled else ""),
+        file=out,
+    )
+    if rec.get("divergent_retries_total") is not None:
+        print(
+            f"  retries={rec['divergent_retries_total']} "
+            f"backoff_epochs={rec.get('divergent_backoff_epochs_total', 0)} "
+            f"laggy={rec.get('divergent_laggy_ranks', [])}",
+            file=out,
+        )
+    for row in rec.get("divergent_rank_panel") or []:
+        print(
+            f"  rank {row.get('rank', '?')}: "
+            f"step={row.get('step', 0)} epoch={row.get('epoch', 0)} "
+            f"fingerprint={row.get('fingerprint', 0):#x}",
+            file=out,
+        )
+
+
+#: bench-record command -> (loader, renderer, what to run when none)
+_RECORDS = {
+    "fleet": (load_fleet_record, render_fleet,
+              "no fleet record found (run python3 chip_smoke.py, "
+              "bench/config8_fleet.py, or pass --bench-log)"),
+    "ranks": (load_divergent_record, render_ranks,
+              "no divergent record found (run python3 chip_smoke.py, "
+              "bench/config6_recovery.py --divergent, or pass "
+              "--bench-log)"),
+}
 
 
 def _demo(args) -> dict:
@@ -339,6 +469,11 @@ def main(argv=None) -> int:
     p.add_argument("--max-detection-latency", type=float, default=None,
                    help="SLO budget on failure-to-mark-down latency "
                         "(virtual seconds); default: check disabled")
+    p.add_argument("--bench-log", action="append", default=[],
+                   metavar="PATH",
+                   help="bench JSONL file(s) for the fleet and ranks "
+                        "panels (repeatable; default: BENCH*.json in "
+                        "the working directory)")
     p.add_argument("--crash", action="store_true",
                    help="alias for the 'crash' command (not ported yet: "
                         "ROADMAP §1, item 3)")
@@ -354,6 +489,18 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
         return 1
+
+    if args.command in _RECORDS:
+        load, render, missing = _RECORDS[args.command]
+        rec = load(args.bench_log)
+        if rec is None:
+            print(f"status: {missing}", file=sys.stderr)
+            return 1
+        if args.as_json:
+            print(json.dumps(rec, sort_keys=True), file=out)
+        else:
+            render(rec, out)
+        return 0
 
     if args.socket is not None:
         from ..common.admin_socket import ask

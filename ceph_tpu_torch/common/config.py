@@ -243,6 +243,27 @@ SCHEMA: list[Option] = [
            "epochs overwrite: crash dumps carry the last ring_epochs "
            "epochs", min=2,
            see_also=("flight_recorder",)),
+    Option("debug_rank_checks", OPT_BOOL, False, LEVEL_ADVANCED,
+           "raise RankDivergenceError when a divergent run's live ranks "
+           "stay at the same step and epoch with different view "
+           "fingerprints after the bounded retries (the reference's "
+           "mesh-seam psum check, assert_rank_identical, waits for "
+           "multi-device: ROADMAP §1 item 4).  Debug/CI only"),
+    Option("reconcile_every_epochs", OPT_INT, 8, LEVEL_ADVANCED,
+           "epochs each divergent rank advances its own device-resident "
+           "view between reconciliation rounds; smaller values converge "
+           "skewed observations faster at the cost of more merges per "
+           "simulated second", min=1,
+           see_also=("reconcile_deadline_epochs", "debug_rank_checks")),
+    Option("reconcile_deadline_epochs", OPT_INT, 3, LEVEL_ADVANCED,
+           "consecutive reconciliation rounds a rank's contributed "
+           "epoch may sit still before the rank is marked laggy and "
+           "the survivors proceed on its last-merged view; once laggy, "
+           "recovery_retry_max further stalled rounds (with seeded "
+           "exponential backoff per recovery_backoff_base_ms) raise "
+           "RankStalledError on every rank instead of a hang", min=1,
+           see_also=("reconcile_every_epochs", "recovery_retry_max",
+                     "recovery_backoff_base_ms")),
 ]
 
 

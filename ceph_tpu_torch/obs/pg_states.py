@@ -116,7 +116,9 @@ def pg_state_reduce(mask, n_alive, flags, k: int, size: int, in_range=None):
     """:func:`pg_state_step` over the rows where ``in_range`` ([pg] bool;
     None: every row), the reference's ``_reduce``: rows outside it (a
     compacted bucket's pad lanes) count in neither the histogram nor
-    ``aux``.  Exact integers, so bucket deltas refold exactly."""
+    ``aux``.  Exact integers, so bucket deltas refold exactly.  Along
+    the last axis: ``[lanes, pg]`` rows give ``[lanes, N_STATES]`` and
+    ``[lanes, 2]``, each lane reduced on its own."""
     codes = _classify_rows(mask, n_alive, flags, k, size).to(I64)
     nsurv = popcount32(mask)
     degraded = torch.where(nsurv < size, size - nsurv, 0)
@@ -126,8 +128,14 @@ def pg_state_reduce(mask, n_alive, flags, k: int, size: int, in_range=None):
         codes = torch.where(in_range, codes, N_STATES)
         degraded = torch.where(in_range, degraded, 0)
         misplaced = misplaced & in_range
-    hist = torch.bincount(codes, minlength=N_STATES + 1)[:N_STATES].to(I32)
-    return hist, torch.stack([degraded.sum(), misplaced.sum()]).to(I32)
+    if codes.dim() == 1:
+        hist = torch.bincount(codes, minlength=N_STATES + 1)[:N_STATES].to(I32)
+    else:
+        lanes = codes.shape[0]
+        offs = torch.arange(lanes, dtype=I64, device=codes.device)[:, None] * (N_STATES + 1)
+        hist = torch.bincount((codes + offs).reshape(-1), minlength=lanes * (N_STATES + 1))
+        hist = hist.view(lanes, N_STATES + 1)[:, :N_STATES].to(I32)
+    return hist, torch.stack([degraded.sum(-1), misplaced.sum(-1)], dim=-1).to(I32)
 
 
 class PGStateClassifier:

@@ -31,13 +31,21 @@ one device:
   tape, liveness, peering (with the dirty-set ladder), PG states,
   traffic and scrub windows over one resident
   :class:`~ceph_tpu_torch.core.cluster_state.ClusterState`.
+- :mod:`~ceph_tpu_torch.recovery.fleet` — scenario fleets: N seeded
+  chaos timelines advanced together along a leading lane axis.
+- :mod:`~ceph_tpu_torch.recovery.durability` — Monte Carlo durability
+  (survival, MTTDL, availability, time to zero degraded) over a fleet.
+- :mod:`~ceph_tpu_torch.recovery.reconcile` — divergent rank views in
+  one process, merged by lattice joins under a stall-tolerant protocol.
 
 ``recover_pool(m_prev, m_cur, pool_id, codec, read_shard,
 device="cuda")`` runs the whole pipeline once;
 ``SupervisedRecovery(codec, ChaosEngine(m, build_scenario(name, m),
 device=...), device=...).run(m_prev, pool_id, read_shard)`` runs it
 under a chaos timeline; ``run_epochs(m, timeline, n_epochs,
-device=...)`` runs the epoch loop.
+device=...)`` runs the epoch loop; ``FleetDriver(m, device=...)
+.run_fleet(n_epochs, timelines)`` a fleet, and ``DivergentDriver(m,
+timeline, n_ranks, device=...).run(n_epochs)`` divergent ranks.
 """
 
 from .chaos import (
@@ -119,6 +127,31 @@ from .superstep import (
     epoch_superstep_enabled,
     run_epochs,
 )
+from .fleet import (
+    FleetDriver,
+    FleetSeries,
+    FleetTape,
+    run_fleet,
+    sample_timelines,
+    stack_tapes,
+)
+from .durability import DurabilityEstimate, estimate_durability
+from .reconcile import (
+    DivergentDriver,
+    DivergentResult,
+    RankReconciler,
+    RankSchedule,
+    RankStalledError,
+    RoundResult,
+    ViewMerger,
+    merge_stacked,
+    merge_views,
+    normalize_view,
+    rank_schedule,
+    rank_view_timeline,
+    strip_rank_specs,
+    view_fingerprint,
+)
 from .scrub import (
     DecodeVerifier,
     ScrubResult,
@@ -135,20 +168,6 @@ from .scrub import (
 
 __all__ = [
     "ACTIONS",
-    "FLAG_NAMES",
-    "KNOWN_FLAGS",
-    "KNOWN_SCOPES",
-    "NET_ACTIONS",
-    "NET_SCOPES",
-    "PG_STATE_BACKFILL",
-    "PG_STATE_CLEAN",
-    "PG_STATE_DEGRADED",
-    "PG_STATE_INACTIVE",
-    "PG_STATE_INCONSISTENT",
-    "PG_STATE_REMAPPED",
-    "PG_STATE_SCRUBBING",
-    "PG_STATE_UNDERSIZED",
-    "SCENARIOS",
     "AppliedChipSpec",
     "AppliedCorruption",
     "AppliedCrashSpec",
@@ -161,19 +180,43 @@ __all__ = [
     "ClusterFlags",
     "DecodeVerifier",
     "Detection",
+    "DivergentDriver",
+    "DivergentResult",
+    "DurabilityEstimate",
     "EpochDriver",
     "EpochSeries",
     "EventTape",
+    "FLAG_NAMES",
     "FailureSpec",
     "FlapRecord",
+    "FleetDriver",
+    "FleetSeries",
+    "FleetTape",
+    "KNOWN_FLAGS",
+    "KNOWN_SCOPES",
     "LaunchError",
     "LivenessDetector",
+    "NET_ACTIONS",
+    "NET_SCOPES",
+    "PG_STATE_BACKFILL",
+    "PG_STATE_CLEAN",
+    "PG_STATE_DEGRADED",
+    "PG_STATE_INACTIVE",
+    "PG_STATE_INCONSISTENT",
+    "PG_STATE_REMAPPED",
+    "PG_STATE_SCRUBBING",
+    "PG_STATE_UNDERSIZED",
     "PatternGroup",
     "PeeringEngine",
     "PeeringResult",
+    "RankReconciler",
+    "RankSchedule",
+    "RankStalledError",
     "RecoveryExecutor",
     "RecoveryPlan",
     "RecoveryResult",
+    "RoundResult",
+    "SCENARIOS",
     "ScrubResult",
     "Scrubber",
     "SupervisedRecovery",
@@ -181,6 +224,7 @@ __all__ = [
     "TokenBucket",
     "UnknownSpecKeyError",
     "VerifyReport",
+    "ViewMerger",
     "VirtualClock",
     "apply_bitrot",
     "build_epoch_driver",
@@ -195,19 +239,30 @@ __all__ = [
     "crc_rows",
     "crc_rows_plain",
     "epoch_superstep_enabled",
+    "estimate_durability",
     "flap",
     "heartbeat_step",
     "inject",
     "invalidated_groups",
     "mask_to_shards",
+    "merge_stacked",
+    "merge_views",
     "normalize",
+    "normalize_view",
     "osds_in_subtree",
     "parse_spec",
     "peer_pool",
+    "rank_schedule",
+    "rank_view_timeline",
     "recover_pool",
     "recovery_counters",
     "resolve_targets",
     "run_epochs",
+    "run_fleet",
+    "sample_timelines",
     "scrub_counters",
     "scrub_step",
+    "stack_tapes",
+    "strip_rank_specs",
+    "view_fingerprint",
 ]

@@ -134,14 +134,17 @@ def heartbeat_step(
 
     The eight lanes are ``[n_osds]`` tensors on one device (float32
     ``last_ack``/``laggy``/``markdowns``/``down_since``, bool
-    ``down``/``suppressed``/``slow``, int32 ``reporters``); the eight
-    policy scalars are Python numbers, each rounded to float32 (the
-    reporter threshold stays an integer) before it meets a lane.
-    Returns ``(last_ack, laggy, markdowns, down, down_since,
-    propose_out)``."""
+    ``down``/``suppressed``/``slow``, int32 ``reporters``), or
+    ``[lanes, n_osds]`` for a fleet; the eight policy scalars are Python
+    numbers, each rounded to float32 (the reporter threshold stays an
+    integer) before it meets a lane.  A fleet's ``decay`` may be a
+    float32 ``[lanes, 1]`` tensor, one factor a lane.  Returns
+    ``(last_ack, laggy, markdowns, down, down_since, propose_out)``."""
     dev = last_ack.device
 
     def f32(v):
+        if isinstance(v, torch.Tensor):
+            return v
         # a fill, not a copy from the host (which would sync the card)
         return torch.full((), float(v), dtype=F32, device=dev)
 

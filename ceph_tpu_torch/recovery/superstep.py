@@ -243,56 +243,68 @@ def compile_event_tape(timeline: ChaosTimeline, m: OSDMap) -> EventTape:
     )
 
 
-# Each edit writes one lane element through a view (``fill_``/``copy_``):
-# a launch each, and nothing read back.
+# Each edit takes int64 indices into the flattened lanes (``osd`` for one
+# cluster, ``lane * n_osds + osd`` for a fleet; no index repeats in one
+# call) and edits them in place: a few launches, nothing read back.
 
 
-def _row_down(lanes, o, now32, exists):
-    lanes["up"][o].fill_(False)
+def _edit_down(f, i, now32, exists):
+    f["up"].index_fill_(0, i, False)
 
 
-def _row_up(lanes, o, now32, exists):
+def _edit_up(f, i, now32, exists):
     # the effective bit becomes exists (a non-existing OSD stays down);
     # an authoritative up re-arms the detector
-    lanes["up"][o].copy_(exists[o])
-    lanes["ack"][o].fill_(now32)
-    lanes["sup"][o].fill_(False)
-    lanes["out"][o].fill_(False)
+    f["up"].index_copy_(0, i, exists.index_select(0, i))
+    f["ack"].index_fill_(0, i, now32)
+    f["sup"].index_fill_(0, i, False)
+    f["out"].index_fill_(0, i, False)
 
 
-def _row_out(lanes, o, now32, exists):
-    lanes["w"][o].fill_(0)
+def _edit_out(f, i, now32, exists):
+    f["w"].index_fill_(0, i, 0)
 
 
-def _row_in(lanes, o, now32, exists):
-    w = lanes["w"][o]
-    w.copy_(torch.where(w == 0, 0x10000, w))
-    lanes["ack"][o].fill_(now32)
-    lanes["sup"][o].fill_(False)
-    lanes["out"][o].fill_(False)
+def _edit_in(f, i, now32, exists):
+    w = f["w"].index_select(0, i)
+    f["w"].index_copy_(0, i, torch.where(w == 0, 0x10000, w))
+    f["ack"].index_fill_(0, i, now32)
+    f["sup"].index_fill_(0, i, False)
+    f["out"].index_fill_(0, i, False)
 
 
-def _row_net_drop(lanes, o, now32, exists):
-    lanes["ack"][o].fill_(now32)
-    lanes["sup"][o].fill_(True)
+def _edit_net_drop(f, i, now32, exists):
+    f["ack"].index_fill_(0, i, now32)
+    f["sup"].index_fill_(0, i, True)
 
 
-def _row_net_restore(lanes, o, now32, exists):
-    lanes["ack"][o].fill_(now32)
-    lanes["sup"][o].fill_(False)
+def _edit_net_restore(f, i, now32, exists):
+    f["ack"].index_fill_(0, i, now32)
+    f["sup"].index_fill_(0, i, False)
 
 
-def _row_slow_drop(lanes, o, now32, exists):
-    lanes["slow"][o].fill_(True)
+def _edit_slow_drop(f, i, now32, exists):
+    f["slow"].index_fill_(0, i, True)
 
 
-def _row_slow_restore(lanes, o, now32, exists):
-    lanes["slow"][o].fill_(False)
+def _edit_slow_restore(f, i, now32, exists):
+    f["slow"].index_fill_(0, i, False)
 
 
 #: one edit a tape kind, in the order of the TAPE_* constants
-_ROW_EDITS = (_row_down, _row_up, _row_out, _row_in, _row_net_drop,
-              _row_net_restore, _row_slow_drop, _row_slow_restore)
+_LANE_EDITS = (_edit_down, _edit_up, _edit_out, _edit_in, _edit_net_drop,
+               _edit_net_restore, _edit_slow_drop, _edit_slow_restore)
+
+
+def _host_bits(kind: int, suppressed: np.ndarray, slow: np.ndarray, where) -> None:
+    """The host's copy of what a tape edit of ``kind`` does to the
+    suppressed and slow bits at ``where`` (a numpy index)."""
+    if kind in (TAPE_UP, TAPE_IN, TAPE_NET_RESTORE):
+        suppressed[where] = False
+    elif kind == TAPE_NET_DROP:
+        suppressed[where] = True
+    elif kind in (TAPE_SLOW_DROP, TAPE_SLOW_RESTORE):
+        slow[where] = kind == TAPE_SLOW_DROP
 
 
 # ---------------------------------------------------------------------------
@@ -610,15 +622,13 @@ class EpochDriver:
                      "ack": state.last_ack.clone(), "sup": state.suppressed.clone(),
                      "slow": state.slow.clone(), "out": state.out.clone()}
             now32 = float(np.float32(now))
+            dev = pool.osd_exists.device
             for kind, o in zip(kinds, tape.osd[lo:stop]):
                 o = int(o)
-                _ROW_EDITS[kind](lanes, o, now32, pool.osd_exists)
-                if kind in (TAPE_UP, TAPE_IN, TAPE_NET_RESTORE):
-                    host.suppressed[o] = False
-                elif kind == TAPE_NET_DROP:
-                    host.suppressed[o] = True
-                elif kind in (TAPE_SLOW_DROP, TAPE_SLOW_RESTORE):
-                    host.slow[o] = kind == TAPE_SLOW_DROP
+                # a fill makes the index on the device: no copy, no sync
+                i = torch.full((1,), o, dtype=torch.int64, device=dev)
+                _LANE_EDITS[kind](lanes, i, now32, pool.osd_exists)
+                _host_bits(kind, host.suppressed, host.slow, o)
             state = replace(
                 state, pool=replace(pool, osd_up=lanes["up"], osd_weight=lanes["w"]),
                 last_ack=lanes["ack"], suppressed=lanes["sup"], slow=lanes["slow"],
@@ -638,7 +648,23 @@ class EpochDriver:
             # the next real tick decays over the whole elapsed window
             return state, self._zero_live, False
         now = host.now
-        decay = 0.5 ** (max(now - host.last_tick, 0.0) / max(self.laggy_halflife, 1e-9))
+        state, live, flags = self._tick(state, now, self._decay(now, host.last_tick))
+        trans, any_down, any_laggy = flags.cpu().tolist()
+        host.epoch += int(trans)
+        host.last_tick = now
+        host.any_down, host.any_laggy = any_down, any_laggy
+        return state, live, trans
+
+    def _decay(self, now: float, last_tick: float) -> float:
+        """The laggy and markdown decay over ``(last_tick, now]``."""
+        return 0.5 ** (max(now - last_tick, 0.0) / max(self.laggy_halflife, 1e-9))
+
+    def _tick(self, state: ClusterState, now: float, decay):
+        """``heartbeat_step`` and the out/transition masks, along the last
+        axis (one cluster, or a fleet with a ``[lanes, 1]`` decay).
+        Returns ``(state, live [..., 5], flags [..., 3])``: ``flags`` is
+        whether the tick moved the map, any OSD is down and any is laggy
+        after it, on the device."""
         ack, laggy, md, down, dsince, propose = heartbeat_step(
             state.last_ack, state.laggy, state.markdowns, state.down, state.down_since,
             state.suppressed, state.slow, state.reporters, now, self.grace,
@@ -655,9 +681,9 @@ class EpochDriver:
             # (n_in - approved)/n_exist would drop below the floor; the
             # ratio is monotone in the candidate index, so the approved
             # set is a prefix: one cumsum mask
-            c = torch.cumsum(cand.to(I32), 0)
-            n_exist = exists.sum(dtype=I32)
-            n_in = (exists & (w > 0)).sum(dtype=I32)
+            c = torch.cumsum(cand.to(I32), -1)
+            n_exist = exists.sum(-1, dtype=I32, keepdim=True)
+            n_in = (exists & (w > 0)).sum(-1, dtype=I32, keepdim=True)
             ratio = (n_in - c).to(F64) / n_exist.clamp(min=1).to(F64)
             approved = cand & ((n_exist == 0) | (ratio >= self.min_in_ratio))
         else:
@@ -668,10 +694,10 @@ class EpochDriver:
         eff_up = newly_up & exists & ~pool.osd_up
         eff_out = approved & (w > 0)
         live = torch.stack([
-            down.sum(dtype=I32), eff_down.sum(dtype=I32), eff_up.sum(dtype=I32),
-            eff_out.sum(dtype=I32), _down_checksum(down)])
-        trans, any_down, any_laggy = torch.stack([
-            live[1:4].sum() > 0, down.any(), (laggy != 0).any()]).cpu().tolist()
+            down.sum(-1, dtype=I32), eff_down.sum(-1, dtype=I32), eff_up.sum(-1, dtype=I32),
+            eff_out.sum(-1, dtype=I32), _down_checksum(down)], dim=-1)
+        flags = torch.stack([live[..., 1:4].sum(-1) > 0, down.any(-1), (laggy != 0).any(-1)],
+                            dim=-1)
         state = replace(
             state,
             pool=replace(pool, osd_up=(pool.osd_up & ~eff_down) | eff_up,
@@ -679,10 +705,7 @@ class EpochDriver:
             last_ack=ack, laggy=laggy, markdowns=md, down=down, down_since=dsince,
             out=state.out | approved,
         )
-        host.epoch += int(trans)
-        host.last_tick = now
-        host.any_down, host.any_laggy = any_down, any_laggy
-        return state, live, trans
+        return state, live, flags
 
     def _peer_rows(self, state: ClusterState, pgs: torch.Tensor, prev_acting):
         """Map the epoch's pool state at PG seeds ``pgs`` and classify
@@ -766,12 +789,15 @@ class EpochDriver:
         )
 
     def _traffic_apply(self, state: ClusterState, step: int, now: float,
-                       salt_base: int | None = None):
+                       salt_base=None):
         """One traffic step of ``n_ops`` over the state's peering tables:
         ``(counts, lat_hist, qd_hist, sums, max_rho, writes,
         deg_reads)``.  With a workload mix, object ids are skew-remapped
         and the per-OSD capacity is burst-modulated (the virtual clock
-        is a host value, so the burst test is too)."""
+        is a host value, so the burst test is too).  A fleet state
+        (``[lanes, ...]`` tables) with a ``[lanes, 1]`` int64 salt-base
+        tensor steps every lane at once, each on its own tables and
+        salt, each output with a leading lane axis."""
         from ..workload.histogram import LAT_MIN_MS, N_BUCKETS
         from ..workload.traffic import (
             _osd_index,
@@ -781,7 +807,9 @@ class EpochDriver:
             _traffic_outcomes,
         )
 
-        salt_base = self.salt_base if salt_base is None else int(salt_base)
+        salt_base = self.salt_base if salt_base is None else salt_base
+        if not isinstance(salt_base, torch.Tensor):
+            salt_base = int(salt_base)
         # the TrafficEngine's per-step salt, u32 wraparound
         salt = (salt_base + step * _SALT_STEP) & _M32
         mix = self._mix
@@ -807,8 +835,8 @@ class EpochDriver:
         # the epoch series needs only the committed-write and
         # degraded-read totals, not the per-PG scatters
         ok = ~blocked
-        writes = (ok & is_write).sum(dtype=I32)
-        deg_reads = (ok & degraded & ~is_write).sum(dtype=I32)
+        writes = (ok & is_write).sum(-1, dtype=I32)
+        deg_reads = (ok & degraded & ~is_write).sum(-1, dtype=I32)
         return counts, lat_hist, qd_hist, sums, max_rho, writes, deg_reads
 
     def _scrub_due(self, prev_now: float, now: float) -> torch.Tensor:
@@ -828,12 +856,14 @@ class EpochDriver:
     @staticmethod
     def _row(state: ClusterState, traffic, live, scrub) -> torch.Tensor:
         """The epoch's device lanes as one int32 row (float32 lanes by
-        their bits), in :func:`_packed_layout`'s order."""
+        their bits), in :func:`_packed_layout`'s order; a fleet state
+        gives one row a lane (``scrub`` is shared: ``[1]``)."""
         counts, lat_hist, qd_hist, sums, max_rho, writes, deg_reads = traffic
+        lead = state.pg_hist.shape[:-1]
         return torch.cat([
             state.pg_hist, state.pg_aux, counts, lat_hist, qd_hist, sums.view(I32),
-            max_rho.view(I32).reshape(1), writes.reshape(1), deg_reads.reshape(1),
-            live, scrub])
+            max_rho.view(I32).unsqueeze(-1), writes.unsqueeze(-1), deg_reads.unsqueeze(-1),
+            live, scrub.expand(*lead, 1)], dim=-1)
 
     # -- one epoch -----------------------------------------------------
 
@@ -1000,10 +1030,11 @@ class EpochDriver:
 
 
 def _down_checksum(down: torch.Tensor) -> torch.Tensor:
-    """Order-free integer fingerprint of the down set (sum of id+1)."""
-    n = down.shape[0]
+    """Order-free integer fingerprint of the down set (sum of id+1),
+    along the last axis."""
+    n = down.shape[-1]
     ids = torch.arange(1, n + 1, dtype=I32, device=down.device)
-    return torch.where(down, ids, 0).sum(dtype=I32)
+    return torch.where(down, ids, 0).sum(-1, dtype=I32)
 
 
 def _peer_counts(acting: np.ndarray, n_osds: int) -> np.ndarray:

@@ -58,12 +58,25 @@ def bucketize(values: torch.Tensor, n_buckets: int = N_BUCKETS,
     return (exp - 1).clamp_(0, n_buckets - 1).to(I32)
 
 
+def lane_offsets(idx: torch.Tensor, width: int) -> torch.Tensor:
+    """``[lanes, m]`` indices into one flat ``[lanes * width]`` buffer:
+    lane ``i``'s index ``j`` becomes ``i * width + j``."""
+    lanes = torch.arange(idx.shape[0], dtype=idx.dtype, device=idx.device)
+    return (idx + lanes[:, None] * width).reshape(-1)
+
+
 def scatter_hist(idx: torch.Tensor, weight: torch.Tensor,
                  n_buckets: int = N_BUCKETS) -> torch.Tensor:
     """Scatter-add ``weight`` (int32, 0 to drop an op) into the
-    [n_buckets] int32 count vector."""
-    out = torch.zeros(n_buckets, dtype=I32, device=idx.device)
-    return out.index_add_(0, idx, weight.to(I32))
+    [n_buckets] int32 count vector; ``[lanes, n]`` ops into one
+    ``[lanes, n_buckets]`` histogram a lane."""
+    if idx.dim() == 1:
+        out = torch.zeros(n_buckets, dtype=I32, device=idx.device)
+        return out.index_add_(0, idx, weight.to(I32))
+    lanes = idx.shape[0]
+    out = torch.zeros(lanes * n_buckets, dtype=I32, device=idx.device)
+    return out.index_add_(0, lane_offsets(idx, n_buckets),
+                          weight.reshape(-1).to(I32)).view(lanes, n_buckets)
 
 
 def percentile(counts: np.ndarray, edges: np.ndarray, q: float) -> float:

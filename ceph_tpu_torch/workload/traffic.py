@@ -57,6 +57,7 @@ from .histogram import (
     bucket_edges,
     bucketize,
     count_at_least,
+    lane_offsets,
     percentiles,
     scatter_hist,
 )
@@ -132,16 +133,34 @@ def resolve_mix(mix) -> TrafficMix | None:
 
 
 def _u32_scalar(value, device) -> torch.Tensor:
-    """A u32 value as a 0-d int64 tensor on ``device`` (a fill, no copy)."""
+    """A u32 value as a 0-d int64 tensor on ``device`` (a fill, no copy).
+    A salt tensor (``[lanes, 1]`` int64 holding u32, one salt a fleet
+    lane) passes through as it is."""
+    if isinstance(value, torch.Tensor):
+        return value
     return torch.full((), int(value) & M32, dtype=I64, device=device)
+
+
+def _salt_xor(salt, mask):
+    """``salt ^ mask``: a host int or a salt tensor."""
+    if isinstance(salt, torch.Tensor):
+        return salt ^ int(mask)
+    return int(salt) ^ int(mask)
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` along the last axis, lane by lane: a ``[lanes, n]``
+    table is gathered at each lane's ``[lanes, m]`` indices."""
+    return table[idx] if table.dim() == 1 else table.gather(-1, idx)
 
 
 def _skew_ids(ids: torch.Tensor, salt, hot_permille: int, hot_objects: int):
     """Skewed object popularity: ``hot_permille``/1000 of the op batch
     remaps onto the first ``hot_objects`` object ids (a seeded hash
     coin, decorrelated from the routing and read/write coins).  ``ids``
-    are u32 values in int64; so is the result."""
-    coin = crush_hash32_2(ids, _u32_scalar(int(salt) ^ int(_SALT3), ids.device))
+    are u32 values in int64; so is the result.  A ``[lanes, 1]`` salt
+    tensor gives ``[lanes, n_ops]`` ids, one row a lane."""
+    coin = crush_hash32_2(ids, _u32_scalar(_salt_xor(salt, _SALT3), ids.device))
     hot = (coin % 1000) < int(hot_permille)
     return torch.where(hot, ids % int(hot_objects), ids)
 
@@ -157,14 +176,16 @@ def _osd_index(prim: torch.Tensor, n_osds: int):
 
 def _route(mask, n_alive, acting_primary, ids, salt, pg_b: int, pg_bmask: int,
            k: int, size: int, min_size: int, write_permille: int):
-    """Object ids -> (pg, primary, is_write, blocked, degraded, cost)."""
+    """Object ids -> (pg, primary, is_write, blocked, degraded, cost).
+    Works along the last axis: ``[lanes, pg]`` tables with a
+    ``[lanes, 1]`` salt tensor route each lane's ops on its own tables."""
     dev = ids.device
     h = crush_hash32_2(ids, _u32_scalar(salt, dev))
     pg = ceph_stable_mod(h, int(pg_b), int(pg_bmask))
-    coin = crush_hash32_2(h, _u32_scalar(int(salt) ^ int(_SALT2), dev))
+    coin = crush_hash32_2(h, _u32_scalar(_salt_xor(salt, _SALT2), dev))
     is_write = (coin % 1000) < int(write_permille)
-    nsurv = popcount32(mask[pg])
-    alive = n_alive[pg]
+    nsurv = popcount32(_take(mask, pg))
+    alive = _take(n_alive, pg)
     blocked = torch.where(is_write, alive < min_size, nsurv < k)
     degraded = ~blocked & (nsurv < size)
     # primary-side op cost: a degraded read fans in k shard reads, a
@@ -172,7 +193,7 @@ def _route(mask, n_alive, acting_primary, ids, salt, pg_b: int, pg_bmask: int,
     cost = torch.where(
         is_write, size, torch.where(degraded, k, 1)
     ).to(F32)
-    return pg, acting_primary[pg].to(I64), is_write, blocked, degraded, cost
+    return pg, _take(acting_primary, pg).to(I64), is_write, blocked, degraded, cost
 
 
 def _scatter_load(idx, valid, blocked, cost, n_osds: int) -> torch.Tensor:
@@ -180,9 +201,15 @@ def _scatter_load(idx, valid, blocked, cost, n_osds: int) -> torch.Tensor:
     (:func:`_osd_index`; blocked ops never load).  The costs are 1, k and
     size, so every partial sum is an integer; below 2^24 float32 holds
     each one exactly, so the scatter's order does not matter (65,536 ops
-    of cost at most 11 reach 720,896)."""
+    of cost at most 11 reach 720,896).  ``[lanes, n_ops]`` ops give
+    ``[lanes, n_osds]``: one scatter into a flat buffer at ``lane *
+    n_osds + osd``."""
     w = torch.where(valid & ~blocked, cost, 0.0)
-    return torch.zeros(n_osds, dtype=F32, device=idx.device).index_add_(0, idx, w)
+    if idx.dim() == 1:
+        return torch.zeros(n_osds, dtype=F32, device=idx.device).index_add_(0, idx, w)
+    lanes = idx.shape[0]
+    flat = torch.zeros(lanes * n_osds, dtype=F32, device=idx.device)
+    return flat.index_add_(0, lane_offsets(idx, n_osds), w.reshape(-1)).view(lanes, n_osds)
 
 
 def _queue_model(load, idx, is_write, degraded, k: int, service_ms,
@@ -194,7 +221,7 @@ def _queue_model(load, idx, is_write, degraded, k: int, service_ms,
     scalar divisor."""
     cap = torch.full((), float(np.maximum(np.float32(cap_ops), np.float32(1e-6))),
                      dtype=F32, device=load.device)
-    rho = load[idx] / cap
+    rho = _take(load, idx) / cap
     rho = rho + float(np.float32(rho_recovery))
     rho = rho.clamp(0.0, RHO_MAX)
     qd = rho / (1.0 - rho)
@@ -208,20 +235,22 @@ def _traffic_outcomes(idx, is_write, blocked, degraded, load, k: int, service_ms
                       cap_ops, rho_recovery, n_buckets: int, lat_min: float):
     """``(counts [3], lat_hist, qd_hist, sums [2], max_rho)`` of one
     routed op batch, given the per-OSD load and the primaries' indices
-    into it."""
+    into it.  Along the last axis: ``[lanes, n_ops]`` ops give each
+    output a leading lane axis, every lane reduced on its own (the sums
+    in the same fixed pairwise order as one batch alone)."""
     rho, qd, lat = _queue_model(load, idx, is_write, degraded, k, service_ms,
                                 cap_ops, rho_recovery)
     ok = ~blocked
     okw = ok.to(I32)
     counts = torch.stack([
-        (ok & ~degraded).sum(), (ok & degraded).sum(), blocked.sum(),
-    ]).to(I32)
+        (ok & ~degraded).sum(-1), (ok & degraded).sum(-1), blocked.sum(-1),
+    ], dim=-1).to(I32)
     lat_hist = scatter_hist(bucketize(lat, n_buckets, lat_min), okw, n_buckets)
     qd_hist = scatter_hist(bucketize(qd, n_buckets, lat_min), okw, n_buckets)
     sums = _pairwise_sum(torch.stack([
         torch.where(ok, lat, 0.0), torch.where(ok, qd, 0.0),
-    ])).to(F32)
-    return counts, lat_hist, qd_hist, sums, rho.max()
+    ], dim=-2)).to(F32)
+    return counts, lat_hist, qd_hist, sums, rho.amax(-1)
 
 
 def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:

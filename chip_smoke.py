@@ -45,8 +45,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (6 slots): the router's tier, host syncs and K1 launches per call
    (K1 > 0 on (b)), placements/s with the compacted-straggler rounds it
    runs at this size and with masked ones (:func:`masked_rounds`; in
-   turns, median of 6 each; equal results), 65,536 placements each way
-   equal to the C++ tier;
+   turns, median of 4 each; equal results), a profile of one compacted
+   call, 65,536 placements each way equal to the C++ tier;
 5b. rebalance: BASELINE config 5, ``parallel/placement.py::
    sharded_rebalance_sim`` on build_simple(10000, 8 OSDs a host, 16
    hosts a rack) with 100 OSDs out: 12 launches of 8 chunks of 2^20
@@ -86,16 +86,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the fold loop's instructions a byte by pipe (``testing/sass.py``), and
    on its edges (SCRUB_EDGES: L = 0, below 16, one below, at and above
    each timed shape's segment and twice it, rows 1-15 bytes past a
-   16-byte boundary across segments, one row of 64 MiB held against the
-   plain version on its 32 KiB pieces combined on the host, more rows
-   than one grid covers, the check value 0xE3069283), bit for bit;
+   16-byte boundary across segments, one row of 64 MiB, more rows than
+   one grid covers, the check value 0xE3069283), bit for bit; edge rows
+   over 8 KiB are held against the plain version on their 4 KiB pieces
+   combined on the host;
 10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
    build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
    ``recovery_xor_schedule=on`` (K6, bit-plane) and cauchy_good k=8
    m=3 p=2048 under ``auto`` (K6, packet): every rebuilt shard equals
    the stored one, one launch per pattern, the peering equals a numpy
-   classification; timed (median of 3) and profiled;
+   classification; timed (median of 3), the first code profiled;
 10a. supervised: ``SupervisedRecovery`` on the same map and RS k=8 m=3
    with every shard of the pool stored (32 KiB each): mid-repair-loss,
    scrub-storm (a ``Scrubber`` riding the loop, ``write_shard`` writing
@@ -138,6 +139,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
    first three dirty epochs, host ms an epoch by piece and the two paths'
    rates in turns over 128 config-7 epochs each; the walk at 64 OSDs and
    128 PGs equal on the card and the CPU, every lane;
+10c. fleet: scenario fleets (``recovery/fleet.py::FleetDriver``) at
+   BASELINE config 8 as bench/config8_fleet.py sets it (256 ssd-burst
+   lanes over 256 epochs, build_osdmap(32, pg_num=16, size=6, erasure),
+   32 ops a step): a warm run timed with ``pull=False``
+   (cluster-epochs/s, host syncs an epoch, K3 launches), and 64 lanes
+   over 64 epochs at config 7's width (1024 OSDs, 8192 PGs); lanes 0
+   and 1 of each equal to new ``EpochDriver``s (and config 8's to
+   ``run_sequential``: the sequential rates), a fleet of 255 equal to
+   the first 255 lanes, Monte Carlo durability
+   (``recovery/durability.py``) for ssd-burst and the panel's
+   ssd-steady and ssd-skew fleets, launches an epoch by piece
+   (torch.profiler spans over the first 6 epochs, the first map
+   events among them; host syncs by piece over the timed runs), and 4 lanes
+   over 16 epochs on
+   the card and the CPU, every lane equal; then one line of the
+   reference's config-8 record (``cli/status.py fleet`` renders it);
+10d. divergent: config 6's ``--divergent`` pass
+   (``recovery/reconcile.py::DivergentDriver``) on the recovery phase's
+   map: two rank views of flap, rank 1 seeing every event 2.5 s late,
+   48 epochs, gated (converged, a detection-to-convergence latency, the
+   views' fingerprints equal to the unskewed reference's); the same at
+   64 OSDs and 128 PGs on the card and the CPU, every round and every
+   lane equal; then one line of the reference's divergent record
+   (``cli/status.py ranks`` renders it);
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -161,13 +186,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
 general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
-traffic and scrub_qos; 10b: epoch; 11: balancer; 12: cli, each from 0),
+traffic and scrub_qos; 10b: epoch; 10c: fleet; 10d: divergent; 11:
+balancer; 12: cli, each from 0),
 each phase's wall seconds, the kernels
 line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
 K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
-on the traffic path, K3 on the epoch and balancer paths),
+on the traffic path, K3 on the epoch, fleet, divergent and balancer
+paths),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -177,6 +204,7 @@ no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -249,6 +277,8 @@ RECOVERY_OSDS = 1024
 RECOVERY_PGS = 8192            # Ceph's PG calculator: ~100 PGs per OSD at size 11
 RECOVERY_FAILURE = "rack:0:down_out"
 RECOVERY_CHUNK = 32 * 1024     # a PG's share cut to one 256 KiB object (k=8)
+#: the code whose recover_pool is profiled (one call)
+RECOVERY_PROFILED = "rs_8_3_auto"
 RECOVERY_CODES = {
     "rs_8_3_auto": ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
                     "auto"),
@@ -778,7 +808,7 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         after = pc.dump()["recovery"]
-        prof = profile_call(call)
+        prof = profile_call(call) if name == RECOVERY_PROFILED else None
         for kname, v in launch_counts().items():
             path_counts[kname] = path_counts.get(kname, 0) + v
         peering, plan, result = runs[0]
@@ -810,7 +840,7 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
             "decode_s": float(np.median([r[2].decode_s for r in runs])),
             "recover_pool_s": wall, "all_recover_pool_s": secs,
             "rebuilt_GBps": result.bytes_recovered / wall / 1e9,
-            "profile_recover_pool": prof,
+            **({"profile_recover_pool": prof} if prof is not None else {}),
         }
         del full, runs
     out["launches"] = path_counts
@@ -832,7 +862,7 @@ SCRUB_EDGES = [  # (rows, L, bytes the first row starts past a 16-byte boundary)
     (1, 64 * MIB, 0),               # 512 segments of 128 KiB, nine tree levels
     ((1 << 20) * 128 + 5, 1, 0),    # more rows than one grid of K8 covers
 ]
-LONG_ROW = 32768                # rows over 1 MiB are held in pieces of this, combined on the host
+LONG_ROW = 4096                 # edge rows over twice this are held in pieces of it, combined on the host
 SUPERVISED_PASSES = ("mid-repair-loss", "scrub-storm", "flapping-osd")
 SUPERVISED_GRACE = 0.5          # heartbeat grace of flapping-osd (the scenario's 0.75 s drops)
 SUPERVISED_SEED = 7             # retry-jitter seed
@@ -866,9 +896,9 @@ TRAFFIC_REPLAY_RTOL = 1e-5
 
 
 def crc_rows_plain_long(x: torch.Tensor) -> torch.Tensor:
-    """The plain K8 of rows too long for its byte loop: each row's
-    LONG_ROW-byte pieces (the last one shorter) through
-    ``crc_rows_plain`` at once, combined on the host by
+    """The plain K8 of rows too long for its byte loop (a launch or more
+    a byte of the row): each row's LONG_ROW-byte pieces (the last one
+    shorter) through ``crc_rows_plain`` at once, combined on the host by
     ``crc32c_combine`` (both held to the reference on the CPU)."""
     from ceph_tpu_torch.recovery import scrub
 
@@ -913,7 +943,7 @@ def phase_scrub_kernel(int_rate: float, dev, n_pgs: int = RECOVERY_PGS,
         flat = torch.randint(0, 256, (n * length + offset,), generator=g, device=dev,
                              dtype=torch.uint8)
         x = flat[offset:].view(n, length)
-        plain = crc_rows_plain_long if length > MIB else scrub.crc_rows_plain
+        plain = crc_rows_plain_long if length > 2 * LONG_ROW else scrub.crc_rows_plain
         equal, err = compare(scrub.crc_rows(x), plain(x))
         log_w, seg = scrub.crc_segments(n, length)
         out_edges.append({"case": f"{n} rows x {length} bytes, +{offset}", "bit_equal": equal,
@@ -962,20 +992,42 @@ def shape_summary(shapes: list) -> dict:
 
 
 @contextlib.contextmanager
-def count_syncs(out: dict):
+def count_syncs(out: dict, driver=None, pieces=None):
     """Count the host syncs of a block: torch's sync-debug mode warns on
     every synchronizing CUDA call (a copy to the host, ``.item()``,
-    ``nonzero``), and the warnings are counted into ``out["host_syncs"]``."""
+    ``nonzero``), and the warnings are counted into ``out["host_syncs"]``.
+    With a ``driver`` and its ``pieces`` (as :func:`piece_launches`
+    takes them), also by piece into ``out["host_syncs_by_piece"]``."""
     import warnings
+
+    def syncs(ws):
+        return sum(1 for w in ws if "synchroniz" in str(w.message))
+
+    by = {p: 0 for p in pieces} if pieces else None
+
+    def counted(piece, fn):
+        def call(*a, **kw):
+            n0 = len(seen)
+            try:
+                return fn(*a, **kw)
+            finally:
+                by[piece] += syncs(seen[n0:])
+        return call
 
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            yield
+            if by is None:
+                yield
+            else:
+                with pieces_wrapped(driver, counted, pieces):
+                    yield
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    out["host_syncs"] = sum(1 for w in seen if "synchroniz" in str(w.message))
+    out["host_syncs"] = syncs(seen)
+    if by is not None:
+        out["host_syncs_by_piece"] = by
 
 
 def supervised_store(codec, pg_num: int, chunk: int, dev):
@@ -1533,23 +1585,23 @@ EPOCH_PIECES = {"tape": ("_tape_apply",), "liveness": ("_live",),
 
 def series_head(series, n: int):
     """The first ``n`` epochs of an EpochSeries."""
-    import dataclasses
-
     return type(series)(**{f.name: getattr(series, f.name)[:n]
                            for f in dataclasses.fields(series)})
 
 
 @contextlib.contextmanager
-def pieces_wrapped(driver, wrap):
-    """Each piece method of ``driver`` (EPOCH_PIECES) replaced, on the
-    instance, by ``wrap(piece, method)`` for the block."""
-    for piece, methods in EPOCH_PIECES.items():
+def pieces_wrapped(driver, wrap, pieces=None):
+    """Each piece method of ``driver`` (``pieces``, EPOCH_PIECES by
+    default) replaced, on the instance, by ``wrap(piece, method)`` for
+    the block."""
+    pieces = EPOCH_PIECES if pieces is None else pieces
+    for piece, methods in pieces.items():
         for meth in methods:
             setattr(driver, meth, wrap(piece, getattr(driver, meth)))
     try:
         yield
     finally:
-        for methods in EPOCH_PIECES.values():
+        for methods in pieces.values():
             for meth in methods:
                 delattr(driver, meth)
 
@@ -1583,13 +1635,15 @@ def piece_host_ms(driver, run, n_epochs: int) -> dict:
             "epoch_ms": total / n_epochs * 1e3, "epochs": n_epochs}
 
 
-def piece_launches(driver, run) -> dict:
+def piece_launches(driver, run, pieces=None) -> dict:
     """Kernel launches, copies and memsets of ``run()`` split by the epoch
-    body's pieces (EPOCH_PIECES): each piece of ``driver`` runs inside a
-    ``torch.profiler.record_function`` span, and every runtime launch call
-    the profiler saw is given to the innermost span around it.  Also the
-    device's busy share of the run."""
+    body's pieces (``pieces``, EPOCH_PIECES by default): each piece of
+    ``driver`` runs inside a ``torch.profiler.record_function`` span, and
+    every runtime launch call the profiler saw is given to the innermost
+    span around it.  Also the device's busy share of the run."""
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    pieces = EPOCH_PIECES if pieces is None else pieces
 
     def spanned(name, fn):
         def call(*a, **kw):
@@ -1597,7 +1651,7 @@ def piece_launches(driver, run) -> dict:
                 return fn(*a, **kw)
         return call
 
-    with pieces_wrapped(driver, spanned):
+    with pieces_wrapped(driver, spanned, pieces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
@@ -1613,7 +1667,7 @@ def piece_launches(driver, run) -> dict:
                 "memsets" if e.name.startswith("cudaMemset") else None)
         if kind is not None and e.device_type == torch.autograd.DeviceType.CPU:
             calls.append((e.time_range.start, kind))
-    split = {p: {"kernels": 0, "copies": 0, "memsets": 0} for p in (*EPOCH_PIECES, "other")}
+    split = {p: {"kernels": 0, "copies": 0, "memsets": 0} for p in (*pieces, "other")}
     # one sweep in time order: the open spans form a stack (a dense
     # re-peer nests inside the compacted one), its top the innermost
     stack: list = []
@@ -1784,6 +1838,407 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
         and out["card_equals_cpu"]["dirty_epochs"] > 0,
     }
     return out
+
+
+# phase fleet: BASELINE config 8 at bench/config8_fleet.py's settings
+# (256 ssd-burst timelines over 256 epochs on a 32-OSD EC k=4 m=2 map),
+# then the same fleet shape at config 7's full width
+FLEET_OSDS, FLEET_PGS, FLEET_OPS = 32, 16, 32
+FLEET_CLUSTERS, FLEET_EPOCHS = 256, 256
+FLEET_SCENARIO = "ssd-burst"
+FLEET_PANEL = ("ssd-steady", "ssd-burst", "ssd-skew")
+FLEET_SEED = 0
+FLEET_BOOT = 256
+FLEET_SEQ = 2                   # lanes held against their own sequential runs
+FLEET_PROFILED = 6              # config-8 epochs under torch.profiler for the split
+FLEET_WIDE = (1024, 8192, 64)   # OSDs, PGs, ops a step: config 7's geometry
+FLEET_WIDE_RUN = (64, 64)       # clusters, epochs
+FLEET_SMALL = (4, 16)           # clusters, epochs of the card-vs-CPU replay
+#: the fleet epoch's pieces (FleetDriver methods), each a span for the split
+FLEET_PIECES = {"tape": ("_tape_apply",), "liveness": ("_live",),
+                "peering": ("_peer_dirty",), "traffic": ("_traffic_apply",),
+                "scrub": ("_scrub_due",), "row": ("_row",)}
+#: DurabilityEstimate's bootstrap fields (f64 means reduced in another
+#: order on the card); every other field is held exactly
+DURABILITY_CI = ("mttdl_ci_lo_s", "mttdl_ci_hi_s", "availability_ci_lo", "availability_ci_hi",
+                 "ttzd_ci_lo_s", "ttzd_ci_hi_s")
+
+# phase divergent: config 6's --divergent pass (bench/config6_recovery.py)
+# on config 4's map, as the port's other config-6 passes run
+DIVERGENT_SCENARIO = "flap"
+DIVERGENT_N_RANKS = 2
+DIVERGENT_EPOCHS = 48
+DIVERGENT_DELAY_MS = 2500
+DIVERGENT_SEED = 6
+DIVERGENT_SMALL = (64, 128)     # OSDs, PGs of the card-vs-CPU replay
+
+
+def fleet_record(sizes: dict, rate: float, seq_cold: float, seq_warm: float, bitequal: bool,
+                 same_bucket: bool, ftape, est, panel: list, host_syncs: int) -> dict:
+    """One JSON line of the reference's ``build_fleet_record`` schema
+    (bench/config8_fleet.py), which ``python -m ceph_tpu_torch.cli.status
+    fleet --bench-log FILE`` renders.  ``vs_baseline`` divides by the
+    sequential rate of new ``EpochDriver``s, their build included (the
+    port compiles nothing, so ``fleet_seq_includes_compile`` is false);
+    ``fleet_same_bucket_zero_recompile`` holds the port's same-bucket
+    check (a fleet of 255 equals the first 255 lanes of 256)."""
+    rec = {
+        "metric": "fleet_epoch_rate_per_sec", "status": "ok", "value": round(rate),
+        "unit": "cluster-epochs/s",
+        "vs_baseline": round(rate / seq_cold, 2) if seq_cold else 0.0,
+        "platform": "gpu", "fleet_scenario": FLEET_SCENARIO,
+        "fleet_n_clusters": sizes["clusters"], "fleet_n_epochs": sizes["epochs"],
+        "fleet_n_osds": sizes["osds"], "fleet_pg_num": sizes["pgs"],
+        "fleet_n_ops": sizes["n_ops"],
+        "fleet_pad": int(ftape.fleet_pad), "fleet_rows_pad": int(ftape.rows_pad),
+        "fleet_seq_clusters_measured": FLEET_SEQ,
+        "fleet_epoch_rate_per_sec": round(rate, 1),
+        "fleet_seq_epoch_rate_per_sec": round(seq_cold, 2),
+        "fleet_seq_epoch_rate_warm_per_sec": round(seq_warm, 1),
+        "fleet_seq_includes_compile": False,
+        "fleet_aggregate_speedup": round(rate / seq_cold, 2) if seq_cold else 0.0,
+        "fleet_aggregate_speedup_warm": round(rate / seq_warm, 2) if seq_warm else 0.0,
+        "fleet_bitequal": bool(bitequal), "fleet_same_bucket_zero_recompile": bool(same_bucket),
+        "fleet_scenario_panel": panel, "n_compiles": 0, "n_compiles_first": 0,
+        "host_transfers": int(host_syncs),
+    }
+    rec.update(est.to_dict())
+    return rec
+
+
+def panel_entry(est) -> dict:
+    """The per-scenario slice of a DurabilityEstimate the fleet panel
+    renders (bench/config8_fleet.py's ``_panel_entry``)."""
+    return {
+        "scenario": est.scenario, "n_clusters": est.n_clusters,
+        "survival_fraction": round(est.survival_fraction, 9), "n_lost": est.n_lost,
+        "mttdl_s": round(est.mttdl_s, 3), "mttdl_ci_lo_s": round(est.mttdl_ci_lo_s, 3),
+        "mttdl_ci_hi_s": round(est.mttdl_ci_hi_s, 3), "mttdl_censored": est.mttdl_censored,
+        "availability_mean": round(est.availability_mean, 9),
+        "ttzd_mean_s": round(est.ttzd_mean_s, 6), "worst_cluster": est.worst_cluster,
+        "worst_availability": round(est.worst_availability, 9),
+    }
+
+
+def fleet_lanes_equal(fs, seqs) -> list:
+    """The lanes of a FleetSeries that differ from their sequential runs."""
+    return [[k, fs.cluster(k).diff(s)] for k, s in enumerate(seqs) if fs.cluster(k).diff(s)]
+
+
+def phase_fleet(dev, launch_counts, reset_launches, osds: int = FLEET_OSDS,
+                pgs: int = FLEET_PGS, clusters: int = FLEET_CLUSTERS,
+                epochs: int = FLEET_EPOCHS, wide=FLEET_WIDE, wide_run=FLEET_WIDE_RUN,
+                small=FLEET_SMALL, profiled: int = FLEET_PROFILED) -> dict:
+    """Scenario fleets (``recovery/fleet.py::FleetDriver``) and Monte Carlo
+    durability (``recovery/durability.py``): (a) BASELINE config 8 as
+    ``bench/config8_fleet.py`` runs it — ``build_osdmap(osds, pgs, size=6,
+    erasure)``, ``FleetDriver(m, seed=0, n_ops=32)``, ``clusters``
+    ssd-burst timelines over ``epochs`` epochs — a warm run timed with
+    ``pull=False`` (cluster-epochs/s, host syncs an epoch; its launches
+    are the path's); (b) the same at config 7's width (``wide``,
+    ``wide_run``).  Then the checks, outside the counts: the first
+    FLEET_SEQ lanes equal to new ``EpochDriver``s and to
+    ``run_sequential`` (timed: the sequential rates), a fleet of
+    ``clusters - 1`` equal to the first lanes, durability for the
+    headline and the panel's scenarios, launches an epoch by piece
+    (torch.profiler over ``profiled`` epochs), and a fleet of ``small``
+    on the card and the CPU, every lane equal.  Returns the phase line
+    and the fleet record."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import global_config
+    from ceph_tpu_torch.models.clusters import build_osdmap
+
+    out: dict = {"phase": "fleet", "osds": osds, "pgs": pgs, "size": 6, "n_ops": FLEET_OPS,
+                 "clusters": clusters, "epochs": epochs, "scenario": FLEET_SCENARIO}
+    walls: dict[str, float] = {}
+    t_last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t_last[0]
+        t_last[0] = now
+
+    def timed_fleet(fd, tls, n, syncs=True):
+        # the host syncs are counted by piece in a run of their own (the
+        # sync-debug mode and the piece wrappers cost host time); the
+        # launch counts start from 0 just before the timed run, which
+        # runs with no instrumentation, as the sequential baselines do
+        info: dict = {}
+        if syncs:
+            t0 = time.perf_counter()
+            with count_syncs(info, fd, FLEET_PIECES):
+                fd.run_fleet(n, tls, pull=False)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            info.update(host_syncs_per_epoch=info["host_syncs"] / n,
+                        counted_cluster_epochs_per_s=len(tls) * n / wall)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, rows = fd.run_fleet(n, tls, pull=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        info.update(wall_s=wall, cluster_epochs_per_s=len(tls) * n / wall,
+                    epochs_per_s=n / wall, **{k: v for k, v in fd.stats.items()})
+        return rows, info
+
+    m = build_osdmap(osds, pg_num=pgs, size=6, pool_kind="erasure")
+    fd = rec.FleetDriver(m, seed=FLEET_SEED, n_ops=FLEET_OPS, device=dev)
+    tls = fd.sample(clusters, FLEET_SCENARIO)
+    ftape = rec.stack_tapes([rec.compile_event_tape(tl, m) for tl in tls])
+    fd.run_fleet(epochs, tls, pull=False)  # warm: builds nothing new, times nothing
+    torch.cuda.synchronize()
+    lap("warm")
+    rows, head = timed_fleet(fd, tls, epochs)
+    path = launch_counts()
+    head["k3_launches"] = path.get("descend", 0)
+    fs = rec.FleetSeries.from_device(rows, clusters)
+    out["config8"] = head
+    lap("config8")
+
+    # (b) full width
+    n_w, pg_w, ops_w = wide
+    c_w, e_w = wide_run
+    m_w = build_osdmap(n_w, pg_num=pg_w, size=6, pool_kind="erasure")
+    fd_w = rec.FleetDriver(m_w, seed=FLEET_SEED, n_ops=ops_w, device=dev)
+    tls_w = fd_w.sample(c_w, FLEET_SCENARIO)
+    rows_w, wide_info = timed_fleet(fd_w, tls_w, e_w)
+    wide_launches = launch_counts()
+    for kname, v in wide_launches.items():
+        path[kname] = path.get(kname, 0) + v
+    wide_info.update(osds=n_w, pgs=pg_w, n_ops=ops_w, clusters=c_w, epochs=e_w,
+                     k3_launches=wide_launches.get("descend", 0))
+    fs_w = rec.FleetSeries.from_device(rows_w, c_w)
+    out["wide"] = wide_info
+    out["launches"] = path
+    lap("wide")
+
+    # the checks, outside the counts
+    t0 = time.perf_counter()
+    cold = [rec.EpochDriver(m, tls[k], seed=FLEET_SEED + k, n_ops=FLEET_OPS,
+                            device=dev).run_superstep(epochs) for k in range(FLEET_SEQ)]
+    torch.cuda.synchronize()
+    seq_cold = FLEET_SEQ * epochs / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    warm = fd.run_sequential(epochs, tls[:FLEET_SEQ])
+    torch.cuda.synchronize()
+    seq_warm = FLEET_SEQ * epochs / (time.perf_counter() - t0)
+    bad = fleet_lanes_equal(fs, cold) + fleet_lanes_equal(fs, warm)
+    out["sequential"] = {"lanes": FLEET_SEQ, "cold_epochs_per_s": seq_cold,
+                         "warm_epochs_per_s": seq_warm, "differ": bad}
+    lap("sequential")
+    fs_less = fd.run_fleet(epochs, tls[:clusters - 1])
+    less_bad = [k for k in range(clusters - 1) if fs_less.cluster(k).diff(fs.cluster(k))]
+    out["one_less"] = {"clusters": clusters - 1, "fleet_pad": rec.stack_tapes(
+        [rec.compile_event_tape(tl, m) for tl in tls[:clusters - 1]]).fleet_pad,
+        "differ": less_bad}
+    lap("one_less")
+    wide_cold = [rec.EpochDriver(m_w, tls_w[k], seed=FLEET_SEED + k, n_ops=ops_w,
+                                 device=dev).run_superstep(e_w) for k in range(FLEET_SEQ)]
+    out["wide"]["differ"] = fleet_lanes_equal(fs_w, wide_cold)
+    out["wide"]["dirty_lane_epochs"] = int(fs_w.dirty.sum())
+    lap("wide_sequential")
+
+    down_out = float(global_config().get("mon_osd_down_out_interval"))
+
+    def estimate(series, scenario, device=dev, indices=None):
+        return rec.estimate_durability(
+            series, dt=fd.driver.dt, scenario=scenario, seed=FLEET_SEED, n_boot=FLEET_BOOT,
+            codec="reed-solomon", ec_k=4, ec_m=2, placement="crush",
+            down_out_interval_s=down_out, indices=indices, device=device)
+
+    def against_cpu(series, scenario, est) -> list:
+        # the card's reduction held against the CPU's on the CPU
+        # generator's resample indices: the point fields exact (integer
+        # sums, one f64 divide, the host's means), the CI at rtol 1e-12
+        # (f64 means that reduce in another order)
+        idx = rec.durability.bootstrap_indices(FLEET_SEED, FLEET_BOOT, series.n_clusters, "cpu")
+        card, cpu = estimate(series, scenario, dev, idx), estimate(series, scenario, "cpu", idx)
+        bad = [f.name for f in dataclasses.fields(cpu)
+               if f.name not in DURABILITY_CI and getattr(card, f.name) != getattr(cpu, f.name)]
+        bad += [f.name for f in dataclasses.fields(est)
+                if f.name not in DURABILITY_CI and getattr(est, f.name) != getattr(cpu, f.name)]
+        return bad + [f for f in DURABILITY_CI
+                      if not np.isclose(getattr(card, f), getattr(cpu, f), rtol=1e-12, atol=0)]
+
+    t0 = time.perf_counter()
+    est = estimate(fs, FLEET_SCENARIO)
+    est_ms = (time.perf_counter() - t0) * 1e3
+    panel, panel_info = [], {}
+    dur_cpu = {FLEET_SCENARIO: against_cpu(fs, FLEET_SCENARIO, est)}
+    for sc in FLEET_PANEL:
+        if sc == FLEET_SCENARIO:
+            panel.append(panel_entry(est))
+            continue
+        p_rows, p_info = timed_fleet(fd, fd.sample(clusters, sc), epochs, syncs=False)
+        panel_info[sc] = p_info
+        p_fs = rec.FleetSeries.from_device(p_rows, clusters)
+        p_est = estimate(p_fs, sc)
+        dur_cpu[sc] = against_cpu(p_fs, sc, p_est)
+        panel.append(panel_entry(p_est))
+    out["durability"] = {"estimate_ms": est_ms, **est.to_dict()}
+    out["durability_card_vs_cpu_differ"] = dur_cpu
+    out["panel"] = {"runs": panel_info, "rows": panel}
+    lap("durability")
+
+    split = piece_launches(fd, lambda: fd.run_fleet(profiled, tls, pull=False), FLEET_PIECES)
+    split["epochs"] = profiled
+    split["per_epoch"] = {p: {k: v / profiled for k, v in c.items()}
+                          for p, c in split["split"].items()}
+    split["stats"] = dict(fd.stats)
+    out["launch_split"] = split
+    lap("profile")
+
+    c_s, e_s = small
+    small_runs = []
+    for d_ in (dev, torch.device("cpu")):
+        fd_s = rec.FleetDriver(m, seed=FLEET_SEED, n_ops=FLEET_OPS, device=d_)
+        small_runs.append(fd_s.run_fleet(e_s, tls[:c_s]))
+    out["card_equals_cpu"] = {
+        "clusters": c_s, "epochs": e_s, "dirty_lane_epochs": int(small_runs[1].dirty.sum()),
+        "differ": [k for k in range(c_s)
+                   if small_runs[0].cluster(k).diff(small_runs[1].cluster(k))]}
+    lap("card_equals_cpu")
+    out["walls_s"] = walls
+    record = fleet_record(out, head["cluster_epochs_per_s"], seq_cold, seq_warm, not bad,
+                          not less_bad and out["one_less"]["fleet_pad"] == ftape.fleet_pad,
+                          ftape, est, panel, head["host_syncs"])
+    out["gates"] = {
+        "lanes_equal_sequential": not bad,
+        "one_less_equal": not less_bad,
+        "one_less_same_bucket": out["one_less"]["fleet_pad"] == ftape.fleet_pad,
+        "config8_dirty": int(fs.dirty.sum()) > 0,
+        "config8_k3_launched": head["k3_launches"] > 0,
+        "wide_lanes_equal_sequential": not out["wide"]["differ"],
+        "wide_k3_launched": wide_info["k3_launches"] > 0,
+        "durability_finite": all(np.isfinite([est.mttdl_s, est.mttdl_ci_lo_s,
+                                              est.mttdl_ci_hi_s])),
+        "durability_card_equals_cpu": not any(dur_cpu.values()),
+        "card_equals_cpu": not out["card_equals_cpu"]["differ"]
+        and out["card_equals_cpu"]["dirty_lane_epochs"] > 0,
+    }
+    return out, record
+
+
+def divergent_record(res, health, report, rate: float, host_syncs: int, states) -> dict:
+    """One JSON line of the reference's ``build_divergent_record`` schema
+    (bench/config6_recovery.py), which ``python -m
+    ceph_tpu_torch.cli.status ranks --bench-log FILE`` renders."""
+    from ceph_tpu_torch.recovery import view_fingerprint
+
+    d2c = res.detection_to_convergence_rounds()
+    return {
+        "metric": "divergent_detect_to_converge_rounds",
+        "value": 0 if d2c is None else int(d2c), "unit": "rounds", "platform": "gpu",
+        "n_compiles": 0, "n_compiles_first": 0, "host_transfers": int(host_syncs),
+        "divergent_scenario": DIVERGENT_SCENARIO, "divergent_n_ranks": len(states),
+        "divergent_n_epochs": int(res.total_steps), "divergent_rounds": len(res.rounds),
+        "divergent_converged": bool(res.converged),
+        "divergent_laggy_ranks": [int(r) for r in res.laggy],
+        "divergent_stalled": bool(res.laggy), "divergent_round_rate_per_sec": round(rate, 3),
+        "divergent_retries_total": int(sum(r.retries for r in res.rounds)),
+        "divergent_backoff_epochs_total": int(sum(r.backoff_epochs for r in res.rounds)),
+        "divergent_rank_panel": [
+            {"rank": r, "step": int(res.rounds[-1].steps[r]), "epoch": int(s.epoch),
+             "fingerprint": int(view_fingerprint(s))} for r, s in enumerate(states)],
+        "divergent_health_status": report.status,
+        "divergent_slo_checks": {c.name: c.status for c in report.checks},
+        "divergent_rank_series": health.rank_series(),
+    }
+
+
+def divergent_run(m, dev, n_epochs: int = DIVERGENT_EPOCHS):
+    """Config 6's --divergent pass on ``m`` (its size, k = 8 m = 3):
+    ``(driver, result, health, report, seconds)``."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.obs import HealthTimeline, SLOSpec, evaluate
+    from ceph_tpu_torch.recovery.failure import parse_spec
+
+    base = rec.build_scenario(DIVERGENT_SCENARIO, m)
+    skew = parse_spec(f"rankdelay:1.{DIVERGENT_DELAY_MS}")
+    tl = rec.ChaosTimeline(list(base.events()) + [rec.ChaosEvent(0.05, (skew,))])
+    health = HealthTimeline(lambda: 0.0, k=8, device=dev)
+    d = rec.DivergentDriver(m, tl, DIVERGENT_N_RANKS, config=Config(env={}),
+                            seed=DIVERGENT_SEED, health=health, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = d.run(n_epochs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return d, res, health, evaluate(health, SLOSpec(max_rank_stall_rounds=1)), seconds
+
+
+def phase_divergent(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OSDS,
+                    pg_num: int = RECOVERY_PGS, small=DIVERGENT_SMALL) -> dict:
+    """Config 6's ``--divergent`` pass (``recovery/reconcile.py::
+    DivergentDriver``): two rank views of the flap scenario, rank 1 seeing
+    every event 2.5 s late from t = 0.05, 48 epochs, seed 6, a
+    HealthTimeline graded by ``SLOSpec(max_rank_stall_rounds=1)``, on
+    ``build_osdmap(n_osds, pg_num, size=11, erasure)``; the run is the
+    path's launch counts.  Gates: converged, a detection-to-convergence
+    latency, the rank views' fingerprints equal at the end and equal to
+    the unskewed reference's.  Then the pass at ``small`` size on the card
+    and the CPU: every round and every lane of every view equal.  Returns
+    the phase line and the divergent record."""
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery import view_fingerprint
+
+    m = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
+    info: dict = {}
+    reset_launches()
+    with count_syncs(info):
+        d, res, health, report, seconds = divergent_run(m, dev)
+    launches = launch_counts()
+    fps = [view_fingerprint(s) for s in res.states]
+    ref_fp = view_fingerprint(d.reference_state(res.total_steps))
+    rate = len(res.rounds) / seconds
+    d2c = res.detection_to_convergence_rounds()
+    out = {"phase": "divergent", "osds": n_osds, "pgs": pg_num, "size": 11,
+           "scenario": DIVERGENT_SCENARIO, "ranks": DIVERGENT_N_RANKS,
+           "epochs": DIVERGENT_EPOCHS, "seconds": seconds, "rounds": len(res.rounds),
+           "rounds_per_s": rate, "epochs_per_s": res.total_steps * DIVERGENT_N_RANKS / seconds,
+           "host_syncs": info["host_syncs"], "total_steps": res.total_steps,
+           "detect_to_converge_rounds": d2c, "converged": res.converged,
+           "round_verdicts": [[r.round, r.target_step, list(r.steps), list(r.epochs),
+                               r.converged, r.retries] for r in res.rounds],
+           "fingerprints": fps, "reference_fingerprint": ref_fp,
+           "slo": report.status, "launches": launches,
+           "k3_launches": launches.get("descend", 0)}
+    n_s, pg_s = small
+    m_s = build_osdmap(n_s, pg_num=pg_s, size=11, pool_kind="erasure")
+    runs = [divergent_run(m_s, d_) for d_ in (dev, torch.device("cpu"))]
+    (_d0, r0, *_), (_d1, r1, *_) = runs
+
+    def lanes(state):
+        from dataclasses import fields
+
+        flat = {}
+        for f in fields(state):
+            v = getattr(state, f.name)
+            if f.name == "pool":
+                flat.update({"pool." + g.name: getattr(v, g.name).cpu() for g in fields(v)})
+            elif v is not None:
+                flat[f.name] = v.cpu()
+        return flat
+
+    differ = [r.round for r, q in zip(r0.rounds, r1.rounds)
+              if (r.steps, r.epochs, r.fingerprints, r.converged) != (
+                  q.steps, q.epochs, q.fingerprints, q.converged)]
+    for k, (a, b) in enumerate(zip(r0.states + [r0.merged], r1.states + [r1.merged])):
+        la, lb = lanes(a), lanes(b)
+        differ += [f"view{k}:{n}" for n in la if not torch.equal(la[n], lb[n])]
+    out["card_equals_cpu"] = {"osds": n_s, "pgs": pg_s, "rounds": len(r1.rounds),
+                              "detect_to_converge_rounds": r1.detection_to_convergence_rounds(),
+                              "differ": differ}
+    out["gates"] = {
+        "converged": bool(res.converged),
+        "detected": d2c is not None,
+        "fingerprints_agree": len(set(fps)) == 1 and fps[0] == ref_fp,
+        "k3_launched": out["k3_launches"] > 0,
+        "card_equals_cpu": not differ and len(r0.rounds) == len(r1.rounds),
+    }
+    return out, divergent_record(res, health, report, rate, info["host_syncs"], res.states)
 
 
 def ec_batch(name: str, dev):
@@ -2148,6 +2603,10 @@ def mixed_hierarchy(racks: int, hosts: int, osds: int):
     return m
 
 
+#: calls of each way the general phase times in turns
+GENERAL_TURNS = 4
+
+
 def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
     """The general engine on the card: (a) a uniform 1024-OSD hierarchy
     (32 racks of 8 hosts of 4 OSDs) under its replicated rule; (b) the
@@ -2155,8 +2614,8 @@ def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
     reweighted to 0, under a replicated and an EC rule (6 slots).  Each:
     the router's tier, host syncs and K1 launches of one call, n objects
     timed with compacted retry rounds (the default at this size) and
-    masked ones in turns (median of 6 each, host clock; the two results
-    equal), a profile of one call each way, and 65,536 placements
+    masked ones in turns (median of GENERAL_TURNS each, host clock; the
+    two results equal), a profile of one compacted call, and 65,536 placements
     (compacted, the threshold) and the same masked equal to the C++
     tier.  Returns the path's launch counts (one call of each map)."""
     from ceph_tpu_torch.crush import interp, interp_batch
@@ -2206,13 +2665,12 @@ def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
         res, lens = results[label]
         if not (torch.equal(res, res_m) and torch.equal(lens, lens_m)):
             raise AssertionError(f"{label}: compacted and masked rounds differ")
-        times = in_turns({"compacted": run, "masked": masked(run)}, 6)
+        times = in_turns({"compacted": run, "masked": masked(run)}, GENERAL_TURNS)
         for way, secs in times.items():
             sec = float(np.median(secs))
             out[label][way] = {"seconds": sec, "all_seconds": secs, "placements_per_s": n / sec}
         out[label]["placements_per_s"] = out[label]["compacted"]["placements_per_s"]
         out[label]["profile"] = profile_call(run)
-        out[label]["masked"]["profile"] = profile_call(masked(run))
         sample = np.arange(k, dtype=np.uint32)
         rr, ll = cppref.do_rule_batch(dense, steps_of(rule), sample, w, rm)
         for way, call in (("compacted", lambda: fn(crush_arg, w, sample)),
@@ -2744,6 +3202,20 @@ def main() -> int:
     bad = [g for g, ok in epoch["gates"].items() if not ok]
     if bad:
         raise AssertionError(f"the epoch loop failed its gates: {bad}")
+    fleet, fleet_rec = phase_fleet(dev, counts, reset)
+    emit(fleet)
+    emit(fleet_rec)
+    paths["fleet"] = fleet["launches"]
+    bad = [g for g, ok in fleet["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the fleet failed its gates: {bad}")
+    divergent, divergent_rec = phase_divergent(dev, counts, reset)
+    emit(divergent)
+    emit(divergent_rec)
+    paths["divergent"] = divergent["launches"]
+    bad = [g for g, ok in divergent["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the divergent ranks failed their gates: {bad}")
     balancer = phase_balancer(dev, counts, reset)
     emit(balancer)
     paths["balancer"] = balancer["launches"]
@@ -2764,6 +3236,8 @@ def main() -> int:
             "traffic": ("descend", "matrix_encode"),
             "scrub_qos": ("descend", "matrix_encode", "crc32c_rows"),
             "epoch": ("descend",),
+            "fleet": ("descend",),
+            "divergent": ("descend",),
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]

@@ -207,3 +207,34 @@ def test_placement_entry_points_default_to_the_card():
                  lambda: placement.sharded_rebalance_sim(dense, rule, 3, 16, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_scan_covers_fleets_durability_and_reconcile():
+    """The fleet, durability and reconcile modules, the rank guard and the
+    status CLI's panels are in both scans, and their entry points run on
+    the card unless asked for the CPU."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("recovery/fleet.py", "recovery/durability.py", "recovery/reconcile.py",
+                "common/rank_guard.py", "cli/status.py"):
+        assert mod in rel
+    mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
+    assert {"ceph_tpu_torch.recovery.fleet", "ceph_tpu_torch.recovery.durability",
+            "ceph_tpu_torch.recovery.reconcile", "ceph_tpu_torch.common.rank_guard"} <= mods
+    from ceph_tpu_torch.models.clusters import build_osdmap as port_build_osdmap
+    from ceph_tpu_torch.recovery import (
+        ChaosTimeline,
+        DivergentDriver,
+        FleetDriver,
+        estimate_durability,
+    )
+    from ceph_tpu_torch.recovery.superstep import EpochDriver
+
+    assert _device_default(EpochDriver) == "cuda"
+    assert _device_default(estimate_durability) == "cuda"
+    if torch.cuda.is_available():
+        return
+    m = port_build_osdmap(16, pg_num=16, size=6, pool_kind="erasure")
+    for call in (lambda: FleetDriver(m, n_ops=8),
+                 lambda: DivergentDriver(m, ChaosTimeline(), 2, n_ops=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

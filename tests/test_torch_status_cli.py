@@ -10,9 +10,13 @@ cache, and both packages' cache counters are process-wide), each traffic
 sample's ``ops_per_sec_wall`` (a wall-clock rate) and the journal's wall
 times, left out; each traffic sample's ``mean_ms`` within ``rtol=1e-6``
 (a float32 sum reduced in another order).  Socket mode: both CLIs against
-a daemon of their own package serving equal timelines.  The commands
-that wait for paths the port does not run yet exit non-zero and name
-their ROADMAP item.
+a daemon of their own package serving equal timelines.  Bench-record
+panels: ``fleet`` and ``ranks`` over the same JSON-line files (records of
+the fleet and divergent schemas, each with its optional parts present
+and absent, among other lines) render equal text and ``--json`` in both
+CLIs, and both exit 1 when no record is found.  The commands that wait
+for paths the port does not run yet exit non-zero and name their
+ROADMAP item.
 """
 
 import copy
@@ -157,10 +161,14 @@ def test_caches_panel_is_the_schedule_cache(capsys):
     assert out.startswith("schedule: ") and "hits" in out and "evictions" in out
 
 
+# the ids the cases had beside fleet (argv0) and ranks (argv1), which
+# now render their panels
 @pytest.mark.parametrize("argv,item", [
-    (["fleet"], "item 2b"), (["ranks"], "item 4"), (["checkpoint"], "item 2d"),
-    (["writepath"], "item 3"), (["crash"], "item 3"), (["--crash"], "item 3"),
-    (["writepath", "--socket", "/nonexistent.asok"], "item 3"),
+    pytest.param(argv, item, id=f"argv{i}-{item}") for i, (argv, item) in enumerate([
+        (["checkpoint"], "item 2d"),
+        (["writepath"], "item 3"), (["crash"], "item 3"), (["--crash"], "item 3"),
+        (["writepath", "--socket", "/nonexistent.asok"], "item 3"),
+    ], start=2)
 ])
 def test_waiting_commands_exit_nonzero_and_name_their_item(capsys, argv, item):
     assert cli.main(argv + ["--device", "cpu"]) != 0
@@ -229,3 +237,78 @@ def test_socket_mode_matches_reference(tmp_path, capsys):
     assert set(port["caches"]) == {"schedule"}
     assert cli.main(["status", "--socket", str(tmp_path / "none.asok")]) == 1
     assert "cannot reach" in capsys.readouterr().err
+
+
+FLEET_RECORD = {
+    "metric": "fleet_epoch_rate_per_sec", "status": "ok", "value": 41234,
+    "unit": "cluster-epochs/s", "vs_baseline": 12.5, "platform": "gpu",
+    "fleet_scenario": "ssd-burst", "fleet_n_clusters": 256, "fleet_n_epochs": 256,
+    "fleet_bitequal": True,
+    "fleet_scenario_panel": [
+        {"scenario": "ssd-steady", "n_clusters": 256, "survival_fraction": 1.0, "n_lost": 0,
+         "mttdl_s": 5461.333, "mttdl_ci_lo_s": 5461.333, "mttdl_ci_hi_s": 5461.333,
+         "mttdl_censored": True, "availability_mean": 0.999871, "ttzd_mean_s": 3.25,
+         "worst_cluster": 17, "worst_availability": 0.99609375},
+        {"scenario": "ssd-burst", "n_clusters": 256, "survival_fraction": 0.98828125,
+         "n_lost": 3, "mttdl_s": 5461.333, "mttdl_ci_lo_s": 2730.667, "mttdl_ci_hi_s": 32768.0,
+         "mttdl_censored": False, "availability_mean": 0.99, "ttzd_mean_s": 60.5,
+         "worst_cluster": 200, "worst_availability": 0.875},
+    ],
+}
+FLEET_SWEEP = {"fleet_best_down_out_interval_s": 120.0, "fleet_best_recovery_share": 0.4}
+RANKS_RECORD = {
+    "metric": "divergent_detect_to_converge_rounds", "value": 2, "unit": "rounds",
+    "platform": "gpu", "divergent_scenario": "flap", "divergent_n_ranks": 2,
+    "divergent_n_epochs": 48, "divergent_rounds": 7, "divergent_converged": True,
+    "divergent_laggy_ranks": [], "divergent_stalled": False,
+    "divergent_rank_panel": [{"rank": 0, "step": 48, "epoch": 9, "fingerprint": 123456},
+                             {"rank": 1, "step": 48, "epoch": 9, "fingerprint": 123456}],
+}
+RANKS_RETRIES = {"divergent_retries_total": 1, "divergent_backoff_epochs_total": 3,
+                 "divergent_laggy_ranks": [1], "divergent_stalled": True,
+                 "divergent_converged": False}
+
+
+def _bench_log(tmp_path, name, *records):
+    """A JSON-lines file: a non-record line, then the records, the last
+    of each metric the one the panel must pick."""
+    path = tmp_path / name
+    lines = ["fleet: 256 clusters (a stderr-like line)", json.dumps({"metric": "other"})]
+    lines += [json.dumps(r) for r in records]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("command,records", [
+    ("fleet", (dict(FLEET_RECORD, value=1), FLEET_RECORD)),
+    ("fleet", (dict(FLEET_RECORD, **FLEET_SWEEP, fleet_bitequal=False),)),
+    ("ranks", (RANKS_RECORD,)),
+    ("ranks", (dict(RANKS_RECORD, value=9), dict(RANKS_RECORD, **RANKS_RETRIES))),
+])
+@pytest.mark.parametrize("as_json", [False, True])
+def test_bench_record_panels_match_reference(tmp_path, capsys, command, records, as_json):
+    path = _bench_log(tmp_path, "BENCH_log.json", *records)
+    argv = [command, "--bench-log", path] + (["--json"] if as_json else [])
+    assert ref_cli.main(argv) == 0
+    want = capsys.readouterr().out
+    assert cli.main(argv) == 0
+    got = capsys.readouterr().out
+    assert got == want
+    if as_json:
+        assert json.loads(got) == records[-1]
+    else:
+        assert got.startswith(command + ": ") and len(got.splitlines()) >= 2
+
+
+@pytest.mark.parametrize("command", ["fleet", "ranks"])
+def test_bench_record_panels_without_a_record_exit_1(tmp_path, capsys, monkeypatch, command):
+    path = _bench_log(tmp_path, "other.json")
+    assert cli.main([command, "--bench-log", path]) == 1
+    assert "no " in capsys.readouterr().err
+    # the default search reads BENCH*.json in the working directory
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([command]) == 1
+    record = FLEET_RECORD if command == "fleet" else RANKS_RECORD
+    _bench_log(tmp_path, "BENCH_r99.json", record)
+    assert cli.main([command, "--json"]) == 0
+    assert json.loads(capsys.readouterr().out) == record
