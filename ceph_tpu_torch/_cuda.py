@@ -50,6 +50,10 @@ SIGNATURES = {
     "scrub": {
         "scrub_crc32c_rows": [_P, _L, _L, _I, _L, _P, _L, _P, _P],
     },
+    "online": {
+        "online_stripe_absorb": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

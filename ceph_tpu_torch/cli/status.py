@@ -33,10 +33,16 @@ reference's CLI does.  ``caches`` reports the schedule cache alone: the
 reference package's fused placement->peering pipeline cache is not
 ported, on purpose (ROADMAP §1).
 
-The reference's other bench-record and flight-dump panels wait for
-paths the port does not run yet; each exits non-zero and names its
-ROADMAP §1 item: ``checkpoint`` (item 2d), ``writepath`` (item 3) and
-``crash`` / ``--crash`` (item 3).
+``checkpoint`` (the durable-snapshot panel from the latest
+``checkpoint_write_bandwidth_bps`` record: write bandwidth,
+restore+replay time, overhead against ``snapshot_every``) and
+``writepath`` (the online EC write path's panel from the latest
+``writepath_encoded_bytes_per_sec`` record, or live from a daemon's
+``dump_stripe_cache`` hook with ``--socket``) read records the same
+way.  ``crash`` (also ``--crash``) renders the flight recorder's
+post-mortem panel from a ``flightdump-*.json``: an explicit ``--dump``,
+a journal's ``flight.dump`` reference (``--journal-path``), or the
+newest in ``--dump-dir``.
 """
 
 from __future__ import annotations
@@ -48,16 +54,10 @@ import sys
 COMMANDS = ("status", "health", "timeline", "journal", "caches",
             "fleet", "ranks", "checkpoint", "writepath", "crash")
 
-#: command -> the ROADMAP §1 item whose path it renders
-WAITING = {
-    "checkpoint": "item 2d: durable checkpoints",
-    "writepath": "item 3: the online EC write path",
-    "crash": "item 3: the flight recorder",
-}
-
 #: CLI command -> admin-socket prefix (identity unless listed)
 _SOCKET_PREFIX = {
     "caches": "dump_ec_schedules",
+    "writepath": "dump_stripe_cache",
 }
 
 
@@ -97,6 +97,20 @@ def _render(cmd: str, reply: dict, as_json: bool, out) -> None:
                 f"{c.get('misses', 0)} misses, "
                 f"{c.get('evictions', 0)} evictions"
                 + (f", {c['entries']} entries" if "entries" in c else ""),
+                file=out,
+            )
+    elif cmd == "writepath":
+        # live dump_stripe_cache reply: one row per registered buffer
+        for b in reply.get("buffers", []):
+            print(
+                f"{b.get('name', '?')}: "
+                f"{b.get('occupied', 0)}/{b.get('n_sets', 0) * b.get('ways', 0)}"
+                f" slots ({b.get('dirty_slots', 0)} dirty), "
+                f"hit_rate={b.get('hit_rate', 0):.4f} "
+                f"({b.get('hits', 0)} hits / {b.get('misses', 0)} misses"
+                f" / {b.get('evictions', 0)} evictions), "
+                f"delta={b.get('delta_bytes', 0):,}B "
+                f"full={b.get('full_bytes', 0):,}B",
                 file=out,
             )
     elif cmd == "timeline":
@@ -233,6 +247,152 @@ def render_ranks(rec: dict, out) -> None:
         )
 
 
+def load_checkpoint_record(paths=None) -> dict | None:
+    """Latest ``checkpoint_write_bandwidth_bps`` record (config 9)."""
+    return _load_bench_record("checkpoint_write_bandwidth_bps", paths)
+
+
+def render_checkpoint(rec: dict, out) -> None:
+    """Text panel for one config-9 record: write
+    bandwidth headline, restore+replay split, and the per-interval
+    overhead rows."""
+    print(
+        f"checkpoint: {rec.get('checkpoint_n_epochs', '?')} epochs "
+        f"({rec.get('checkpoint_scenario', '?')}) on "
+        f"{rec.get('platform', '?')}: "
+        f"{rec.get('value', 0):,.0f} B/s write bandwidth, "
+        f"{rec.get('checkpoint_snapshot_bytes', 0):,} B/snapshot",
+        file=out,
+    )
+    if rec.get("checkpoint_restore_s") is not None:
+        print(
+            f"  restore={rec['checkpoint_restore_s']:.4f}s "
+            f"(load {rec.get('checkpoint_load_s', 0):.4f}s + replay "
+            f"{rec.get('checkpoint_replay_s', 0):.4f}s), "
+            f"bitequal="
+            f"{'ok' if rec.get('checkpoint_bitequal') else 'FAIL'}",
+            file=out,
+        )
+    for row in rec.get("checkpoint_overhead_panel") or []:
+        print(
+            f"  snapshot_every={row.get('snapshot_every', '?'):>4} "
+            f"overhead={row.get('overhead_fraction', 0):+.4f} "
+            f"({row.get('run_s', 0):.3f}s vs "
+            f"{row.get('baseline_s', 0):.3f}s baseline, "
+            f"{row.get('n_snapshots', 0)} snapshots)",
+            file=out,
+        )
+
+
+def load_writepath_record(paths=None) -> dict | None:
+    """Latest ``writepath_encoded_bytes_per_sec`` record (config 10)."""
+    return _load_bench_record("writepath_encoded_bytes_per_sec", paths)
+
+
+def render_writepath(rec: dict, out) -> None:
+    """Text panel for one config-10 record: encoded-GB/s
+    headline with the bit-equality gate verdict, then per-mix
+    stripe-cache hit/miss/evict and parity-delta vs full-stripe byte
+    rows."""
+    bitequal = rec.get("writepath_bitequal")
+    print(
+        f"writepath: {rec.get('writepath_n_epochs', '?')} epochs x "
+        f"{rec.get('writepath_batch', '?')}-op write batches on "
+        f"{rec.get('platform', '?')}: "
+        f"{rec.get('value', 0) / 1e9:.4f} GB/s encoded, "
+        f"hit_rate={rec.get('writepath_hit_rate', 0):.4f}, "
+        f"bitequal={'ok' if bitequal else 'FAIL'} "
+        f"({rec.get('writepath_families', '?')})",
+        file=out,
+    )
+    print(
+        f"  stripe cache: {rec.get('writepath_stripe_hits', 0):,} hits "
+        f"/ {rec.get('writepath_stripe_misses', 0):,} misses "
+        f"/ {rec.get('writepath_stripe_evictions', 0):,} evictions, "
+        f"delta={rec.get('writepath_delta_bytes', 0):,}B "
+        f"full={rec.get('writepath_full_bytes', 0):,}B, "
+        f"{rec.get('writepath_schedule_entries', 0)} cached programs",
+        file=out,
+    )
+    for row in rec.get("writepath_mix_panel") or []:
+        print(
+            f"  {row.get('mix', '?'):<12} "
+            f"hit_rate={row.get('hit_rate', 0):.4f} "
+            f"encoded={row.get('encoded_bytes_per_sec', 0) / 1e9:.4f}GB/s "
+            f"delta={row.get('delta_bytes', 0):,}B "
+            f"full={row.get('full_bytes', 0):,}B "
+            f"({row.get('delta_writes', 0):,} delta / "
+            f"{row.get('full_writes', 0):,} full writes)",
+            file=out,
+        )
+
+
+def find_crash_dump(
+    dump: str | None = None,
+    root: str = ".",
+    journal_path: str | None = None,
+) -> str | None:
+    """Locate the flight dump to render: an explicit path wins; else
+    the last ``flight.dump`` reference in the journal (the guard emits
+    one per dump); else the newest ``flightdump-*.json`` in ``root``
+    (dumps are numbered, so lexical order is creation order)."""
+    import glob
+    import os
+
+    if dump:
+        return dump
+    if journal_path and os.path.exists(journal_path):
+        from ..obs.journal import EventJournal
+
+        path = None
+        for rec in EventJournal.read(journal_path):
+            if rec.get("name") == "flight.dump":
+                path = rec.get("attrs", {}).get("path")
+        if path:
+            return path
+    hits = sorted(glob.glob(os.path.join(root, "flightdump-*.json")))
+    return hits[-1] if hits else None
+
+
+def render_crash(doc: dict, out, *, tail: int = 8) -> None:
+    """The post-mortem panel for one validated flight dump: the typed
+    failure, the preserved state snapshot, ring occupancy, and the
+    last recorded telemetry rows."""
+    print(
+        f"crash: {doc.get('reason', '?')}: "
+        f"{doc.get('error', '') or '(no message)'}",
+        file=out,
+    )
+    state = doc.get("state") or {}
+    if state:
+        for key in sorted(state):
+            print(f"  state.{key} = {json.dumps(state[key], sort_keys=True)}",
+                  file=out)
+    fl = doc.get("flight")
+    if not fl:
+        print("  (no flight ring in dump — recorder was off)", file=out)
+        return
+    print(
+        f"  flight ring: {fl.get('occupancy', 0)}/"
+        f"{fl.get('ring_epochs', 0)} rows, head={fl.get('head', 0)}, "
+        f"drops={fl.get('drops', 0)}",
+        file=out,
+    )
+    lanes = fl.get("lanes") or []
+    rows = fl.get("rows") or []
+    show = ("epoch", "dirty", "rung", "dirty_pgs", "served",
+            "degraded", "blocked", "down_total", "cycles_peer")
+    cols = [(n, lanes.index(n)) for n in show if n in lanes]
+    # per-lane (fleet) rings nest one level deeper; render lane 0
+    if rows and rows[0] and isinstance(rows[0][0], list):
+        rows = rows[0]
+    for row in rows[-int(tail):]:
+        print(
+            "    " + " ".join(f"{n}={row[i]}" for n, i in cols),
+            file=out,
+        )
+
+
 #: bench-record command -> (loader, renderer, what to run when none)
 _RECORDS = {
     "fleet": (load_fleet_record, render_fleet,
@@ -242,6 +402,13 @@ _RECORDS = {
               "no divergent record found (run python3 chip_smoke.py, "
               "bench/config6_recovery.py --divergent, or pass "
               "--bench-log)"),
+    "checkpoint": (load_checkpoint_record, render_checkpoint,
+                   "no checkpoint record found (run python3 chip_smoke.py, "
+                   "bench/config9_checkpoint.py, or pass --bench-log)"),
+    "writepath": (load_writepath_record, render_writepath,
+                  "no writepath record found (run python3 chip_smoke.py, "
+                  "bench/config10_online_ec.py, pass --bench-log, or "
+                  "--socket for a live dump_stripe_cache)"),
 }
 
 
@@ -475,22 +642,47 @@ def main(argv=None) -> int:
                         "panels (repeatable; default: BENCH*.json in "
                         "the working directory)")
     p.add_argument("--crash", action="store_true",
-                   help="alias for the 'crash' command (not ported yet: "
-                        "ROADMAP §1, item 3)")
+                   help="alias for the 'crash' command: render the "
+                        "flight-recorder post-mortem panel")
+    p.add_argument("--dump", metavar="PATH", default=None,
+                   help="explicit flightdump-*.json for the crash "
+                        "panel")
+    p.add_argument("--dump-dir", metavar="DIR", default=".",
+                   help="directory scanned for flightdump-*.json "
+                        "(default: working directory)")
     args = p.parse_args(argv)
     out = sys.stdout
     if args.crash:
         args.command = "crash"
 
-    if args.command in WAITING:
-        print(
-            f"status: {args.command}: not ported yet (ROADMAP §1, "
-            f"{WAITING[args.command]})",
-            file=sys.stderr,
-        )
-        return 1
+    if args.command == "crash":
+        from ..obs.flight import read_flight_dump
 
-    if args.command in _RECORDS:
+        path = find_crash_dump(
+            args.dump, args.dump_dir, args.journal_path
+        )
+        if path is None:
+            print(
+                "status: no flight dump found (pass --dump, "
+                "--dump-dir, or --journal-path with a flight.dump "
+                "reference)",
+                file=sys.stderr,
+            )
+            return 1
+        try:
+            doc = read_flight_dump(path)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"status: cannot read {path}: {e}", file=sys.stderr)
+            return 1
+        if args.as_json:
+            print(json.dumps(doc, sort_keys=True), file=out)
+        else:
+            print(f"dump: {path}", file=out)
+            render_crash(doc, out)
+        return 0
+
+    if args.command in _RECORDS and not (args.command == "writepath"
+                                         and args.socket is not None):
         load, render, missing = _RECORDS[args.command]
         rec = load(args.bench_log)
         if rec is None:

@@ -6,10 +6,10 @@ a background thread serves newline-delimited JSON commands
 (``{"prefix": "perf dump"}``) over a unix socket, replying with JSON.
 Custom hooks register like ``AdminSocketHook``s.
 
-Of the reference package's cache dumps only ``dump_ec_schedules`` is
-served: the fused placement pipeline (``dump_placement_caches``) is not
-ported, and the online stripe cache (``dump_stripe_cache``) is not
-ported yet.
+Of the reference package's cache dumps ``dump_ec_schedules`` and
+``dump_stripe_cache`` (the online write path's stripe buffers) are
+served; the fused placement pipeline (``dump_placement_caches``) is not
+ported.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ class AdminSocket:
         self.register("config show", lambda cmd: self.config.show())
         self.register("config set", self._config_set)
         self.register("dump_ec_schedules", self._dump_ec_schedules)
+        self.register("dump_stripe_cache", self._dump_stripe_cache)
         self.register("help", lambda cmd: {"commands": sorted(self._hooks)})
 
     @staticmethod
@@ -49,6 +50,13 @@ class AdminSocket:
         from ..ec.schedule import dump_ec_schedules
 
         return dump_ec_schedules()
+
+    @staticmethod
+    def _dump_stripe_cache(cmd: dict) -> dict:
+        # lazy import, same reason as _dump_ec_schedules
+        from ..ec.online import dump_stripe_cache
+
+        return dump_stripe_cache()
 
     def _config_set(self, cmd: dict) -> dict:
         self.config.set(cmd["key"], cmd["value"])

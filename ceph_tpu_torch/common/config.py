@@ -232,9 +232,9 @@ SCHEMA: list[Option] = [
            "device-resident flight recorder: a fixed-shape ring of "
            "per-epoch telemetry lanes recorded inside the epoch loop "
            "and drained at snapshot boundaries: 'on' records "
-           "everywhere (not ported: ROADMAP §1 item 3), 'off' pins the "
-           "recorder-free loop, 'auto' follows the bench-decided "
-           "default (bench/flight_defaults.json; absent -> off)",
+           "everywhere, 'off' pins the recorder-free loop, 'auto' is "
+           "off (the reference follows a bench-decided default file, "
+           "which the port does not have)",
            enum_allowed=("auto", "on", "off"),
            see_also=("flight_ring_epochs",)),
     Option("flight_ring_epochs", OPT_INT, 1024, LEVEL_ADVANCED,
@@ -243,6 +243,10 @@ SCHEMA: list[Option] = [
            "epochs overwrite: crash dumps carry the last ring_epochs "
            "epochs", min=2,
            see_also=("flight_recorder",)),
+    Option("debug_fsync_audit", OPT_BOOL, False, LEVEL_ADVANCED,
+           "audit the durable-write commit chain (FsyncAudit) around "
+           "checkpoint saves: not ported (ROADMAP §1, item 5: tooling), "
+           "so 'true' makes a checkpoint save raise"),
     Option("debug_rank_checks", OPT_BOOL, False, LEVEL_ADVANCED,
            "raise RankDivergenceError when a divergent run's live ranks "
            "stay at the same step and epoch with different view "

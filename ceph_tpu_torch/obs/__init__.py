@@ -12,14 +12,30 @@ The observability layer over the recovery/chaos machinery:
 - :mod:`~ceph_tpu_torch.obs.status` — ``ceph -s`` analog + admin-socket
   trio.
 
-The flight recorder and the trace exporter are not ported yet (ROADMAP
-§1, item 3).
+- :mod:`~ceph_tpu_torch.obs.flight` — the flight recorder: a ring of
+  per-epoch telemetry rows on the device, drains, crash dumps.
+- :mod:`~ceph_tpu_torch.obs.traceexport` — Chrome-trace export of
+  journal spans and drained flight rows.
 """
 
+from .flight import (
+    FLIGHT_LANES,
+    FlightState,
+    crash_dump_guard,
+    drain_flight,
+    empty_flight,
+    flight_record,
+    flight_row,
+    journal_drain,
+    read_flight_dump,
+    resolve_flight_recorder,
+    write_flight_dump,
+)
 from .journal import EventJournal
 from .pg_states import N_STATES, STATE_NAMES, PGStateClassifier, pg_state_step
 from .slo import HealthCheck, HealthReport, SLOSpec, evaluate
 from .status import register_admin_hooks, render_status, status_dict
+from .traceexport import build_trace, export_trace, validate_trace
 from .timeline import (
     HEALTH_ERR,
     HEALTH_OK,
@@ -30,6 +46,20 @@ from .timeline import (
 )
 
 __all__ = [
+    "FLIGHT_LANES",
+    "FlightState",
+    "build_trace",
+    "crash_dump_guard",
+    "drain_flight",
+    "empty_flight",
+    "export_trace",
+    "flight_record",
+    "flight_row",
+    "journal_drain",
+    "read_flight_dump",
+    "resolve_flight_recorder",
+    "validate_trace",
+    "write_flight_dump",
     "EventJournal",
     "HEALTH_ERR",
     "HEALTH_OK",

@@ -37,6 +37,10 @@ one device:
   (survival, MTTDL, availability, time to zero degraded) over a fleet.
 - :mod:`~ceph_tpu_torch.recovery.reconcile` — divergent rank views in
   one process, merged by lattice joins under a stall-tolerant protocol.
+- :mod:`~ceph_tpu_torch.recovery.checkpoint` — crash-consistent
+  snapshots in the reference's file format (lane CRCs through K8), a
+  write-ahead log, and the checkpointed epoch loop, fleet and divergent
+  runs that resume bit-equal after a kill.
 
 ``recover_pool(m_prev, m_cur, pool_id, codec, read_shard,
 device="cuda")`` runs the whole pipeline once;
@@ -60,6 +64,20 @@ from .chaos import (
     ChaosTimeline,
     VirtualClock,
     build_scenario,
+)
+from .checkpoint import (
+    CheckpointError,
+    CheckpointStore,
+    CrashPoint,
+    SimulatedCrash,
+    WriteAheadLog,
+    checkpointed_fleet,
+    checkpointed_superstep,
+    crash_points,
+    diff_states,
+    restore_divergent,
+    save_divergent,
+    strip_crash_specs,
 )
 from .executor import (
     LaunchError,
@@ -167,6 +185,18 @@ from .scrub import (
 )
 
 __all__ = [
+    "CheckpointError",
+    "CheckpointStore",
+    "CrashPoint",
+    "SimulatedCrash",
+    "WriteAheadLog",
+    "checkpointed_fleet",
+    "checkpointed_superstep",
+    "crash_points",
+    "diff_states",
+    "restore_divergent",
+    "save_divergent",
+    "strip_crash_specs",
     "ACTIONS",
     "AppliedChipSpec",
     "AppliedCorruption",

@@ -65,8 +65,8 @@ Every lane equals its own one-cluster run bit for bit
 held in ``tests/test_torch_fleet.py`` over the chaos zoo.  Outputs land
 as a :class:`FleetSeries` (the ``EpochSeries`` fields with a second,
 fleet axis), which :mod:`~ceph_tpu_torch.recovery.durability` reduces.
-The flight recorder (ROADMAP §1 item 3) is not ported: a template
-driver with ``flight_recorder=on`` raises.
+With the template driver's flight recorder on, a per-lane ring
+(``[F_pad, R, L]``) records every lane's epoch.
 """
 
 from __future__ import annotations
@@ -80,7 +80,9 @@ from ..core.cluster_state import (
     ClusterState,
     _check_bucketed,
     _pad_to,
+    dirty_ladder,
     index_state,
+    ladder_rung,
     stack_states,
 )
 from ..osdmap.map import OSDMap
@@ -401,8 +403,8 @@ class FleetDriver:
         self.device = self.driver.device
         self._init_cache: dict[int, ClusterState] = {}
         self._decay_tab: torch.Tensor | None = None
-        #: the flight recorder's per-lane ring: the recorder is not
-        #: ported, so this stays None
+        #: the flight recorder's per-lane ring after the last run (None
+        #: with the recorder off)
         self.flight = None
         self.final_state: ClusterState | None = None
         self.stats: dict = {}
@@ -548,35 +550,54 @@ class FleetDriver:
 
     # -- drivers -------------------------------------------------------
 
-    def _run(self, n_epochs: int, tapes: list[EventTape], salts: torch.Tensor):
-        """Advance ``len(tapes)`` lanes ``n_epochs`` epochs: ``(state,
-        FleetRows)``."""
+    def _run(self, n_epochs: int, tapes: list[EventTape], salts: torch.Tensor, *,
+             start: int = 0, stop: int | None = None, fstate: ClusterState | None = None,
+             fs=None):
+        """Advance ``len(tapes)`` lanes through epochs ``start .. stop -
+        1`` of an ``n_epochs`` run (the whole run by default) from
+        ``fstate`` (the initial fleet by default; a state a chunk or a
+        restore wrote, whose scalars and down/laggy bits rebuild the
+        host's view with one read).  With a flight state ``fs`` the
+        per-lane ring records each epoch (:attr:`flight` afterwards).
+        Returns ``(state, FleetRows)``, the state's scalars set for the
+        chunk's end."""
         drv = self.driver
         dev = self.device
         f_pad = len(tapes)
-        fstate = self._fleet_state(f_pad)
-        n_osds = fstate.n_osds
-        # this run's own peering tables: dirty lanes are written in place
-        fstate = replace(fstate, **{f: getattr(fstate, f).clone() for f in _PEER_FIELDS})
+        stop = n_epochs if stop is None else int(stop)
+        n_osds = self.driver._init_state.n_osds
         nows = np.array([drv._now_of(e) for e in range(n_epochs)], np.float64)
         self._plan = plan = _tape_plan(tapes, nows, n_osds, dev)
         self._n_epochs = n_epochs
         self._salt_dev = salts
         self._memo: dict[bytes, tuple] = {}
         self._zero_live = torch.zeros((f_pad, 5), dtype=I32, device=dev)
-        self._last_tick = torch.zeros(f_pad, dtype=I64, device=dev)
         self.stats = {"reads": 0, "dirty_lane_epochs": 0, "peered": 0, "peer_reused": 0}
         if n_epochs > 0:
             self._decay_table(n_epochs)
-        epoch = np.full(f_pad, drv._init_host.epoch, np.int64)
-        last_tick = np.full(f_pad, drv.t0, np.float64)
-        any_down = np.zeros(f_pad, bool)
-        any_laggy = np.zeros(f_pad, bool)
-        epochs_out = np.zeros((n_epochs, f_pad), np.int32)
-        dirty_out = np.zeros((n_epochs, f_pad), np.int32)
+        if fstate is None:
+            fstate = self._fleet_state(f_pad)
+            epoch = np.full(f_pad, drv._init_host.epoch, np.int64)
+            last_tick = np.full(f_pad, drv.t0, np.float64)
+            any_down = np.zeros(f_pad, bool)
+            any_laggy = np.zeros(f_pad, bool)
+            prev_now = drv.t0
+        else:
+            flags = torch.stack([fstate.down.any(-1), (fstate.laggy != 0).any(-1)]).cpu()
+            any_down, any_laggy = flags.numpy()
+            epoch = fstate.epoch.cpu().numpy().astype(np.int64)
+            last_tick = fstate.last_tick.cpu().numpy()
+            prev_now = drv._now_of(start - 1) if start > 0 else drv.t0
+        # a lane's last tick as its decay-table column (0: t0; s + 1: epoch s)
+        cols = np.rint((last_tick - drv.t0) / drv.dt).astype(np.int64)
+        self._last_tick = torch.from_numpy(cols).to(dev)
+        # this run's own peering tables: dirty lanes are written in place
+        fstate = replace(fstate, **{f: getattr(fstate, f).clone() for f in _PEER_FIELDS})
+        epochs_out = np.zeros((stop - start, f_pad), np.int32)
+        dirty_out = np.zeros((stop - start, f_pad), np.int32)
         rows: list[torch.Tensor] = []
-        prev_now = drv.t0
-        for e in range(n_epochs):
+        lane_widths = self._lane_widths(f_pad)
+        for e in range(start, stop):
             now = float(nows[e])
             fstate = self._tape_apply(fstate, e, now)
             epoch += plan.bumps[e]
@@ -598,9 +619,12 @@ class FleetDriver:
                     self.stats["dirty_lane_epochs"] += int(lanes.size)
                     fstate = self._peer_dirty(fstate, lanes, read[:, 3:])
             traffic = self._traffic_apply(fstate, e, now)
-            rows.append(self._row(fstate, traffic, live, self._scrub_due(prev_now, now)))
-            epochs_out[e] = epoch
-            dirty_out[e] = dirty
+            row = self._row(fstate, traffic, live, self._scrub_due(prev_now, now))
+            rows.append(row)
+            if fs is not None:
+                fs = self._record(fs, row, e, dirty, lane_widths)
+            epochs_out[e - start] = epoch
+            dirty_out[e - start] = dirty
             prev_now = now
         width = sum(w for _f, w, _d in _packed_layout())
         packed = (torch.stack(rows) if rows
@@ -609,14 +633,38 @@ class FleetDriver:
         def lanes_of(values, dtype):
             return torch.from_numpy(np.asarray(values)).to(dtype).to(dev)
 
-        last = n_epochs - 1
-        fstate = replace(
-            fstate, epoch=lanes_of(epoch, I32),
-            now=lanes_of(np.full(f_pad, prev_now), torch.float64),
-            last_tick=lanes_of(last_tick, torch.float64),
-            tape_cursor=lanes_of(plan.cursor, I32),
-            step=lanes_of(np.full(f_pad, max(last, 0)), I32))
-        return fstate, FleetRows(nows, epochs_out, dirty_out, packed)
+        if stop > start:
+            cursor = np.array([int(np.searchsorted(tp.t, nows[stop - 1], side="right"))
+                               for tp in tapes], np.int64)
+            fstate = replace(
+                fstate, epoch=lanes_of(epoch, I32),
+                now=lanes_of(np.full(f_pad, prev_now), torch.float64),
+                last_tick=lanes_of(last_tick, torch.float64),
+                tape_cursor=lanes_of(cursor, I32),
+                step=lanes_of(np.full(f_pad, stop - 1), I32))
+        self.flight = fs
+        return fstate, FleetRows(nows[start:stop], epochs_out, dirty_out, packed)
+
+    def _lane_widths(self, f_pad: int) -> tuple[int, ...]:
+        """The reference's lane ladder for a ``f_pad``-lane fleet: the
+        port peers each dirty lane alone, but the flight recorder's rung
+        and cycle lanes report the rung the reference would take."""
+        drv = self.driver
+        sdc = drv._sparse_mode
+        if sdc == "on" or (sdc == "auto" and f_pad >= 8):
+            return dirty_ladder(f_pad, min_bucket=1, growth=4, max_rungs=drv._sparse_rungs)
+        return ()
+
+    def _record(self, fs, row: torch.Tensor, step: int, dirty: np.ndarray, widths):
+        """One epoch's per-lane ring rows: the lane ladder's stats are one
+        value an epoch (the count of dirty lanes), the rest per lane."""
+        from ..obs.flight import flight_record
+
+        n_dl = int(np.count_nonzero(dirty))
+        rung = ladder_rung(n_dl, widths) if n_dl else -1
+        extras = (step, dirty, rung, n_dl, 0)
+        return flight_record(fs, self.driver._flight_row(row, extras, widths=widths,
+                                                         dense=fs.ring.shape[0]))
 
     def run_fleet(
         self,
@@ -630,14 +678,21 @@ class FleetDriver:
         """Advance every timeline ``n_epochs`` epochs together.  Returns a
         cropped :class:`FleetSeries`, or with ``pull=False`` the
         ``(state, rows)`` pair still on the device (:class:`FleetRows`).
-        ``journal`` is the flight recorder's drain seam, unused while the
-        recorder is not ported."""
+        With the template driver's flight recorder on, a per-lane ring
+        rides the run (:attr:`flight` afterwards; drained into
+        ``journal`` when given) without touching the series lanes."""
+        from ..obs.flight import empty_flight, journal_drain
+
         tls = list(timelines)
         tapes = [compile_event_tape(tl, self.m) for tl in tls]
         ftape = stack_tapes(tapes)
         salts = self._salts(len(tls), ftape.fleet_pad, seeds)
         lanes = tapes + [_empty_tape()] * (ftape.fleet_pad - len(tapes))
-        state, rows = self._run(int(n_epochs), lanes, salts)
+        fs = (empty_flight(self.driver.flight_ring_epochs, fleet=ftape.fleet_pad,
+                           device=self.device) if self.driver.flight_on else None)
+        state, rows = self._run(int(n_epochs), lanes, salts, fs=fs)
+        if fs is not None and journal is not None:
+            journal_drain(journal, self.flight, fleet=len(tls))
         self.final_state = state
         if not pull:
             return state, rows

@@ -35,9 +35,10 @@ exchange; this module simulates that:
   rank that never comes back.  A revived rank replays its own missed
   window through the same body (bit-exact, no state injection).
 
-What waits: the checkpointed ``run(store=...)`` and ``crashes=``
-(ROADMAP §1, item 2d), and the multi-process :class:`ViewMerger` and
-:class:`RankReconciler` (item 4).
+``run(store=..., crashes=...)`` snapshots every rank's view at each
+reconciliation boundary (:mod:`~ceph_tpu_torch.recovery.checkpoint`).
+What waits: the multi-process :class:`ViewMerger` and
+:class:`RankReconciler` (ROADMAP §1, item 4).
 """
 
 from __future__ import annotations
@@ -762,22 +763,70 @@ class DivergentDriver:
         laggy, extra backoff rounds continue past the epoch budget
         (bounded by ``recovery_retry_max``) so a permanent stall
         surfaces as :class:`RankStalledError` rather than silence.
-        ``store`` and ``crashes`` (checkpointed runs) are not ported."""
-        if store is not None or crashes:
-            raise NotImplementedError(
-                "DivergentDriver.run(store=..., crashes=...): checkpoints are "
-                "not ported yet (ROADMAP §1, item 2d)")
+
+        With a :class:`~ceph_tpu_torch.recovery.checkpoint.CheckpointStore`,
+        every reconciliation boundary commits a fleet-consistent snapshot
+        (all rank views stacked, plus the protocol's verdict state) and a
+        fresh call restores from the newest valid one, the revived views
+        fingerprint-guarded against the snapshot.  ``crashes`` seeds
+        :class:`~ceph_tpu_torch.recovery.checkpoint.CrashPoint` kills at
+        those boundaries."""
         proto = self.protocol
         rounds: list[RoundResult] = []
         target = 0
         round_idx = 0
         extra_rounds = 0
         n_epochs = int(n_epochs)
+        sched = None
+        if store is not None:
+            from .checkpoint import _CrashSchedule, restore_divergent, save_divergent
+
+            sched = _CrashSchedule(crashes)
+            meta = restore_divergent(store, self)
+            if meta is not None:
+                target = int(meta["target"])
+                round_idx = int(meta["round_idx"])
+                extra_rounds = int(meta["extra_rounds"])
+                rounds = [
+                    RoundResult(
+                        round=int(r["round"]),
+                        target_step=int(r["target_step"]),
+                        steps=tuple(r["steps"]),
+                        epochs=tuple(r["epochs"]),
+                        fingerprints=tuple(r["fingerprints"]),
+                        laggy=tuple(r["laggy"]),
+                        converged=bool(r["converged"]),
+                        diverged=bool(r["diverged"]),
+                        retries=int(r["retries"]),
+                        backoff_epochs=int(r["backoff_epochs"]),
+                    )
+                    for r in meta["rounds"]
+                ]
+                # the merge is a pure function of the restored views
+                self.merged = self._merge(self._now_at(target))
+
+        def _boundary():
+            # the reconciliation-boundary checkpoint, with the seeded
+            # kill points positioned around its write
+            if store is None:
+                return
+            sched.fire(target, "before")
+            during = sched.due(target, "during")
+            if during is not None:
+                store._crash_hook = lambda phase: during.fire()
+            try:
+                save_divergent(store, self, round_idx=round_idx, target=target,
+                               extra_rounds=extra_rounds, rounds=rounds)
+            finally:
+                store._crash_hook = None
+            sched.fire(target, "after")
+
         while target < n_epochs:
             target = min(target + proto.every, n_epochs)
             rounds.append(self.reconcile_round(round_idx, target))
             target = max(target, max(self.cur))
             round_idx += 1
+            _boundary()
         # drive to resolution: while a rank lags (stalled but not yet
         # past the deadline, laggy awaiting revival, or views not yet
         # in agreement) the survivors keep advancing under seeded
@@ -800,6 +849,7 @@ class DivergentDriver:
             rounds.append(self.reconcile_round(round_idx, target))
             target = max(target, max(self.cur))
             round_idx += 1
+            _boundary()
         last = rounds[-1] if rounds else None
         return DivergentResult(
             rounds=rounds,

@@ -27,9 +27,15 @@ retried through the dense bit-matrix path instead of shipping bad
 bytes.
 
 CRCs ride in int64 tensors (u32 values; CPU PyTorch has no u32
-arithmetic) and come back to the host as u32.  The reference package's
-mesh-sharded scrub (ROADMAP §1, item 4) and stripe-buffer scrub (item
-3) are not ported yet.
+arithmetic) and come back to the host as u32.
+
+The online write path's stripe buffer (:mod:`ceph_tpu_torch.ec.online`)
+scrubs through two independent lanes (:meth:`Scrubber.note_stripe_writes`,
+:meth:`Scrubber.scrub_stripe_buffer`, :meth:`DecodeVerifier.
+verify_stripe_buffer`): each resident slot's parity digest (K8 over the
+slots' parity rows on the buffer's device) against the write-time
+table, and a dense numpy GF(2) re-encode of its data.  The reference
+package's mesh-sharded scrub (ROADMAP §1, item 4) is not ported yet.
 """
 
 from __future__ import annotations
@@ -424,13 +430,21 @@ class Scrubber:
         self._stagger_anchor: float | None = None
 
     def _stack(self, read_shard) -> np.ndarray:
-        return np.stack([
-            np.stack([
-                np.asarray(read_shard(pg, s), np.uint8)
-                for s in range(self.n_shards)
-            ])
-            for pg in range(self.n_pgs)
-        ])
+        """Every (pg, shard) chunk in one ``[n_pgs, n_shards, chunk]``
+        array, each copied once."""
+        out = None
+        for pg in range(self.n_pgs):
+            for s in range(self.n_shards):
+                a = np.asarray(read_shard(pg, s), np.uint8)
+                if out is None:
+                    out = np.empty((self.n_pgs, self.n_shards) + a.shape, np.uint8)
+                elif a.shape != out.shape[2:]:
+                    raise ValueError(f"shard ({pg}, {s}) has shape {a.shape}, "
+                                     f"not {out.shape[2:]}")
+                out[pg, s] = a
+        if out is None:
+            raise ValueError("need at least one shard to stack")
+        return out
 
     def _crcs(self, rows: np.ndarray) -> np.ndarray:
         """K8 over host rows ``[n, chunk]`` on this scrubber's device."""
@@ -675,3 +689,128 @@ class DecodeVerifier:
                 if not np.array_equal(got[sl], want[sl]):
                     bad.add(int(pg))
         return bad
+
+    def verify_stripe_buffer(self, buf, bitmatrix) -> set[int]:
+        """Stripe keys in a resident stripe buffer whose parity fails the
+        independent dense re-encode: the decode-side twin of
+        :meth:`Scrubber.scrub_stripe_buffer`, run before a repair plan
+        trusts cached parity as a decode source."""
+        from ..ec.online import dense_parity_words
+
+        keys, data, parity = _buffer_host(buf)
+        bad: set[int] = set()
+        for si, wi in zip(*np.nonzero(keys >= 0)):
+            want = dense_parity_words(bitmatrix, data[si, wi])
+            if not np.array_equal(parity[si, wi], want):
+                bad.add(int(keys[si, wi]))
+        return bad
+
+
+# ---------------------------------------------------------------------------
+# stripe-buffer scrub: delta-updated parity coverage
+
+
+def _buffer_host(buf):
+    """A stripe buffer's keys, data and parity on the host (words as
+    u32)."""
+    return (buf.keys.cpu().numpy(), buf.data.cpu().numpy().view(np.uint32),
+            buf.parity.cpu().numpy().view(np.uint32))
+
+
+@dataclass
+class StripeScrubResult:
+    """One stripe-buffer scrub pass's verdict.
+
+    Two independent lanes vote: the CRC lane compares each resident
+    slot's parity digest against the write-time stripe checksum table
+    (:meth:`Scrubber.note_stripe_writes`), and the re-encode lane
+    recomputes every slot's parity through
+    :func:`~ceph_tpu_torch.ec.online.dense_parity_words`, a dense GF(2)
+    product sharing no code with the XOR-schedule compiler, so a wrong
+    parity delta is caught even when the checksum table was refreshed
+    over the wrong bytes."""
+
+    crc_bad: list  # (set, way, key) whose parity CRC mismatches
+    reencode_bad: list  # (set, way, key) failing the dense re-encode
+    checked_slots: int
+    scrubbed_bytes: int
+
+    @property
+    def inconsistent(self) -> list:
+        """Damaged slots, both lanes merged."""
+        return sorted(set(self.crc_bad) | set(self.reencode_bad))
+
+    @property
+    def status(self) -> str:
+        """``"inconsistent"`` when any resident slot failed a lane."""
+        return "inconsistent" if self.inconsistent else "ok"
+
+
+def stripe_parity_crcs(buf) -> np.ndarray:
+    """CRC32C of every slot's parity rows, ``[n_sets, ways]`` u32: K8 on
+    the buffer's device over the slots' parity bytes."""
+    n_sets, ways = buf.keys.shape
+    rows = buf.parity.reshape(n_sets * ways, -1).contiguous().view(U8)
+    return crc_rows(rows).cpu().numpy().astype(np.uint32).reshape(n_sets, ways)
+
+
+def _scrubber_note_stripe_writes(self, buf) -> np.ndarray:
+    """Checksum-at-write for the online write path: digest every resident
+    slot's (delta-updated) parity, so later passes compare against the
+    bytes the writes actually committed."""
+    self.stripe_checksums = stripe_parity_crcs(buf)
+    self._stripe_keys = buf.keys.cpu().numpy().copy()
+    return self.stripe_checksums
+
+
+def _scrubber_scrub_stripe_buffer(self, buf, bitmatrix) -> StripeScrubResult:
+    """Scrub every resident stripe slot: the CRC lane against the
+    write-time table, plus the independent dense re-encode lane
+    (``parity == bitmatrix · data`` over GF(2)).  A wrong delta must be
+    caught here, never silently committed."""
+    from ..ec.online import dense_parity_words
+
+    keys, data, parity = _buffer_host(buf)
+    bm = np.asarray(bitmatrix)
+    crcs = stripe_parity_crcs(buf)
+    crc_bad, re_bad = [], []
+    checked = 0
+    for si, wi in zip(*np.nonzero(keys >= 0)):
+        key = int(keys[si, wi])
+        slot = (int(si), int(wi), key)
+        checked += 1
+        if (
+            self.stripe_checksums is not None
+            and self._stripe_keys is not None
+            and int(self._stripe_keys[si, wi]) == key
+            and int(crcs[si, wi]) != int(self.stripe_checksums[si, wi])
+        ):
+            crc_bad.append(slot)
+        want = dense_parity_words(bm, data[si, wi])
+        if not np.array_equal(parity[si, wi], want):
+            re_bad.append(slot)
+    nbytes = checked * int(parity.shape[2]) * int(parity.shape[3]) * 4
+    res = StripeScrubResult(
+        crc_bad=crc_bad,
+        reencode_bad=re_bad,
+        checked_slots=checked,
+        scrubbed_bytes=nbytes,
+    )
+    self.pc.inc("scrub_passes")
+    self.pc.inc("scrubbed_bytes", nbytes)
+    self.pc.inc("inconsistencies_found", len(res.inconsistent))
+    if self.journal is not None and res.inconsistent:
+        self.journal.event(
+            "scrub.stripe_inconsistent",
+            n_slots=len(res.inconsistent),
+            keys=[key for _, _, key in res.inconsistent],
+        )
+    return res
+
+
+# the stripe lanes sit beside StripeScrubResult so the delta-parity
+# scrub reads as one block, as in the reference
+Scrubber.stripe_checksums = None
+Scrubber._stripe_keys = None
+Scrubber.note_stripe_writes = _scrubber_note_stripe_writes
+Scrubber.scrub_stripe_buffer = _scrubber_scrub_stripe_buffer

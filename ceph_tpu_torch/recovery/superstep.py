@@ -55,6 +55,15 @@ host row an epoch.  The two must be equal bit for bit
 staged path (:func:`epoch_superstep_enabled`); both paths run on the
 card, so the switch hides nothing.
 
+With ``flight_recorder=on`` each epoch also writes one row of telemetry
+lanes into a ring on the device (:mod:`ceph_tpu_torch.obs.flight`): the
+dirty-set probe of a dirty epoch is read only, so every epoch lane is
+the same with the recorder on or off.  :meth:`EpochDriver.advance` runs
+any range of epochs from a state and its host view, and
+:meth:`EpochDriver.host_view` rebuilds that view from a restored
+state's scalars (the checkpointed runs of
+:mod:`~ceph_tpu_torch.recovery.checkpoint`).
+
 ``compile_fused_peering`` (the reference's fused placement and peering
 program) is not ported: peering here is the mapping program of
 :func:`~ceph_tpu_torch.osdmap.mapping.compile_pool_mapping` on the
@@ -334,6 +343,15 @@ def _packed_layout() -> list[tuple[str, int, np.dtype]]:
             for f in _SERIES_FIELDS if f not in _HOST_FIELDS]
 
 
+def _packed_cols() -> dict[str, int]:
+    """Each packed lane's first column in the device row."""
+    cols, c = {}, 0
+    for f, width, _d in _packed_layout():
+        cols[f] = c
+        c += width
+    return cols
+
+
 @dataclass
 class EpochRows:
     """A run's epoch rows before they are pulled: the host lanes as
@@ -588,15 +606,19 @@ class EpochDriver:
             step=0, now=self.t0, last_tick=self.t0, epoch=int(m.epoch), cursor=0,
             suppressed=np.zeros(n, bool), slow=np.zeros(n, bool),
         )
-        # the flight recorder (item 3) is not ported: 'on' refuses,
-        # 'auto' is off, as the reference resolves it without the
-        # bench-decided default file
-        if str(cfg.get("flight_recorder")) == "on":
-            raise NotImplementedError(
-                "flight_recorder=on: the flight recorder (obs/flight.py) is not "
-                "ported yet (ROADMAP §1, item 3)"
-            )
-        self.flight_on = False
+        self._sparse_mode = sdc
+        self._sparse_rungs = int(cfg.get("sparse_ladder_rungs"))
+        # the flight recorder: 'on' records a ring row an epoch, 'off'
+        # and 'auto' (the port has no bench-decided default) do not
+        from ..obs.flight import empty_flight, resolve_flight_recorder
+
+        self.flight_ring_epochs = int(cfg.get("flight_ring_epochs"))
+        self.flight_on = resolve_flight_recorder(str(cfg.get("flight_recorder")))
+        self._init_flight = (empty_flight(self.flight_ring_epochs, device=dev)
+                             if self.flight_on else None)
+        #: the recorder's ring after the most recent run or chunk
+        self.flight = self._init_flight
+        self._probe = None
 
     # -- the pieces (shared by both drivers) ---------------------------
 
@@ -725,6 +747,29 @@ class EpochDriver:
                        flags=flags, survivor_mask=mask, n_alive=n_alive,
                        pg_hist=hist, pg_aux=aux)
 
+    @staticmethod
+    def _dirty_pgs(state: ClusterState, prev_up, prev_w):
+        """The dirty-set predicate: ``(dirty_pg [pg_num] bool, heavy)``
+        on the device.  Heavy epochs (a weight edit, an OSD coming up)
+        dirty every PG; otherwise a PG is dirty when its carried
+        ``up``/``acting`` rows or its ``pg_temp``/``primary_temp``
+        overrides hold an OSD that went down."""
+        pool = state.pool
+        cur_up = pool.osd_up
+        up_flip = prev_up ^ cur_up
+        heavy = (prev_w != pool.osd_weight).any() | (up_flip & cur_up).any()
+        down_flip = up_flip & ~cur_up
+        n = down_flip.shape[0]
+        flip_pad = torch.cat([down_flip, down_flip.new_zeros(1)])
+
+        def member(tbl):
+            ids = torch.where((tbl >= 0) & (tbl < n), tbl, n).to(I64)
+            return flip_pad[ids].any(dim=-1)
+
+        dirty_pg = (member(state.up) | member(state.acting) | member(pool.pg_temp)
+                    | member(pool.primary_temp[:, None]) | heavy)
+        return dirty_pg, heavy
+
     def _peer_hist_compact(self, state: ClusterState, prev_up, prev_w) -> ClusterState:
         """The dirty branch through the dirty-set ladder.
 
@@ -741,22 +786,10 @@ class EpochDriver:
         from ..obs.pg_states import pg_state_reduce
 
         widths = self._dirty_ladder
-        pool = state.pool
-        cur_up = pool.osd_up
-        up_flip = prev_up ^ cur_up
-        heavy = (prev_w != pool.osd_weight).any() | (up_flip & cur_up).any()
-        down_flip = up_flip & ~cur_up
-        n = down_flip.shape[0]
-        flip_pad = torch.cat([down_flip, down_flip.new_zeros(1)])
-
-        def member(tbl):
-            ids = torch.where((tbl >= 0) & (tbl < n), tbl, n).to(I64)
-            return flip_pad[ids].any(dim=-1)
-
-        dirty_pg = (member(state.up) | member(state.acting) | member(pool.pg_temp)
-                    | member(pool.primary_temp[:, None]) | heavy)
+        dirty_pg, heavy = self._dirty_pgs(state, prev_up, prev_w)
         take, n_dirty = compact_dirty_indices(dirty_pg)
         nd = int(n_dirty)  # the rung read
+        self._probe = (nd, heavy)
         rung = ladder_rung(nd, widths)
         if rung == len(widths):
             self.rungs_taken.append(rung)
@@ -869,8 +902,12 @@ class EpochDriver:
 
     def _epoch_step(self, state: ClusterState, host: _HostView, step: int, *,
                     tape: EventTape | None = None, salt_base: int | None = None,
-                    compact: bool = True):
-        """One epoch of the superstep: ``(state, (dirty, row))``."""
+                    compact: bool = True, traced: bool = False):
+        """One epoch of the superstep: ``(state, (dirty, row))``, and
+        with ``traced`` the flight recorder's extras ``(step, dirty,
+        rung, n_dirty, heavy)`` third: the dirty-set probe of a dirty
+        epoch, read only (the compacted branch's own count, or the same
+        predicate on the device), so every epoch lane stays as it is."""
         prev_now = host.now
         # the pool lanes before this epoch's edits: the compacted dirty
         # branch diffs against them to find the PGs the edits can reach
@@ -878,16 +915,64 @@ class EpochDriver:
         state, tape_dirty = self._tape_apply(state, host, step, tape)
         state, live, trans = self._live(state, host, host.idle)
         dirty = tape_dirty or trans
+        extras = (step, False, -1, 0, False)
         # pg_hist/pg_aux move only when peering moves, so quiet epochs
         # carry them forward
         if dirty:
             if compact and self._dirty_ladder:
                 state = self._peer_hist_compact(state, prev_up, prev_w)
+                if traced:
+                    nd, heavy = self._probe
+                    extras = (step, True, ladder_rung(nd, self._dirty_ladder), nd, heavy)
             else:
+                if traced:
+                    dirty_pg, heavy = self._dirty_pgs(state, prev_up, prev_w)
+                    extras = (step, True, 0, dirty_pg.sum(dtype=I64), heavy)
                 state = self._peer_hist(state)
         traffic = self._traffic_apply(state, step, host.now, salt_base)
         row = self._row(state, traffic, live, self._scrub_due(prev_now, host.now))
+        if traced:
+            return state, (dirty, row), extras
         return state, (dirty, row)
+
+    def _flight_row(self, row: torch.Tensor, extras, wrow=None, widths=None,
+                    dense: int | None = None) -> torch.Tensor:
+        """One int64 lane row for the recorder's ring from the epoch's
+        packed row and probe extras (and the write path's stripe lanes
+        when it rides the loop).  The cycle proxies are op counts: the
+        chosen peering bucket width (the dense width on the top rung),
+        the routed ops, the scrub window.  ``widths``/``dense`` name the
+        ladder (the fleet's lane ladder; default the PG ladder)."""
+        from ..obs.flight import flight_row
+
+        step, dirty, rung, n_dirty, heavy = extras
+        widths = self._dirty_ladder if widths is None else widths
+        dense = self.pg_num if dense is None else dense
+        table = tuple(widths) + (dense,)
+        col = _packed_cols()
+
+        def lane(name, i=0):
+            return row[..., col[name] + i].to(I64)
+
+        served, degraded, blocked = lane("counts"), lane("counts", 1), lane("counts", 2)
+        stripe = {}
+        if wrow is not None:
+            from ..ec.online import WP_LANES
+
+            stripe = {f"stripe_{n}": wrow[..., WP_LANES.index(n)]
+                      for n in ("hits", "misses", "evictions", "delta_words")}
+        is_dirty = np.asarray(dirty).any()
+        return flight_row(
+            device=row.device,
+            epoch=step, dirty=np.asarray(dirty, np.int64), rung=rung, dirty_pgs=n_dirty,
+            compact=int(rung >= 0 and rung < len(widths) and is_dirty), heavy=heavy,
+            served=served, degraded=degraded, blocked=blocked,
+            writes=lane("writes"), deg_reads=lane("deg_reads"), eff_down=lane("eff_down"),
+            eff_up=lane("eff_up"), eff_out=lane("eff_out"), down_total=lane("down_total"),
+            scrub_due=lane("scrub_due"),
+            cycles_peer=table[min(max(rung, 0), len(widths))] if is_dirty else 0,
+            cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"),
+            **stripe)
 
     def _epoch_step_with(self, state: ClusterState, host: _HostView, step: int,
                          tape: EventTape, salt_base: int):
@@ -907,6 +992,58 @@ class EpochDriver:
         return replace(state, epoch=full(host.epoch, I32), now=full(host.now, F64),
                        last_tick=full(host.last_tick, F64),
                        tape_cursor=full(host.cursor, I32), step=full(host.step, I32))
+
+    def host_view(self, state: ClusterState) -> _HostView:
+        """The host view of a state written at a chunk's end (a restored
+        snapshot): its scalars, its suppressed and slow bits, and whether
+        any OSD is down or laggy (one read).  Exact: ``down`` and
+        ``laggy`` move only at a liveness tick, where the host reads the
+        same two bits."""
+        flags = torch.stack([state.down.any(), (state.laggy != 0).any()]).cpu().tolist()
+        return _HostView(
+            step=int(state.step), now=float(state.now), last_tick=float(state.last_tick),
+            epoch=int(state.epoch), cursor=int(state.tape_cursor),
+            suppressed=state.suppressed.cpu().numpy().copy(),
+            slow=state.slow.cpu().numpy().copy(), any_down=bool(flags[0]),
+            any_laggy=bool(flags[1]))
+
+    def advance(self, state: ClusterState, host: _HostView, start: int, stop: int, fs=None):
+        """Epochs ``start .. stop - 1`` from ``state`` and its host view
+        (advanced in place); with a flight state ``fs`` the ring records
+        each epoch.  Returns ``(state, fs, rows)``: the state with its
+        scalars set, the ring, and the epochs' :class:`EpochRows`."""
+        now, epoch, dirty, packed = [], [], [], []
+        for e in range(start, stop):
+            if fs is None:
+                state, (d, row) = self._epoch_step(state, host, e)
+            else:
+                state, (d, row), extras = self._epoch_step(state, host, e, traced=True)
+                fs = self._record(fs, row, extras)
+            now.append(host.now)
+            epoch.append(host.epoch)
+            dirty.append(int(d))
+            packed.append(row)
+        if not packed:
+            return self._with_scalars(state, host), fs, self._empty_rows()
+        rows = EpochRows(np.asarray(now, np.float64), np.asarray(epoch, np.int32),
+                         np.asarray(dirty, np.int32), torch.stack(packed))
+        return self._with_scalars(state, host), fs, rows
+
+    def _record(self, fs, row, extras, wrow=None):
+        from ..obs.flight import flight_record
+
+        return flight_record(fs, self._flight_row(row, extras, wrow))
+
+    def drain_flight(self) -> dict:
+        """The recorder's ring brought to the host and un-rotated (a pure
+        read)."""
+        from ..obs.flight import drain_flight
+
+        if self.flight is None:
+            raise RuntimeError(
+                "flight recorder is off for this driver (flight_recorder=on "
+                "enables it)")
+        return drain_flight(self.flight)
 
     # -- drivers -------------------------------------------------------
 
@@ -928,10 +1065,16 @@ class EpochDriver:
         snapshots, returns ``(state, rows)``: the last chunk's
         :class:`EpochRows` still on the device.  A quiet epoch reads the
         device at most once (the dirty decision); there is no CUDA
-        graph of an epoch yet.  ``journal`` is the flight recorder's
-        drain seam, unused while the recorder is not ported."""
+        graph of an epoch yet.  With the flight recorder on, the ring
+        rides the loop (:attr:`flight` afterwards) and, given a
+        ``journal``, drains a ``flight.drain`` record at every chunk's
+        end."""
+        from ..obs.flight import journal_drain
+
         state = self._init_state
         host = self._init_host.copy()
+        fs = self._init_flight
+        self.flight = fs
         self.rungs_taken = []
         n_epochs = int(n_epochs)
         if n_epochs <= 0:
@@ -946,16 +1089,10 @@ class EpochDriver:
         start = 0
         while start < n_epochs:
             size = min(chunk, n_epochs - start)
-            now, epoch, dirty, packed = [], [], [], []
-            for e in range(start, start + size):
-                state, (d, row) = self._epoch_step(state, host, e)
-                now.append(host.now)
-                epoch.append(host.epoch)
-                dirty.append(int(d))
-                packed.append(row)
-            rows = EpochRows(np.asarray(now, np.float64), np.asarray(epoch, np.int32),
-                             np.asarray(dirty, np.int32), torch.stack(packed))
-            self.final_state = state = self._with_scalars(state, host)
+            state, fs, rows = self.advance(state, host, start, start + size, fs)
+            self.final_state, self.flight = state, fs
+            if fs is not None and journal is not None:
+                journal_drain(journal, fs, chunk_start=start)
             if pull or on_snapshot is not None:
                 part = EpochSeries.from_device(rows)
                 parts.append(part)

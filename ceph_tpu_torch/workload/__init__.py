@@ -11,8 +11,11 @@ arbiter that shares bandwidth between clients and recovery.
 - :mod:`~ceph_tpu_torch.workload.histogram` — the log2 bucket ladder
   and the host-side percentile merge.
 
-The online write path (``writepath``) is not ported yet (ROADMAP §1,
-item 3), and ``sharded_traffic_step`` raises (item 4).
+- :mod:`~ceph_tpu_torch.workload.writepath` — the online EC write path:
+  each epoch's committed writes absorbed by the stripe buffer
+  (:mod:`ceph_tpu_torch.ec.online`, K9 and K6).
+
+``sharded_traffic_step`` raises (ROADMAP §1, item 4).
 """
 
 from .histogram import (
@@ -34,8 +37,18 @@ from .traffic import (
     traffic_step,
     workload_counters,
 )
+from .writepath import (
+    WritepathDriver,
+    WritepathSeries,
+    checkpointed_writepath,
+    default_bitmatrix,
+)
 
 __all__ = [
+    "WritepathDriver",
+    "WritepathSeries",
+    "checkpointed_writepath",
+    "default_bitmatrix",
     "LAT_MIN_MS",
     "MClockArbiter",
     "N_BUCKETS",

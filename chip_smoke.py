@@ -45,13 +45,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    (6 slots): the router's tier, host syncs and K1 launches per call
    (K1 > 0 on (b)), placements/s with the compacted-straggler rounds it
    runs at this size and with masked ones (:func:`masked_rounds`; in
-   turns, median of 4 each; equal results), a profile of one compacted
-   call, 65,536 placements each way equal to the C++ tier;
+   turns, median of 2 each; equal results), a profile of one compacted
+   call of (b)'s EC rule, 65,536 placements each way equal to the C++
+   tier;
 5b. rebalance: BASELINE config 5, ``parallel/placement.py::
    sharded_rebalance_sim`` on build_simple(10000, 8 OSDs a host, 16
    hosts a rack) with 100 OSDs out: 12 launches of 8 chunks of 2^20
    objects (100,663,296): placements/s, moved fraction beside the
-   ideal 3.0%, K3 launches, host syncs and peak memory; 65,536 objects
+   ideal 3.0%, K3 launches, host syncs and peak memory; 16,384 objects
    at the start of the first and of the last launch placed and counted
    as the C++ tier does;
 6. ec_encode: jerasure reed_sol_van k=8 m=3 (BASELINE's headline) and
@@ -90,13 +91,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
    one grid covers, the check value 0xE3069283), bit for bit; edge rows
    over 8 KiB are held against the plain version on their 4 KiB pieces
    combined on the host;
+9b. online_kernel: K9 (stripe_absorb, ``csrc/online.cu``, the stripe
+   buffer's write loop) against its plain version at BASELINE config
+   10's full width (1024 sets x 4 ways of 4,096-byte chunks, cauchy-good
+   k=5 m=1 w=8, a warm buffer, a batch of 256 writes), timed with its
+   bound (bytes or hash operations) and its longest per-set chain, with
+   ptxas's registers and spills, and on its edges
+   (``testing/online_edges.py``: an eviction chain in one set, all full,
+   all misses on a cold buffer, invalid lanes between valid ones, a key
+   evicted and hit again, batches of 1 and 512), bit for bit; phase 2's
+   K6 launch at its shape timed beside its bound;
 10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
    build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
    ``recovery_xor_schedule=on`` (K6, bit-plane) and cauchy_good k=8
    m=3 p=2048 under ``auto`` (K6, packet): every rebuilt shard equals
    the stored one, one launch per pattern, the peering equals a numpy
-   classification; timed (median of 3), the first code profiled;
+   classification; timed (median of RECOVERY_REPS calls), the first
+   code profiled;
 10a. supervised: ``SupervisedRecovery`` on the same map and RS k=8 m=3
    with every shard of the pool stored (32 KiB each): mid-repair-loss,
    scrub-storm (a ``Scrubber`` riding the loop, ``write_shard`` writing
@@ -128,7 +140,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and histograms, ``mean_ms`` within ``TRAFFIC_REPLAY_RTOL``);
 10b. epoch: the epoch loop (``recovery/superstep.py::EpochDriver``) at
    BASELINE config 7 (build_osdmap(1024, pg_num=8192, size=6, erasure),
-   two slow OSDs, 64 ops a step): 1024 superstep epochs in chunks of 256
+   two slow OSDs, 64 ops a step): 512 superstep epochs in chunks of 256
    and 128 staged epochs, epochs/s and host syncs an epoch each (at most
    one on a quiet superstep epoch, the chunk copies apart); a
    rack-cascade walk on the same map with compaction auto and off, each
@@ -136,22 +148,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
    taken); the staged series over one chunk equal to the superstep's;
    launches an epoch by piece (tape, liveness, peering, traffic, scrub,
    row) from torch.profiler spans over 8 config-7 epochs and the walk's
-   first three dirty epochs, host ms an epoch by piece and the two paths'
-   rates in turns over 128 config-7 epochs each; the walk at 64 OSDs and
+   epochs through its first dirty one, host ms an epoch by piece and the
+   two paths' rates in turns over 64 config-7 epochs each; the walk at 64 OSDs and
    128 PGs equal on the card and the CPU, every lane;
 10c. fleet: scenario fleets (``recovery/fleet.py::FleetDriver``) at
    BASELINE config 8 as bench/config8_fleet.py sets it (256 ssd-burst
    lanes over 256 epochs, build_osdmap(32, pg_num=16, size=6, erasure),
    32 ops a step): a warm run timed with ``pull=False``
-   (cluster-epochs/s, host syncs an epoch, K3 launches), and 64 lanes
-   over 64 epochs at config 7's width (1024 OSDs, 8192 PGs); lanes 0
+   (cluster-epochs/s, host syncs an epoch, K3 launches), and 32 lanes
+   over 32 epochs at config 7's width (1024 OSDs, 8192 PGs); lanes 0
    and 1 of each equal to new ``EpochDriver``s (and config 8's to
    ``run_sequential``: the sequential rates), a fleet of 255 equal to
    the first 255 lanes, Monte Carlo durability
    (``recovery/durability.py``) for ssd-burst and the panel's
    ssd-steady and ssd-skew fleets, launches an epoch by piece
-   (torch.profiler spans over the first 6 epochs, the first map
-   events among them; host syncs by piece over the timed runs), and 4 lanes
+   (torch.profiler spans over the first 3 epochs, before the first
+   map events; host syncs by piece over the timed runs), and 4 lanes
    over 16 epochs on
    the card and the CPU, every lane equal; then one line of the
    reference's config-8 record (``cli/status.py fleet`` renders it);
@@ -163,6 +175,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
    64 OSDs and 128 PGs on the card and the CPU, every round and every
    lane equal; then one line of the reference's divergent record
    (``cli/status.py ranks`` renders it);
+10e. checkpoint: BASELINE config 9 (``recovery/checkpoint.py``) as
+   bench/config9_checkpoint.py runs it, at config 7's width (flap, 256
+   ops, 256 epochs): the run without checkpoints, the checkpointed run
+   with a snapshot every 16 epochs (the path's launch counts; every
+   snapshot's lane CRCs through K8): durable write bytes/s and bytes a
+   snapshot, the overhead at 16 and 64, a kill mid-write at the midpoint
+   and the restore's load and replay seconds, one snapshot's lane CRCs
+   on the card (K8 launches, ms) beside the host crc32c's rate on the
+   same lanes; gated (checkpointed and resumed series bit-equal, a
+   corrupted newest snapshot falling back with a ``checkpoint.torn``
+   event, a SIGKILL'd ``_crashbox`` child on the card, a fleet at config
+   8's settings and the divergent pass at 64 OSDs killed and restored
+   bit-equal, a snapshot the card wrote restored on the CPU and the rest
+   of the run there equal to the card's); then one line of the
+   reference's config-9 record (``cli/status.py checkpoint``);
+10f. writepath: BASELINE config 10 (``workload/writepath.py::
+   WritepathDriver``: K9 and K6 each epoch) at full width (config 7's
+   map, 256 ops, 128 epochs of flap, ssd-steady, ssd-burst and
+   ssd-skew, a 1024 x 4 buffer of 4,096-byte chunks): encoded bytes/s,
+   hit rate, delta and full bytes, epochs/s a mix, launches an epoch by
+   piece (epoch body, write batch, K9, K6), K9's and K6's ms on the last
+   batch; gated (``writepath_bitequal`` on the card for the five codec
+   families of bench/config10_online_ec.py, staged = superstep on both
+   series, the epoch lanes unchanged by the write stage, a wrong delta
+   caught by ``scrub_stripe_buffer``, ``flight_recorder=on``
+   bit-invisible with the ring's stripe lanes equal to the write rows and
+   its dump and trace export valid, the bench's own settings equal on
+   the card and the CPU); then one line of the reference's config-10
+   record (``cli/status.py writepath``);
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -186,15 +227,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
 general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
-traffic and scrub_qos; 10b: epoch; 10c: fleet; 10d: divergent; 11:
-balancer; 12: cli, each from 0),
+traffic and scrub_qos; 10b: epoch; 10c: fleet; 10d: divergent; 10e:
+checkpoint; 10f: writepath; 11: balancer; 12: cli, each from 0),
 each phase's wall seconds, the kernels
 line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
 K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
 on the traffic path, K3 on the epoch, fleet, divergent and balancer
-paths),
+paths, K3 and K8 on the checkpoint path, K3, K6 and K9 on the
+writepath path),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -279,6 +321,7 @@ RECOVERY_FAILURE = "rack:0:down_out"
 RECOVERY_CHUNK = 32 * 1024     # a PG's share cut to one 256 KiB object (k=8)
 #: the code whose recover_pool is profiled (one call)
 RECOVERY_PROFILED = "rs_8_3_auto"
+RECOVERY_REPS = 2               # timed calls a code (the median)
 RECOVERY_CODES = {
     "rs_8_3_auto": ({"plugin": "jerasure", "technique": "reed_sol_van", "k": "8", "m": "3"},
                     "auto"),
@@ -396,19 +439,31 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, int]:
 
 
 def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int,
-                  int_rate: float, library=None) -> dict:
+                  int_rate: float, library=None, plain_reps: int = 3) -> dict:
     """Run ``kernel`` and ``plain`` on the same card inputs, compare them
     bit for bit, time both (and ``library``, one PyTorch call of the
     same function, where there is one), and bound the kernel by bytes
-    and operations."""
-    got, want = kernel(), plain()
+    and operations.  A slow plain version (``plain_reps=0``) is timed
+    over the one call of the comparison, by CUDA events."""
+    got = kernel()
+    if plain_reps:
+        want = plain()
+    else:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        want = plain()
+        b.record()
+        b.synchronize()
+        one_call_ms = a.elapsed_time(b)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     checks = [compare(a, b) for a, b in zip(got, want)]
     bms, by = bound_ms(nbytes, ops, int_rate)
     return {"name": name, "replaces": replaces, "bit_equal": all(c[0] for c in checks),
             "max_abs_err": max(c[1] for c in checks), "ms": time_ms(kernel),
-            "plain_ms": time_ms(plain, 3), "bound_ms": bms, "bound_by": by,
+            "plain_ms": time_ms(plain, plain_reps) if plain_reps else one_call_ms,
+            "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops,
             "library_ms": time_ms(library) if library is not None else None}
 
@@ -802,7 +857,7 @@ def phase_recovery(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OS
         before = pc.dump()["recovery"]
         reset_launches()
         runs, secs = [], []
-        for _ in range(3):
+        for _ in range(RECOVERY_REPS):
             t0 = time.perf_counter()
             runs.append(call())
             torch.cuda.synchronize()
@@ -889,7 +944,7 @@ SCRUB_QOS_SCENARIO = "scrub-storm"
 SCRUB_OPS = 16384
 SCRUB_SLO = {"max_inconsistent_seconds": 60.0, "max_scrub_age_s": 120.0,
              "max_p99_latency_ms": 20.0}
-TRAFFIC_SMALL_OPS = 4096        # ops a step of the card-vs-CPU traffic replay
+TRAFFIC_SMALL_OPS = 2048        # ops a step of the card-vs-CPU traffic replay
 # the replay's mean_ms: a float32 sum of 4,096 latencies reduced in
 # another order on the card (a tree of about 12 levels, float32 eps 1.2e-7)
 TRAFFIC_REPLAY_RTOL = 1e-5
@@ -930,7 +985,7 @@ def phase_scrub_kernel(int_rate: float, dev, n_pgs: int = RECOVERY_PGS,
         data = card_bytes((rows, chunk), SEED + 12, dev)
         rec = kernel_record("crc32c_rows", "ceph_tpu/recovery/scrub.py:120",
                             lambda: scrub.crc_rows(data), lambda: scrub.crc_rows_plain(data),
-                            rows * chunk + rows * 8, rows * chunk, int_rate)
+                            rows * chunk + rows * 8, rows * chunk, int_rate, plain_reps=0)
         log_w, seg = scrub.crc_segments(rows, chunk)
         rec.update(shape=f"[{rows}, {chunk}] u8 ({label})", lanes_a_row=1 << log_w,
                    segment_bytes=seg,
@@ -1568,12 +1623,12 @@ def phase_supervised(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_
 EPOCH_OSDS = 1024               # BASELINE config 7's acceptance geometry
 EPOCH_PGS = 8192
 EPOCH_OPS = 64                  # ops a traffic step (config 7's)
-EPOCH_EPOCHS = 1024             # superstep epochs timed, after a warm-up chunk
+EPOCH_EPOCHS = 512              # superstep epochs timed, after a warm-up chunk
 EPOCH_CHUNK = 256               # epochs a chunk (a snapshot, one copy back)
 EPOCH_STAGED = 128              # staged epochs timed, after EPOCH_STAGED_WARM
 EPOCH_STAGED_WARM = 8
 EPOCH_PROFILED = 8              # config 7 epochs under torch.profiler for the split
-EPOCH_TURN = 128                # epochs a run of the in-turns rates and the host split
+EPOCH_TURN = 64                 # epochs a run of the in-turns rates and the host split
 EPOCH_WALK = "rack-cascade"     # the dirty walk's zoo scenario
 EPOCH_SMALL = (64, 128)         # OSDs, PGs of the card-vs-CPU replay
 EPOCH_SMALL_OPS = 256
@@ -1592,18 +1647,24 @@ def series_head(series, n: int):
 @contextlib.contextmanager
 def pieces_wrapped(driver, wrap, pieces=None):
     """Each piece method of ``driver`` (``pieces``, EPOCH_PIECES by
-    default) replaced, on the instance, by ``wrap(piece, method)`` for
-    the block."""
+    default: names of ``driver``'s methods, or ``(object, name)`` pairs
+    such as a module's function) replaced by ``wrap(piece, method)`` for
+    the block, on the instance or the module."""
     pieces = EPOCH_PIECES if pieces is None else pieces
+    saved = []
     for piece, methods in pieces.items():
         for meth in methods:
-            setattr(driver, meth, wrap(piece, getattr(driver, meth)))
+            obj, name = meth if isinstance(meth, tuple) else (driver, meth)
+            saved.append((obj, name, vars(obj).get(name)))
+            setattr(obj, name, wrap(piece, getattr(obj, name)))
     try:
         yield
     finally:
-        for methods in pieces.values():
-            for meth in methods:
-                delattr(driver, meth)
+        for obj, name, before in reversed(saved):
+            if before is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, before)
 
 
 def piece_host_ms(driver, run, n_epochs: int) -> dict:
@@ -1808,9 +1869,9 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
         torch.cuda.synchronize()
         turns.append([how, EPOCH_TURN / (time.perf_counter() - t0)])
     out["config7"]["epochs_per_s_in_turns"] = turns
-    # the auto walk's first epochs, through its third dirty one
+    # the auto walk's first epochs, through its first dirty one
     d = drivers["auto"]
-    n_prof = int(np.nonzero(ref.dirty)[0][:3][-1]) + 1
+    n_prof = int(np.nonzero(ref.dirty)[0][0]) + 1
     out["launch_split_walk"] = piece_launches(d, lambda: d.run_superstep(n_prof))
     out["launch_split_walk"].update(epochs=n_prof, dirty_epochs=int(ref.dirty[:n_prof].sum()))
     lap("profiles")
@@ -1850,9 +1911,9 @@ FLEET_PANEL = ("ssd-steady", "ssd-burst", "ssd-skew")
 FLEET_SEED = 0
 FLEET_BOOT = 256
 FLEET_SEQ = 2                   # lanes held against their own sequential runs
-FLEET_PROFILED = 6              # config-8 epochs under torch.profiler for the split
+FLEET_PROFILED = 3              # config-8 epochs under torch.profiler for the split
 FLEET_WIDE = (1024, 8192, 64)   # OSDs, PGs, ops a step: config 7's geometry
-FLEET_WIDE_RUN = (64, 64)       # clusters, epochs
+FLEET_WIDE_RUN = (32, 32)       # clusters, epochs
 FLEET_SMALL = (4, 16)           # clusters, epochs of the card-vs-CPU replay
 #: the fleet epoch's pieces (FleetDriver methods), each a span for the split
 FLEET_PIECES = {"tape": ("_tape_apply",), "liveness": ("_live",),
@@ -2147,20 +2208,27 @@ def divergent_record(res, health, report, rate: float, host_syncs: int, states) 
     }
 
 
-def divergent_run(m, dev, n_epochs: int = DIVERGENT_EPOCHS):
-    """Config 6's --divergent pass on ``m`` (its size, k = 8 m = 3):
-    ``(driver, result, health, report, seconds)``."""
+def divergent_driver(m, dev, health=None):
+    """Config 6's --divergent pass's driver on ``m``: the flap scenario,
+    rank 1 seeing every event 2.5 s late from t = 0.05."""
     from ceph_tpu_torch import recovery as rec
     from ceph_tpu_torch.common.config import Config
-    from ceph_tpu_torch.obs import HealthTimeline, SLOSpec, evaluate
     from ceph_tpu_torch.recovery.failure import parse_spec
 
     base = rec.build_scenario(DIVERGENT_SCENARIO, m)
     skew = parse_spec(f"rankdelay:1.{DIVERGENT_DELAY_MS}")
     tl = rec.ChaosTimeline(list(base.events()) + [rec.ChaosEvent(0.05, (skew,))])
+    return rec.DivergentDriver(m, tl, DIVERGENT_N_RANKS, config=Config(env={}),
+                               seed=DIVERGENT_SEED, health=health, device=dev)
+
+
+def divergent_run(m, dev, n_epochs: int = DIVERGENT_EPOCHS):
+    """Config 6's --divergent pass on ``m`` (its size, k = 8 m = 3):
+    ``(driver, result, health, report, seconds)``."""
+    from ceph_tpu_torch.obs import HealthTimeline, SLOSpec, evaluate
+
     health = HealthTimeline(lambda: 0.0, k=8, device=dev)
-    d = rec.DivergentDriver(m, tl, DIVERGENT_N_RANKS, config=Config(env={}),
-                            seed=DIVERGENT_SEED, health=health, device=dev)
+    d = divergent_driver(m, dev, health=health)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = d.run(n_epochs)
@@ -2239,6 +2307,634 @@ def phase_divergent(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_O
         "card_equals_cpu": not differ and len(r0.rounds) == len(r1.rounds),
     }
     return out, divergent_record(res, health, report, rate, info["host_syncs"], res.states)
+
+
+# phase online_kernel: K9 (the stripe buffer's write loop) at BASELINE
+# config 10's full width; phase writepath: config 10 itself
+WP_OSDS, WP_PGS, WP_OPS = 1024, 8192, 256   # config 7's map, 256 ops a step
+WP_SETS, WP_WAYS, WP_GROUPS, WP_STRIPES = 1024, 4, 64, 4
+# the write path's codec on that pool: k = min_size = 5, m = 1, so
+# default_bitmatrix picks cauchy-good w=8; 8-byte packets and 64 groups
+# make 4,096-byte chunks, Ceph's default stripe unit
+WP_K, WP_M, WP_W = 5, 1, 8
+WP_EPOCHS = 128
+WP_SCENARIO = "flap"
+WP_MIXES = ("ssd-steady", "ssd-burst", "ssd-skew")
+WP_SEED = 0
+WP_GATE_UPDATES = 64             # delta updates a family of the writepath_bitequal gate
+WP_SHORT = 32                    # epochs of the staged, bare and flight-on comparisons
+WP_PROFILED = 4                  # epochs under torch.profiler for the split
+WP_SMALL = (64, 128, 64, 4, 8)   # OSDs, PGs, sets, ways, groups: bench/config10_online_ec.py's
+WP_BATCH = 256                   # K9's timed batch: config 10's power-of-two bucket of 256 ops
+WP_WARM = 8                      # random batches absorbed before K9 is timed
+HASH_OPS = 110                   # 32-bit operations of one crush_hash32_2 (3 mixes of 36, 2 xors)
+
+# phase checkpoint: BASELINE config 9 (bench/config9_checkpoint.py) on
+# config 7's map
+CKPT_OPS, CKPT_EPOCHS, CKPT_EVERY = 256, 256, 16
+CKPT_GRID = (16, 64)             # the overhead panel's snapshot intervals
+CKPT_SCENARIO = "flap"
+CKPT_HOST_CRC_BYTES = 64 * 1024  # lanes the host crc32c is timed over: whole lanes past this
+CKPT_CRASHBOX = (32, 16, 8, 2)  # OSDs, PGs, epochs, interval of the SIGKILL'd child
+CKPT_FLEET = (256, 64, 16)       # lanes, epochs, interval at config 8's settings
+CKPT_CARD_CPU = (64, 128, 32, 8)  # OSDs, PGs, epochs, interval of the card-to-CPU restore
+#: more keys of the crash child's config (none: it runs on the card)
+CRASHBOX_CFG: dict = {}
+
+
+def online_buffer(dev, n_sets: int, ways: int, words: int, warm: int, seed: int):
+    """A stripe buffer of ``n_sets`` x ``ways`` slots (the write path's
+    codec, WP_K + WP_M, ``words`` u32 words a row) on ``dev`` with
+    ``warm`` random batches of
+    WP_BATCH absorbed through the write path's step (K9 and K6), and the
+    codec's full encoder."""
+    from ceph_tpu_torch.ec import online
+    from ceph_tpu_torch.testing import online_edges
+    from ceph_tpu_torch.workload.writepath import default_bitmatrix
+
+    bits, w = default_bitmatrix(WP_K, WP_M)
+    enc = online.ParityDeltaEngine(bits, w=w, device=dev).full_encoder()
+    buf = online.empty_stripe_buffer(n_sets, ways, WP_K * w, WP_M * w, words, device=dev)
+    for i in range(warm):
+        b = online_edges.random_batch(n_sets, ways, WP_K, WP_BATCH, seed + i)
+        buf, _ = online.stripe_buffer_step(buf, enc.table, enc.schedule.n_out, WP_K, WP_W,
+                                           *online_edges.to_device(b, dev))
+    return buf, enc
+
+
+def absorb_bytes_ops(buf, batch: dict, got) -> tuple[int, int, int]:
+    """What one K9 call must move and compute on this run's data: the
+    Δdata it writes (every slot), each touched slot's data read and
+    written, each zeroed slot's parity written, the batch read, the
+    touched sets' keys, ticks and masks read and written; one set hash a
+    lane and one content hash per base or payload word made.  Returns
+    ``(bytes, ops, longest per-set chain of dependent writes)``."""
+    from ceph_tpu_torch.ec import online
+
+    n_sets, ways, kw, words = (int(v) for v in buf.data.shape)
+    mw = int(buf.parity.shape[2])
+    keys, _data, parity, _dirty, _lru, _tick, ddata, row = got
+    touched = (ddata.view(kw, n_sets * ways, words) != 0).any(2).any(0)
+    zeroed = touched & (parity.view(n_sets * ways, -1) == 0).all(1)
+    n_t, n_z = int(touched.sum()), int(zeroed.sum())
+    sets = online.set_index(torch.from_numpy(batch["keys"]), n_sets).numpy()[batch["valid"]]
+    n_sets_t = len(set(sets.tolist()))
+    B = len(batch["keys"])
+    nbytes = (4 * kw * words * n_sets * ways + 2 * 4 * kw * words * n_t + 4 * mw * words * n_z
+              + 14 * B + 2 * 12 * ways * n_sets_t)
+    r = dict(zip(online.WP_LANES, row.tolist()))
+    w = WP_W
+    hashes = (B + r["misses"] * kw * words + r["full_writes"] * kw * words
+              + r["delta_writes"] * w * words)
+    chain = int(np.bincount(sets, minlength=n_sets).max()) if len(sets) else 0
+    return nbytes, hashes * HASH_OPS, chain
+
+
+def phase_online_kernel(int_rate: float, dev, n_sets: int = WP_SETS, ways: int = WP_WAYS,
+                        words: int = WP_GROUPS * 2, warm: int = WP_WARM) -> dict:
+    """K9 (``stripe_absorb``, ``csrc/online.cu``) against its plain
+    version (``stripe_absorb_plain``) on the card at config 10's full
+    width (1024 sets x 4 ways, 4,096-byte chunks of cauchy-good k=5 m=1
+    w=8: 128 words a row), a
+    buffer warmed by WP_WARM random batches and one random batch of
+    WP_BATCH writes: buffers, Δdata and the counter row bit for bit, both
+    timed, the bound (bytes over HBM rate or hash operations over the
+    int32 rate, the larger), the longest per-set chain; then its edges
+    (``testing/online_edges.py``: an eviction chain in one set, all full,
+    all misses on a cold buffer, invalid lanes between valid ones, a key
+    evicted and hit again, batches of 1 and 512) at the same width; and
+    phase 2's K6 launch at its shape ([kw, sets x ways x words])."""
+    from ceph_tpu_torch.ec import kernels as ec_kernels, online
+    from ceph_tpu_torch.testing import online_edges
+
+    buf, enc = online_buffer(dev, n_sets, ways, words, warm, SEED)
+    batch = online_edges.random_batch(n_sets, ways, WP_K, WP_BATCH, SEED + 100)
+    args = (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick,
+            *online_edges.to_device(batch, dev), WP_K, WP_W)
+    got = online.stripe_absorb(*args)
+    nbytes, ops, chain = absorb_bytes_ops(buf, batch, got)
+    rec = kernel_record("stripe_absorb",
+                        "ceph_tpu/ec/online.py:199 stripe_buffer_step phase 1 (an XLA "
+                        "fori_loop, :277-282; not a pl.pallas_call site)",
+                        lambda: online.stripe_absorb(*args),
+                        lambda: online.stripe_absorb_plain(*args), nbytes, ops, int_rate,
+                        plain_reps=0)
+    row = dict(zip(online.WP_LANES, got[-1].tolist()))
+    rec.update(shape=f"{n_sets} sets x {ways} ways x [{WP_K * WP_W}, {words}] words, "
+               f"batch {WP_BATCH}", longest_set_chain=chain, row=row)
+    edges = []
+    for name, b, cold in online_edges.edge_batches(n_sets, ways, WP_K, seed=SEED):
+        base = (online.empty_stripe_buffer(n_sets, ways, WP_K * WP_W, WP_M * WP_W, words,
+                                           device=dev) if cold else buf)
+        eargs = (base.keys, base.data, base.parity, base.dirty, base.lru, base.tick,
+                 *online_edges.to_device(b, dev), WP_K, WP_W)
+        g, p = online.stripe_absorb(*eargs), online.stripe_absorb_plain(*eargs)
+        edges.append({"case": name, "writes": int(b["valid"].sum()), "cold": cold,
+                      "bit_equal": all(compare(x, y)[0] for x, y in zip(g, p)),
+                      "row": g[-1].tolist()})
+    ddata = got[6]
+    mw = int(buf.parity.shape[2])
+    k6_bytes = ddata.numel() * 4 + mw * ddata.shape[1] * 4
+    k6 = {"shape": list(ddata.shape), "ms": time_ms(
+        lambda: ec_kernels.schedule_apply(enc.table, ddata, mw)),
+        "bound_ms": bound_ms(k6_bytes, enc.schedule.n_steps * ddata.shape[1], int_rate)[0]}
+    return {"phase": "online_kernel", "results": [rec], "edges": edges, "k6_phase2": k6}
+
+
+def checkpoint_record(epochs, bandwidth, write_s, snap_bytes, n_snaps, load_s, replay_s,
+                      bitequal, torn_ok, overhead_panel, headline_overhead) -> dict:
+    """The reference's config-9 record (``bench/config9_checkpoint.py``'s
+    ``build_checkpoint_record``), for ``cli/status.py checkpoint``."""
+    return {
+        "metric": "checkpoint_write_bandwidth_bps", "status": "ok",
+        "value": round(bandwidth), "unit": "B/s", "platform": "gpu",
+        "checkpoint_scenario": CKPT_SCENARIO, "checkpoint_n_epochs": int(epochs),
+        "checkpoint_snapshot_every": CKPT_EVERY, "checkpoint_snapshot_bytes": int(snap_bytes),
+        "checkpoint_n_snapshots": int(n_snaps),
+        "checkpoint_write_bandwidth_bps": round(bandwidth, 1),
+        "checkpoint_write_s": round(write_s, 6),
+        "checkpoint_restore_s": round(load_s + replay_s, 6),
+        "checkpoint_load_s": round(load_s, 6), "checkpoint_replay_s": round(replay_s, 6),
+        "checkpoint_overhead_fraction": round(headline_overhead, 6),
+        "checkpoint_bitequal": bool(bitequal), "checkpoint_torn_fallback_ok": bool(torn_ok),
+        "checkpoint_overhead_panel": overhead_panel,
+    }
+
+
+def series_equal(a, b) -> bool:
+    """Two series of the same dataclass equal in every field, exactly."""
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def lanes_equal(a, b) -> bool:
+    """Two states (or tuples of them) equal lane for lane, in the
+    reference's dtypes."""
+    from ceph_tpu_torch.convert import state_lanes
+
+    la, lb = state_lanes(a), state_lanes(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and x.tobytes() == y.tobytes()
+                                      for x, y in zip(la, lb))
+
+
+def crashbox_gate(dev, work: str) -> dict:
+    """A checkpointed superstep SIGKILL'd mid-write in a
+    ``python -m ceph_tpu_torch.recovery._crashbox`` child on the card
+    (its config names no device), then rerun to completion: its series
+    equal to an uninterrupted run in this process."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.models.clusters import build_osdmap
+
+    n_osds, pg_num, epochs, every = CKPT_CRASHBOX
+    cfg = {"mode": "superstep", "store": os.path.join(work, "crashbox"),
+           "out": os.path.join(work, "crashbox.npz"), "n_osds": n_osds, "pg_num": pg_num,
+           "size": 6, "pool_kind": "erasure", "scenario": CKPT_SCENARIO, "n_epochs": epochs,
+           "snapshot_every": every, "n_ops": 64, "seed": 0,
+           "kill": {"epoch": epochs // 2 - 1, "phase": "during"}, **CRASHBOX_CFG}
+    # the kill fires mid-write at the first boundary at or past its epoch
+    path = os.path.join(work, "crashbox.json")
+
+    def child():
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ceph_tpu_torch.recovery._crashbox", path],
+                              cwd=HERE, capture_output=True, text=True, timeout=300)
+        return proc, time.perf_counter() - t0
+
+    killed, killed_s = child()
+    torn = any(f.startswith(".tmp-") for f in os.listdir(cfg["store"]))
+    cfg["kill"] = None
+    resumed, resumed_s = child()
+    m = build_osdmap(n_osds, pg_num=pg_num, size=6, pool_kind="erasure")
+    want = rec.EpochDriver(m, rec.build_scenario(CKPT_SCENARIO, m), n_ops=64, seed=0,
+                           device=dev).run_superstep(epochs)
+    equal = False
+    if resumed.returncode == 0:
+        out = np.load(cfg["out"])
+        equal = all(np.array_equal(out[f.name], getattr(want, f.name))
+                    for f in dataclasses.fields(want))
+    return {"osds": n_osds, "pgs": pg_num, "epochs": epochs, "killed_rc": killed.returncode,
+            "torn_tmp": torn, "resumed_rc": resumed.returncode, "killed_s": killed_s,
+            "resumed_s": resumed_s, "stderr_tail": resumed.stderr[-400:],
+            "ok": killed.returncode == -9 and torn and resumed.returncode == 0 and equal}
+
+
+def phase_checkpoint(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
+                     pg_num: int = EPOCH_PGS, epochs: int = CKPT_EPOCHS) -> dict:
+    """BASELINE config 9 (``recovery/checkpoint.py``) as
+    ``bench/config9_checkpoint.py`` runs it, at config 7's width:
+    ``build_osdmap(n_osds, pg_num, size=6, erasure)``, flap, CKPT_OPS ops
+    a step, ``epochs`` epochs.  A run without checkpoints (the baseline);
+    the checkpointed run with a snapshot every CKPT_EVERY epochs (the
+    path's launch counts; the lanes' CRCs through K8): durable write
+    bytes/s and bytes a snapshot; a kill mid-write at the midpoint, then
+    the restore, load and replay seconds; the overhead panel at
+    CKPT_GRID; one snapshot's lane CRCs on the card (K8 launches, ms)
+    against the host ``crc32c`` (timed over CKPT_HOST_CRC_BYTES of the
+    same lanes).  Gates: the checkpointed and resumed series bit-equal to
+    the baseline; a corrupted newest snapshot falls back to the one
+    before with a ``checkpoint.torn`` journal event; a SIGKILL'd
+    ``_crashbox`` child on the card resumes bit-equal (CKPT_CRASHBOX); a
+    fleet at config 8's settings (CKPT_FLEET) and the divergent pass at
+    DIVERGENT_SMALL killed mid-write and restored land bit-equal; a
+    snapshot the card wrote mid-run at CKPT_CARD_CPU restores on the CPU
+    and the rest of the run there equals the card's.  Returns the phase
+    line and the config-9 record."""
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch import _cuda
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.convert import lane_bytes
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.obs.journal import EventJournal
+    from ceph_tpu_torch.recovery import checkpoint as ck
+    from ceph_tpu_torch.recovery import scrub
+
+    os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(dir=_cuda.BUILD_DIR, prefix="ckpt-")
+    m = build_osdmap(n_osds, pg_num=pg_num, size=6, pool_kind="erasure")
+    d = rec.EpochDriver(m, rec.build_scenario(CKPT_SCENARIO, m), n_ops=CKPT_OPS, seed=0,
+                        device=dev)
+    d.run_superstep(4)  # the card's first calls, outside every timing
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    base, baseline_s = timed(lambda: d.run_superstep(epochs))
+    store = ck.CheckpointStore(os.path.join(work, "headline"), device=dev)
+    reset_launches()
+    series, headline_s = timed(lambda: ck.checkpointed_superstep(
+        d, epochs, store=store, snapshot_every=CKPT_EVERY))
+    launches = launch_counts()
+    n_snaps = len(store.entries())
+    snap_bytes = store.bytes_written // max(n_snaps, 1)
+    write_s = max(headline_s - baseline_s, 1e-9)
+    bandwidth = store.bytes_written / write_s
+    panel = [{"snapshot_every": CKPT_EVERY, "n_snapshots": n_snaps, "run_s": headline_s,
+              "baseline_s": baseline_s, "overhead_fraction": headline_s / baseline_s - 1.0}]
+    equal = {"checkpointed": series_equal(series, base)}
+    for every in CKPT_GRID[1:]:
+        pstore = ck.CheckpointStore(os.path.join(work, f"panel-{every}"), device=dev)
+        pseries, run_s = timed(lambda: ck.checkpointed_superstep(
+            d, epochs, store=pstore, snapshot_every=every))
+        equal[f"every_{every}"] = series_equal(pseries, base)
+        panel.append({"snapshot_every": every, "n_snapshots": len(pstore.entries()),
+                      "run_s": run_s, "baseline_s": baseline_s,
+                      "overhead_fraction": run_s / baseline_s - 1.0})
+    kroot = os.path.join(work, "restore")
+    try:
+        ck.checkpointed_superstep(d, epochs, store=ck.CheckpointStore(kroot, device=dev),
+                                  snapshot_every=CKPT_EVERY,
+                                  crashes=(ck.CrashPoint(epochs // 2, "during"),))
+        killed = False
+    except ck.SimulatedCrash:
+        killed = True
+    torn_tmp = any(f.startswith(".tmp-") for f in os.listdir(kroot))
+    resumed, load_s = timed(lambda: ck.CheckpointStore(kroot, device=dev).load_latest(
+        d._init_state, with_series=True))
+    series2, resume_s = timed(lambda: ck.checkpointed_superstep(
+        d, epochs, store=ck.CheckpointStore(kroot, device=dev), snapshot_every=CKPT_EVERY))
+    replay_s = max(resume_s - load_s, 0.0)
+    equal["resumed"] = series_equal(series2, base) and killed and torn_tmp
+    journal = EventJournal()
+    tstore = ck.CheckpointStore(kroot, journal=journal, device=dev)
+    newest = os.path.join(kroot, tstore.entries()[-1]["file"])
+    with open(newest, "rb") as f:
+        blob = f.read()
+    with open(newest, "wb") as f:
+        f.write(blob[: len(blob) // 2])
+    fallback = tstore.load_latest(d._init_state)
+    torn_ok = (fallback is not None and fallback[0]["next_epoch"] == epochs - CKPT_EVERY
+               and len(journal.by_name("checkpoint.torn")) == 1
+               and len(journal.by_name("checkpoint.restore")) == 1)
+
+    # one snapshot's lane CRCs: K8 on the card against the host crc32c
+    state_lanes = lane_bytes(d.final_state)
+    host_series = [torch.from_numpy(np.ascontiguousarray(getattr(series, f.name))
+                                    .reshape(-1).view(np.uint8).copy())
+                   for f in dataclasses.fields(series)]
+    lanes = state_lanes + [b.to(dev) for b in host_series]
+    total = sum(int(b.numel()) for b in lanes)
+    reset_launches()
+    card_crcs = ck.lane_crcs(lanes, dev)
+    crc_launches = launch_counts().get("crc32c_rows", 0)
+    card_ms = time_ms(lambda: ck.lane_crcs(lanes, dev), 5)
+    timed_bytes, host_ok, host_s = 0, True, 0.0
+    for b, c in zip(lanes, card_crcs):
+        if timed_bytes >= CKPT_HOST_CRC_BYTES:
+            break
+        host = b.cpu().numpy()
+        t0 = time.perf_counter()
+        h = scrub.crc32c(host)
+        host_s += time.perf_counter() - t0
+        host_ok &= h == c
+        timed_bytes += host.size
+    host_ms_per_mib = host_s * 1e3 / max(timed_bytes, 1) * MIB
+    crc = {"lanes": len(lanes), "bytes": total, "k8_launches": crc_launches,
+           "card_ms": card_ms, "host_timed_bytes": timed_bytes, "host_ms": host_s * 1e3,
+           "host_ms_per_mib": host_ms_per_mib,
+           "host_ms_all_lanes_at_that_rate": host_ms_per_mib * total / MIB,
+           "host_equal": bool(host_ok)}
+
+    gates_extra = {"crashbox": crashbox_gate(dev, work)}
+    # a fleet at config 8's settings, killed mid-write and restored
+    n_lanes, f_epochs, f_every = CKPT_FLEET
+    fm = build_osdmap(FLEET_OSDS, pg_num=FLEET_PGS, size=6, pool_kind="erasure")
+    fd = rec.FleetDriver(fm, seed=FLEET_SEED, n_ops=FLEET_OPS, device=dev)
+    tls = fd.sample(n_lanes, FLEET_SCENARIO)
+    (fwant, fstate_want), fleet_s = timed(lambda: (fd.run_fleet(f_epochs, tls), fd.final_state))
+    froot = os.path.join(work, "fleet")
+    try:
+        ck.checkpointed_fleet(fd, f_epochs, tls, store=ck.CheckpointStore(froot, device=dev),
+                              snapshot_every=f_every,
+                              crashes=(ck.CrashPoint(f_epochs // 2, "during"),))
+        fkilled = False
+    except ck.SimulatedCrash:
+        fkilled = True
+    fgot = ck.checkpointed_fleet(fd, f_epochs, tls, store=ck.CheckpointStore(froot, device=dev),
+                                 snapshot_every=f_every)
+    gates_extra["fleet"] = {"lanes": n_lanes, "epochs": f_epochs, "run_s": fleet_s,
+                            "ok": fkilled and series_equal(fgot, fwant)
+                            and lanes_equal(fd.final_state, fstate_want)}
+    # the divergent pass at DIVERGENT_SMALL, killed mid-write and restored
+    dm = build_osdmap(DIVERGENT_SMALL[0], pg_num=DIVERGENT_SMALL[1], size=11,
+                      pool_kind="erasure")
+    dres = divergent_driver(dm, dev).run(DIVERGENT_EPOCHS)
+    droot = os.path.join(work, "divergent")
+    try:
+        divergent_driver(dm, dev).run(DIVERGENT_EPOCHS, store=ck.CheckpointStore(droot,
+                                                                                 device=dev),
+                                      crashes=(ck.CrashPoint(DIVERGENT_EPOCHS // 2, "during"),))
+        dkilled = False
+    except ck.SimulatedCrash:
+        dkilled = True
+    revived = divergent_driver(dm, dev)
+    dgot = revived.run(DIVERGENT_EPOCHS, store=ck.CheckpointStore(droot, device=dev))
+    gates_extra["divergent"] = {
+        "osds": DIVERGENT_SMALL[0], "pgs": DIVERGENT_SMALL[1], "rounds": len(dgot.rounds),
+        "ok": dkilled and dgot.converged == dres.converged
+        and [(r.steps, r.epochs, r.fingerprints) for r in dgot.rounds]
+        == [(r.steps, r.epochs, r.fingerprints) for r in dres.rounds]
+        and all(lanes_equal(a, b) for a, b in zip(dgot.states, dres.states))}
+    # a snapshot the card wrote mid-run restores on the CPU
+    c_osds, c_pgs, c_epochs, c_every = CKPT_CARD_CPU
+    cm = build_osdmap(c_osds, pg_num=c_pgs, size=6, pool_kind="erasure")
+    cpu = torch.device("cpu")
+
+    def small_driver(dv):
+        return rec.EpochDriver(cm, rec.build_scenario(CKPT_SCENARIO, cm), n_ops=CKPT_OPS,
+                               seed=0, device=dv)
+
+    card_d = small_driver(dev)
+    cwant = card_d.run_superstep(c_epochs)
+    croot = os.path.join(work, "card-cpu")
+    try:
+        ck.checkpointed_superstep(card_d, c_epochs, store=ck.CheckpointStore(croot, device=dev),
+                                  snapshot_every=c_every,
+                                  crashes=(ck.CrashPoint(c_epochs // 2, "after"),))
+    except ck.SimulatedCrash:
+        pass
+    cpu_d = small_driver(cpu)
+    cgot = ck.checkpointed_superstep(cpu_d, c_epochs,
+                                     store=ck.CheckpointStore(croot, device=cpu),
+                                     snapshot_every=c_every)
+    gates_extra["card_to_cpu"] = {"osds": c_osds, "pgs": c_pgs, "epochs": c_epochs,
+                                  "restored_at": c_epochs // 2,
+                                  "ok": series_equal(cgot, cwant)
+                                  and lanes_equal(cpu_d.final_state, card_d.final_state)}
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"phase": "checkpoint", "osds": n_osds, "pgs": pg_num, "ops": CKPT_OPS,
+           "epochs": epochs, "scenario": CKPT_SCENARIO, "snapshot_every": CKPT_EVERY,
+           "baseline_s": baseline_s, "headline_s": headline_s, "n_snapshots": n_snaps,
+           "snapshot_bytes": snap_bytes, "write_s": write_s, "write_bytes_per_s": bandwidth,
+           "load_s": load_s, "replay_s": replay_s, "overhead_panel": panel,
+           "lane_crcs": crc, "launches": launches,
+           "checks": {k: {kk: vv for kk, vv in v.items() if kk != "ok"}
+                      for k, v in gates_extra.items()}}
+    out["gates"] = {
+        "checkpointed_bitequal": all(v for k, v in equal.items() if k != "resumed"),
+        "resumed_bitequal": equal["resumed"], "torn_falls_back": torn_ok,
+        "lane_crcs_equal_host": crc["host_equal"] and crc_launches == 1,
+        **{f"{k}_bitequal" if k != "crashbox" else "crashbox_sigkill_bitequal": v["ok"]
+           for k, v in gates_extra.items()},
+        "k8_launched": launches.get("crc32c_rows", 0) > 0,
+    }
+    record = checkpoint_record(epochs, bandwidth, write_s, snap_bytes, n_snaps, load_s, replay_s,
+                               all(out["gates"].values()), torn_ok,
+                               [{k: round(v, 6) if isinstance(v, float) else v
+                                 for k, v in row.items()} for row in panel],
+                               headline_s / baseline_s - 1.0)
+    return out, record
+
+
+def writepath_record(epochs, sets, ways, value, hit_rate, bitequal, families, totals,
+                     sched_entries, mix_panel, batch) -> dict:
+    """The reference's config-10 record (``bench/config10_online_ec.py``'s
+    ``build_writepath_record``), for ``cli/status.py writepath``."""
+    return {
+        "metric": "writepath_encoded_bytes_per_sec", "status": "ok", "value": round(value),
+        "unit": "B/s", "platform": "gpu", "writepath_scenario": WP_SCENARIO,
+        "writepath_n_epochs": int(epochs), "writepath_batch": int(batch),
+        "writepath_n_sets": int(sets), "writepath_ways": int(ways),
+        "writepath_hit_rate": round(hit_rate, 6), "writepath_bitequal": bool(bitequal),
+        "writepath_families": ",".join(families),
+        "writepath_stripe_hits": int(totals["hits"]),
+        "writepath_stripe_misses": int(totals["misses"]),
+        "writepath_stripe_evictions": int(totals["evictions"]),
+        "writepath_delta_bytes": 4 * int(totals["delta_words"]),
+        "writepath_full_bytes": 4 * int(totals["full_words"]),
+        "writepath_schedule_entries": int(sched_entries),
+        "writepath_mix_panel": mix_panel,
+    }
+
+
+def writepath_driver(m, dev, mix, n_sets=WP_SETS, ways=WP_WAYS, groups=WP_GROUPS, config=None):
+    """Config 10's write path on ``m``: flap, WP_OPS ops a step of ``mix``,
+    liberation k=4 m=2 w=7 over ``n_sets`` x ``ways`` slots."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.workload import WritepathDriver
+
+    d = rec.EpochDriver(m, rec.build_scenario(WP_SCENARIO, m), seed=WP_SEED, n_ops=WP_OPS,
+                        mix=mix, config=config, device=dev)
+    return WritepathDriver(d, n_sets=n_sets, ways=ways, groups=groups,
+                           stripes_per_pg=WP_STRIPES, name=f"writepath-{mix}")
+
+
+def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
+                    pg_num: int = WP_PGS, epochs: int = WP_EPOCHS,
+                    buffer=(WP_SETS, WP_WAYS, WP_GROUPS), small=WP_SMALL) -> dict:
+    """BASELINE config 10 (``workload/writepath.py::WritepathDriver`` over
+    ``ec/online.py``: K9 and K6 each epoch) at full width: config 7's map,
+    WP_OPS ops a step, ``epochs`` epochs of flap for each of WP_MIXES, a
+    1024 x 4 stripe buffer of 4,096-byte chunks (the three runs are the
+    path's launch counts): encoded bytes/s, hit rate, delta and full
+    bytes, epochs/s a mix; launches an epoch by piece (epoch body, write
+    batch, K9, K6; torch.profiler spans over WP_PROFILED quiet epochs
+    after the first mix's run); K9's
+    and K6's ms on the last epoch's batch.  Gates: ``writepath_bitequal``
+    (each codec family of bench/config10_online_ec.py: parity after
+    WP_GATE_UPDATES delta updates equal to a dense re-encode, on the
+    card); the staged path's epoch and write rows equal the superstep's
+    and the bare epoch loop's epoch rows equal the write path's
+    (WP_SHORT epochs); a wrong delta injected into a slot caught by
+    ``scrub_stripe_buffer`` (both lanes, then the re-encode lane alone);
+    ``flight_recorder=on`` bit-invisible over WP_SHORT epochs, the ring's
+    stripe lanes equal to the write rows, its dump written, read and
+    validated and the trace exported and validated; the bench's own
+    settings (``small``) over WP_SHORT epochs equal on the card and the
+    CPU.  Returns the phase line and the config-10 record."""
+    import tempfile
+    from dataclasses import replace
+
+    from ceph_tpu_torch import _cuda
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.ec import online
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.obs import flight, traceexport
+    from ceph_tpu_torch.obs.journal import EventJournal
+    from ceph_tpu_torch.recovery.scrub import Scrubber
+    from ceph_tpu_torch.testing import online_edges
+
+    verdicts = online_edges.bitequal_gate(WP_GATE_UPDATES, SEED, dev)
+    m = build_osdmap(n_osds, pg_num=pg_num, size=6, pool_kind="erasure")
+    sets, ways, groups = buffer
+    writepath_driver(m, dev, WP_MIXES[0], sets, ways, groups).run_superstep(2)  # first calls
+    drivers, panel, agg, best, best_wd = {}, [], None, 0.0, None
+    reset_launches()
+    for mix in WP_MIXES:
+        wd = drivers[mix] = writepath_driver(m, dev, mix, sets, ways, groups)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup, wsup = wd.run_superstep(epochs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        tot = wsup.totals()
+        agg = tot if agg is None else {k: agg[k] + v for k, v in tot.items()}
+        bps = 4 * (tot["delta_words"] + tot["full_words"]) / run_s
+        if bps > best:
+            best, best_wd = bps, wd
+        wd.series = (sup, wsup, wd.final_state, wd.final_buf)
+        panel.append({"mix": mix, "hit_rate": round(tot["hits"] / max(
+            tot["hits"] + tot["misses"], 1), 6), "encoded_bytes_per_sec": round(bps, 1),
+            "delta_bytes": 4 * tot["delta_words"], "full_bytes": 4 * tot["full_words"],
+            "delta_writes": tot["delta_writes"], "full_writes": tot["full_writes"],
+            "run_s": round(run_s, 6), "epochs_per_s": epochs / run_s})
+    launches = launch_counts()
+    lookups = agg["hits"] + agg["misses"]
+    hit_rate = agg["hits"] / max(lookups, 1)
+    out = {"phase": "writepath", "osds": n_osds, "pgs": pg_num, "ops": WP_OPS,
+           "epochs": epochs, "scenario": WP_SCENARIO, "sets": sets, "ways": ways,
+           "chunk_bytes": best_wd.chunk_bytes, "batch": best_wd.batch_size,
+           "buffer_bytes": 4 * (best_wd._init_buf.data.numel()
+                                + best_wd._init_buf.parity.numel()),
+           "mix_panel": panel, "encoded_bytes_per_s": best, "hit_rate": hit_rate,
+           "totals": agg, "launches": launches, "families": verdicts}
+
+    wd = drivers[WP_MIXES[0]]
+    sup, wsup, final_state, buf = wd.series
+    drv = wd.driver
+    # launches an epoch by piece over quiet epochs past the run's end
+    # (flap's events all land in its first 3 s), and K9 / K6 alone on the
+    # final buffer
+    pieces = {"epoch_body": ((drv, "_epoch_step"),), "write_batch": ((wd, "_write_batch"),),
+              "k9": ((online, "stripe_absorb"),), "k6": ((online, "schedule_apply"),)}
+    prof = piece_launches(None, lambda: wd.advance(
+        final_state, drv.host_view(final_state), buf, epochs, epochs + WP_PROFILED,
+        wd.max_writes), pieces)
+    out["launches_per_epoch"] = {p: {k: v / WP_PROFILED for k, v in c.items()}
+                                 for p, c in prof["split"].items()}
+    out["profiled"] = {k: prof[k] for k in ("wall_ms", "device_ms", "device_busy")}
+    lanes = wd._write_batch(final_state, epochs, wd.max_writes)
+    args = (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick, *lanes, wd.k, wd.w)
+    dd = online.stripe_absorb(*args)[6]
+    out["epoch_kernels_ms"] = {
+        "k9": time_ms(lambda: online.stripe_absorb(*args)),
+        "k6": time_ms(lambda: online.schedule_apply(wd.table, dd, wd.schedule.n_out)),
+        "writes": int(lanes[4].sum())}
+
+    # the staged path and the bare epoch loop over WP_SHORT epochs
+    staged, wstaged = wd.run_staged(WP_SHORT)
+    bare = drv.run_superstep(WP_SHORT)
+    head = series_head(sup, WP_SHORT)
+    gates = {"writepath_bitequal": all(verdicts.values()),
+             "staged_equals_superstep": series_equal(staged, head)
+             and np.array_equal(wstaged.lanes, wsup.lanes[:WP_SHORT]),
+             "epoch_lanes_unchanged": series_equal(bare, head)}
+    # a wrong delta injected into a resident slot
+    bm = wd.engine.bitmatrix
+    sc = Scrubber(n_pgs=pg_num, n_shards=6, device=dev)
+    sc.note_stripe_writes(buf)
+    clean = sc.scrub_stripe_buffer(buf, bm)
+    keys = buf.keys.cpu().numpy()
+    si, wi = (int(v[0]) for v in np.nonzero(keys >= 0))
+    parity = buf.parity.clone()
+    parity[si, wi, 0, 0] ^= 1
+    bad = replace(buf, parity=parity)
+    caught = sc.scrub_stripe_buffer(bad, bm)
+    slot = (si, wi, int(keys[si, wi]))
+    sc.note_stripe_writes(bad)
+    reencode = sc.scrub_stripe_buffer(bad, bm)
+    gates["scrub_catches_wrong_delta"] = (
+        clean.status == "ok" and slot in caught.crc_bad and slot in caught.reencode_bad
+        and reencode.crc_bad == [] and reencode.reencode_bad == [slot])
+    out["scrub"] = {"slots": clean.checked_slots, "bytes": clean.scrubbed_bytes}
+    # the flight recorder riding the write path
+    cfg = Config(env={})
+    cfg.set("flight_recorder", "on")
+    wf = writepath_driver(m, dev, WP_MIXES[0], sets, ways, groups, config=cfg)
+    journal = EventJournal()
+    fsup, fwsup = wf.run_superstep(WP_SHORT, journal=journal)
+    drain = flight.drain_flight(wf.flight)
+    rows = drain["rows"]
+    stripe_ok = all(np.array_equal(rows[:, flight.FLIGHT_LANES.index(f"stripe_{n}")],
+                                   fwsup.lanes[:, online.WP_LANES.index(n)])
+                    for n in ("hits", "misses", "evictions", "delta_words"))
+    work = tempfile.mkdtemp(dir=_cuda.BUILD_DIR, prefix="flight-")
+    dump = flight.write_flight_dump(work, wf.flight, reason="writepath", journal=journal,
+                                    state={"epochs": WP_SHORT})
+    doc = flight.read_flight_dump(dump)
+    trace = traceexport.export_trace(os.path.join(work, "trace.json"), journal.records, drain,
+                                     dt=wf.driver.dt)
+    gates["flight_bit_invisible"] = (series_equal(fsup, head)
+                                     and np.array_equal(fwsup.lanes, wsup.lanes[:WP_SHORT]))
+    gates["flight_stripe_lanes_equal_wrows"] = stripe_ok and len(rows) == WP_SHORT
+    gates["flight_dump_and_trace_valid"] = (flight.validate_flight_dump(doc) == []
+                                            and traceexport.validate_trace(trace) == []
+                                            and len(journal.by_name("flight.drain")) == 1)
+    out["flight"] = {"ring_epochs": drain["ring_epochs"], "rows": len(rows),
+                     "trace_events": len(trace["traceEvents"])}
+    # the bench's own settings on the card and the CPU
+    s_osds, s_pgs, s_sets, s_ways, s_groups = small
+    sm = build_osdmap(s_osds, pg_num=s_pgs, size=6, pool_kind="erasure")
+    runs = []
+    for dv in (dev, torch.device("cpu")):
+        w_ = writepath_driver(sm, dv, WP_MIXES[1], n_sets=s_sets, ways=s_ways, groups=s_groups)
+        runs.append((w_.run_superstep(WP_SHORT), w_.final_buf))
+    ((c_sup, c_w), c_buf), ((p_sup, p_w), p_buf) = runs
+    gates["card_equals_cpu"] = (series_equal(c_sup, p_sup)
+                                and np.array_equal(c_w.lanes, p_w.lanes)
+                                and lanes_equal(c_buf, p_buf)
+                                and int(c_w.lanes[:, 0].sum()) > 0)
+    gates["k9_launched"] = launches.get("stripe_absorb", 0) > 0
+    gates["k6_launched"] = launches.get("schedule_apply", 0) > 0
+    out["card_equals_cpu"] = {"osds": s_osds, "pgs": s_pgs, "sets": s_sets, "ways": s_ways,
+                              "groups": s_groups, "epochs": WP_SHORT}
+    out["gates"] = gates
+    families = [n for n, _b, _w in online_edges.gate_families()]
+    record = writepath_record(epochs, sets, ways, best, hit_rate, all(gates.values()), families,
+                              agg,
+                              len(best_wd.engine.cache.dump().get("entries", [])), panel,
+                              best_wd.batch_size)
+    import shutil
+
+    shutil.rmtree(work, ignore_errors=True)
+    return out, record
 
 
 def ec_batch(name: str, dev):
@@ -2604,7 +3300,8 @@ def mixed_hierarchy(racks: int, hosts: int, osds: int):
 
 
 #: calls of each way the general phase times in turns
-GENERAL_TURNS = 4
+GENERAL_TURNS = 2
+GENERAL_PROFILED = "b_mixed_ec"  # the map whose compacted call is profiled
 
 
 def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
@@ -2615,7 +3312,8 @@ def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
     the router's tier, host syncs and K1 launches of one call, n objects
     timed with compacted retry rounds (the default at this size) and
     masked ones in turns (median of GENERAL_TURNS each, host clock; the
-    two results equal), a profile of one compacted call, and 65,536 placements
+    two results equal), a profile of one compacted call of GENERAL_PROFILED,
+    and 65,536 placements
     (compacted, the threshold) and the same masked equal to the C++
     tier.  Returns the path's launch counts (one call of each map)."""
     from ceph_tpu_torch.crush import interp, interp_batch
@@ -2670,7 +3368,8 @@ def phase_general(dev, counts, reset, n: int = OBJECTS) -> dict:
             sec = float(np.median(secs))
             out[label][way] = {"seconds": sec, "all_seconds": secs, "placements_per_s": n / sec}
         out[label]["placements_per_s"] = out[label]["compacted"]["placements_per_s"]
-        out[label]["profile"] = profile_call(run)
+        if label == GENERAL_PROFILED:
+            out[label]["profile"] = profile_call(run)
         sample = np.arange(k, dtype=np.uint32)
         rr, ll = cppref.do_rule_batch(dense, steps_of(rule), sample, w, rm)
         for way, call in (("compacted", lambda: fn(crush_arg, w, sample)),
@@ -2696,7 +3395,7 @@ REBALANCE_FAILED = 100          # 1% of the OSDs out
 REBALANCE_CHUNK = 1 << 20
 REBALANCE_CHUNKS_PER_LAUNCH = 8
 REBALANCE_LAUNCHES = 12         # 12 x 8 x 2^20 = 100,663,296 objects >= 100M
-REBALANCE_SAMPLE = 65_536
+REBALANCE_SAMPLE = 16_384
 
 
 def phase_rebalance(dev, counts, reset) -> dict:
@@ -2705,7 +3404,7 @@ def phase_rebalance(dev, counts, reset) -> dict:
     2^20 objects (every object of 100M placed): placements/s (2 x objects
     / seconds), the moved count and fraction beside the ideal 3.0%, K3
     launches, host syncs and peak memory; a profile of one launch (after
-    the counts).  Gate: 65,536 objects at the start of the first launch
+    the counts).  Gate: 16,384 objects at the start of the first launch
     and of the last are placed as the C++ tier places them, before and
     after, and their moved count is the C++ tier's."""
     from ceph_tpu_torch.crush import interp_batch
@@ -3083,7 +3782,7 @@ def main() -> int:
     from ceph_tpu_torch import _cuda
     from ceph_tpu_torch.core import straw2
     from ceph_tpu_torch.crush import interp_batch
-    from ceph_tpu_torch.ec import gf_kernels, kernels as ec_kernels
+    from ceph_tpu_torch.ec import gf_kernels, kernels as ec_kernels, online as online_mod
     from ceph_tpu_torch.recovery import scrub as scrub_mod
 
     dev = torch.device("cuda")
@@ -3143,16 +3842,25 @@ def main() -> int:
     bad += [e["case"] for e in scrub_phase["edges"] if not e["bit_equal"]]
     if bad:
         raise AssertionError(f"K8 disagrees with its plain version: {bad}")
+    online_phase = phase_online_kernel(int_rate, dev)
+    for r in online_phase["results"]:
+        r["ptxas"] = ptxas["online"]
+    emit(online_phase)
+    bad = [r["name"] for r in online_phase["results"] if not r["bit_equal"]]
+    bad += [e["case"] for e in online_phase["edges"] if not e["bit_equal"]]
+    if bad:
+        raise AssertionError(f"K9 disagrees with its plain version: {bad}")
 
     def counts() -> dict:
         return {**straw2.LAUNCHES, **gf_kernels.LAUNCHES, **ec_kernels.LAUNCHES,
-                **scrub_mod.LAUNCHES}
+                **scrub_mod.LAUNCHES, **online_mod.LAUNCHES}
 
     def reset() -> None:
         straw2.reset_launches()
         gf_kernels.reset_launches()
         ec_kernels.reset_launches()
         scrub_mod.reset_launches()
+        online_mod.reset_launches()
 
     # each main path from 0: placement (raw CRUSH in every mode, then the
     # OSDMap), EC (encode, decode, the plugins), recovery
@@ -3216,6 +3924,20 @@ def main() -> int:
     bad = [g for g, ok in divergent["gates"].items() if not ok]
     if bad:
         raise AssertionError(f"the divergent ranks failed their gates: {bad}")
+    checkpoint, checkpoint_rec = phase_checkpoint(dev, counts, reset)
+    emit(checkpoint)
+    emit(checkpoint_rec)
+    paths["checkpoint"] = checkpoint["launches"]
+    bad = [g for g, ok in checkpoint["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the checkpoints failed their gates: {bad}")
+    writepath, writepath_rec = phase_writepath(dev, counts, reset)
+    emit(writepath)
+    emit(writepath_rec)
+    paths["writepath"] = writepath["launches"]
+    bad = [g for g, ok in writepath["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the write path failed its gates: {bad}")
     balancer = phase_balancer(dev, counts, reset)
     emit(balancer)
     paths["balancer"] = balancer["launches"]
@@ -3238,6 +3960,8 @@ def main() -> int:
             "epoch": ("descend",),
             "fleet": ("descend",),
             "divergent": ("descend",),
+            "checkpoint": ("descend", "crc32c_rows"),
+            "writepath": ("descend", "schedule_apply", "stripe_absorb"),
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
@@ -3257,6 +3981,7 @@ def main() -> int:
     records.append(dict(scrub_pass, source="ceph_tpu_torch/csrc/scrub.cu", at_verify_shape={
         key: verify[key] for key in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}))
+    records += [dict(r, source="ceph_tpu_torch/csrc/online.cu") for r in online_phase["results"]]
     emit({"kernels": [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["name"]],

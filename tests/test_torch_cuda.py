@@ -19,8 +19,11 @@ the scrub pass's and a decode-verify group's cuts, rows off a 16-byte
 boundary across segments, a 64 MiB row checked by 32 KiB pieces
 combined on the host, more rows than one grid, the check value), a
 small supervised ``scrub-storm`` run on the
-card against the same run on the CPU, and the foreground-traffic step
-(torch ops) on the card against the same call on the CPU.  Run them
+card against the same run on the CPU, the foreground-traffic step
+(torch ops) on the card against the same call on the CPU, and K9 (the
+stripe buffer's write loop) against ``stripe_absorb_plain`` on its edge
+batches (``ceph_tpu_torch/testing/online_edges.py``) and a random batch,
+buffers, Δdata and counter rows.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -37,6 +40,7 @@ from ceph_tpu_torch.core import straw2
 from ceph_tpu_torch.crush import interp_batch
 from ceph_tpu_torch.crush.engine import make_batch_runner
 from ceph_tpu_torch.models.clusters import build_simple
+from ceph_tpu_torch.testing import online_edges
 
 pytestmark = pytest.mark.cuda
 
@@ -674,3 +678,30 @@ def test_traffic_step_on_the_card_matches_cpu(card, k, size, min_size, pg_num, n
         else:
             assert g.dtype == w.dtype and torch.equal(g, w), name
     assert int(got[0].sum()) == 1 << 16 and int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("edge", ("random",) + online_edges.EDGES)
+def test_stripe_absorb_kernel_matches_plain_version(card, edge):
+    """K9 on the card against ``stripe_absorb_plain`` on the same card
+    inputs, exact: a warm buffer (or a cold one for the cold edge) of 16
+    sets x 4 ways, liberation k=4 w=7, 8 words a row."""
+    from ceph_tpu_torch.ec import gfw, online
+
+    sets, ways, k, w, words = 16, 4, 4, 7, 8
+    buf = online.empty_stripe_buffer(sets, ways, k * w, 2 * w, words, device=card)
+    enc = online.ParityDeltaEngine(gfw.liberation_bitmatrix(k, w), w=w,
+                                   device=card).full_encoder()
+    edges = {n: (b, c) for n, b, c in online_edges.edge_batches(sets, ways, k)}
+    batch, cold = edges.get(edge, (online_edges.random_batch(sets, ways, k, 256, 9), False))
+    if not cold:
+        for i in range(2):
+            warm = online_edges.random_batch(sets, ways, k, 128, 50 + i)
+            buf, _ = online.stripe_buffer_step(buf, enc.table, enc.schedule.n_out, k, w,
+                                               *online_edges.to_device(warm, card))
+    args = (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick,
+            *online_edges.to_device(batch, card), k, w)
+    got = online.stripe_absorb(*args)
+    want = online.stripe_absorb_plain(*args)
+    for name, g, p in zip(("keys", "data", "parity", "dirty", "lru", "tick", "ddata", "row"),
+                          got, want):
+        assert g.dtype == p.dtype and torch.equal(g, p), name

@@ -270,11 +270,16 @@ def test_netsplit_fleet_ticks_lanes_apart():
 
 
 def test_flight_recorder_on_is_refused():
+    """No longer refused: with the recorder on, a run leaves a per-lane
+    ring (``tests/test_torch_flight.py`` holds it to the reference's);
+    off, none."""
     _ref_m, m = _maps()
     cfg = Config(env={})
     cfg.set("flight_recorder", "on")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        FleetDriver(m, n_ops=16, config=cfg, device="cpu")
+    cfg.set("flight_ring_epochs", 4)
+    fd = FleetDriver(m, n_ops=16, config=cfg, device="cpu")
+    fd.run_fleet(2, fd.sample(2, "flap"))
+    assert fd.flight.ring.shape[:2] == (2, 4) and int(fd.flight.head) == 2
     assert FleetDriver(m, n_ops=16, device="cpu").flight is None
 
 

@@ -238,3 +238,35 @@ def test_scan_covers_fleets_durability_and_reconcile():
                  lambda: DivergentDriver(m, ChaosTimeline(), 2, n_ops=8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_scan_covers_checkpoints_flight_and_the_write_path(tmp_path):
+    """The checkpoint store and its crash child, the flight recorder and
+    its trace export, the stripe buffer and the write path are in both
+    scans, and their entry points run on the card unless asked for the
+    CPU (the crash child's config without a "device" key too)."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("recovery/checkpoint.py", "recovery/_crashbox.py", "obs/flight.py",
+                "obs/traceexport.py", "ec/online.py", "workload/writepath.py"):
+        assert mod in rel
+    mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
+    assert {"ceph_tpu_torch.recovery.checkpoint", "ceph_tpu_torch.recovery._crashbox",
+            "ceph_tpu_torch.obs.flight", "ceph_tpu_torch.obs.traceexport",
+            "ceph_tpu_torch.ec.online", "ceph_tpu_torch.workload.writepath"} <= mods
+    from ceph_tpu_torch.ec.online import ParityDeltaEngine, empty_stripe_buffer
+    from ceph_tpu_torch.obs.flight import empty_flight
+    from ceph_tpu_torch.recovery import _crashbox
+    from ceph_tpu_torch.recovery.checkpoint import CheckpointStore
+
+    for fn in (CheckpointStore, empty_flight, empty_stripe_buffer, ParityDeltaEngine):
+        assert _device_default(fn) == "cuda"
+    if torch.cuda.is_available():
+        return
+    cfg = tmp_path / "cfg.json"
+    cfg.write_text(json.dumps({"mode": "superstep", "store": str(tmp_path / "s"),
+                               "out": str(tmp_path / "o.npz"), "n_osds": 16, "pg_num": 16}))
+    for call in (lambda: CheckpointStore(str(tmp_path / "c")),
+                 lambda: empty_flight(4), lambda: empty_stripe_buffer(4, 2, 4, 2, 1),
+                 lambda: _crashbox.main([str(cfg)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

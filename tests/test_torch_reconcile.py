@@ -521,11 +521,9 @@ def test_driver_validates_rank_specs_loudly():
 
 def test_what_waits_raises_and_names_its_item():
     _ref_m, m = _maps(16, 32)
+    # checkpointed runs (item 2d) are ported: tests/test_torch_checkpoint.py
     d = rc.DivergentDriver(m, ChaosTimeline(), 2, config=_cfgs()[1], n_ops=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2d"):
-        d.run(4, store=object())
-    with pytest.raises(NotImplementedError, match="item 2d"):
-        d.run(4, crashes=(1,))
+    assert d.run(4).converged
     with pytest.raises(NotImplementedError, match="item 4"):
         rc.ViewMerger(mesh=None)
     with pytest.raises(NotImplementedError, match="item 4"):

@@ -14,9 +14,11 @@ a daemon of their own package serving equal timelines.  Bench-record
 panels: ``fleet`` and ``ranks`` over the same JSON-line files (records of
 the fleet and divergent schemas, each with its optional parts present
 and absent, among other lines) render equal text and ``--json`` in both
-CLIs, and both exit 1 when no record is found.  The commands that wait
-for paths the port does not run yet exit non-zero and name their
-ROADMAP item.
+CLIs, and both exit 1 when no record is found; so do ``checkpoint`` and
+``writepath`` over records of the schemas ``chip_smoke.py`` prints, and
+``writepath --socket`` renders a live ``dump_stripe_cache`` as the
+reference's CLI renders the same reply.  With nothing to render, the
+commands that once waited for their items exit 1 and say what to pass.
 """
 
 import copy
@@ -170,10 +172,16 @@ def test_caches_panel_is_the_schedule_cache(capsys):
         (["writepath", "--socket", "/nonexistent.asok"], "item 3"),
     ], start=2)
 ])
-def test_waiting_commands_exit_nonzero_and_name_their_item(capsys, argv, item):
-    assert cli.main(argv + ["--device", "cpu"]) != 0
+def test_waiting_commands_exit_nonzero_and_name_their_item(tmp_path, capsys, monkeypatch,
+                                                           argv, item):
+    """The commands once waiting for their items render now; with no
+    record, dump or daemon to render they exit 1 and say what to pass,
+    as the reference's CLI does."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(argv + ["--device", "cpu"]) == 1
     err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP §1, {item}" in err
+    assert "not ported yet" not in err
+    assert ("cannot reach" if "--socket" in argv else "no ") in err
 
 
 def _daemon_timeline(port: bool):
@@ -264,6 +272,35 @@ RANKS_RECORD = {
     "divergent_rank_panel": [{"rank": 0, "step": 48, "epoch": 9, "fingerprint": 123456},
                              {"rank": 1, "step": 48, "epoch": 9, "fingerprint": 123456}],
 }
+CHECKPOINT_RECORD = {
+    "metric": "checkpoint_write_bandwidth_bps", "status": "ok", "value": 812345678,
+    "unit": "B/s", "platform": "gpu", "checkpoint_scenario": "flap",
+    "checkpoint_n_epochs": 256, "checkpoint_snapshot_every": 16,
+    "checkpoint_snapshot_bytes": 1048576, "checkpoint_n_snapshots": 16,
+    "checkpoint_write_bandwidth_bps": 812345678.5, "checkpoint_write_s": 0.02,
+    "checkpoint_restore_s": 0.75, "checkpoint_load_s": 0.05, "checkpoint_replay_s": 0.7,
+    "checkpoint_overhead_fraction": 0.012, "checkpoint_bitequal": True,
+    "checkpoint_torn_fallback_ok": True,
+    "checkpoint_overhead_panel": [
+        {"snapshot_every": 16, "n_snapshots": 16, "run_s": 2.1, "baseline_s": 2.0,
+         "overhead_fraction": 0.05},
+        {"snapshot_every": 64, "n_snapshots": 4, "run_s": 2.02, "baseline_s": 2.0,
+         "overhead_fraction": 0.01}],
+}
+WRITEPATH_RECORD = {
+    "metric": "writepath_encoded_bytes_per_sec", "status": "ok", "value": 1234567890,
+    "unit": "B/s", "platform": "gpu", "writepath_scenario": "flap",
+    "writepath_n_epochs": 128, "writepath_batch": 256, "writepath_n_sets": 1024,
+    "writepath_ways": 4, "writepath_hit_rate": 0.25, "writepath_bitequal": True,
+    "writepath_families": "liberation,blaum_roth,liber8tion,cauchy,rs_w8",
+    "writepath_stripe_hits": 100, "writepath_stripe_misses": 300,
+    "writepath_stripe_evictions": 20, "writepath_delta_bytes": 4096,
+    "writepath_full_bytes": 65536, "writepath_schedule_entries": 1,
+    "writepath_mix_panel": [
+        {"mix": "ssd-steady", "hit_rate": 0.2, "encoded_bytes_per_sec": 1.2e9,
+         "delta_bytes": 2048, "full_bytes": 32768, "delta_writes": 10, "full_writes": 5,
+         "run_s": 1.5}],
+}
 RANKS_RETRIES = {"divergent_retries_total": 1, "divergent_backoff_epochs_total": 3,
                  "divergent_laggy_ranks": [1], "divergent_stalled": True,
                  "divergent_converged": False}
@@ -284,6 +321,11 @@ def _bench_log(tmp_path, name, *records):
     ("fleet", (dict(FLEET_RECORD, **FLEET_SWEEP, fleet_bitequal=False),)),
     ("ranks", (RANKS_RECORD,)),
     ("ranks", (dict(RANKS_RECORD, value=9), dict(RANKS_RECORD, **RANKS_RETRIES))),
+    ("checkpoint", (dict(CHECKPOINT_RECORD, value=1), CHECKPOINT_RECORD)),
+    ("checkpoint", (dict(CHECKPOINT_RECORD, checkpoint_overhead_panel=[],
+                         checkpoint_bitequal=False),)),
+    ("writepath", (WRITEPATH_RECORD,)),
+    ("writepath", (dict(WRITEPATH_RECORD, writepath_mix_panel=[], writepath_bitequal=False),)),
 ])
 @pytest.mark.parametrize("as_json", [False, True])
 def test_bench_record_panels_match_reference(tmp_path, capsys, command, records, as_json):
@@ -300,7 +342,7 @@ def test_bench_record_panels_match_reference(tmp_path, capsys, command, records,
         assert got.startswith(command + ": ") and len(got.splitlines()) >= 2
 
 
-@pytest.mark.parametrize("command", ["fleet", "ranks"])
+@pytest.mark.parametrize("command", ["fleet", "ranks", "checkpoint", "writepath"])
 def test_bench_record_panels_without_a_record_exit_1(tmp_path, capsys, monkeypatch, command):
     path = _bench_log(tmp_path, "other.json")
     assert cli.main([command, "--bench-log", path]) == 1
@@ -308,7 +350,33 @@ def test_bench_record_panels_without_a_record_exit_1(tmp_path, capsys, monkeypat
     # the default search reads BENCH*.json in the working directory
     monkeypatch.chdir(tmp_path)
     assert cli.main([command]) == 1
-    record = FLEET_RECORD if command == "fleet" else RANKS_RECORD
+    record = {"fleet": FLEET_RECORD, "ranks": RANKS_RECORD, "checkpoint": CHECKPOINT_RECORD,
+              "writepath": WRITEPATH_RECORD}[command]
     _bench_log(tmp_path, "BENCH_r99.json", record)
     assert cli.main([command, "--json"]) == 0
     assert json.loads(capsys.readouterr().out) == record
+
+
+def test_writepath_socket_renders_the_live_stripe_cache(tmp_path, capsys):
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery import ChaosTimeline, EpochDriver
+    from ceph_tpu_torch.workload import WritepathDriver
+
+    m = build_osdmap(16, pg_num=16, size=6, pool_kind="erasure")
+    w = WritepathDriver(EpochDriver(m, ChaosTimeline(), n_ops=32, device="cpu"), n_sets=4,
+                        ways=2, name="cli-probe")
+    w.run_superstep(2)
+    path = str(tmp_path / "wp.asok")
+    daemon = admin_socket.AdminSocket(path)
+    daemon.start()
+    try:
+        reply = admin_socket.ask(path, "dump_stripe_cache")
+        assert cli.main(["writepath", "--socket", path]) == 0
+        got = capsys.readouterr().out
+    finally:
+        daemon.stop()
+    import io
+
+    want = io.StringIO()
+    ref_cli._render("writepath", reply, False, want)
+    assert got == want.getvalue() and "cli-probe: " in got

@@ -23,7 +23,7 @@ state after that epoch, and nothing else.
 Also: ``compile_event_tape`` rows and bumps equal to the reference's,
 with its refusals; the switch pins the staged path; ``run_epochs``
 with snapshots; the tape's rank, chip and crash refusals; the flight
-recorder's refusal.
+recorder's knob.
 """
 
 import copy
@@ -289,9 +289,14 @@ def test_event_tape_refusals_match_reference(specs, match):
 
 
 def test_flight_recorder_on_is_not_ported():
+    """The recorder is ported now (``tests/test_torch_flight.py`` holds
+    its ring): 'on' records, 'auto' (no bench-decided defaults file in
+    the port) stays off."""
     _ref_m, m = _maps(32, 64)
     cfg = Config(env={})
     cfg.set("flight_recorder", "on")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        rec.EpochDriver(m, ChaosTimeline(), n_ops=16, config=cfg, device="cpu")
+    d = rec.EpochDriver(m, ChaosTimeline(), n_ops=16, config=cfg, device="cpu")
+    assert d.flight_on and d.flight is not None
+    d.run_superstep(2)
+    assert d.drain_flight()["head"] == 2
     assert not rec.EpochDriver(m, ChaosTimeline(), n_ops=16, device="cpu").flight_on

@@ -1,0 +1,323 @@
+"""The port's online EC write path vs the reference's.
+
+The cases of ``tests/test_writepath.py`` on the port (the map and driver
+of the reference's own module, ``build_osdmap(32, pg_num=64, size=6,
+erasure)``, flap, 64 ops, ``n_sets=8, ways=2, max_writes=32,
+full_permille=250``, 8 epochs in chunks of 4, the port on the CPU),
+each held against the reference's run on the same inputs:
+
+- K9's plain versions, ``stripe_absorb_plain`` (the reference's loop
+  body, one write at a time) and ``stripe_absorb_by_set_plain`` (the
+  kernel's order: sets one by one, ticks from the prefix count), against
+  the reference's ``stripe_buffer_step`` on every edge batch of
+  ``testing/online_edges.py``: buffers, parity and counter rows exact;
+- phase 2, one K6 launch over every slot's Δdata stacked along the word
+  axis, against the reference's vmapped ``_xla_apply``;
+- the codec gate, footprint caching, scan = staged on both series, the
+  epoch lanes unchanged by the write stage, a crash at each phase
+  resumed with a warm buffer, the scrub of a wrong delta, the admin
+  hook.
+
+Epoch series against the reference's follow the epoch-loop tests:
+exact but ``sums`` (``rtol=1e-6``), ``hist`` by value (R10) and the
+latency histograms outside R8's band (``test_torch_superstep``'s
+``assert_matches_reference``); write-path lanes exact.
+"""
+
+import copy
+import json
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ceph_tpu.ec import gfw as ref_gfw
+from ceph_tpu.ec.online import (
+    ParityDeltaEngine as RefEngine,
+    empty_stripe_buffer as ref_empty_buffer,
+    stripe_buffer_step as ref_stripe_buffer_step,
+)
+from ceph_tpu.ec.schedule import _xla_apply
+from ceph_tpu.models.clusters import build_osdmap as ref_build_osdmap
+from ceph_tpu.recovery import EpochDriver as RefEpochDriver, build_scenario as ref_scenario
+from ceph_tpu.workload import WritepathDriver as RefWritepathDriver
+from ceph_tpu_torch import convert
+from ceph_tpu_torch import recovery as rec
+from ceph_tpu_torch.common.admin_socket import AdminSocket, ask
+from ceph_tpu_torch.ec import gfw, online
+from ceph_tpu_torch.ec.kernels import schedule_apply
+from ceph_tpu_torch.recovery.checkpoint import (
+    CheckpointStore,
+    CrashPoint,
+    SimulatedCrash,
+    diff_states,
+)
+from ceph_tpu_torch.recovery.scrub import DecodeVerifier, Scrubber
+from ceph_tpu_torch.testing import online_edges
+from ceph_tpu_torch.workload import WritepathDriver, checkpointed_writepath
+from test_torch_superstep import assert_matches_reference
+
+N_EPOCHS = 8
+EVERY = 4
+CRASH_EPOCH = 3  # not boundary-aligned: the crash fires at epoch 4's boundary
+WP = dict(n_sets=8, ways=2, max_writes=32, full_permille=250)
+# the K9 cases: liberation k=4 w=7 (the write path's codec for k=4 m=2)
+K, W, WORDS = 4, 7, 2
+SETS, WAYS = 4, 2
+BUF_FIELDS = ("keys", "data", "parity", "dirty", "lru", "tick", "totals")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_caches_left_as_found():
+    """Put the reference's program caches back after this module."""
+    from ceph_tpu.crush import interp, interp_batch as ib
+    from ceph_tpu.osdmap import mapping
+    from ceph_tpu.recovery import pipeline
+
+    caches = (ib._FAST_CACHE, ib._PACK_CACHE, interp._BATCH_CACHE, mapping._POOL_FN_CACHE,
+              pipeline.PIPELINES._entries)
+    saved = [copy.copy(c) for c in caches]
+    counts = (pipeline.PIPELINES.hits, pipeline.PIPELINES.misses, pipeline.PIPELINES.evictions)
+    yield
+    for cache, before in zip(caches, saved):
+        cache.clear()
+        cache.update(before)
+    pipeline.PIPELINES.hits, pipeline.PIPELINES.misses, pipeline.PIPELINES.evictions = counts
+
+
+@pytest.fixture(scope="module")
+def story():
+    """Both packages' write paths over the reference module's driver, and
+    each one's uninterrupted run chunked as the checkpointed runs are."""
+    ref_m = ref_build_osdmap(32, pg_num=64, size=6, pool_kind="erasure")
+    m = convert.osdmap_from_reference(ref_m.encode())
+    rd = RefEpochDriver(ref_m, ref_scenario("flap", ref_m), n_ops=64)
+    rw = RefWritepathDriver(rd, **WP)
+    ref = rw.run_superstep(N_EPOCHS, snapshot_every=EVERY)
+    d = rec.EpochDriver(m, rec.build_scenario("flap", m), n_ops=64, device="cpu")
+    w = WritepathDriver(d, **WP)
+    port = w.run_superstep(N_EPOCHS, snapshot_every=EVERY)
+    return {"ref": (rd, rw, ref), "port": (d, w, port),
+            "final": (w.final_state, w.final_buf)}
+
+
+def _assert_buffer_equal(port, ref):
+    ref = jax.device_get(ref)
+    for f in BUF_FIELDS:
+        want = np.asarray(getattr(ref, f))
+        got = getattr(port, f).numpy()
+        if want.dtype == np.uint32:
+            got = got.view(np.uint32)
+        assert got.shape == want.shape and np.array_equal(got, want), f
+
+
+def _ref_batch(batch):
+    return (jnp.asarray(batch["keys"]), jnp.asarray(batch["chunks"]),
+            jnp.asarray(batch["fulls"]), jnp.asarray(batch["seeds"].view(np.uint32)),
+            jnp.asarray(batch["valid"]))
+
+
+@pytest.fixture(scope="module")
+def codec():
+    bm = gfw.liberation_bitmatrix(K, W)
+    ref_sched = RefEngine(ref_gfw.liberation_bitmatrix(K, W), w=W).full_encoder().schedule
+    enc = online.ParityDeltaEngine(bm, w=W, device="cpu").full_encoder()
+    return bm, ref_sched, enc
+
+
+@pytest.fixture(scope="module")
+def warm(codec):
+    """A warm buffer in both packages: three random batches absorbed."""
+    _bm, ref_sched, enc = codec
+    rbuf = ref_empty_buffer(SETS, WAYS, K * W, 2 * W, WORDS)
+    pbuf = online.empty_stripe_buffer(SETS, WAYS, K * W, 2 * W, WORDS, device="cpu")
+    for i in range(3):
+        b = online_edges.random_batch(SETS, WAYS, K, 32, seed=100 + i)
+        rbuf, _ = ref_stripe_buffer_step(rbuf, jnp.asarray(ref_sched.steps), ref_sched.n_out,
+                                         ref_sched.n_bufs, K, W, *_ref_batch(b))
+        pbuf, _ = online.stripe_buffer_step(pbuf, enc.table, enc.schedule.n_out, K, W,
+                                            *online_edges.to_device(b, "cpu"))
+    _assert_buffer_equal(pbuf, rbuf)
+    return rbuf, pbuf
+
+
+@pytest.mark.parametrize("name", online_edges.EDGES)
+def test_stripe_absorb_plain_versions_match_reference_on_edges(codec, warm, name):
+    _bm, ref_sched, enc = codec
+    batch, cold = next((b, c) for n, b, c in online_edges.edge_batches(SETS, WAYS, K)
+                       if n == name)
+    if cold:
+        rbuf = ref_empty_buffer(SETS, WAYS, K * W, 2 * W, WORDS)
+        pbuf = online.empty_stripe_buffer(SETS, WAYS, K * W, 2 * W, WORDS, device="cpu")
+    else:
+        rbuf, pbuf = warm
+    want, want_row = ref_stripe_buffer_step(rbuf, jnp.asarray(ref_sched.steps),
+                                            ref_sched.n_out, ref_sched.n_bufs, K, W,
+                                            *_ref_batch(batch))
+    lanes = online_edges.to_device(batch, "cpu")
+    got, row = online.stripe_buffer_step(pbuf, enc.table, enc.schedule.n_out, K, W, *lanes)
+    _assert_buffer_equal(got, want)
+    assert np.array_equal(row.numpy(), np.asarray(want_row))
+    args = (pbuf.keys, pbuf.data, pbuf.parity, pbuf.dirty, pbuf.lru, pbuf.tick, *lanes, K, W)
+    plain = online.stripe_absorb_plain(*args)
+    by_set = online.stripe_absorb_by_set_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(plain, by_set))
+    if name == "cold_misses":
+        assert int(row[online.WP_LANES.index("hits")]) == 0
+    if name == "one_set_chain":
+        assert int(row[online.WP_LANES.index("evictions")]) >= 4 * WAYS
+    if name == "evict_then_hit":
+        hits = int(row[online.WP_LANES.index("hits")])
+        assert hits >= 1 and int(row[online.WP_LANES.index("evictions")]) >= 1
+
+
+def test_phase2_batched_k6_matches_reference_vmapped_xla_apply(codec):
+    _bm, ref_sched, enc = codec
+    rng = np.random.default_rng(3)
+    n_slots = SETS * WAYS
+    dd = rng.integers(0, 1 << 32, (n_slots, K * W, WORDS), dtype=np.uint64).astype(np.uint32)
+    dd[1] = 0  # an untouched slot
+    want = jax.vmap(lambda x: _xla_apply(jnp.asarray(ref_sched.steps), x, ref_sched.n_out,
+                                         ref_sched.n_bufs))(jnp.asarray(dd))
+    stacked = torch.from_numpy(np.ascontiguousarray(dd.transpose(1, 0, 2))
+                               .reshape(K * W, n_slots * WORDS).view(np.int32))
+    got = schedule_apply(enc.table, stacked, enc.schedule.n_out)
+    got = got.view(-1, n_slots, WORDS).permute(1, 0, 2).numpy().view(np.uint32)
+    assert np.array_equal(got, np.asarray(want))
+    assert not got[1].any()
+
+
+def test_delta_matches_dense_every_gate_family():
+    verdicts = online_edges.bitequal_gate(n_updates=6, seed=20260806, device="cpu")
+    assert verdicts == {n: True for n, _b, _w in online_edges.gate_families()}
+
+
+def test_footprint_programs_cached_per_footprint():
+    rng = np.random.default_rng(7)
+    eng = online.ParityDeltaEngine(gfw.liberation_bitmatrix(4, 7), w=7, device="cpu")
+    ref = RefEngine(ref_gfw.liberation_bitmatrix(4, 7), w=7)
+    size = eng.w * eng.packetsize
+    data = rng.integers(0, 256, (eng.k, size), dtype=np.uint8)
+    parity = eng.encode(data)
+    assert np.array_equal(parity, ref.encode(data))
+    n_full = len(eng.cache)
+
+    def upd(fp):
+        new = rng.integers(0, 256, (len(fp), size), dtype=np.uint8)
+        out = eng.apply_delta(parity, fp, data[list(fp)], new)
+        assert np.array_equal(out, ref.apply_delta(parity, fp, data[list(fp)], new))
+        data[list(fp)] = new
+        return out
+
+    parity = upd((0, 2))
+    assert len(eng.cache) == n_full + 1
+    parity = upd((0, 2))
+    assert len(eng.cache) == n_full + 1
+    parity = upd((1,))
+    assert len(eng.cache) == n_full + 2
+    assert np.array_equal(parity, eng.dense_parity(data))
+
+
+def test_scan_matches_staged_and_reference_both_series(story):
+    rd, rw, (rsup, rwsup) = story["ref"]
+    d, w, (sup, wsup) = story["port"]
+    staged, wstaged = w.run_staged(N_EPOCHS)
+    assert sup.diff(staged) == []
+    assert wsup.diff(wstaged) == []
+    assert np.array_equal(wsup.lanes, np.asarray(rwsup.lanes))
+    assert_matches_reference(sup, rsup, d, N_EPOCHS)
+    _assert_buffer_equal(w.final_buf, rw.final_buf)
+    totals = wsup.totals()
+    assert totals["delta_writes"] > 0 and totals["full_writes"] > 0
+    assert totals["hits"] > 0 and totals["misses"] > 0
+
+
+def test_epoch_lanes_unchanged_by_write_stage(story):
+    d, _w, (sup, wsup) = story["port"]
+    plain = d.run_superstep(N_EPOCHS, snapshot_every=EVERY)
+    assert sup.diff(plain) == []
+    processed = wsup.lane("delta_writes") + wsup.lane("full_writes")
+    assert (processed <= np.asarray(sup.writes)).all()
+    assert processed.sum() > 0
+
+
+@pytest.mark.parametrize("phase", ("before", "during", "after"))
+def test_crash_resume_warm_stripe_buffer_bitequal(tmp_path, story, phase):
+    d, w, (sup, wsup) = story["port"]
+    _rd, _rw, (rsup, rwsup) = story["ref"]
+    fstate, fbuf = story["final"]
+    store = CheckpointStore(str(tmp_path), device="cpu")
+    with pytest.raises(SimulatedCrash) as ei:
+        checkpointed_writepath(w, N_EPOCHS, store=store, snapshot_every=EVERY,
+                               crashes=(CrashPoint(CRASH_EPOCH, phase),))
+    assert (ei.value.epoch, ei.value.phase) == (CRASH_EPOCH, phase)
+    store2 = CheckpointStore(str(tmp_path), device="cpu")
+    if phase == "after":  # before and during leave no committed snapshot
+        meta, (_state, buf), series = store2.load_latest(
+            (d._init_state, w._init_buf), with_series=True)
+        assert meta["next_epoch"] == EVERY
+        assert int((buf.keys >= 0).sum()) > 0
+        assert series["wp_lanes"].shape[0] == EVERY
+    sup2, wsup2 = checkpointed_writepath(w, N_EPOCHS, store=store2, snapshot_every=EVERY)
+    assert sup.diff(sup2) == [] and wsup.diff(wsup2) == []
+    assert np.array_equal(wsup2.lanes, np.asarray(rwsup.lanes))
+    assert diff_states((w.final_state, w.final_buf), (fstate, fbuf)) == []
+
+
+def test_scrub_detects_injected_wrong_delta(story):
+    _d, w, _series = story["port"]
+    _state, buf, _rows, _wrows = w.run_superstep(N_EPOCHS, pull=False)
+    bm = w.engine.bitmatrix
+    sc = Scrubber(n_pgs=64, n_shards=6, device="cpu")
+    sc.note_stripe_writes(buf)
+    res = sc.scrub_stripe_buffer(buf, bm)
+    assert res.status == "ok"
+    assert res.checked_slots > 0 and res.scrubbed_bytes > 0
+    keys = buf.keys.numpy()
+    si, wi = [int(v[0]) for v in np.nonzero(keys >= 0)]
+    parity = buf.parity.clone()
+    parity[si, wi, 0, 0] ^= 1
+    bad = replace(buf, parity=parity)
+    res2 = sc.scrub_stripe_buffer(bad, bm)
+    assert res2.status == "inconsistent"
+    slot = (si, wi, int(keys[si, wi]))
+    assert slot in res2.crc_bad and slot in res2.reencode_bad
+    sc.note_stripe_writes(bad)
+    res3 = sc.scrub_stripe_buffer(bad, bm)
+    assert res3.crc_bad == [] and res3.reencode_bad == [slot]
+    assert res3.status == "inconsistent"
+    dv = DecodeVerifier(np.zeros((64, 6), np.uint32), codec=None, device="cpu")
+    assert dv.verify_stripe_buffer(buf, bm) == set()
+    assert dv.verify_stripe_buffer(bad, bm) == {int(keys[si, wi])}
+
+
+def test_dump_stripe_cache_admin_hook(tmp_path, story):
+    _d, w, _series = story["port"]
+    rec_ = online.dump_stripe_cache()
+    panel = next(b for b in rec_["buffers"] if b["name"] == w.name)
+    assert panel["occupied"] > 0 and panel["hits"] > 0
+    assert panel["schedule_cache"]["entries"]
+    assert "stripe_hits" in rec_["counters"]["ec_writepath"]
+    sock = AdminSocket(str(tmp_path / "wp.asok"))
+    sock.start()
+    try:
+        reply = ask(str(tmp_path / "wp.asok"), "dump_stripe_cache")
+    finally:
+        sock.stop()
+    assert json.dumps(reply)
+    assert w.name in [b["name"] for b in reply["buffers"]]
+
+
+def test_stripe_absorb_checks_its_lanes():
+    buf = online.empty_stripe_buffer(SETS, WAYS, K * W, 2 * W, WORDS, device="cpu")
+    lanes = list(online_edges.to_device(online_edges.random_batch(SETS, WAYS, K, 8, 1), "cpu"))
+    lanes[3] = lanes[3].to(torch.int64)  # seeds must be int32 bits
+    with pytest.raises(TypeError, match="bseeds"):
+        online.stripe_absorb(buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick,
+                             *lanes, K, W)
+    with pytest.raises(ValueError, match="power of two"):
+        online.empty_stripe_buffer(6, 2, 4, 2, 1, device="cpu")
