@@ -52,7 +52,8 @@ SIGNATURES = {
     },
     "online": {
         "online_stripe_absorb": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _P],
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "online_stripe_commit": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
 

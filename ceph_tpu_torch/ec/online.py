@@ -9,13 +9,19 @@ The counterpart of the reference package's ``ec/online.py``.
   int32 (the same bits; XOR is the same), with per-slot dirty chunk
   masks and an LRU tick lane.
 - :func:`stripe_buffer_step`: one epoch's write batch absorbed in two
-  phases.  Phase 1 (lookup, LRU victim, install from the backing store,
-  the chunk or full-stripe write, Δdata) is K9, :func:`stripe_absorb`:
+  phases, in place (the step consumes its buffer).  Phase 1 (lookup, LRU
+  victim, install from the backing store, the chunk or full-stripe
+  write, Δdata, the counter row) is K9, :func:`stripe_absorb`:
   ``csrc/online.cu`` on a CUDA tensor, :func:`stripe_absorb_plain` on a
-  CPU one.  Phase 2 is one K6 launch over every slot: the slots' Δdata
-  stacked along the word axis (``[kw, S * words]``, as K9 writes it)
-  through the codec's XOR schedule, XORed into parity.  Untouched slots
-  carry Δdata = 0, so their parity stays.
+  CPU one.  Δdata exists only for the slots the batch touches: compacted
+  to ``[kw, B * words]`` (entry ``j`` the slot whose first write is
+  batch lane ``j``, ``slot_of[j]`` that slot or -1).  Phase 2 is one K6
+  launch over that compact operand through the codec's XOR schedule,
+  then K9's commit (:func:`stripe_commit`) XORs each owned entry into
+  its slot's parity, adds the row into the totals and sets the tick,
+  all in place.  Nothing in the
+  step is proportional to the buffer's size; untouched slots are not
+  read.
 - :class:`ParityDeltaEngine`: read-modify-write parity deltas for one
   codec bitmatrix through footprint programs cached in a
   :class:`~ceph_tpu_torch.ec.schedule.ScheduleCache` (K6).
@@ -38,7 +44,7 @@ GF(2) product that shares no code with the schedule compiler.
 from __future__ import annotations
 
 import weakref
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -64,11 +70,9 @@ WP_LANES = (
     "hits", "misses", "evictions", "delta_writes", "full_writes",
     "delta_words", "full_words", "touched_slots",
 )
-#: the lanes K9 counts (all but ``touched_slots``, which phase 2 reads)
-N_ABSORB_LANES = len(WP_LANES) - 1
-
-#: K9's launch count (the wrapper adds one where it launches)
-LAUNCHES = {"stripe_absorb": 0}
+#: K9's launch counts, its absorb and its commit (each wrapper adds one
+#: where it launches)
+LAUNCHES = {"stripe_absorb": 0, "stripe_commit": 0}
 
 
 def reset_launches() -> None:
@@ -102,8 +106,12 @@ class StripeBufferState:
     ``n_sets`` (a power of two: the set index is a hash masked by
     ``n_sets - 1``) x ``ways`` slots; each slot caches one stripe's data
     and parity as packed u32 word rows carried in int32 (``k*w`` data
-    rows, ``m*w`` parity rows, ``words`` each).  Every update returns a
-    new instance and never writes a tensor another instance holds."""
+    rows, ``m*w`` parity rows, ``words`` each).
+
+    Ownership: :func:`stripe_buffer_step` consumes the buffer it is
+    given, as a donated argument would be: it updates every tensor of
+    the instance in place and returns that same instance.  A caller that
+    needs the old buffer again steps a :meth:`clone`."""
 
     keys: torch.Tensor    # i32 [n_sets, ways]  packed stripe key, -1 empty
     data: torch.Tensor    # i32 [n_sets, ways, k*w, words]  (u32 bits)
@@ -124,6 +132,11 @@ class StripeBufferState:
     @property
     def words(self) -> int:
         return int(self.data.shape[3])
+
+    def clone(self) -> "StripeBufferState":
+        """A copy holding tensors of its own."""
+        return StripeBufferState(*(t.clone() for t in (
+            self.keys, self.data, self.parity, self.dirty, self.lru, self.tick, self.totals)))
 
 
 def empty_stripe_buffer(n_sets: int, ways: int, kw: int, mw: int, words: int,
@@ -158,12 +171,12 @@ def _hash_rows(seed, salt: int, n_rows: int, words: int, device) -> torch.Tensor
     return _i32_bits(crush_hash32_2(grid, _scalar((int(seed) & 0xFFFFFFFF) ^ salt, device)))
 
 
-def stripe_base_rows(key, kw: int, words: int, device="cpu") -> torch.Tensor:
+def stripe_base_rows(key, kw: int, words: int, device="cuda") -> torch.Tensor:
     """The backing store's data rows for stripe ``key`` ([kw, words])."""
     return _hash_rows(key, _BASE_SALT, kw, words, resolve_device(device))
 
 
-def payload_rows(seed, kw: int, words: int, device="cpu") -> torch.Tensor:
+def payload_rows(seed, kw: int, words: int, device="cuda") -> torch.Tensor:
     """One write op's content rows ([kw, words]; small writes mask to
     their chunk's ``w`` rows)."""
     return _hash_rows(seed, _PAYLOAD_SALT, kw, words, resolve_device(device))
@@ -183,12 +196,16 @@ def set_index(keys: torch.Tensor, n_sets: int) -> torch.Tensor:
 # phase 1: K9 and its plain versions
 
 
-def _absorb_one(keys, data, parity, dirty, lru, ddata, s: int, key: int, chunk: int,
-                full: bool, seed: int, tick: int, k: int, w: int, counts: list) -> None:
-    """One valid write into set ``s``, in place, as the reference's loop
-    body does it: the first equal key hits, else the first minimum of
-    ``lru`` is the victim and the stripe installs from the backing store
-    as a delta from zero; then the full-stripe or chunk write."""
+def _absorb_one(keys, data, parity, dirty, lru, ddata, slot_of, entry_of: dict, s: int,
+                lane: int, key: int, chunk: int, full: bool, seed: int, tick: int, k: int,
+                w: int, counts: list) -> None:
+    """One valid write (batch lane ``lane``) into set ``s``, in place, as
+    the reference's loop body does it: the first equal key hits, else the
+    first minimum of ``lru`` is the victim and the stripe installs from
+    the backing store as a delta from zero; then the full-stripe or chunk
+    write.  The slot's Δdata is the compact entry of its first write in
+    the batch (``entry_of``; a new entry starts at zero, as the
+    reference's full-width Δdata does)."""
     _n_sets, ways, kw, words = data.shape
     dev = data.device
     row_keys = keys[s].tolist()
@@ -201,7 +218,11 @@ def _absorb_one(keys, data, parity, dirty, lru, ddata, s: int, key: int, chunk: 
     install = not hit
     evict = install and row_keys[way] >= 0
     slot = s * ways + way
-    dd = ddata[:, slot * words:(slot + 1) * words]  # [kw, words] view
+    if slot not in entry_of:
+        entry_of[slot] = lane
+        slot_of[lane] = slot
+    entry = entry_of[slot]
+    dd = ddata[:, entry * words:(entry + 1) * words]  # [kw, words] view
     if install:
         base = stripe_base_rows(key, kw, words, dev)
         data[s, way] = base
@@ -231,12 +252,11 @@ def _absorb_one(keys, data, parity, dirty, lru, ddata, s: int, key: int, chunk: 
     counts[6] += kw * words if (full or not hit) else 0
 
 
-def _absorb_args(keys, data, parity, dirty, lru, tick):
+def _absorb_args(data, n: int):
+    """Zeroed compact Δdata ``[kw, n * words]`` and ``slot_of`` (-1)."""
     kw, words = int(data.shape[2]), int(data.shape[3])
-    n_slots = int(keys.numel())
-    ddata = torch.zeros((kw, n_slots * words), dtype=I32, device=data.device)
-    return (keys.clone(), data.clone(), parity.clone(), dirty.clone(), lru.clone(),
-            int(tick), ddata)
+    return (torch.zeros((kw, n * words), dtype=I32, device=data.device),
+            torch.full((n,), -1, dtype=I32, device=data.device))
 
 
 def _batch_host(bkeys, bchunks, bfulls, bseeds, bvalid):
@@ -244,32 +264,40 @@ def _batch_host(bkeys, bchunks, bfulls, bseeds, bvalid):
             (_u32_of(bseeds)).tolist(), bvalid.tolist())
 
 
-def _absorb_out(keys, data, parity, dirty, lru, tick: int, ddata, counts, device):
+def _absorb_out(keys, data, parity, dirty, lru, tick: int, ddata, slot_of, counts, device):
+    """The outputs, the touched count (entries with a nonzero word) last."""
+    kw, words, n = int(data.shape[2]), int(data.shape[3]), int(slot_of.shape[0])
+    touched = int((ddata.view(kw, n, words) != 0).any(2).any(0).sum())
     return (keys, data, parity, dirty, lru, torch.full((), tick, dtype=I32, device=device),
-            ddata, torch.tensor(counts, dtype=I64, device=device))
+            ddata, slot_of, torch.tensor(counts + [touched], dtype=I64, device=device))
 
 
 def stripe_absorb_plain(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls,
                         bseeds, bvalid, k: int, w: int):
     """Plain K9: the reference's phase-1 loop body, one write at a time
-    in batch order.  Returns ``(keys, data, parity, dirty, lru, tick,
-    ddata, row)``: the buffer lanes (new tensors), Δdata ``[kw, n_sets *
-    ways * words]`` int32 (the slots stacked along the word axis, as
-    phase 2's K6 takes it) and the counter row ``[7]`` int64."""
+    in batch order, on the buffer lanes in place.  Returns ``(keys, data,
+    parity, dirty, lru, tick, ddata, slot_of, row)``: the buffer lanes
+    (the tensors given), the new tick, the compact Δdata ``[kw, B *
+    words]`` int32 (entry ``j`` the Δdata of the slot whose first write
+    in the batch is lane ``j``: phase 2's K6 operand), ``slot_of [B]``
+    int32 (that slot, ``set * ways + way``, or -1 where lane ``j`` owns
+    no entry, whose Δdata is zero) and the counter row ``[8]`` int64
+    (``WP_LANES``)."""
     dev = data.device
-    keys, data, parity, dirty, lru, tick, ddata = _absorb_args(keys, data, parity, dirty,
-                                                               lru, tick)
+    tick = int(tick)
+    ddata, slot_of = _absorb_args(data, int(bkeys.shape[0]))
     n_sets = int(keys.shape[0])
     sets = set_index(bkeys, n_sets).tolist()
-    counts = [0] * N_ABSORB_LANES
-    for s, key, chunk, full, seed, val in zip(sets, *_batch_host(bkeys, bchunks, bfulls,
-                                                                  bseeds, bvalid)):
+    counts = [0] * (len(WP_LANES) - 1)
+    entry_of: dict = {}
+    for lane, (s, key, chunk, full, seed, val) in enumerate(zip(
+            sets, *_batch_host(bkeys, bchunks, bfulls, bseeds, bvalid))):
         if not val:
             continue
-        _absorb_one(keys, data, parity, dirty, lru, ddata, s, key, chunk, full, seed, tick,
-                    k, w, counts)
+        _absorb_one(keys, data, parity, dirty, lru, ddata, slot_of, entry_of, s, lane, key,
+                    chunk, full, seed, tick, k, w, counts)
         tick += 1
-    return _absorb_out(keys, data, parity, dirty, lru, tick, ddata, counts, dev)
+    return _absorb_out(keys, data, parity, dirty, lru, tick, ddata, slot_of, counts, dev)
 
 
 def stripe_absorb_by_set_plain(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls,
@@ -278,10 +306,10 @@ def stripe_absorb_by_set_plain(keys, data, parity, dirty, lru, tick, bkeys, bchu
     the batch for its own writes, each write's tick the starting tick
     plus the count of valid writes before it in the batch.  Equal to
     :func:`stripe_absorb_plain` because writes to different sets never
-    interact."""
+    interact (and an entry's number is its lane's, whatever the order)."""
     dev = data.device
-    keys, data, parity, dirty, lru, tick0, ddata = _absorb_args(keys, data, parity, dirty,
-                                                                lru, tick)
+    tick0 = int(tick)
+    ddata, slot_of = _absorb_args(data, int(bkeys.shape[0]))
     n_sets = int(keys.shape[0])
     sets = set_index(bkeys, n_sets).tolist()
     lanes = list(zip(sets, *_batch_host(bkeys, bchunks, bfulls, bseeds, bvalid)))
@@ -289,13 +317,27 @@ def stripe_absorb_by_set_plain(keys, data, parity, dirty, lru, tick, bkeys, bchu
     for lane in lanes:
         ticks.append(tick0 + n_valid)
         n_valid += int(bool(lane[5]))
-    counts = [0] * N_ABSORB_LANES
+    counts = [0] * (len(WP_LANES) - 1)
+    entry_of: dict = {}
     for s in range(n_sets):
-        for (ls, key, chunk, full, seed, val), t in zip(lanes, ticks):
+        for i, ((ls, key, chunk, full, seed, val), t) in enumerate(zip(lanes, ticks)):
             if val and ls == s:
-                _absorb_one(keys, data, parity, dirty, lru, ddata, s, key, chunk, full,
-                            seed, t, k, w, counts)
-    return _absorb_out(keys, data, parity, dirty, lru, tick0 + n_valid, ddata, counts, dev)
+                _absorb_one(keys, data, parity, dirty, lru, ddata, slot_of, entry_of, s, i,
+                            key, chunk, full, seed, t, k, w, counts)
+    return _absorb_out(keys, data, parity, dirty, lru, tick0 + n_valid, ddata, slot_of,
+                       counts, dev)
+
+
+def expand_ddata(ddata: torch.Tensor, slot_of: torch.Tensor, n_slots: int,
+                 words: int) -> torch.Tensor:
+    """Compact Δdata back to the full width ``[kw, n_slots * words]`` (the
+    slots stacked along the word axis, zero where the batch did not
+    touch a slot): the reference's layout, for tests and checks."""
+    kw, n = int(ddata.shape[0]), int(slot_of.shape[0])
+    full = torch.zeros((kw, int(n_slots), int(words)), dtype=ddata.dtype, device=ddata.device)
+    own = slot_of >= 0
+    full[:, slot_of[own].long()] = ddata.view(kw, n, int(words))[:, own]
+    return full.view(kw, int(n_slots) * int(words))
 
 
 def _check_absorb(keys, data, parity, dirty, lru, tick, batch) -> None:
@@ -303,6 +345,8 @@ def _check_absorb(keys, data, parity, dirty, lru, tick, batch) -> None:
                     ("lru", lru), ("tick", tick)):
         if t.dtype != I32:
             raise TypeError(f"stripe_absorb: {name} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise TypeError(f"stripe_absorb: {name} must be contiguous (it is updated in place)")
     bkeys, bchunks, bfulls, bseeds, bvalid = batch
     n = int(bkeys.shape[0])
     for name, t, dt in (("bkeys", bkeys, I32), ("bchunks", bchunks, I32),
@@ -324,10 +368,11 @@ def stripe_absorb(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls, 
                   bvalid, k: int, w: int):
     """K9: phase 1 of :func:`stripe_buffer_step` over one epoch's batch
     lanes (``[B]`` each: keys int32, chunks int32, fulls bool, seeds
-    int32 u32 bits, valid bool).  On a CUDA tensor it launches
-    ``csrc/online.cu`` (one block a set) on clones of the buffer lanes
-    (or raises); on a CPU tensor it runs :func:`stripe_absorb_plain`.
-    Returns what the plain version returns."""
+    int32 u32 bits, valid bool), on the buffer lanes in place.  On a CUDA
+    tensor it launches ``csrc/online.cu`` (one block a set; it writes
+    every compact Δdata entry and ``slot_of`` itself) or raises; on a CPU
+    tensor it runs :func:`stripe_absorb_plain`.  Returns what the plain
+    version returns."""
     batch = (bkeys, bchunks, bfulls, bseeds, bvalid)
     _check_absorb(keys, data, parity, dirty, lru, tick, batch)
     if data.device.type == "cpu":
@@ -340,18 +385,62 @@ def stripe_absorb(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls, 
         raise ValueError(f"stripe_absorb: at most {MAX_WAYS} ways, got {ways}")
     if kw != k * w:
         raise ValueError(f"stripe_absorb: {kw} data rows for k={k}, w={w}")
-    keys, data, parity, dirty, lru = (t.clone() for t in (keys, data, parity, dirty, lru))
     batch = tuple(t.contiguous() for t in batch)
-    ddata = torch.zeros((kw, n_sets * ways * words), dtype=I32, device=data.device)
-    tick_out = torch.empty((), dtype=I32, device=data.device)
-    row = torch.zeros(N_ABSORB_LANES, dtype=I64, device=data.device)
-    _cuda.launch("online", "online_stripe_absorb", data.device,
-                 *(_cuda.ptr(t) for t in batch), int(bkeys.shape[0]),
+    n = int(bkeys.shape[0])
+    dev = data.device
+    ddata = torch.empty((kw, n * words), dtype=I32, device=dev)
+    slot_of = torch.empty((n,), dtype=I32, device=dev)
+    tick_out = torch.empty((), dtype=I32, device=dev)
+    row = torch.zeros(len(WP_LANES), dtype=I64, device=dev)
+    _cuda.launch("online", "online_stripe_absorb", dev, *(_cuda.ptr(t) for t in batch), n,
                  _cuda.ptr(keys), _cuda.ptr(data), _cuda.ptr(parity), _cuda.ptr(dirty),
                  _cuda.ptr(lru), _cuda.ptr(tick), _cuda.ptr(tick_out), _cuda.ptr(ddata),
-                 _cuda.ptr(row), n_sets, ways, kw, mw, words, int(k), int(w))
+                 _cuda.ptr(slot_of), _cuda.ptr(row), n_sets, ways, kw, mw, words, int(k), int(w))
     LAUNCHES["stripe_absorb"] += 1
-    return keys, data, parity, dirty, lru, tick_out, ddata, row
+    return keys, data, parity, dirty, lru, tick_out, ddata, slot_of, row
+
+
+def stripe_commit_plain(parity, dpar, slot_of, row, totals, tick, tick_new) -> None:
+    """Plain K9 commit, in place: each owned entry's Δparity (``dpar
+    [mw, B * words]``, K6 over the compact Δdata) XORed into its slot's
+    parity, ``row`` added into ``totals``, ``tick`` set to ``tick_new``
+    (K9's new tick)."""
+    n_sets, ways, mw, words = (int(v) for v in parity.shape)
+    n = int(slot_of.shape[0])
+    own = slot_of >= 0
+    flat = parity.view(n_sets * ways, mw, words)
+    flat[slot_of[own].long()] ^= dpar.view(mw, n, words).permute(1, 0, 2)[own]
+    totals += row
+    tick.copy_(tick_new)
+
+
+def stripe_commit(parity, dpar, slot_of, row, totals, tick, tick_new) -> None:
+    """K9's commit: phase 2's tail over the owned entries only, updating
+    ``parity``, ``totals`` and ``tick`` in place as
+    :func:`stripe_commit_plain` does.  On a CUDA tensor it launches
+    ``csrc/online.cu``'s ``stripe_commit_kernel`` (one block an entry) or
+    raises; on a CPU tensor it runs :func:`stripe_commit_plain`."""
+    n = int(slot_of.shape[0])
+    mw, words = int(parity.shape[2]), int(parity.shape[3])
+    for name, t, dt, shape in (("parity", parity, I32, tuple(parity.shape)),
+                               ("dpar", dpar, I32, (mw, n * words)),
+                               ("slot_of", slot_of, I32, (n,)),
+                               ("row", row, I64, (len(WP_LANES),)),
+                               ("totals", totals, I64, (len(WP_LANES),)),
+                               ("tick", tick, I32, ()), ("tick_new", tick_new, I32, ())):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise TypeError(f"stripe_commit: {name} must be contiguous {list(shape)} {dt}, "
+                            f"got {list(t.shape)} {t.dtype}")
+        if t.device != parity.device:
+            raise ValueError(f"stripe_commit: {name} on {t.device}, parity on {parity.device}")
+    if parity.device.type == "cpu":
+        return stripe_commit_plain(parity, dpar, slot_of, row, totals, tick, tick_new)
+    from .. import _cuda
+
+    _cuda.launch("online", "online_stripe_commit", parity.device, _cuda.ptr(dpar),
+                 _cuda.ptr(slot_of), _cuda.ptr(parity), _cuda.ptr(row), _cuda.ptr(tick_new),
+                 _cuda.ptr(tick), _cuda.ptr(totals), n, mw, words)
+    LAUNCHES["stripe_commit"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -360,26 +449,22 @@ def stripe_absorb(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls, 
 
 def stripe_buffer_step(buf: StripeBufferState, table, n_out: int, k: int, w: int, keys,
                        chunks, fulls, seeds, valid):
-    """Absorb one epoch's fixed-shape write batch; returns the updated
-    buffer and the epoch's counter row (``WP_LANES`` order, int64).
+    """Absorb one epoch's fixed-shape write batch into ``buf`` in place
+    (the step consumes it: see :class:`StripeBufferState`); returns
+    ``buf`` itself and the epoch's counter row (``WP_LANES`` order,
+    int64).
 
     ``table`` is the codec's :class:`~ceph_tpu_torch.ec.kernels.StepTable`
     (the full-stripe XOR schedule); ``keys/chunks/fulls/seeds/valid`` are
     the batch lanes (invalid lanes change nothing).  Phase 1 is K9
-    (:func:`stripe_absorb`); phase 2 is one K6 launch over every slot's
-    Δdata, XORed into parity."""
-    n_sets, ways, kw, words = (int(v) for v in buf.data.shape)
-    mw = int(buf.parity.shape[2])
-    keys_a, data, parity, dirty, lru, tick, ddata, row = stripe_absorb(
+    (:func:`stripe_absorb`); phase 2 is one K6 launch over the compact
+    Δdata of the touched slots, then :func:`stripe_commit`."""
+    *_lanes, tick, ddata, slot_of, row = stripe_absorb(
         buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick, keys, chunks, fulls,
         seeds, valid, k, w)
-    dpar = schedule_apply(table, ddata, int(n_out))  # [mw, S * words]
-    parity ^= dpar.view(mw, n_sets, ways, words).permute(1, 2, 0, 3)
-    touched = (ddata.view(kw, n_sets * ways, words) != 0).any(2).any(0).sum(dtype=I64)
-    row = torch.cat([row, touched.reshape(1)])
-    out = replace(buf, keys=keys_a, data=data, parity=parity, dirty=dirty, lru=lru,
-                  tick=tick, totals=buf.totals + row)
-    return out, row
+    dpar = schedule_apply(table, ddata, int(n_out))  # [mw, B * words]
+    stripe_commit(buf.parity, dpar, slot_of, row, buf.totals, buf.tick, tick)
+    return buf, row
 
 
 # ---------------------------------------------------------------------------

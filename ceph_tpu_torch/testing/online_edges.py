@@ -14,7 +14,10 @@ chunks int32, fulls bool, seeds int32 holding u32 bits, valid bool):
 - ``invalid_between``: invalid lanes between valid ones;
 - ``evict_then_hit``: a key installed, evicted by its set's other keys,
   re-installed, then hit;
-- ``b1`` and ``b512``: batches of one and 512 writes.
+- ``b1`` and ``b512``: batches of one and 512 writes;
+- ``cancelling_pair``: two small writes with the same key, chunk and
+  seed to a slot resident in the warm buffer: its data comes back as it
+  was, so its Δdata is zero and the slot is not a touched one.
 
 :func:`gate_families` and :func:`bitequal_gate` are the port's copy of
 ``bench/config10_online_ec.py``'s ``writepath_bitequal`` gate: per codec
@@ -30,7 +33,7 @@ import torch
 from ..ec.online import set_index
 
 EDGES = ("one_set_chain", "all_full", "cold_misses", "invalid_between", "evict_then_hit",
-         "b1", "b512")
+         "b1", "b512", "cancelling_pair")
 
 
 def _keys_in_set(s: int, n: int, n_sets: int, start: int = 0) -> list[int]:
@@ -61,9 +64,16 @@ def random_batch(n_sets: int, ways: int, k: int, B: int, seed: int) -> dict:
     return _batch(rng, keys, k, valid=rng.random(B) < 0.9)
 
 
-def edge_batches(n_sets: int, ways: int, k: int, seed: int = 0) -> list[tuple[str, dict, bool]]:
+def resident_key(keys: torch.Tensor) -> int:
+    """A key resident in a warm buffer (its ``keys`` lane): the first."""
+    return int(keys[keys >= 0].reshape(-1)[0])
+
+
+def edge_batches(n_sets: int, ways: int, k: int, seed: int = 0, *,
+                 resident: int) -> list[tuple[str, dict, bool]]:
     """``(name, batch, cold)`` for every edge: ``cold`` asks for a cold
-    buffer, else the caller applies the batch to a warm one."""
+    buffer, else the caller applies the batch to a warm one, in which
+    ``resident`` is a resident key (:func:`resident_key`)."""
     rng = np.random.default_rng(seed)
     chain = _keys_in_set(0, 3 * ways, n_sets)
     evictors = _keys_in_set(1, ways + 1, n_sets)
@@ -83,6 +93,9 @@ def edge_batches(n_sets: int, ways: int, k: int, seed: int = 0) -> list[tuple[st
                                   full_share=0.0), False),
         ("b1", _batch(rng, [int(rng.integers(0, 4 * n_sets * ways))], k), False),
         ("b512", random_batch(n_sets, ways, k, 512, seed + 2), False),
+        ("cancelling_pair", _batch(rng, [resident, resident], k, fulls=np.zeros(2, bool))
+         | {"chunks": np.full(2, rng.integers(0, k), np.int32),
+            "seeds": np.full(2, rng.integers(-(1 << 31), 1 << 31), np.int32)}, False),
     ]
 
 

@@ -7,12 +7,14 @@ plane the traffic model only counts: each epoch's committed client
 writes (the SAME routed, classified ops the traffic step counts: the
 same ids, salt and ``_route`` predicates on the post-peering survivor
 masks) are compacted into a fixed-shape write batch and absorbed by the
-stripe buffer (:mod:`ceph_tpu_torch.ec.online`: K9, then K6 over every
-slot).  Full-stripe writes encode whole stripes; small overwrites become
+stripe buffer (:mod:`ceph_tpu_torch.ec.online`: K9, then K6 over the
+touched slots and K9's commit).  Full-stripe writes encode whole stripes; small overwrites become
 read-modify-write parity deltas.  The write stage reads the cluster
 state and never writes it, so the 18 epoch lanes stay bit-equal to the
 same driver's run without it; the buffer rides the loop, so checkpoints
-of ``(ClusterState, StripeBufferState)`` resume with a warm cache.
+of ``(ClusterState, StripeBufferState)`` resume with a warm cache.  Each
+epoch's step consumes the buffer in place, so every run starts from its
+own clone of the driver's cold buffer, which stays as it was.
 
 The batch holds the power-of-two bucket of ``max_writes`` lanes; the
 per-epoch cap is a host number, so any cap inside the bucket runs the
@@ -285,8 +287,10 @@ class WritepathDriver:
     ):
         """Drive the write path in chunks of ``snapshot_every`` epochs,
         mirroring :meth:`EpochDriver.run_superstep` (``pull=False``
-        returns ``(state, buf, rows, wrows)`` still on the device).  With
-        the wrapped driver's flight recorder on, the ring rides the loop
+        returns ``(state, buf, rows, wrows)`` still on the device).  A
+        ``buf`` given is consumed (stepped in place); without one the run
+        starts from a clone of the cold buffer.  With the wrapped
+        driver's flight recorder on, the ring rides the loop
         and drains into ``journal`` at each chunk's end (:attr:`flight`
         afterwards)."""
         from ..obs.flight import journal_drain
@@ -294,7 +298,7 @@ class WritepathDriver:
         drv = self.driver
         state = drv._init_state
         host = drv._init_host.copy()
-        buf = self._init_buf if buf is None else buf
+        buf = self._init_buf.clone() if buf is None else buf
         fs = drv._init_flight
         cap = self.max_writes if cap is None else int(cap)
         n_epochs = int(n_epochs)
@@ -330,7 +334,7 @@ class WritepathDriver:
         """The differential reference: the same epoch body, one epoch at
         a time, both rows copied back after each epoch."""
         drv = self.driver
-        state, host, buf = drv._init_state, drv._init_host.copy(), self._init_buf
+        state, host, buf = drv._init_state, drv._init_host.copy(), self._init_buf.clone()
         cap = self.max_writes if cap is None else int(cap)
         rows, wrows = [], []
         for e in range(int(n_epochs)):
@@ -391,7 +395,7 @@ def checkpointed_writepath(
     template = (drv._init_state, wdrv._init_buf) + ((drv._init_flight,) if flight_on else ())
     empty = EpochSeries.from_device(drv._empty_rows())
     resume = store.load_latest(template, with_series=True)
-    state, buf, fs = drv._init_state, wdrv._init_buf, drv._init_flight
+    state, buf, fs = drv._init_state, wdrv._init_buf.clone(), drv._init_flight
     host = drv._init_host.copy()
     start, cols, wlanes = 0, None, None
     if resume is not None:
@@ -412,6 +416,9 @@ def checkpointed_writepath(
         cols = _append(cols, EpochSeries.from_device(rows), _SERIES_FIELDS)
         wpart = WritepathSeries.from_device(wrows).lanes
         wlanes = np.concatenate([wlanes, wpart]) if wlanes is not None else wpart
+        # the snapshot's copy of the buffer is queued on the stream before
+        # the next step's kernels, which update the buffer in place, so
+        # it reads the committed bytes
         _commit(store, sched, end, (state, buf) + ((fs,) if flight_on else ()),
                 meta={"next_epoch": end, "n_epochs": n_epochs},
                 series={**cols, "wp_lanes": wlanes}, host=host)

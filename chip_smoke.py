@@ -92,15 +92,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
    over 8 KiB are held against the plain version on their 4 KiB pieces
    combined on the host;
 9b. online_kernel: K9 (stripe_absorb, ``csrc/online.cu``, the stripe
-   buffer's write loop) against its plain version at BASELINE config
-   10's full width (1024 sets x 4 ways of 4,096-byte chunks, cauchy-good
-   k=5 m=1 w=8, a warm buffer, a batch of 256 writes), timed with its
-   bound (bytes or hash operations) and its longest per-set chain, with
-   ptxas's registers and spills, and on its edges
-   (``testing/online_edges.py``: an eviction chain in one set, all full,
-   all misses on a cold buffer, invalid lanes between valid ones, a key
-   evicted and hit again, batches of 1 and 512), bit for bit; phase 2's
-   K6 launch at its shape timed beside its bound;
+   buffer's write loop, in place, compact Δdata) and its commit
+   (stripe_commit) against their plain versions at BASELINE config 10's
+   full width (1024 sets x 4 ways of 4,096-byte chunks, cauchy-good k=5
+   m=1 w=8, a warm buffer, a batch of 256 writes), each side on its own
+   clone of the buffer, timed (a fresh clone before each call, outside
+   its window) with its bound (bytes or hash operations) and K9's
+   longest per-set chain, with ptxas's registers and spills, and on its
+   edges (``testing/online_edges.py``: an eviction chain in one set, all
+   full, all misses on a cold buffer, invalid lanes between valid ones, a
+   key evicted and hit again, batches of 1 and 512, two cancelling
+   writes to a resident slot), bit for bit; phase 2's K6 launch timed at
+   the old full-width shape and at the compact one, each beside its
+   bound;
 10. recovery: ``recover_pool`` for ``rack:0:down_out`` on
    build_osdmap(1024, pg_num=8192, size=11, erasure) with 32 KiB
    chunks, for jerasure reed_sol_van k=8 m=3 under ``auto`` (K4) and
@@ -191,12 +195,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    of the run there equal to the card's); then one line of the
    reference's config-9 record (``cli/status.py checkpoint``);
 10f. writepath: BASELINE config 10 (``workload/writepath.py::
-   WritepathDriver``: K9 and K6 each epoch) at full width (config 7's
-   map, 256 ops, 128 epochs of flap, ssd-steady, ssd-burst and
-   ssd-skew, a 1024 x 4 buffer of 4,096-byte chunks): encoded bytes/s,
-   hit rate, delta and full bytes, epochs/s a mix, launches an epoch by
-   piece (epoch body, write batch, K9, K6), K9's and K6's ms on the last
-   batch; gated (``writepath_bitequal`` on the card for the five codec
+   WritepathDriver``: K9, K6 and K9's commit each epoch) at full width
+   (config 7's map, 256 ops, 128 epochs of flap, ssd-steady, ssd-burst
+   and ssd-skew, a 1024 x 4 buffer of 4,096-byte chunks): encoded
+   bytes/s, hit rate, delta and full bytes, epochs/s a mix, launches an
+   epoch by piece (epoch body, write batch, the stripe step and within
+   it K9, K6, the commit), K9's, K6's and the commit's ms and the whole
+   stripe step's card ms on the last batch (a fresh clone of the buffer
+   before each call, outside its window); gated (``writepath_bitequal`` on the card for the five codec
    families of bench/config10_online_ec.py, staged = superstep on both
    series, the epoch lanes unchanged by the write stage, a wrong delta
    caught by ``scrub_stripe_buffer``, ``flight_recorder=on``
@@ -235,12 +241,19 @@ launches summed over the paths; every kernel must launch on its paths,
 K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
 on the traffic path, K3 on the epoch, fleet, divergent and balancer
-paths, K3 and K8 on the checkpoint path, K3, K6 and K9 on the
-writepath path),
+paths, K3 and K8 on the checkpoint path, K3, K6, K9 and its commit on
+the writepath path),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is present.
+
+    python3 chip_smoke.py --stripe-probe [ROOT]
+
+measures config 10's stripe step alone (``stripe_probe``) with the
+package of the checkout at ROOT (this one by default) and prints one
+JSON line: the same code for any checkout, so that two are compared on
+one card by running it for each in turns (A B B A).
 """
 
 from __future__ import annotations
@@ -414,16 +427,25 @@ def ptxas_report(lib: str) -> dict:
     return out
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median milliseconds of ``fn`` on the card, by CUDA events."""
-    fn()
+def time_ms(fn, reps: int = 10, setup=None) -> float:
+    """Median milliseconds of ``fn`` on the card, by CUDA events.  With
+    ``setup`` each call is ``fn(setup())``, its inputs made and the card
+    synchronised before the first event, outside the timed window (for a
+    function that updates its inputs in place)."""
+    def call():
+        return fn() if setup is None else fn(setup())
+
+    call()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            x = setup()
+            torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        fn() if setup is None else fn(x)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
@@ -439,20 +461,27 @@ def compare(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, int]:
 
 
 def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int,
-                  int_rate: float, library=None, plain_reps: int = 3) -> dict:
+                  int_rate: float, library=None, plain_reps: int = 3, fresh=None) -> dict:
     """Run ``kernel`` and ``plain`` on the same card inputs, compare them
     bit for bit, time both (and ``library``, one PyTorch call of the
     same function, where there is one), and bound the kernel by bytes
     and operations.  A slow plain version (``plain_reps=0``) is timed
-    over the one call of the comparison, by CUDA events."""
-    got = kernel()
+    over the one call of the comparison, by CUDA events.  With ``fresh``
+    (a function making new inputs) ``kernel`` and ``plain`` take them as
+    their argument, each call its own, made outside any timed window
+    (for functions that update their inputs in place)."""
+    def run(fn):
+        return fn() if fresh is None else fn(fresh())
+
+    got = run(kernel)
     if plain_reps:
-        want = plain()
+        want = run(plain)
     else:
+        x = None if fresh is None else fresh()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         a.record()
-        want = plain()
+        want = plain() if fresh is None else plain(x)
         b.record()
         b.synchronize()
         one_call_ms = a.elapsed_time(b)
@@ -461,8 +490,8 @@ def kernel_record(name: str, replaces: str, kernel, plain, nbytes: int, ops: int
     checks = [compare(a, b) for a, b in zip(got, want)]
     bms, by = bound_ms(nbytes, ops, int_rate)
     return {"name": name, "replaces": replaces, "bit_equal": all(c[0] for c in checks),
-            "max_abs_err": max(c[1] for c in checks), "ms": time_ms(kernel),
-            "plain_ms": time_ms(plain, plain_reps) if plain_reps else one_call_ms,
+            "max_abs_err": max(c[1] for c in checks), "ms": time_ms(kernel, setup=fresh),
+            "plain_ms": time_ms(plain, plain_reps, fresh) if plain_reps else one_call_ms,
             "bound_ms": bms, "bound_by": by,
             "bytes": nbytes, "ops": ops,
             "library_ms": time_ms(library) if library is not None else None}
@@ -1667,10 +1696,12 @@ def pieces_wrapped(driver, wrap, pieces=None):
                 setattr(obj, name, before)
 
 
-def piece_host_ms(driver, run, n_epochs: int) -> dict:
-    """Host milliseconds an epoch in each piece of ``run()`` (host clock,
-    no profiler; a piece called inside itself is timed once)."""
-    acc = {p: 0.0 for p in EPOCH_PIECES}
+def piece_host_ms(driver, run, n_epochs: int, pieces=None) -> dict:
+    """Host milliseconds an epoch in each piece of ``run()`` (``pieces``
+    as ``pieces_wrapped`` takes them; host clock, no profiler; a piece
+    called inside itself is timed once)."""
+    pieces = EPOCH_PIECES if pieces is None else pieces
+    acc = {p: 0.0 for p in pieces}
     active: set = set()
 
     def timed(piece, fn):
@@ -1686,7 +1717,7 @@ def piece_host_ms(driver, run, n_epochs: int) -> dict:
                 active.discard(piece)
         return call
 
-    with pieces_wrapped(driver, timed):
+    with pieces_wrapped(driver, timed, pieces):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -2346,7 +2377,7 @@ def online_buffer(dev, n_sets: int, ways: int, words: int, warm: int, seed: int)
     """A stripe buffer of ``n_sets`` x ``ways`` slots (the write path's
     codec, WP_K + WP_M, ``words`` u32 words a row) on ``dev`` with
     ``warm`` random batches of
-    WP_BATCH absorbed through the write path's step (K9 and K6), and the
+    WP_BATCH absorbed through the write path's step (K9, K6, the commit), and the
     codec's full encoder."""
     from ceph_tpu_torch.ec import online
     from ceph_tpu_torch.testing import online_edges
@@ -2362,32 +2393,101 @@ def online_buffer(dev, n_sets: int, ways: int, words: int, warm: int, seed: int)
     return buf, enc
 
 
-def absorb_bytes_ops(buf, batch: dict, got) -> tuple[int, int, int]:
-    """What one K9 call must move and compute on this run's data: the
-    Δdata it writes (every slot), each touched slot's data read and
-    written, each zeroed slot's parity written, the batch read, the
-    touched sets' keys, ticks and masks read and written; one set hash a
-    lane and one content hash per base or payload word made.  Returns
-    ``(bytes, ops, longest per-set chain of dependent writes)``."""
+def absorb_writes(buf, batch: dict) -> list[tuple[int, bool, bool, int]]:
+    """A host replay of K9's lookups on ``buf`` before the call (its keys
+    and LRU ticks alone: the first equal key hits, else the first least
+    tick is the victim): ``(slot, install, full, chunk)`` for each valid
+    write of ``batch`` in order."""
     from ceph_tpu_torch.ec import online
 
+    n_sets, ways = (int(v) for v in buf.keys.shape)
+    keys, lru, tick = buf.keys.tolist(), buf.lru.tolist(), int(buf.tick)
+    sets = online.set_index(torch.from_numpy(batch["keys"]), n_sets).tolist()
+    out = []
+    for s, key, chunk, full, valid in zip(sets, batch["keys"].tolist(),
+                                          batch["chunks"].tolist(), batch["fulls"].tolist(),
+                                          batch["valid"].tolist()):
+        if not valid:
+            continue
+        install = key not in keys[s]
+        way = lru[s].index(min(lru[s])) if install else keys[s].index(key)
+        keys[s][way], lru[s][way] = key, tick
+        tick += 1
+        out.append((s * ways + way, install, bool(full), int(chunk)))
+    return out
+
+
+def absorb_bytes_ops(buf, batch: dict, row: dict) -> tuple[int, int, int]:
+    """What one K9 call must move and compute on this run's data under
+    its contract (Δdata only for the touched slots), from a replay of its
+    lookups (``absorb_writes``; held against the kernel's ``row``).
+    Bytes: the compact Δdata and ``slot_of`` written (every batch lane's
+    entry); a slot that takes an install or a full write has its data
+    and parity written (nothing of it read); a slot that takes only
+    small hits has each chunk's rows read and written once; the batch
+    read; the touched sets' keys, ticks and masks read and written.
+    Operations: one set hash a lane; one content hash a word of a write's
+    payload (a full write's k chunks, a small write's one) and of an
+    install's base rows, unless that install's write is a full one,
+    which overwrites them.  Returns ``(bytes, ops, longest per-set
+    chain of dependent writes)``."""
     n_sets, ways, kw, words = (int(v) for v in buf.data.shape)
     mw = int(buf.parity.shape[2])
-    keys, _data, parity, _dirty, _lru, _tick, ddata, row = got
-    touched = (ddata.view(kw, n_sets * ways, words) != 0).any(2).any(0)
-    zeroed = touched & (parity.view(n_sets * ways, -1) == 0).all(1)
-    n_t, n_z = int(touched.sum()), int(zeroed.sum())
-    sets = online.set_index(torch.from_numpy(batch["keys"]), n_sets).numpy()[batch["valid"]]
-    n_sets_t = len(set(sets.tolist()))
-    B = len(batch["keys"])
-    nbytes = (4 * kw * words * n_sets * ways + 2 * 4 * kw * words * n_t + 4 * mw * words * n_z
-              + 14 * B + 2 * 12 * ways * n_sets_t)
-    r = dict(zip(online.WP_LANES, row.tolist()))
     w = WP_W
-    hashes = (B + r["misses"] * kw * words + r["full_writes"] * kw * words
-              + r["delta_writes"] * w * words)
-    chain = int(np.bincount(sets, minlength=n_sets).max()) if len(sets) else 0
+    writes = absorb_writes(buf, batch)
+    replay = {"hits": sum(not i for _, i, _, _ in writes),
+              "misses": sum(i for _, i, _, _ in writes),
+              "full_writes": sum(f for _, _, f, _ in writes)}
+    if any(replay[k] != row[k] for k in replay):
+        raise AssertionError(f"K9's bound: the replay {replay} disagrees with its row {row}")
+    whole, chunks = set(), {}
+    for slot, install, full, chunk in writes:
+        if install or full:
+            whole.add(slot)
+        else:
+            chunks.setdefault(slot, set()).add(chunk)
+    small_rows = sum(len(c) for slot, c in chunks.items() if slot not in whole)
+    n_sets_t = len({slot // ways for slot, _, _, _ in writes})
+    B = len(batch["keys"])
+    nbytes = (4 * kw * words * B + 4 * B + 4 * (kw + mw) * words * len(whole)
+              + 2 * 4 * w * words * small_rows + 14 * B + 2 * 12 * ways * n_sets_t)
+    hashes = B + sum((kw if full else w) * words + (kw * words if install and not full else 0)
+                     for _, install, full, _ in writes)
+    sets = [slot // ways for slot, _, _, _ in writes]
+    chain = int(np.bincount(sets, minlength=n_sets).max()) if sets else 0
     return nbytes, hashes * HASH_OPS, chain
+
+
+def kernel_device_ms(fn, setup, kernel: str = "", reps: int = 5) -> float | None:
+    """Device milliseconds a call of the kernels whose name holds
+    ``kernel`` (every kernel by default), over ``reps`` calls of ``fn``
+    in one torch.profiler session, each on its own inputs from
+    ``setup()``, all made before the session: the kernels alone, without
+    the wrappers' host work that a CUDA-event time holds.  A session
+    that comes back without the kernels' device events (seen on the
+    card's machine) is taken again, at most twice; None (not measured)
+    if none of the three had them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        xs = [setup() for _ in range(reps)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for x in xs:
+                fn(x)
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def absorb_call(fn, lanes):
+    """``fn`` (K9 or a plain version) on a buffer's lanes and a batch."""
+    return lambda b: fn(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick, *lanes, WP_K, WP_W)
 
 
 def phase_online_kernel(int_rate: float, dev, n_sets: int = WP_SETS, ways: int = WP_WAYS,
@@ -2395,50 +2495,89 @@ def phase_online_kernel(int_rate: float, dev, n_sets: int = WP_SETS, ways: int =
     """K9 (``stripe_absorb``, ``csrc/online.cu``) against its plain
     version (``stripe_absorb_plain``) on the card at config 10's full
     width (1024 sets x 4 ways, 4,096-byte chunks of cauchy-good k=5 m=1
-    w=8: 128 words a row), a
-    buffer warmed by WP_WARM random batches and one random batch of
-    WP_BATCH writes: buffers, Δdata and the counter row bit for bit, both
+    w=8: 128 words a row), a buffer warmed by WP_WARM random batches and
+    one random batch of WP_BATCH writes: the buffer lanes (both update
+    them in place, so each side and each timed call gets its own clone,
+    made before the call and outside its timed window), the compact
+    Δdata, ``slot_of``, the tick and the counter row bit for bit, both
     timed, the bound (bytes over HBM rate or hash operations over the
-    int32 rate, the larger), the longest per-set chain; then its edges
-    (``testing/online_edges.py``: an eviction chain in one set, all full,
-    all misses on a cold buffer, invalid lanes between valid ones, a key
-    evicted and hit again, batches of 1 and 512) at the same width; and
-    phase 2's K6 launch at its shape ([kw, sets x ways x words])."""
+    int32 rate, the larger), the longest per-set chain; K9's commit
+    (``stripe_commit``) against ``stripe_commit_plain`` on phase 2's
+    output the same way; then K9's edges (``testing/online_edges.py``:
+    an eviction chain in one set, all full, all misses on a cold buffer,
+    invalid lanes between valid ones, a key evicted and hit again,
+    batches of 1 and 512, two cancelling writes to a resident slot) at
+    the same width; and phase 2's K6 launch at the compact shape ([kw,
+    batch x words]) and at the full-width shape it had before ([kw, sets
+    x ways x words], the same Δdata expanded)."""
     from ceph_tpu_torch.ec import kernels as ec_kernels, online
     from ceph_tpu_torch.testing import online_edges
 
     buf, enc = online_buffer(dev, n_sets, ways, words, warm, SEED)
     batch = online_edges.random_batch(n_sets, ways, WP_K, WP_BATCH, SEED + 100)
-    args = (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick,
-            *online_edges.to_device(batch, dev), WP_K, WP_W)
-    got = online.stripe_absorb(*args)
-    nbytes, ops, chain = absorb_bytes_ops(buf, batch, got)
+    lanes = online_edges.to_device(batch, dev)
+    kernel, plain = (absorb_call(f, lanes) for f in (online.stripe_absorb,
+                                                      online.stripe_absorb_plain))
+    got = kernel(buf.clone())
+    row = dict(zip(online.WP_LANES, got[-1].tolist()))
+    nbytes, ops, chain = absorb_bytes_ops(buf, batch, row)
     rec = kernel_record("stripe_absorb",
                         "ceph_tpu/ec/online.py:199 stripe_buffer_step phase 1 (an XLA "
                         "fori_loop, :277-282; not a pl.pallas_call site)",
-                        lambda: online.stripe_absorb(*args),
-                        lambda: online.stripe_absorb_plain(*args), nbytes, ops, int_rate,
-                        plain_reps=0)
-    row = dict(zip(online.WP_LANES, got[-1].tolist()))
+                        kernel, plain, nbytes, ops, int_rate, plain_reps=0, fresh=buf.clone)
     rec.update(shape=f"{n_sets} sets x {ways} ways x [{WP_K * WP_W}, {words}] words, "
-               f"batch {WP_BATCH}", longest_set_chain=chain, row=row)
+               f"batch {WP_BATCH}", longest_set_chain=chain, row=row,
+               touched_entries=int((got[7] >= 0).sum()),
+               device_ms=kernel_device_ms(kernel, buf.clone, "stripe_absorb_kernel"))
+    # the commit on phase 2's output, on K9's parity, totals and tick: each
+    # owned entry's Δparity into its slot's parity, the row into the
+    # totals, the new tick; each call on its own clones
+    tick, ddata, slot_of, wrow = got[5:]
+    mw = int(buf.parity.shape[2])
+    dpar = ec_kernels.schedule_apply(enc.table, ddata, mw)
+    n_own = int((slot_of >= 0).sum())
+    commit_bytes = (3 * 4 * mw * words * n_own + 4 * WP_BATCH + 3 * 8 * len(online.WP_LANES)
+                    + 2 * 4)
+    commit_in = lambda: (got[2].clone(), buf.totals.clone(), buf.tick.clone())
+
+    def committed(fn):
+        def call(x):
+            parity, totals, old_tick = x
+            fn(parity, dpar, slot_of, wrow, totals, old_tick, tick)
+            return x
+        return call
+
+    commit = kernel_record(
+        "stripe_commit", "ceph_tpu/ec/online.py:291 stripe_buffer_step phase 2's XOR into "
+        "parity and :299's totals add (XLA ops; not a pl.pallas_call site)",
+        committed(online.stripe_commit), committed(online.stripe_commit_plain),
+        commit_bytes, mw * words * n_own, int_rate, fresh=commit_in)
+    commit.update(shape=f"{n_own} owned entries of {WP_BATCH} x [{mw}, {words}] words",
+                  device_ms=kernel_device_ms(committed(online.stripe_commit), commit_in,
+                                             "stripe_commit_kernel"))
     edges = []
-    for name, b, cold in online_edges.edge_batches(n_sets, ways, WP_K, seed=SEED):
+    resident = online_edges.resident_key(buf.keys)
+    for name, b, cold in online_edges.edge_batches(n_sets, ways, WP_K, seed=SEED,
+                                                   resident=resident):
         base = (online.empty_stripe_buffer(n_sets, ways, WP_K * WP_W, WP_M * WP_W, words,
                                            device=dev) if cold else buf)
-        eargs = (base.keys, base.data, base.parity, base.dirty, base.lru, base.tick,
-                 *online_edges.to_device(b, dev), WP_K, WP_W)
-        g, p = online.stripe_absorb(*eargs), online.stripe_absorb_plain(*eargs)
+        elanes = online_edges.to_device(b, dev)
+        g = absorb_call(online.stripe_absorb, elanes)(base.clone())
+        p = absorb_call(online.stripe_absorb_plain, elanes)(base.clone())
         edges.append({"case": name, "writes": int(b["valid"].sum()), "cold": cold,
                       "bit_equal": all(compare(x, y)[0] for x, y in zip(g, p)),
                       "row": g[-1].tolist()})
-    ddata = got[6]
-    mw = int(buf.parity.shape[2])
-    k6_bytes = ddata.numel() * 4 + mw * ddata.shape[1] * 4
-    k6 = {"shape": list(ddata.shape), "ms": time_ms(
-        lambda: ec_kernels.schedule_apply(enc.table, ddata, mw)),
-        "bound_ms": bound_ms(k6_bytes, enc.schedule.n_steps * ddata.shape[1], int_rate)[0]}
-    return {"phase": "online_kernel", "results": [rec], "edges": edges, "k6_phase2": k6}
+    wide = online.expand_ddata(ddata, slot_of, n_sets * ways, words)
+    k6 = {}
+    for key, dd in (("compact", ddata), ("full_width", wide)):
+        k6_bytes = dd.numel() * 4 + mw * dd.shape[1] * 4
+        k6[key] = {"shape": list(dd.shape), "ms": time_ms(
+            lambda: ec_kernels.schedule_apply(enc.table, dd, mw)),
+            "device_ms": kernel_device_ms(lambda _x: ec_kernels.schedule_apply(enc.table, dd, mw),
+                                          lambda: None, "xor_program"),
+            "bound_ms": bound_ms(k6_bytes, enc.schedule.n_steps * dd.shape[1], int_rate)[0]}
+    return {"phase": "online_kernel", "results": [rec, commit], "edges": edges,
+            "k6_phase2": k6}
 
 
 def checkpoint_record(epochs, bandwidth, write_s, snap_bytes, n_snaps, load_s, replay_s,
@@ -2766,18 +2905,93 @@ def writepath_driver(m, dev, mix, n_sets=WP_SETS, ways=WP_WAYS, groups=WP_GROUPS
                            stripes_per_pg=WP_STRIPES, name=f"writepath-{mix}")
 
 
+PROBE_REPS = 20      # CUDA-event calls a measure of stripe_probe
+PROBE_RUNS = 3       # runs of WP_EPOCHS epochs behind stripe_probe's epochs/s
+
+
+def stripe_probe(dev) -> dict:
+    """Config 10's stripe step alone on the card, with calls that older
+    checkouts of the port have too: K9 at ``phase_online_kernel``'s
+    width on its random batch; then config 10's first mix over WP_EPOCHS
+    epochs and, on its final buffer and the next epoch's batch, K9 and
+    the whole step (``stripe_buffer_step``): ms by CUDA events (median of
+    PROBE_REPS calls, each on a fresh clone of the buffer made outside
+    its window: the wrappers' host work is inside), device ms of the
+    kernels alone (``kernel_device_ms``) and the step's launches, copies
+    and memsets in one call; then the first mix's epochs/s over
+    PROBE_RUNS runs, each on a new driver, and one more run's host ms an
+    epoch in the epoch body, the write batch and the stripe step
+    (``piece_host_ms``)."""
+    from ceph_tpu_torch.ec import online
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.testing import online_edges
+    from ceph_tpu_torch.workload import writepath as wp_mod
+
+    def fresh(b):
+        return lambda: type(b)(*(getattr(b, f.name).clone() for f in dataclasses.fields(b)))
+
+    def measured(k9, step, buf) -> dict:
+        out = {"k9_ms": time_ms(k9, PROBE_REPS, fresh(buf)),
+               "k9_device_ms": kernel_device_ms(k9, fresh(buf), "stripe_absorb_kernel")}
+        if step is not None:
+            clone = fresh(buf)
+            out.update(step_ms=time_ms(step, PROBE_REPS, clone),
+                       step_device_ms=kernel_device_ms(step, clone),
+                       step_launches=piece_launches(
+                           None, lambda: step(clone()),
+                           {"step": ((online, "stripe_buffer_step"),)})["split"]["step"])
+        return out
+
+    buf, _enc = online_buffer(dev, WP_SETS, WP_WAYS, WP_GROUPS * 2, WP_WARM, SEED)
+    batch = online_edges.random_batch(WP_SETS, WP_WAYS, WP_K, WP_BATCH, SEED + 100)
+    out = {"card": nvidia_smi("name,power.limit"), "random_batch": {
+        "writes": int(batch["valid"].sum()),
+        **measured(absorb_call(online.stripe_absorb, online_edges.to_device(batch, dev)),
+                   None, buf)}}
+    m = build_osdmap(WP_OSDS, pg_num=WP_PGS, size=6, pool_kind="erasure")
+    wd = writepath_driver(m, dev, WP_MIXES[0])
+    state, buf, _rows, _wrows = wd.run_superstep(WP_EPOCHS, pull=False)
+    lanes = wd._write_batch(state, WP_EPOCHS, wd.max_writes)
+    k9 = lambda b: online.stripe_absorb(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick,
+                                        *lanes, wd.k, wd.w)
+    step = lambda b: online.stripe_buffer_step(b, wd.table, wd.schedule.n_out, wd.k, wd.w,
+                                               *lanes)
+    out["epoch_batch"] = {"writes": int(lanes[4].sum()), **measured(k9, step, buf)}
+    rates = []
+    for _ in range(PROBE_RUNS):
+        wd = writepath_driver(m, dev, WP_MIXES[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wd.run_superstep(WP_EPOCHS)
+        torch.cuda.synchronize()
+        rates.append(WP_EPOCHS / (time.perf_counter() - t0))
+    out["epochs_per_s"] = rates
+    wd = writepath_driver(m, dev, WP_MIXES[0])
+    pieces = {"epoch_body": ((wd.driver, "_epoch_step"),), "write_batch": ((wd, "_write_batch"),),
+              "stripe_step": ((wp_mod, "stripe_buffer_step"),)}
+    out["host_ms_per_epoch"] = piece_host_ms(None, lambda: wd.run_superstep(WP_EPOCHS),
+                                             WP_EPOCHS, pieces)
+    return out
+
+
 def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
                     pg_num: int = WP_PGS, epochs: int = WP_EPOCHS,
                     buffer=(WP_SETS, WP_WAYS, WP_GROUPS), small=WP_SMALL) -> dict:
     """BASELINE config 10 (``workload/writepath.py::WritepathDriver`` over
-    ``ec/online.py``: K9 and K6 each epoch) at full width: config 7's map,
-    WP_OPS ops a step, ``epochs`` epochs of flap for each of WP_MIXES, a
-    1024 x 4 stripe buffer of 4,096-byte chunks (the three runs are the
-    path's launch counts): encoded bytes/s, hit rate, delta and full
-    bytes, epochs/s a mix; launches an epoch by piece (epoch body, write
-    batch, K9, K6; torch.profiler spans over WP_PROFILED quiet epochs
-    after the first mix's run); K9's
-    and K6's ms on the last epoch's batch.  Gates: ``writepath_bitequal``
+    ``ec/online.py``: K9, K6 and K9's commit each epoch) at full width:
+    config 7's map, WP_OPS ops a step, ``epochs`` epochs of flap for each
+    of WP_MIXES, a 1024 x 4 stripe buffer of 4,096-byte chunks (the three
+    runs are the path's launch counts): encoded bytes/s, hit rate, delta
+    and full bytes, epochs/s a mix; launches an epoch by piece (epoch
+    body, write batch, the stripe step's own and, inside it, K9's, K6's
+    and the commit's; torch.profiler spans over WP_PROFILED quiet epochs
+    after the first mix's run, on a clone of its final buffer), the
+    stripe step's launches an epoch (the sum of those four); K9's, K6's
+    and the commit's ms and the whole stripe step's card ms
+    (``stripe_buffer_step`` between CUDA events, and the device time of
+    its kernels and of K9's alone by torch.profiler) on the last epoch's
+    batch, each call on a fresh clone of the final buffer made outside
+    its window.  Gates: ``writepath_bitequal``
     (each codec family of bench/config10_online_ec.py: parity after
     WP_GATE_UPDATES delta updates equal to a dense re-encode, on the
     card); the staged path's epoch and write rows equal the superstep's
@@ -2840,23 +3054,45 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
     sup, wsup, final_state, buf = wd.series
     drv = wd.driver
     # launches an epoch by piece over quiet epochs past the run's end
-    # (flap's events all land in its first 3 s), and K9 / K6 alone on the
-    # final buffer
+    # (flap's events all land in its first 3 s), on a clone of the final
+    # buffer (the step consumes its buffer); then the step and its
+    # kernels alone on the last batch, each call on a fresh clone
+    from ceph_tpu_torch.workload import writepath as wp_mod
+
+    step_pieces = ("stripe_step", "k9", "k6", "k9_commit")
     pieces = {"epoch_body": ((drv, "_epoch_step"),), "write_batch": ((wd, "_write_batch"),),
-              "k9": ((online, "stripe_absorb"),), "k6": ((online, "schedule_apply"),)}
+              "stripe_step": ((wp_mod, "stripe_buffer_step"),),
+              "k9": ((online, "stripe_absorb"),), "k6": ((online, "schedule_apply"),),
+              "k9_commit": ((online, "stripe_commit"),)}
+    start_buf, start_host = buf.clone(), drv.host_view(final_state)
     prof = piece_launches(None, lambda: wd.advance(
-        final_state, drv.host_view(final_state), buf, epochs, epochs + WP_PROFILED,
-        wd.max_writes), pieces)
+        final_state, start_host, start_buf, epochs, epochs + WP_PROFILED, wd.max_writes),
+        pieces)
     out["launches_per_epoch"] = {p: {k: v / WP_PROFILED for k, v in c.items()}
                                  for p, c in prof["split"].items()}
+    out["stripe_step_launches_per_epoch"] = sum(
+        v for p in step_pieces for v in out["launches_per_epoch"][p].values())
     out["profiled"] = {k: prof[k] for k in ("wall_ms", "device_ms", "device_busy")}
     lanes = wd._write_batch(final_state, epochs, wd.max_writes)
-    args = (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick, *lanes, wd.k, wd.w)
-    dd = online.stripe_absorb(*args)[6]
+    k9_call = lambda b: online.stripe_absorb(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick,
+                                             *lanes, wd.k, wd.w)
+    absorbed = k9_call(buf.clone())
+    dpar = online.schedule_apply(wd.table, absorbed[6], wd.schedule.n_out)
     out["epoch_kernels_ms"] = {
-        "k9": time_ms(lambda: online.stripe_absorb(*args)),
-        "k6": time_ms(lambda: online.schedule_apply(wd.table, dd, wd.schedule.n_out)),
+        "k9": time_ms(k9_call, setup=buf.clone),
+        "k6": time_ms(lambda: online.schedule_apply(wd.table, absorbed[6], wd.schedule.n_out)),
+        "k9_commit": time_ms(lambda x: online.stripe_commit(x[0], dpar, absorbed[7],
+                                                            absorbed[8], *x[1:], absorbed[5]),
+                             setup=lambda: (absorbed[2].clone(), buf.totals.clone(),
+                                            buf.tick.clone())),
         "writes": int(lanes[4].sum())}
+    step = lambda b: online.stripe_buffer_step(b, wd.table, wd.schedule.n_out, wd.k, wd.w,
+                                               *lanes)
+    out["stripe_step_ms"] = time_ms(step, setup=buf.clone)
+    # the kernels alone (torch.profiler), without the wrappers' host work
+    out["stripe_step_device_ms"] = {"k9": kernel_device_ms(k9_call, buf.clone,
+                                                           "stripe_absorb_kernel"),
+                                    "step": kernel_device_ms(step, buf.clone, "")}
 
     # the staged path and the bare epoch loop over WP_SHORT epochs
     staged, wstaged = wd.run_staged(WP_SHORT)
@@ -2922,6 +3158,7 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
                                 and lanes_equal(c_buf, p_buf)
                                 and int(c_w.lanes[:, 0].sum()) > 0)
     gates["k9_launched"] = launches.get("stripe_absorb", 0) > 0
+    gates["k9_commit_launched"] = launches.get("stripe_commit", 0) > 0
     gates["k6_launched"] = launches.get("schedule_apply", 0) > 0
     out["card_equals_cpu"] = {"osds": s_osds, "pgs": s_pgs, "sets": s_sets, "ways": s_ways,
                               "groups": s_groups, "epochs": WP_SHORT}
@@ -3774,10 +4011,17 @@ def phase_cli(dev, launch_counts, reset_launches, work_dir: str,
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--stripe-probe"]:
+        sys.path.insert(0, os.path.abspath(argv[1]) if len(argv) > 1 else HERE)
+        from ceph_tpu_torch import _cuda
+
+        _cuda.build_all()
+        print(json.dumps(stripe_probe(torch.device("cuda"))), flush=True)
+        return 0
     sys.path.insert(0, HERE)
     from ceph_tpu_torch import _cuda
     from ceph_tpu_torch.core import straw2
@@ -3844,7 +4088,7 @@ def main() -> int:
         raise AssertionError(f"K8 disagrees with its plain version: {bad}")
     online_phase = phase_online_kernel(int_rate, dev)
     for r in online_phase["results"]:
-        r["ptxas"] = ptxas["online"]
+        r["ptxas"] = {k: v for k, v in ptxas["online"].items() if k.startswith(r["name"])}
     emit(online_phase)
     bad = [r["name"] for r in online_phase["results"] if not r["bit_equal"]]
     bad += [e["case"] for e in online_phase["edges"] if not e["bit_equal"]]
@@ -3961,7 +4205,7 @@ def main() -> int:
             "fleet": ("descend",),
             "divergent": ("descend",),
             "checkpoint": ("descend", "crc32c_rows"),
-            "writepath": ("descend", "schedule_apply", "stripe_absorb"),
+            "writepath": ("descend", "schedule_apply", "stripe_absorb", "stripe_commit"),
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
@@ -3997,4 +4241,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

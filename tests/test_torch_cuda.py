@@ -23,7 +23,9 @@ card against the same run on the CPU, the foreground-traffic step
 (torch ops) on the card against the same call on the CPU, and K9 (the
 stripe buffer's write loop) against ``stripe_absorb_plain`` on its edge
 batches (``ceph_tpu_torch/testing/online_edges.py``) and a random batch,
-buffers, Δdata and counter rows.  Run them
+each on its own clone of the buffer: buffers, the compact Δdata,
+``slot_of`` and counter rows, and K9's commit against
+``stripe_commit_plain``.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -683,25 +685,43 @@ def test_traffic_step_on_the_card_matches_cpu(card, k, size, min_size, pg_num, n
 @pytest.mark.parametrize("edge", ("random",) + online_edges.EDGES)
 def test_stripe_absorb_kernel_matches_plain_version(card, edge):
     """K9 on the card against ``stripe_absorb_plain`` on the same card
-    inputs, exact: a warm buffer (or a cold one for the cold edge) of 16
-    sets x 4 ways, liberation k=4 w=7, 8 words a row."""
+    inputs, exact, each on its own clone of the buffer (both update it in
+    place): a warm buffer (or a cold one for the cold edge) of 16 sets x
+    4 ways, liberation k=4 w=7, 8 words a row."""
     from ceph_tpu_torch.ec import gfw, online
 
     sets, ways, k, w, words = 16, 4, 4, 7, 8
     buf = online.empty_stripe_buffer(sets, ways, k * w, 2 * w, words, device=card)
     enc = online.ParityDeltaEngine(gfw.liberation_bitmatrix(k, w), w=w,
                                    device=card).full_encoder()
-    edges = {n: (b, c) for n, b, c in online_edges.edge_batches(sets, ways, k)}
+    for i in range(2):
+        warm = online_edges.random_batch(sets, ways, k, 128, 50 + i)
+        buf, _ = online.stripe_buffer_step(buf, enc.table, enc.schedule.n_out, k, w,
+                                           *online_edges.to_device(warm, card))
+    edges = {n: (b, c) for n, b, c in online_edges.edge_batches(
+        sets, ways, k, resident=online_edges.resident_key(buf.keys))}
     batch, cold = edges.get(edge, (online_edges.random_batch(sets, ways, k, 256, 9), False))
-    if not cold:
-        for i in range(2):
-            warm = online_edges.random_batch(sets, ways, k, 128, 50 + i)
-            buf, _ = online.stripe_buffer_step(buf, enc.table, enc.schedule.n_out, k, w,
-                                               *online_edges.to_device(warm, card))
-    args = (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick,
-            *online_edges.to_device(batch, card), k, w)
-    got = online.stripe_absorb(*args)
-    want = online.stripe_absorb_plain(*args)
-    for name, g, p in zip(("keys", "data", "parity", "dirty", "lru", "tick", "ddata", "row"),
-                          got, want):
+    if cold:
+        buf = online.empty_stripe_buffer(sets, ways, k * w, 2 * w, words, device=card)
+    lanes = online_edges.to_device(batch, card)
+
+    def absorb(fn):
+        b = buf.clone()
+        return fn(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick, *lanes, k, w)
+
+    got = absorb(online.stripe_absorb)
+    want = absorb(online.stripe_absorb_plain)
+    for name, g, p in zip(("keys", "data", "parity", "dirty", "lru", "tick", "ddata",
+                           "slot_of", "row"), got, want):
         assert g.dtype == p.dtype and torch.equal(g, p), name
+    # the commit on the parity K9 left behind (its installs and full
+    # writes zeroed), as the step runs them: each side its own clone
+    dpar = online.schedule_apply(enc.table, want[6], enc.schedule.n_out)
+    committed = {}
+    for name, fn in (("kernel", online.stripe_commit), ("plain", online.stripe_commit_plain)):
+        parity, totals, tick = got[2].clone(), buf.totals.clone(), buf.tick.clone()
+        fn(parity, dpar, want[7], want[8], totals, tick, want[5])
+        committed[name] = (parity, totals, tick)
+    for g, p in zip(committed["kernel"], committed["plain"]):
+        assert torch.equal(g, p)
+    assert int(committed["kernel"][2]) == int(want[5])

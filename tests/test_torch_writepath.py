@@ -10,9 +10,14 @@ each held against the reference's run on the same inputs:
   body, one write at a time) and ``stripe_absorb_by_set_plain`` (the
   kernel's order: sets one by one, ticks from the prefix count), against
   the reference's ``stripe_buffer_step`` on every edge batch of
-  ``testing/online_edges.py``: buffers, parity and counter rows exact;
+  ``testing/online_edges.py``: buffers, parity and counter rows exact
+  (the step consumes its buffer, so each case steps its own clone of the
+  warm one);
 - phase 2, one K6 launch over every slot's Δdata stacked along the word
-  axis, against the reference's vmapped ``_xla_apply``;
+  axis, and over the compact Δdata of the touched slots (expanded back
+  by ``expand_ddata``), against the reference's vmapped ``_xla_apply``;
+- two superstep runs and a staged one of the same driver alike, its cold
+  buffer left byte for byte as it was (the runs clone it);
 - the codec gate, footprint caching, scan = staged on both series, the
   epoch lanes unchanged by the write stage, a crash at each phase
   resumed with a warm buffer, the scrub of a wrong delta, the admin
@@ -148,24 +153,34 @@ def warm(codec):
 @pytest.mark.parametrize("name", online_edges.EDGES)
 def test_stripe_absorb_plain_versions_match_reference_on_edges(codec, warm, name):
     _bm, ref_sched, enc = codec
-    batch, cold = next((b, c) for n, b, c in online_edges.edge_batches(SETS, WAYS, K)
-                       if n == name)
+    rbuf, pbuf = warm
+    edges = online_edges.edge_batches(SETS, WAYS, K,
+                                      resident=online_edges.resident_key(pbuf.keys))
+    batch, cold = next((b, c) for n, b, c in edges if n == name)
     if cold:
         rbuf = ref_empty_buffer(SETS, WAYS, K * W, 2 * W, WORDS)
         pbuf = online.empty_stripe_buffer(SETS, WAYS, K * W, 2 * W, WORDS, device="cpu")
-    else:
-        rbuf, pbuf = warm
     want, want_row = ref_stripe_buffer_step(rbuf, jnp.asarray(ref_sched.steps),
                                             ref_sched.n_out, ref_sched.n_bufs, K, W,
                                             *_ref_batch(batch))
     lanes = online_edges.to_device(batch, "cpu")
-    got, row = online.stripe_buffer_step(pbuf, enc.table, enc.schedule.n_out, K, W, *lanes)
+    got, row = online.stripe_buffer_step(pbuf.clone(), enc.table, enc.schedule.n_out, K, W,
+                                         *lanes)
     _assert_buffer_equal(got, want)
     assert np.array_equal(row.numpy(), np.asarray(want_row))
-    args = (pbuf.keys, pbuf.data, pbuf.parity, pbuf.dirty, pbuf.lru, pbuf.tick, *lanes, K, W)
-    plain = online.stripe_absorb_plain(*args)
-    by_set = online.stripe_absorb_by_set_plain(*args)
+
+    def absorb(fn):
+        b = pbuf.clone()
+        return fn(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick, *lanes, K, W)
+
+    plain = absorb(online.stripe_absorb_plain)
+    by_set = absorb(online.stripe_absorb_by_set_plain)
     assert all(torch.equal(a, b) for a, b in zip(plain, by_set))
+    assert torch.equal(plain[-1], row)
+    *_buf, ddata, slot_of, _row = plain
+    owned = slot_of[slot_of >= 0]
+    assert len(set(owned.tolist())) == len(owned)
+    assert not ddata.view(K * W, len(slot_of), WORDS)[:, slot_of < 0].any()
     if name == "cold_misses":
         assert int(row[online.WP_LANES.index("hits")]) == 0
     if name == "one_set_chain":
@@ -173,6 +188,44 @@ def test_stripe_absorb_plain_versions_match_reference_on_edges(codec, warm, name
     if name == "evict_then_hit":
         hits = int(row[online.WP_LANES.index("hits")])
         assert hits >= 1 and int(row[online.WP_LANES.index("evictions")]) >= 1
+    if name == "cancelling_pair":
+        touched = online.WP_LANES.index("touched_slots")
+        assert int(row[online.WP_LANES.index("hits")]) == 2
+        assert int(row[touched]) == 0 and int(np.asarray(want_row)[touched]) == 0
+        assert len(owned) == 1 and not ddata.any()
+
+
+@pytest.mark.parametrize("name", online_edges.EDGES)
+def test_bound_replay_matches_reference_lookups_on_edges(codec, warm, name):
+    """``chip_smoke.absorb_writes``, the host replay of K9's lookups that
+    its bound counts work from, against the reference's step on every
+    edge batch: the hits, misses and full writes of its row, and each
+    replayed slot's final key and tick in the reference's buffer."""
+    import chip_smoke as cs
+
+    _bm, ref_sched, _enc = codec
+    rbuf, pbuf = warm
+    edges = online_edges.edge_batches(SETS, WAYS, K,
+                                      resident=online_edges.resident_key(pbuf.keys))
+    batch, cold = next((b, c) for n, b, c in edges if n == name)
+    if cold:
+        rbuf = ref_empty_buffer(SETS, WAYS, K * W, 2 * W, WORDS)
+        pbuf = online.empty_stripe_buffer(SETS, WAYS, K * W, 2 * W, WORDS, device="cpu")
+    want, want_row = ref_stripe_buffer_step(rbuf, jnp.asarray(ref_sched.steps),
+                                            ref_sched.n_out, ref_sched.n_bufs, K, W,
+                                            *_ref_batch(batch))
+    writes = cs.absorb_writes(pbuf, batch)
+    row = dict(zip(online.WP_LANES, np.asarray(want_row).tolist()))
+    assert sum(not install for _, install, _, _ in writes) == row["hits"]
+    assert sum(install for _, install, _, _ in writes) == row["misses"]
+    assert sum(full for _, _, full, _ in writes) == row["full_writes"]
+    keys = np.asarray(want.keys).reshape(-1)
+    lru = np.asarray(want.lru).reshape(-1)
+    tick0 = int(np.asarray(rbuf.tick))
+    last = {slot: (key, tick0 + i) for i, ((slot, _, _, _), key) in enumerate(
+        zip(writes, batch["keys"][batch["valid"]].tolist()))}
+    for slot, (key, tick) in last.items():
+        assert int(keys[slot]) == key and int(lru[slot]) == tick
 
 
 def test_phase2_batched_k6_matches_reference_vmapped_xla_apply(codec):
@@ -189,6 +242,61 @@ def test_phase2_batched_k6_matches_reference_vmapped_xla_apply(codec):
     got = got.view(-1, n_slots, WORDS).permute(1, 0, 2).numpy().view(np.uint32)
     assert np.array_equal(got, np.asarray(want))
     assert not got[1].any()
+
+
+def test_phase2_compact_k6_matches_reference_vmapped_xla_apply(codec):
+    """K6 over the compact operand (entries of touched slots only, one
+    unowned entry zero) against the reference's vmapped ``_xla_apply``
+    of the same Δdata at full width, slot by slot; then the commit
+    XORs each owned entry into its slot's parity."""
+    _bm, ref_sched, enc = codec
+    rng = np.random.default_rng(4)
+    n_slots, n = SETS * WAYS, 5
+    slot_of = torch.tensor([6, -1, 0, 3, 5], dtype=torch.int32)
+    dd = rng.integers(0, 1 << 32, (K * W, n, WORDS), dtype=np.uint64).astype(np.uint32)
+    dd[:, 1] = 0
+    dd[:, 3] = 0  # an owned entry whose writes cancelled
+    compact = torch.from_numpy(dd.reshape(K * W, n * WORDS).view(np.int32))
+    full = online.expand_ddata(compact, slot_of, n_slots, WORDS)
+    per_slot = full.numpy().view(np.uint32).reshape(K * W, n_slots, WORDS).transpose(1, 0, 2)
+    want = np.asarray(jax.vmap(lambda x: _xla_apply(jnp.asarray(ref_sched.steps), x,
+                                                    ref_sched.n_out, ref_sched.n_bufs))(
+        jnp.asarray(np.ascontiguousarray(per_slot))))
+    mw = enc.schedule.n_out
+    got = schedule_apply(enc.table, compact, mw)
+    assert tuple(got.shape) == (mw, n * WORDS)
+    got = got.view(mw, n, WORDS).permute(1, 0, 2).numpy().view(np.uint32)
+    for j, slot in enumerate(slot_of.tolist()):
+        assert np.array_equal(got[j], want[slot] if slot >= 0 else np.zeros_like(got[j]))
+    untouched = sorted(set(range(n_slots)) - set(slot_of.tolist()))
+    assert not want[untouched].any()
+    parity = torch.from_numpy(rng.integers(0, 1 << 32, (SETS, WAYS, mw, WORDS),
+                                           dtype=np.uint64).astype(np.uint32).view(np.int32))
+    before = parity.numpy().view(np.uint32).reshape(n_slots, mw, WORDS).copy()
+    row = torch.arange(len(online.WP_LANES), dtype=torch.int64)
+    totals = torch.ones(len(online.WP_LANES), dtype=torch.int64)
+    tick = torch.tensor(5, dtype=torch.int32)
+    online.stripe_commit(parity, schedule_apply(enc.table, compact, mw), slot_of, row, totals,
+                         tick, torch.tensor(9, dtype=torch.int32))
+    assert torch.equal(totals, row + 1) and int(tick) == 9
+    assert np.array_equal(parity.numpy().view(np.uint32).reshape(n_slots, mw, WORDS),
+                          before ^ want)
+
+
+def test_runs_leave_the_cold_buffer_as_it_was(story):
+    """The step consumes its buffer; every run clones the driver's cold
+    one, so two superstep runs and a staged run see the same start."""
+    _d, w, (sup, wsup) = story["port"]
+    cold = w._init_buf.clone()
+    first = w.run_superstep(N_EPOCHS, snapshot_every=EVERY)
+    second = w.run_superstep(N_EPOCHS, snapshot_every=EVERY)
+    staged = w.run_staged(N_EPOCHS)
+    for s, ws in (first, second, staged):
+        assert s.diff(sup) == [] and ws.diff(wsup) == []
+        assert np.array_equal(ws.lanes, wsup.lanes)
+    for f in BUF_FIELDS:
+        assert torch.equal(getattr(w._init_buf, f), getattr(cold, f)), f
+    assert int((w._init_buf.keys >= 0).sum()) == 0
 
 
 def test_delta_matches_dense_every_gate_family():
