@@ -17,12 +17,18 @@ runs the plain versions)::
     # ends with a structured convergence report (one JSON line)
     python -m ceph_tpu_torch.cli.recovery --chaos mid-repair-loss
 
+    # the same over a mesh (a world of one here; every rank of the
+    # world under ``torchrun --nproc-per-node N``), large groups sharded
+    # and the work-stealing dispatcher on with one chip slowed
+    python -m ceph_tpu_torch.cli.recovery --chaos mid-repair-loss --mesh 0 \\
+        --shard-min-bytes 0 --chip-fault chipslow:0.4
+
 With a ``mapfilename`` the map is loaded from the versioned encoding
 (``osdmaptool --createsimple`` output); without one a synthetic EC
-cluster is built in-process (``--num-osd`` etc.).  The multi-device
-flags of the reference package's CLI (``--mesh``, ``--chip-fault``,
-``--work-stealing``, ``--shard-min-bytes``) exit non-zero: the mesh is
-not ported yet (ROADMAP §1, item 4).
+cluster is built in-process (``--num-osd`` etc.).  ``--mesh N`` runs
+over the process group's world (``N`` must be 0 or the world size);
+under ``torchrun`` the group forms from its environment, on the card
+with NCCL or with ``--device cpu`` on gloo.
 """
 
 from __future__ import annotations
@@ -35,8 +41,6 @@ import numpy as np
 
 from ..osdmap.map import OSDMap
 
-MULTI_DEVICE_FLAGS = ("mesh", "chip_fault", "work_stealing", "shard_min_bytes")
-
 
 def _load(path: str) -> OSDMap:
     with open(path, "rb") as f:
@@ -48,6 +52,53 @@ def _pick_pool(m: OSDMap, pool_id: int | None) -> int:
         return pool_id
     ec = [pid for pid, p in m.pools.items() if p.kind == "erasure"]
     return ec[0] if ec else sorted(m.pools)[0]
+
+
+def _build_mesh(args, out):
+    """``--mesh N`` -> this rank's mesh over the world (None when the
+    flag is absent).  Under ``torchrun`` the world is the launched one
+    (formed here from its environment); otherwise a world of one."""
+    if args.mesh is None:
+        return None
+    import os
+
+    from ..parallel import make_mesh, multihost
+
+    if "WORLD_SIZE" in os.environ:
+        multihost.init(device=args.device)
+    try:
+        mesh = make_mesh(args.mesh or None, axis="bytes", device=args.device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+    print(f"mesh: sharding large pattern groups over {mesh.size} devices", file=out)
+    return mesh
+
+
+def _worksteal_setup(args, cfg):
+    """Apply ``--work-stealing``/``--chip-fault`` to the config and
+    return the parsed chip-fault specs.  Dies loudly on a non-chip spec
+    and on the off+fault contradiction — a fault flag that silently does
+    nothing would fake a passing straggler drill."""
+    from ..recovery.failure import parse_spec
+
+    chip_faults = [parse_spec(text) for text in args.chip_fault]
+    bad = [str(s) for s in chip_faults if not s.is_chip]
+    if bad:
+        raise SystemExit(
+            f"--chip-fault {' '.join(bad)}: not a chip spec "
+            "(chipstall:/chipslow:/chipdrop:)"
+        )
+    ws = args.work_stealing
+    if chip_faults and ws == "off":
+        raise SystemExit(
+            "--chip-fault needs the work-stealing dispatcher; "
+            "drop '--work-stealing off'"
+        )
+    if chip_faults and ws is None:
+        ws = "on"  # a requested fault implies the path that consumes it
+    if ws is not None:
+        cfg.set("recovery_work_stealing", ws)
+    return chip_faults
 
 
 def _codec(args, pool, device):
@@ -91,20 +142,34 @@ def _run_chaos(args, m, m_prev, pool_id, out) -> int:
         args.chaos, m, start_s=args.chaos_start,
         period_s=args.chaos_period, cycles=args.cycles,
     )
-    chips = [str(s) for ev in timeline.events() for s in ev.specs if s.is_chip]
-    if chips:
-        raise SystemExit(f"chaos {args.chaos}: chip specs {chips} need the "
-                         "work-stealing dispatcher, not ported yet (ROADMAP §1, item 4)")
+    # chip specs never reach the map engine: split them off the
+    # timeline and merge with the --chip-fault flags for the dispatcher
+    from ..recovery import ChipLostError
+    from ..recovery.dispatch import strip_chip_specs
+
+    timeline, stripped = strip_chip_specs(timeline)
     print(f"chaos {args.chaos}: {len(timeline)} scheduled events", file=out)
-    chaos = ChaosEngine(m, timeline, device=args.device)
-    codec = _codec(args, pool, args.device)
+    mesh = _build_mesh(args, out)
+    device = mesh.device if mesh is not None else args.device
+    chaos = ChaosEngine(m, timeline, device=device)
+    codec = _codec(args, pool, device)
     cfg = Config()
     if args.max_bytes_per_sec is not None:
         cfg.set("recovery_max_bytes_per_sec", args.max_bytes_per_sec)
     if args.dirty_compaction is not None:
         cfg.set("sparse_dirty_compaction", args.dirty_compaction)
-    sup = SupervisedRecovery(codec, chaos, config=cfg, seed=args.seed, device=args.device)
-    res = sup.run(m_prev, pool_id, _chunk_reader(args.chunk_size))
+    if args.shard_min_bytes is not None:
+        cfg.set("recovery_shard_min_bytes", args.shard_min_bytes)
+    chip_faults = list(stripped) + _worksteal_setup(args, cfg)
+    sup = SupervisedRecovery(codec, chaos, config=cfg, seed=args.seed, mesh=mesh,
+                             chip_faults=chip_faults or None, device=device)
+    try:
+        res = sup.run(m_prev, pool_id, _chunk_reader(args.chunk_size))
+    except ChipLostError as e:
+        # typed, never a hang: every chip of this rank was convicted —
+        # report which and fail loudly
+        print(f"chaos aborted: all chips convicted ({e.chips})", file=out)
+        return 1
     for ev in chaos.applied:
         specs = " ".join(str(s) for s in ev.specs)
         print(f"  t={ev.t:g}s epoch {ev.epoch}: {specs}", file=out)
@@ -119,6 +184,17 @@ def _run_chaos(args, m, m_prev, pool_id, out) -> int:
         f"{len(res.failed_pgs)} failed",
         file=out,
     )
+    if res.worksteal_launches:
+        idle = ", ".join(f"{f:.2f}" for f in res.idle_fraction_per_chip)
+        print(
+            f"worksteal: {res.worksteal_launches} launches, "
+            f"{res.stolen_subshards} stolen sub-shards, "
+            f"{res.hedged_launches} hedged "
+            f"({res.hedge_wasted_bytes} wasted bytes), "
+            f"{res.chip_convictions} chips convicted, "
+            f"idle/chip [{idle}]",
+            file=out,
+        )
     print(json.dumps({"scenario": args.chaos, "seed": args.seed, **s}),
           file=out)
     return 0 if res.converged else 1
@@ -173,20 +249,25 @@ def main(argv=None) -> int:
                         "PG; default 'auto' keeps small demo geometries "
                         "on the dense reference path")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="not ported yet (ROADMAP §1, item 4): exits non-zero")
+                   help="shard large pattern groups over the world's N ranks "
+                        "for --execute/--chaos (0 = every rank; a world of one "
+                        "without torchrun); small groups stay on the rank's "
+                        "device and are co-scheduled")
     p.add_argument("--shard-min-bytes", type=int, default=None,
-                   help="not ported yet (ROADMAP §1, item 4): exits non-zero")
+                   help="crossover threshold override: smallest group "
+                        "operand (bytes) routed to the sharded decode "
+                        "(recovery_shard_min_bytes)")
     p.add_argument("--work-stealing", choices=("auto", "on", "off"), default=None,
-                   help="not ported yet (ROADMAP §1, item 4): exits non-zero")
-    p.add_argument("--chip-fault", action="append", metavar="SPEC", default=None,
-                   help="not ported yet (ROADMAP §1, item 4): exits non-zero")
+                   help="work-stealing sub-shard dispatch over the rank's "
+                        "chips (recovery_work_stealing; default 'auto': on "
+                        "only with more than one CUDA chip)")
+    p.add_argument("--chip-fault", action="append", metavar="SPEC", default=[],
+                   help="seeded dispatcher chip fault, repeatable "
+                        "(chipstall:<chip>[.<launch>], "
+                        "chipslow:<chip>.<factor>, chipdrop:<chip>); "
+                        "implies --work-stealing on")
     args = p.parse_args(argv)
     out = sys.stdout
-    asked = ["--" + f.replace("_", "-") for f in MULTI_DEVICE_FLAGS
-             if getattr(args, f) is not None]
-    if asked:
-        p.exit(2, f"recovery: {' '.join(asked)}: the multi-device recovery paths are "
-                  "not ported yet (ROADMAP §1, item 4)\n")
 
     from ..recovery import (
         FLAG_NAMES,
@@ -272,13 +353,35 @@ def main(argv=None) -> int:
 
     from ..common.config import Config
 
+    from ..recovery import ChipLostError
+
     cfg = Config()
     if args.max_bytes_per_sec is not None:
         cfg.set("recovery_max_bytes_per_sec", args.max_bytes_per_sec)
-    ex = RecoveryExecutor(codec, config=cfg, device=args.device)
-    result = ex.run(plan, _chunk_reader(args.chunk_size))
+    if args.shard_min_bytes is not None:
+        cfg.set("recovery_shard_min_bytes", args.shard_min_bytes)
+    chip_faults = _worksteal_setup(args, cfg)
+    mesh = _build_mesh(args, out)
+    ex = RecoveryExecutor(codec, config=cfg, mesh=mesh, chip_faults=chip_faults or None,
+                          dispatch_seed=args.seed, device=args.device)
+    try:
+        result = ex.run(plan, _chunk_reader(args.chunk_size))
+    except ChipLostError as e:
+        print(f"execute aborted: all chips convicted ({e.chips})", file=out)
+        return 1
+    sharded = (
+        f" ({result.sharded_launches} mesh-sharded, "
+        f"{result.psum_bytes_rebuilt} psum'd bytes)"
+        if result.sharded_launches else ""
+    )
+    if result.worksteal_launches:
+        sharded = (
+            f" ({result.worksteal_launches} work-stealing, "
+            f"{result.stolen_subshards} stolen sub-shards, "
+            f"{result.chip_convictions} convicted)"
+        )
     print(
-        f"execute: {result.launches} launches, "
+        f"execute: {result.launches} launches{sharded}, "
         f"{result.shards_rebuilt} shards / "
         f"{result.bytes_recovered} bytes rebuilt, "
         f"{result.bytes_per_sec / 1e6:.1f} MB/s decode, "

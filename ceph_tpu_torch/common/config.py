@@ -88,6 +88,19 @@ SCHEMA: list[Option] = [
            "base delay for exponential backoff between decode-launch "
            "retries (milliseconds); doubled per attempt plus seeded "
            "jitter", min=0.0, see_also=("recovery_retry_max",)),
+    Option("recovery_shard_groups", OPT_BOOL, True, LEVEL_ADVANCED,
+           "route large pattern groups through the mesh-sharded decode "
+           "when the executor is given a mesh (byte axis split over "
+           "devices, psum'd progress counters)",
+           see_also=("recovery_shard_min_bytes",)),
+    Option("recovery_shard_min_bytes", OPT_INT, 1 << 23, LEVEL_ADVANCED,
+           "smallest pattern-group operand (bytes moved: read + "
+           "rebuilt) routed to the mesh-sharded decode; smaller groups "
+           "stay on the single-device fast path where dispatch + "
+           "collective overhead beats the parallelism.  Default is the "
+           "reference package's (its CPU crossover on 8 virtual "
+           "devices); the port's crossover is not measured", min=0,
+           see_also=("recovery_shard_groups",)),
     Option("recovery_xor_schedule", OPT_STR, "auto", LEVEL_ADVANCED,
            "batched-repair decode engine for pattern groups: 'auto' "
            "runs CSE-shrunk XOR schedules for bit-level (bitmatrix/"
@@ -112,13 +125,36 @@ SCHEMA: list[Option] = [
            "route byte-level pattern groups through the fault-tolerant "
            "work-stealing dispatcher (over-decomposed sub-shards, "
            "greedy assignment as chips drain, straggler hedging, "
-           "chip conviction): 'auto' enables it on real multi-chip "
-           "meshes and keeps the static sharded path on CPU hosts; "
+           "chip conviction): 'auto' enables it only when a rank "
+           "drives more than one CUDA device and keeps the static "
+           "sharded path otherwise; "
            "'on' forces it everywhere (tests/benches); 'off' pins the "
            "static path", enum_allowed=("auto", "on", "off"),
            see_also=("recovery_subshards_per_chip",
                      "recovery_dispatch_hedge_factor",
                      "recovery_chip_fail_threshold")),
+    Option("recovery_subshards_per_chip", OPT_INT, 4, LEVEL_ADVANCED,
+           "over-decomposition factor for work-stealing dispatch: each "
+           "pattern group splits into ~subshards_per_chip x n_chips "
+           "byte-range sub-shards (power-of-two bucketed widths, so "
+           "the split never recompiles); higher values smooth skewed "
+           "group mixes at the cost of per-launch overhead", min=1,
+           see_also=("recovery_work_stealing",)),
+    Option("recovery_dispatch_hedge_factor", OPT_FLOAT, 3.0,
+           LEVEL_ADVANCED,
+           "straggler deadline multiplier: a sub-shard is overdue (and "
+           "hedge-redispatched to an idle chip) when its launch runs "
+           "longer than hedge_factor x the owning chip's EWMA "
+           "completion-time estimate; first completion wins, the "
+           "loser's bytes are discarded", min=1.0,
+           see_also=("recovery_work_stealing",
+                     "recovery_chip_fail_threshold")),
+    Option("recovery_chip_fail_threshold", OPT_INT, 3, LEVEL_ADVANCED,
+           "consecutive deadline misses before a chip is convicted and "
+           "its queue drains to survivors; ChipLostError is raised "
+           "only when every chip is convicted (never a hang)", min=1,
+           see_also=("recovery_dispatch_hedge_factor",
+                     "recovery_retry_max")),
     Option("osd_op_complaint_time", OPT_FLOAT, 30.0, LEVEL_ADVANCED,
            "an op in flight (or completed) at least this old (seconds) "
            "is a slow op: counted, kept in the slow-op history, and "
@@ -250,9 +286,10 @@ SCHEMA: list[Option] = [
     Option("debug_rank_checks", OPT_BOOL, False, LEVEL_ADVANCED,
            "raise RankDivergenceError when a divergent run's live ranks "
            "stay at the same step and epoch with different view "
-           "fingerprints after the bounded retries (the reference's "
-           "mesh-seam psum check, assert_rank_identical, waits for "
-           "multi-device: ROADMAP §1 item 4).  Debug/CI only"),
+           "fingerprints after the bounded retries, and check the "
+           "operands of every mesh seam (sharded decode, scrub, PG-state "
+           "classifier, reconcile merge) with assert_rank_identical "
+           "before the collective.  Debug/CI only"),
     Option("reconcile_every_epochs", OPT_INT, 8, LEVEL_ADVANCED,
            "epochs each divergent rank advances its own device-resident "
            "view between reconciliation rounds; smaller values converge "

@@ -2,10 +2,11 @@
 
 A copy of the pieces of the reference package's
 ``analysis/runtime_guard.py`` that the divergent-rank layer
-(:mod:`~ceph_tpu_torch.recovery.reconcile`) reads.  The port has no
-``analysis/`` package until ROADMAP §1 item 5, so they live here.
-:func:`assert_rank_identical` takes a device mesh, which waits for
-multi-device (item 4): it raises.
+(:mod:`~ceph_tpu_torch.recovery.reconcile`) and the mesh seams read.
+The port has no ``analysis/`` package until ROADMAP §1 item 5, so they
+live here.  :func:`assert_rank_identical` all-gathers each rank's
+:func:`rank_fingerprint` over a :class:`~ceph_tpu_torch.parallel.mesh.
+Mesh` and raises on every rank when they differ.
 """
 
 from __future__ import annotations
@@ -55,8 +56,24 @@ def rank_checks_enabled() -> bool:
 
 
 def assert_rank_identical(tag: str, *arrays, mesh, axis=None) -> None:
-    """The reference's cross-rank fingerprint check at a mesh seam: not
-    ported (ROADMAP §1, item 4: multi-device)."""
-    raise NotImplementedError(
-        f"assert_rank_identical({tag!r}): the mesh-seam rank check is not "
-        "ported yet (ROADMAP §1, item 4: multi-device)")
+    """Raise :class:`RankDivergenceError` (on every rank) when the
+    operands' fingerprint differs across ``mesh``'s ranks.
+
+    Call at mesh seams *before* launching sharded work, gated by
+    :func:`rank_checks_enabled`.  Every rank all-gathers every rank's
+    fingerprint and evaluates the same verdict, so divergence raises
+    everywhere at once rather than deadlocking a subset inside a later
+    collective.  Tensors are read back to the host to be hashed."""
+    import torch
+
+    host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in arrays]
+    h = rank_fingerprint(*host)
+    fps = mesh.gather_stack(torch.tensor([h], dtype=torch.int64)).reshape(-1).tolist()
+    if len(set(fps)) > 1:
+        name = axis or mesh.axis_names[0]
+        raise RankDivergenceError(
+            f"{tag}: rank-divergent operands at a mesh seam — this rank's "
+            f"fingerprint {h} disagrees across the {mesh.size}-rank {name!r} "
+            f"axis (fingerprints by rank {fps}).  Some rank observed different "
+            "bytes/shape/dtype; the collective that would have followed could "
+            "deadlock or silently mix divergent state")

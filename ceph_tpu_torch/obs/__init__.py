@@ -32,7 +32,13 @@ from .flight import (
     write_flight_dump,
 )
 from .journal import EventJournal
-from .pg_states import N_STATES, STATE_NAMES, PGStateClassifier, pg_state_step
+from .pg_states import (
+    N_STATES,
+    STATE_NAMES,
+    PGStateClassifier,
+    pg_state_step,
+    sharded_pg_state_step,
+)
 from .slo import HealthCheck, HealthReport, SLOSpec, evaluate
 from .status import register_admin_hooks, render_status, status_dict
 from .traceexport import build_trace, export_trace, validate_trace
@@ -70,6 +76,7 @@ __all__ = [
     "HealthTimeline",
     "N_STATES",
     "PGStateClassifier",
+    "sharded_pg_state_step",
     "SLOSpec",
     "STATE_NAMES",
     "evaluate",

@@ -335,13 +335,11 @@ def validate_flight_dump(doc) -> list[str]:
 
 class crash_dump_guard:
     """Context manager arming crash-dump forensics around a run: any
-    escaping typed failure (``RankStalledError``, ``CheckpointError``, or
-    anything matching ``types``) dumps the recorder's last-N-epoch ring
-    plus the supplied state snapshot, then re-raises.  ``flight`` may be
-    a :class:`FlightState` or a zero-arg callable resolved at failure
-    time (the driver's live state).  The reference's default set also
-    holds the multi-device dispatcher's ``ChipLostError`` (ROADMAP §1,
-    item 4)."""
+    escaping typed failure (``ChipLostError``, ``RankStalledError``,
+    ``CheckpointError``, or anything matching ``types``) dumps the
+    recorder's last-N-epoch ring plus the supplied state snapshot, then
+    re-raises.  ``flight`` may be a :class:`FlightState` or a zero-arg
+    callable resolved at failure time (the driver's live state)."""
 
     def __init__(self, root: str, flight=None, *, journal=None,
                  state: dict | None = None, types=None):
@@ -352,8 +350,9 @@ class crash_dump_guard:
         if types is None:
             from ..common.rank_guard import RankStalledError
             from ..recovery.checkpoint import CheckpointError
+            from ..recovery.dispatch import ChipLostError
 
-            types = (RankStalledError, CheckpointError)
+            types = (ChipLostError, RankStalledError, CheckpointError)
         self.types = tuple(types)
         self.dump_path: str | None = None
 

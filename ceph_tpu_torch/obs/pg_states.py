@@ -28,9 +28,10 @@ States, most severe first (a PG lands in the first that applies):
 - ``active+clean``  — none of the above.
 
 The survivor masks are u32 carried in int64 (CPU PyTorch has no u32
-arithmetic), and their popcount is a SWAR reduction in int64.  The
-reference package's mesh-sharded variant is not ported (ROADMAP §1,
-item 4).
+arithmetic), and their popcount is a SWAR reduction in int64.  Under a
+mesh (:func:`sharded_pg_state_step`) the PG axis splits over the ranks
+and the counts are summed over them, so every rank holds the identical
+cluster-wide histogram.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..common.rank_guard import assert_rank_identical, rank_checks_enabled
+from ..parallel.padding import pad_to_multiple
 from ..recovery.peering import (
     PG_STATE_BACKFILL,
     PG_STATE_INCONSISTENT,
@@ -138,18 +141,34 @@ def pg_state_reduce(mask, n_alive, flags, k: int, size: int, in_range=None):
     return hist, torch.stack([degraded.sum(-1), misplaced.sum(-1)], dim=-1).to(I32)
 
 
+def sharded_pg_state_step(mesh):
+    """Mesh snapshot step: ``f(mask, n_alive, flags, k, size, valid) ->
+    (hist, aux)`` over the whole pool's rows, padded to a rank multiple
+    (every rank passes the same): each rank reduces its slice of PGs and
+    the counts are summed over the ranks.  ``valid`` is the un-padded
+    PG count; the padded tail never votes."""
+    size, rank = mesh.size, mesh.rank
+
+    def step(mask, n_alive, flags, k: int, sz: int, valid: int):
+        w = mask.shape[0] // size
+        lo = rank * w
+        in_range = (torch.arange(w, device=mask.device) + lo) < int(valid)
+        hist, aux = pg_state_reduce(mask[lo:lo + w], n_alive[lo:lo + w], flags[lo:lo + w],
+                                    k, sz, in_range)
+        return mesh.psum(hist), mesh.psum(aux)
+
+    return step
+
+
 class PGStateClassifier:
     """Peering result -> (PG-state histogram, aux counts), on one
-    device (``device``, the card by default).  A ``mesh`` is the
-    reference package's sharded classifier and is not ported (ROADMAP
-    §1, item 4)."""
+    device (``device``, the card by default) or, with a ``mesh``, over
+    its ranks (:func:`sharded_pg_state_step`, each rank on its device)."""
 
     def __init__(self, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PGStateClassifier: the mesh-sharded classifier is not "
-                "ported (ROADMAP §1, item 4: multi-device)")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self._step = sharded_pg_state_step(mesh) if mesh is not None else None
 
     def __call__(
         self, peering: PeeringResult, k: int | None = None
@@ -160,9 +179,19 @@ class PGStateClassifier:
         as host int32 arrays."""
         k = int(peering.min_size if k is None else k)
         dev = self.device
-        mask = torch.from_numpy(
-            np.ascontiguousarray(peering.survivor_mask, np.uint32).astype(np.int64)).to(dev)
-        alive = torch.from_numpy(np.ascontiguousarray(peering.n_alive, np.int32)).to(dev)
-        flags = torch.from_numpy(np.ascontiguousarray(peering.flags, np.int32)).to(dev)
-        hist, aux = pg_state_step(mask, alive, flags, k, int(peering.size))
+        mask = np.ascontiguousarray(peering.survivor_mask, np.uint32).astype(np.int64)
+        alive = np.ascontiguousarray(peering.n_alive, np.int32)
+        flags = np.ascontiguousarray(peering.flags, np.int32)
+        valid = len(mask)
+        if self.mesh is not None:
+            mask, alive, flags = (pad_to_multiple(a, self.mesh.size, axis=0)[0]
+                                  for a in (mask, alive, flags))
+            if rank_checks_enabled():
+                assert_rank_identical("pg_state_classify", mask, alive, flags, np.int64(k),
+                                      np.int64(peering.size), mesh=self.mesh)
+        mask, alive, flags = (torch.from_numpy(a).to(dev) for a in (mask, alive, flags))
+        if self.mesh is None:
+            hist, aux = pg_state_step(mask, alive, flags, k, int(peering.size))
+        else:
+            hist, aux = self._step(mask, alive, flags, k, int(peering.size), valid)
         return hist.cpu().numpy(), aux.cpu().numpy()

@@ -105,8 +105,9 @@ class HealthTimeline:
     ``sample_status`` lets an SLO spec grade each sample as it lands
     (:meth:`ceph_tpu_torch.obs.slo.SLOSpec.sample_status`); without one, any
     not-clean PG makes the sample ``HEALTH_WARN``.  ``device`` is where
-    the PG-state classifier runs; a ``mesh`` raises (the sharded
-    classifier is ROADMAP §1, item 4).
+    the PG-state classifier runs; with a ``mesh`` it runs over the
+    mesh's ranks (:func:`~ceph_tpu_torch.obs.pg_states.
+    sharded_pg_state_step`), every rank holding the identical series.
     """
 
     def __init__(

@@ -1,7 +1,7 @@
 """Failure-driven recovery: fault injection -> peering -> batched repair.
 
 The counterpart of the reference package's ``recovery`` subsystem, on
-one device:
+one device or the ranks of a mesh:
 
 - :mod:`~ceph_tpu_torch.recovery.failure`  — inject OSD/host/rack
   down/out events (and flapping) as ordinary epoch-stamped
@@ -37,6 +37,12 @@ one device:
   (survival, MTTDL, availability, time to zero degraded) over a fleet.
 - :mod:`~ceph_tpu_torch.recovery.reconcile` — divergent rank views in
   one process, merged by lattice joins under a stall-tolerant protocol.
+- :mod:`~ceph_tpu_torch.recovery.sharded` — pattern-group decodes split
+  over the ranks of a mesh (K4 on each rank's byte slice).
+- :mod:`~ceph_tpu_torch.recovery.dispatch` — the fault-tolerant
+  work-stealing dispatcher: sub-shards over a list of chips (devices,
+  possibly one device repeated), hedging, retry, conviction, and
+  :class:`~ceph_tpu_torch.recovery.dispatch.ChipLostError`.
 - :mod:`~ceph_tpu_torch.recovery.checkpoint` — crash-consistent
   snapshots in the reference's file format (lane CRCs through K8), a
   write-ahead log, and the checkpointed epoch loop, fleet and divergent
@@ -78,6 +84,13 @@ from .checkpoint import (
     restore_divergent,
     save_divergent,
     strip_crash_specs,
+)
+from .dispatch import (
+    ChipFaultSchedule,
+    ChipLostError,
+    DispatchStats,
+    WorkStealingDispatcher,
+    strip_chip_specs,
 )
 from .executor import (
     LaunchError,
@@ -182,9 +195,19 @@ from .scrub import (
     crc_rows_plain,
     scrub_counters,
     scrub_step,
+    sharded_scrub_step,
 )
+from .sharded import ShardedDecoder, sharded_decode_step
 
 __all__ = [
+    "ChipFaultSchedule",
+    "ChipLostError",
+    "DispatchStats",
+    "WorkStealingDispatcher",
+    "strip_chip_specs",
+    "ShardedDecoder",
+    "sharded_decode_step",
+    "sharded_scrub_step",
     "CheckpointError",
     "CheckpointStore",
     "CrashPoint",

@@ -333,8 +333,8 @@ class AppliedCrashSpec:
 
     Crash specs never touch the map, the detector, or even the
     simulated cluster — they kill the *driving process*, and only the
-    reference package's checkpointed runners enact them (not ported:
-    nothing in this package consumes them).  The engine journals and records them so a non-checkpointed
+    checkpointed runners (:mod:`~ceph_tpu_torch.recovery.checkpoint`)
+    enact them.  The engine journals and records them so a non-checkpointed
     replay of a kill scenario still leaves an audit trail."""
 
     t: float
@@ -347,9 +347,9 @@ class AppliedChipSpec:
     """Audit-trail entry for one chip-scoped spec the engine saw.
 
     Chip specs never touch the map, the detector, or the simulated
-    cluster — they fault a *device-mesh chip*, and only the reference
-    package's work-stealing dispatcher enacts them (not ported: nothing
-    in this package consumes them).  The engine journals and records them so a replay of
+    cluster — they fault a *device-mesh chip*, and only the
+    work-stealing dispatcher (:mod:`~ceph_tpu_torch.recovery.dispatch`)
+    enacts them.  The engine journals and records them so a replay of
     a chip-fault scenario without the dispatcher still leaves an
     audit trail."""
 
@@ -364,8 +364,8 @@ class AppliedRankSpec:
 
     Rank specs never mutate the map or the detector — they direct how
     *one simulation rank observes* the shared timeline, and the actual
-    skew/stall/drop is enacted by the reference package's reconcile
-    layer (not ported: nothing in this package consumes them).  The engine only journals and records them so
+    skew/stall/drop is enacted by the reconcile layer
+    (:mod:`~ceph_tpu_torch.recovery.reconcile`).  The engine only journals and records them so
     a single-process replay of a divergent scenario still leaves an
     audit trail."""
 

@@ -30,10 +30,14 @@ epochs advancing mid-plan, launch retries with seeded backoff, the
 scrubber's damage map and decode-verify, the liveness detector's
 reporter pool, and the health timeline, journal and op tracker.
 
-This is the single-device executor: the reference's mesh-sharded
-decode, co-scheduling windows and work-stealing dispatcher are ROADMAP
-§1 item 4, and ``mesh=``, ``chip_faults=`` and
-``recovery_work_stealing=on`` raise :class:`NotImplementedError`.
+With a :class:`~ceph_tpu_torch.parallel.mesh.Mesh`, large byte-level
+groups decode split over the ranks (:mod:`~ceph_tpu_torch.recovery.
+sharded`: K4 on each rank's slice, the progress counters summed over
+the ranks), the supervised loop dispatches windows of up to
+``recovery_coschedule_max`` small groups, and under
+``recovery_work_stealing`` byte-level groups go through the
+work-stealing dispatcher (:mod:`~ceph_tpu_torch.recovery.dispatch`) over
+the rank's chips, with its chip faults.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
+import torch
 
 from .. import resolve_device
 from ..common.config import Config, global_config
@@ -53,6 +58,7 @@ from ..ec.backend import TableEncoder
 from ..ec.schedule import ScheduleCache, encoder_for_group
 from ..osdmap.map import OSDMap
 from ..osdmap.mapping import build_pool_state
+from .dispatch import ChipFaultSchedule, WorkStealingDispatcher
 from .peering import (
     PG_STATE_BACKFILL,
     PG_STATE_DEGRADED,
@@ -64,21 +70,7 @@ from .peering import (
 )
 from .planner import PatternGroup, RecoveryPlan, build_plan, invalidated_groups
 from .scrub import DecodeVerifier
-
-#: what ``mesh=``, ``chip_faults=`` and work stealing say when asked for
-MULTI_DEVICE = "not ported yet (ROADMAP §1, item 4: multi-device)"
-
-
-def _single_device(mesh, chip_faults, cfg: Config) -> None:
-    """Raise for the reference's multi-device routes: they never run
-    single-device in silence."""
-    if mesh is not None:
-        raise NotImplementedError(f"recovery mesh= is {MULTI_DEVICE}")
-    if chip_faults:
-        raise NotImplementedError(f"recovery chip_faults= are {MULTI_DEVICE}")
-    if str(cfg.get("recovery_work_stealing")) == "on":
-        raise NotImplementedError(
-            f"recovery_work_stealing=on (the work-stealing dispatcher) is {MULTI_DEVICE}")
+from .sharded import ShardedDecoder
 
 
 class TokenBucket:
@@ -210,8 +202,24 @@ class RecoveryResult:
     unrecoverable: np.ndarray = field(
         default_factory=lambda: np.empty(0, np.int64)
     )
+    # mesh-sharded path: launch count plus the byte/shard totals summed
+    # over the ranks (zero when no launch routed through the mesh)
+    sharded_launches: int = 0
+    psum_bytes_rebuilt: int = 0
+    psum_shards_rebuilt: int = 0
     # launches that ran as CSE-shrunk XOR schedules (bit-level groups)
     schedule_launches: int = 0
+    # work-stealing dispatch (ceph_tpu_torch.recovery.dispatch): groups
+    # routed through the dispatcher plus its steal/hedge/conviction
+    # telemetry and the per-chip idle fractions (with the static-
+    # sharding counterfactual for the same work)
+    worksteal_launches: int = 0
+    stolen_subshards: int = 0
+    hedged_launches: int = 0
+    hedge_wasted_bytes: int = 0
+    chip_convictions: int = 0
+    idle_fraction_per_chip: list[float] = field(default_factory=list)
+    static_idle_fraction_per_chip: list[float] = field(default_factory=list)
     # decode-verify: launches re-derived through the dense reference
     # path after the compiled schedule's output failed checksum, and
     # PGs whose rebuilt bytes failed verification on EVERY engine —
@@ -228,8 +236,10 @@ class RecoveryResult:
 class _Inflight:
     """A dispatched-but-unsynced decode launch.
 
-    ``out`` is a device tensor whose bytes are still in flight;
-    :meth:`RecoveryExecutor._finalize_group` materializes it.
+    ``out`` is a device tensor whose bytes are still in flight (or a
+    dispatcher job); :meth:`RecoveryExecutor._finalize_group`
+    materializes it.  The supervised loop dispatches a window of these
+    back-to-back, then syncs once.
     """
 
     group: PatternGroup
@@ -241,23 +251,38 @@ class _Inflight:
     post: Callable | None = None
     # which decode engine produced the output: "schedule" (compiled
     # XOR), "dense" (bitmatrix reference), "table" (byte LUT).
-    # Decode-verify keys its retry policy on this: only a "schedule"
-    # miss is a compiler bug worth a quarantine.
+    # "sharded" (mesh), "worksteal" (dispatcher).  Decode-verify keys
+    # its retry policy on this: only a "schedule" miss is a compiler
+    # bug worth a quarantine.
     engine: str = "table"
-    # one device: no launch runs mesh-sharded (the reference's flag)
+    # mesh-sharded launches: the un-padded width and the (bytes,
+    # shards) counters summed over the ranks
     sharded: bool = False
+    valid: int | None = None
+    counters: tuple | None = None
 
 
 class RecoveryExecutor:
-    """Drive a :class:`RecoveryPlan` through the device codec on one
-    device.
+    """Drive a :class:`RecoveryPlan` through the device codec.
 
     ``on_decode_launch(group, nbytes)`` fires immediately before each
     device launch — the launch-count hook the tests assert against
     (exactly one call per unique survivor pattern).  With an mclock
     ``arbiter``, recovery bytes admit through its ``"recovery"`` class
-    instead of the solo token bucket.  ``mesh``, ``chip_faults`` and
-    ``recovery_work_stealing=on`` raise (:data:`MULTI_DEVICE`).
+    instead of the solo token bucket.
+
+    With a ``mesh`` (every rank runs the same plan), pattern groups
+    whose operand moves at least ``recovery_shard_min_bytes`` route
+    through the mesh-sharded decode (:class:`~ceph_tpu_torch.recovery.
+    sharded.ShardedDecoder`: byte axis split over the ranks, progress
+    counters summed); smaller groups stay on the rank's device.  The
+    work-stealing dispatcher (``recovery_work_stealing``: ``on``, or
+    ``auto`` with more than one CUDA chip) runs byte-level groups over
+    ``dispatch_devices`` (default: the rank's device), which may repeat
+    one device as virtual chips; its chip ids are ``rank *
+    len(dispatch_devices) + i`` of ``size * len(dispatch_devices)``, the
+    space ``chip_faults`` specs name.  Without a mesh the behavior is
+    the single-device executor's.
     """
 
     def __init__(
@@ -270,12 +295,13 @@ class RecoveryExecutor:
         mesh=None,
         arbiter=None,
         chip_faults=None,
+        dispatch_seed: int = 0,
+        dispatch_devices=None,
         device="cuda",
     ):
         self.codec = codec
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         cfg = config or global_config()
-        _single_device(mesh, chip_faults, cfg)
         self.arbiter = arbiter
         self.throttle = TokenBucket(
             cfg.get("recovery_max_bytes_per_sec"),
@@ -302,6 +328,30 @@ class RecoveryExecutor:
         # unverified.
         self.verifier = None
         self.retry_max = int(cfg.get("recovery_retry_max"))
+        self.mesh = mesh
+        self.shard_min_bytes = int(cfg.get("recovery_shard_min_bytes"))
+        self._sharded: ShardedDecoder | None = None
+        if mesh is not None and bool(cfg.get("recovery_shard_groups")):
+            self._sharded = ShardedDecoder(mesh)
+        # work-stealing dispatch: "auto" activates only when this rank
+        # drives more than one CUDA chip; "on" forces it (tests, and
+        # virtual chips on one device)
+        chips = [torch.device(d) for d in dispatch_devices] if dispatch_devices else [self.device]
+        ws = str(cfg.get("recovery_work_stealing"))
+        self._dispatcher: WorkStealingDispatcher | None = None
+        if ws == "on" or (ws == "auto" and len(chips) > 1
+                          and all(c.type == "cuda" for c in chips)):
+            rank, size = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+            chip_ids = [rank * len(chips) + i for i in range(len(chips))]
+            faults = chip_faults
+            if faults is not None and not isinstance(faults, ChipFaultSchedule):
+                faults = ChipFaultSchedule.from_specs(faults, size * len(chips))
+            self._dispatcher = WorkStealingDispatcher(
+                chips, cfg, chip_ids=chip_ids, faults=faults, seed=dispatch_seed)
+        elif chip_faults:
+            raise ValueError(
+                "chip_faults need the work-stealing dispatcher "
+                "(recovery_work_stealing=on)")
 
     def _dispatch_group(
         self,
@@ -336,8 +386,32 @@ class RecoveryExecutor:
             self.xor_mode == "on"
             and not self._schedules.is_quarantined(("bitplane", g.mask))
         )
+        # byte-level groups route through the work-stealing dispatcher
+        # when it is active (it subsumes the sharded and the table
+        # paths); bit-level groups keep the schedule engines — their
+        # packet-interleaved chunks are not byte-column sliceable
+        worksteal = self._dispatcher is not None and not bit_level
+        sharded = (
+            not worksteal
+            and self._sharded is not None
+            and nbytes >= self.shard_min_bytes
+            and not bit_level
+        )
         with trace_annotation(f"recovery:decode:{g.mask:#x}"):
-            if bit_level:
+            if worksteal:
+                job = self._dispatcher.submit(self._table_encoder(g), src)
+                self.pc.inc("worksteal_launches")
+                result.worksteal_launches += 1
+                fl = _Inflight(g, job, chunk, t0, post=self._dispatcher.result,
+                               engine="worksteal")
+            elif sharded:
+                out, nb, sh, valid = self._sharded.decode_async(
+                    self._table_encoder(g), src, chunk)
+                self.pc.inc("sharded_launches")
+                result.sharded_launches += 1
+                fl = _Inflight(g, out, chunk, t0, engine="sharded", sharded=True,
+                               valid=valid, counters=(nb, sh))
+            elif bit_level:
                 enc = encoder_for_group(self._schedules, g, self.xor_mode, self.device)
                 width = src.shape[1]
                 engine = "dense"
@@ -351,15 +425,18 @@ class RecoveryExecutor:
                     engine=engine,
                 )
             else:
-                enc = self._encoders.get(g.mask)
-                if enc is None:
-                    enc = self._encoders[g.mask] = TableEncoder(
-                        g.repair_matrix, self.device
-                    )
-                fl = _Inflight(g, enc.encode_async(src), chunk, t0)
+                fl = _Inflight(g, self._table_encoder(g).encode_async(src), chunk, t0)
         result.launches += 1
         self.pc.inc("decode_launches")
         return fl
+
+    def _table_encoder(self, g: PatternGroup) -> TableEncoder:
+        """The group's K4 encoder on this executor's device, cached by
+        erasure pattern."""
+        enc = self._encoders.get(g.mask)
+        if enc is None:
+            enc = self._encoders[g.mask] = TableEncoder(g.repair_matrix, self.device)
+        return enc
 
     def _finalize_group(
         self, fl: _Inflight, result: RecoveryResult
@@ -367,20 +444,40 @@ class RecoveryExecutor:
         """Materialize one in-flight launch's output on the host."""
         with timed_block(self.pc, "l_decode"):
             if fl.post is not None:
-                out = fl.post(fl.out)  # schedule path: unpack + trim
+                out = fl.post(fl.out)  # schedule/dispatcher: unpack + trim
+            elif fl.sharded:
+                out = self._sharded.fetch(fl.out, fl.valid)  # gathered, trimmed
             else:
                 out = fl.out.cpu().numpy()  # [n_missing, width]
+        if fl.sharded:
+            nb, sh = fl.counters
+            result.psum_bytes_rebuilt += int(nb)
+            result.psum_shards_rebuilt += int(sh)
         result.decode_s += time.perf_counter() - fl.t_dispatch
         return out, fl.chunk
 
     def _dispatch_stats_begin(self):
-        """The reference's dispatcher-stats snapshot: one device has no
-        work-stealing dispatcher, so there is nothing to snapshot."""
-        return None
+        """Snapshot the dispatcher's cumulative stats (None when the
+        work-stealing path is inactive) so a run reports deltas."""
+        if self._dispatcher is None:
+            return None
+        return self._dispatcher.stats.copy()
 
     def _dispatch_stats_end(self, before, result: RecoveryResult) -> None:
-        """The reference's dispatcher-telemetry fold: nothing to fold
-        on one device (the result's counts stay 0)."""
+        """Fold this run's dispatcher telemetry into the result and the
+        perf counters."""
+        if self._dispatcher is None or before is None:
+            return
+        d = self._dispatcher.stats.delta(before)
+        result.stolen_subshards += d.stolen_subshards
+        result.hedged_launches += d.hedged_launches
+        result.hedge_wasted_bytes += d.hedge_wasted_bytes
+        result.chip_convictions += d.chip_convictions
+        result.idle_fraction_per_chip = d.idle_fraction_per_chip()
+        result.static_idle_fraction_per_chip = d.static_idle_fraction_per_chip()
+        self.pc.inc("stolen_subshards", d.stolen_subshards)
+        self.pc.inc("hedged_launches", d.hedged_launches)
+        self.pc.inc("chip_convictions", d.chip_convictions)
 
     def _launch_group(
         self,
@@ -547,8 +644,8 @@ class LaunchError(RuntimeError):
 class SupervisedResult:
     """Outcome of one supervised (chaos-tolerant) recovery run.
 
-    The mesh fields (sharded, work-stealing, psum) keep the reference's
-    report shape and stay 0 on one device."""
+    The mesh fields (sharded, work-stealing, psum) stay 0 without a
+    mesh or a dispatcher."""
 
     shards: dict[int, dict[int, np.ndarray]]
     epochs: list[int] = field(default_factory=list)
@@ -662,9 +759,13 @@ class SupervisedRecovery:
     one scenario are bit-identical, on the card or on the CPU.
 
     Peering, decodes, the scrubber's CRCs and the verifier run on
-    ``device`` (the card by default).  One device means a scheduling
-    window of one group; ``mesh=`` and ``chip_faults=`` raise
-    (:data:`MULTI_DEVICE`).
+    ``device`` (the card by default; a mesh's rank device with
+    ``mesh=``).  With a mesh, up to ``recovery_coschedule_max`` small
+    groups dispatch back-to-back per scheduling window and large ones
+    decode sharded over the ranks (every rank runs the same loop);
+    ``chip_faults`` (chip specs, :func:`~ceph_tpu_torch.recovery.
+    dispatch.strip_chip_specs`) reach the work-stealing dispatcher over
+    ``dispatch_devices``.
     """
 
     def __init__(
@@ -686,12 +787,13 @@ class SupervisedRecovery:
         scrubber=None,
         write_shard=None,
         chip_faults=None,
+        dispatch_devices=None,
         device="cuda",
     ):
         self.codec = codec
         self.chaos = chaos
         self.cfg = config or global_config()
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.fault_hook = fault_hook
         # data-integrity loop (ceph_tpu_torch.recovery.scrub): with a Scrubber
         # attached, every chaos bit-rot burst triggers a device scrub
@@ -732,10 +834,13 @@ class SupervisedRecovery:
             float(self.cfg.get("recovery_backoff_base_ms")) / 1000.0
         )
         self.max_backfills = int(self.cfg.get("osd_max_backfills"))
-        # a mesh would dispatch up to recovery_coschedule_max small
-        # groups back-to-back per scheduling window; on one device the
-        # window is 1
-        self.window = 1
+        # with a mesh, up to recovery_coschedule_max small groups are
+        # dispatched back-to-back per scheduling window (one clock
+        # advance, one chaos poll for the whole window); without one
+        # the window is 1
+        self.window = (
+            int(self.cfg.get("recovery_coschedule_max")) if mesh is not None else 1
+        )
         self.ex = RecoveryExecutor(
             codec,
             config=self.cfg,
@@ -745,8 +850,12 @@ class SupervisedRecovery:
             mesh=mesh,
             arbiter=arbiter,
             chip_faults=chip_faults,
+            dispatch_seed=seed,
+            dispatch_devices=dispatch_devices,
             device=self.device,
         )
+        if self.ex._dispatcher is not None:
+            self.ex._dispatcher.journal = journal
         self.pc = self.ex.pc
 
     def _jevent(self, name: str, **attrs) -> None:
@@ -1336,7 +1445,16 @@ class SupervisedRecovery:
                 self._snapshot(peering, inner.bytes_recovered)
         self.ex._dispatch_stats_end(dispatch_snap, inner)
         res.launches = inner.launches
+        res.sharded_launches = inner.sharded_launches
         res.schedule_launches = inner.schedule_launches
+        res.worksteal_launches = inner.worksteal_launches
+        res.stolen_subshards = inner.stolen_subshards
+        res.hedged_launches = inner.hedged_launches
+        res.hedge_wasted_bytes = inner.hedge_wasted_bytes
+        res.chip_convictions = inner.chip_convictions
+        res.idle_fraction_per_chip = list(inner.idle_fraction_per_chip)
+        res.static_idle_fraction_per_chip = list(inner.static_idle_fraction_per_chip)
+        res.psum_bytes_rebuilt = inner.psum_bytes_rebuilt
         res.bytes_recovered = inner.bytes_recovered
         res.shards_rebuilt = inner.shards_rebuilt
         res.decode_s = inner.decode_s

@@ -48,7 +48,7 @@ NET_ACTIONS = ("drop", "restore")
 
 # Rank-scoped chaos: not a map edit and not even a *cluster* condition
 # — these shape how one simulation rank OBSERVES the shared timeline
-# (:mod:`ceph_tpu.recovery.reconcile`).  ``rankdelay:R.MS`` delays when
+# (:mod:`ceph_tpu_torch.recovery.reconcile`).  ``rankdelay:R.MS`` delays when
 # rank R sees every subsequent event by MS milliseconds;
 # ``rankdrop:R`` suppresses rank R's heartbeat reports entirely (its
 # down-evidence stops counting toward reporter quorums at merge);
@@ -70,7 +70,7 @@ _RANK_TARGET_ARITY = {"rankdelay": 2, "rankdrop": 1, "rankstall": 2}
 
 # Chip-scoped chaos: not a map edit, not a cluster condition, not
 # even an observation skew — these shape the *device mesh* the
-# work-stealing dispatcher (:mod:`ceph_tpu.recovery.dispatch`) drives.
+# work-stealing dispatcher (:mod:`ceph_tpu_torch.recovery.dispatch`) drives.
 # ``chipstall:D.LAUNCHES`` makes chip D's next LAUNCHES launches hang
 # forever (LAUNCHES=0 = every launch — the conviction acceptance
 # path); ``chipslow:D.FACTOR`` multiplies chip D's completion time by
@@ -193,7 +193,7 @@ class FailureSpec:
     def is_rank(self) -> bool:
         """Rank-observation spec (rankdelay/rankdrop/rankstall): no
         map edit and no cluster condition at all — routed to
-        :mod:`ceph_tpu.recovery.reconcile`, never to
+        :mod:`ceph_tpu_torch.recovery.reconcile`, never to
         build_incremental or the event tape."""
         return self.scope in RANK_SCOPES
 
@@ -201,7 +201,7 @@ class FailureSpec:
     def is_chip(self) -> bool:
         """Chip-fault spec (chipstall/chipslow/chipdrop): shapes the
         device mesh the work-stealing dispatcher drives — routed to
-        :mod:`ceph_tpu.recovery.dispatch`, never to build_incremental
+        :mod:`ceph_tpu_torch.recovery.dispatch`, never to build_incremental
         or the event tape."""
         return self.scope in CHIP_SCOPES
 
@@ -547,14 +547,14 @@ def build_incremental(m: OSDMap, specs) -> Incremental:
             raise ValueError(
                 f"{spec} skews one rank's observations, it is not a "
                 "map edit; route it through "
-                "ceph_tpu.recovery.reconcile (rank_view_timeline / "
+                "ceph_tpu_torch.recovery.reconcile (rank_view_timeline / "
                 "DivergentDriver)"
             )
         if spec.is_chip:
             raise ValueError(
                 f"{spec} faults a device-mesh chip, it is not a map "
                 "edit; route it through the work-stealing dispatcher "
-                "(ceph_tpu.recovery.dispatch)"
+                "(ceph_tpu_torch.recovery.dispatch)"
             )
         if spec.is_crash:
             raise ValueError(

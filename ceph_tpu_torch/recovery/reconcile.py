@@ -37,8 +37,13 @@ exchange; this module simulates that:
 
 ``run(store=..., crashes=...)`` snapshots every rank's view at each
 reconciliation boundary (:mod:`~ceph_tpu_torch.recovery.checkpoint`).
-What waits: the multi-process :class:`ViewMerger` and
-:class:`RankReconciler` (ROADMAP §1, item 4).
+
+One process a rank: :class:`RankReconciler` advances this rank's view
+and joins each round's collectives over a
+:class:`~ceph_tpu_torch.parallel.mesh.Mesh` — :class:`ViewMerger`'s
+lattice joins as ``pmax``/``pmin`` on owner-masked lanes, and the
+progress rows all-gathered, so every rank computes the same verdicts
+(and raises :class:`RankStalledError` in the same round).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from ..common.config import global_config
 from ..common.rank_guard import (
     RankDivergenceError,
     RankStalledError,
+    assert_rank_identical,
     rank_checks_enabled,
     rank_fingerprint,
 )
@@ -61,7 +67,7 @@ from ..core.cluster_state import ClusterState, _pad_to, index_state, stack_state
 from ..osdmap.map import OSDMap
 from ..osdmap.mapping import PoolMapState
 from .chaos import ChaosEvent, ChaosTimeline
-from .failure import check_rank
+from .failure import FailureSpec, check_rank
 from .fleet import _padded_tape
 from .liveness import ClusterFlags
 from .superstep import EpochDriver, compile_event_tape
@@ -607,6 +613,25 @@ class ReconcileProtocol:
 # in-process divergent ranks
 
 
+def _advance_view(drv: EpochDriver, state: ClusterState, host, tape, start: int,
+                  stop: int) -> ClusterState:
+    """Epochs ``start .. stop - 1`` of one view through the template
+    driver's epoch body with the rank's own tape (rows dropped), with
+    the state's scalars set after."""
+    for e in range(start, stop):
+        state, _row = drv._epoch_step_with(state, host, e, tape, drv.salt_base)
+    return drv._with_scalars(state, host)
+
+
+def _rank_tapes(m: OSDMap, timeline: ChaosTimeline, n_ranks: int):
+    """Every rank's skewed tape, padded to one shared width (the pad
+    lanes are inert): ``(r_pad, [tape per rank])``."""
+    tapes = [compile_event_tape(rank_view_timeline(timeline, r, n_ranks), m)
+             for r in range(n_ranks)]
+    r_pad = _pad_to(max(max(len(tp) for tp in tapes), 1))
+    return r_pad, [_padded_tape(tp, r_pad) for tp in tapes]
+
+
 class DivergentDriver:
     """R simulated ranks in ONE process: each advances its own
     :class:`ClusterState` (and host view) through the template
@@ -641,14 +666,7 @@ class DivergentDriver:
         self.driver = EpochDriver(
             m, base, seed=seed, config=cfg, **driver_kwargs
         )
-        tapes = [
-            compile_event_tape(
-                rank_view_timeline(timeline, r, self.n_ranks), m
-            )
-            for r in range(self.n_ranks)
-        ]
-        self._r_pad = _pad_to(max(max(len(tp) for tp in tapes), 1))
-        self._tapes = [_padded_tape(tp, self._r_pad) for tp in tapes]
+        self._r_pad, self._tapes = _rank_tapes(m, timeline, self.n_ranks)
         self.states = [
             self.driver._init_state for _ in range(self.n_ranks)
         ]
@@ -665,12 +683,7 @@ class DivergentDriver:
     # -- stall-aware advance ------------------------------------------
 
     def _steps(self, state: ClusterState, host, tape, start: int, stop: int) -> ClusterState:
-        """Epochs ``start .. stop - 1`` of one view through the epoch
-        body (rows dropped), with the state's scalars set after."""
-        drv = self.driver
-        for e in range(start, stop):
-            state, _row = drv._epoch_step_with(state, host, e, tape, drv.salt_base)
-        return drv._with_scalars(state, host)
+        return _advance_view(self.driver, state, host, tape, start, stop)
 
     def _allowed(self, rank: int, target: int) -> int:
         return _stall_allowed(
@@ -873,21 +886,254 @@ class DivergentDriver:
 # multi-process: one process per rank, merged through collectives
 
 
-class ViewMerger:
-    """The reference's one-launch multihost merge over a device mesh:
-    not ported (ROADMAP §1, item 4: multi-device)."""
+def _bottom(x: torch.Tensor) -> torch.Tensor:
+    """The value below every value of ``x``'s dtype (a non-owner's
+    contribution to an owner-select max)."""
+    if x.dtype.is_floating_point:
+        return torch.full_like(x, -math.inf)
+    return torch.full_like(x, torch.iinfo(x.dtype).min)
 
-    def __init__(self, mesh, axis: str | None = None):
-        raise NotImplementedError(
-            "ViewMerger: the multi-process merge is not ported yet (ROADMAP §1, "
-            "item 4: multi-device)")
+
+class ViewMerger:
+    """The multi-process merge over a mesh: each rank contributes its
+    own view, and every rank gets the same consensus.
+
+    :meth:`merge` normalizes the local view, then runs the join as
+    collectives: the epoch and the observation lanes take ``pmax`` (bool
+    lanes as OR), ``down_since`` the ``pmin`` of the quorum-backed
+    stamps, and the map-owned lanes ``pmax`` over the highest-epoch
+    owners only (non-owners masked to the dtype's bottom) — the
+    reference's ``sel_max``, equal to the in-process join's owner rule
+    with its element-wise-max tie break.  :meth:`gather_rows`
+    all-gathers the small per-rank progress rows the protocol's verdicts
+    come from."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def merge(self, state: ClusterState, report, min_reporters: int) -> ClusterState:
+        """One merge: ``state`` is this rank's view, ``report`` its bool
+        report bit for the round (False inside a ``rankdrop`` window)."""
+        mesh = self.mesh
+        n = _normalize(state, bool(report), min_reporters)
+        kmax = mesh.pmax(n.epoch)
+        owner = n.epoch == kmax
+
+        def sel_max(lane):
+            if lane.dtype == torch.bool:
+                return mesh.pmax(lane & owner)
+            return mesh.pmax(torch.where(owner, lane, _bottom(lane)))
+
+        down = mesh.pmax(n.down)
+        cand = mesh.pmin(torch.where(n.down, n.down_since, math.inf))
+        pool = PoolMapState(**{f.name: sel_max(getattr(n.pool, f.name))
+                               for f in fields(PoolMapState)})
+        return replace(
+            n,
+            pool=pool,
+            last_ack=mesh.pmax(n.last_ack),
+            laggy=mesh.pmax(n.laggy),
+            markdowns=mesh.pmax(n.markdowns),
+            down=down,
+            down_since=torch.where(down, cand, 0.0).to(n.down_since.dtype),
+            suppressed=mesh.pmax(n.suppressed),
+            slow=mesh.pmax(n.slow),
+            out=mesh.pmax(n.out),
+            reporters=mesh.pmax(n.reporters),
+            up=sel_max(n.up),
+            up_primary=sel_max(n.up_primary),
+            acting=sel_max(n.acting),
+            acting_primary=sel_max(n.acting_primary),
+            flags=sel_max(n.flags),
+            survivor_mask=sel_max(n.survivor_mask),
+            n_alive=sel_max(n.n_alive),
+            pg_hist=sel_max(n.pg_hist),
+            pg_aux=sel_max(n.pg_aux),
+            checksums=None if n.checksums is None else sel_max(n.checksums),
+            epoch=kmax,
+            now=mesh.pmax(n.now),
+            last_tick=mesh.pmax(n.last_tick),
+            tape_cursor=mesh.pmax(n.tape_cursor),
+            step=mesh.pmax(n.step),
+        )
+
+    def gather_rows(self, row) -> np.ndarray:
+        """All-gather one small int64 row per rank -> ``[n_ranks, k]``
+        on every rank (the protocol's rank-identical input)."""
+        t = torch.as_tensor(np.asarray(row, np.int64), device=self.mesh.device)
+        return self.mesh.gather_stack(t).cpu().numpy()
 
 
 class RankReconciler:
-    """The reference's multihost reconciler (one process a rank): not
-    ported (ROADMAP §1, item 4: multi-device)."""
+    """One process-rank's side of the divergent protocol: advances its
+    own skewed view through the epoch body (as :class:`DivergentDriver`
+    advances each of its ranks: the template driver of the rank-free
+    timeline, this rank's padded tape) and joins every reconciliation
+    round's collectives.  All verdicts derive from all-gathered progress
+    rows, so laggy marking, backoff schedules and
+    :class:`RankStalledError` land on every rank at the same round — the
+    stall-tolerant degradation contract.  ``rank`` and ``n_ranks``
+    default to the mesh's (one process a rank: they must match it);
+    driver kwargs pass to the template :class:`EpochDriver`, on the
+    mesh's device."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RankReconciler: one process a rank is not ported yet (ROADMAP §1, "
-            "item 4: multi-device)")
+    def __init__(
+        self,
+        m: OSDMap,
+        timeline: ChaosTimeline,
+        *,
+        rank: int | None = None,
+        n_ranks: int | None = None,
+        mesh=None,
+        config=None,
+        journal=None,
+        health=None,
+        flags: ClusterFlags | None = None,
+        seed: int = 0,
+        **driver_kwargs,
+    ):
+        from ..parallel import multihost
+
+        cfg = config or global_config()
+        device = driver_kwargs.pop("device", "cuda")
+        self.mesh = mesh if mesh is not None else multihost.global_mesh(device=device)
+        self.rank = self.mesh.rank if rank is None else int(rank)
+        self.n_ranks = self.mesh.size if n_ranks is None else int(n_ranks)
+        check_rank(FailureSpec("rankdrop", str(self.rank), "drop"), self.n_ranks)
+        if (self.rank, self.n_ranks) != (self.mesh.rank, self.mesh.size):
+            raise ValueError(
+                f"rank {self.rank} of {self.n_ranks}: one process a rank, but this "
+                f"process is rank {self.mesh.rank} of a {self.mesh.size}-rank mesh")
+        self.merger = ViewMerger(self.mesh)
+        # every rank decodes EVERY schedule (global knowledge: the report
+        # mask and stall windows must be rank-identical inputs)
+        self.schedules = [
+            rank_schedule(timeline, r, self.n_ranks) for r in range(self.n_ranks)
+        ]
+        self.driver = EpochDriver(m, strip_rank_specs(timeline), seed=seed, config=cfg,
+                                  device=self.mesh.device, **driver_kwargs)
+        _r_pad, tapes = _rank_tapes(m, timeline, self.n_ranks)
+        self._tape = tapes[self.rank]
+        self.state = self.driver._init_state
+        self.host = self.driver._init_host.copy()
+        self.cur = 0
+        self.min_reporters = int(cfg.get("mon_osd_min_down_reporters"))
+        self.protocol = ReconcileProtocol(
+            self.n_ranks, config=cfg, seed=seed, journal=journal,
+            health=health, flags=flags,
+        )
+        self.journal = journal
+        self.merged: ClusterState | None = None
+
+    def _allowed(self, target: int) -> int:
+        return _stall_allowed(
+            self.schedules[self.rank].stall_windows(self.driver.t0, self.driver.dt),
+            target,
+        )
+
+    def _advance(self, target: int) -> None:
+        allowed = self._allowed(target)
+        if allowed <= self.cur:
+            return
+        catch_up = self.rank in self.protocol.laggy
+        old = self.state if catch_up else None
+        self.state = _advance_view(self.driver, self.state, self.host, self._tape,
+                                   self.cur, allowed)
+        self.cur = allowed
+        if catch_up and self.journal is not None:
+            self.journal.event(
+                "reconcile.catchup", rank=self.rank,
+                **view_delta(old, self.state).to_json(),
+            )
+
+    def _round_io(self, now: float):
+        """One round's collectives: merge + progress gather.  Every rank
+        enters BOTH collectives every round (a simulated stall freezes
+        the view's content, never the process's participation — that is
+        what keeps stalls from deadlocking)."""
+        self.merged = self.merger.merge(
+            self.state, self.schedules[self.rank].reporting(now), self.min_reporters)
+        rows = self.merger.gather_rows(
+            [self.cur, int(self.host.epoch), view_fingerprint(self.state)])
+        if rank_checks_enabled():
+            assert_rank_identical(
+                "reconcile.merged", self.merged.epoch, self.merged.down,
+                self.merged.acting, self.merged.pg_hist, mesh=self.mesh)
+        return rows[:, 0].tolist(), rows[:, 1].tolist(), rows[:, 2].tolist()
+
+    def _now_at(self, target: int) -> float:
+        return self.driver.t0 + target * self.driver.dt
+
+    def reconcile_round(self, round_idx: int, target: int) -> RoundResult:
+        proto = self.protocol
+        self._advance(target)
+        now = self._now_at(target)
+        steps, epochs, fps = self._round_io(now)
+        retries = 0
+        backoff_total = 0
+        converged, diverged = proto.agreement(steps, epochs, fps)
+        while diverged and retries < proto.retry_max:
+            retries += 1
+            extra = proto.backoff_epochs(retries, self.driver.dt)
+            backoff_total += extra
+            target += extra
+            if self.rank in proto.live():
+                self._advance(target)
+            now = self._now_at(target)
+            steps, epochs, fps = self._round_io(now)
+            converged, diverged = proto.agreement(steps, epochs, fps)
+        result = proto.observe(
+            round_idx, target, steps, epochs, fps, now,
+            retries=retries, backoff=backoff_total,
+        )
+        if result.diverged and rank_checks_enabled():
+            raise RankDivergenceError(
+                f"round {round_idx}: live ranks at step "
+                f"{result.steps} / epoch {result.epochs} hold "
+                f"different views after {retries} backoff retries "
+                f"(fingerprints {result.fingerprints})"
+            )
+        return result
+
+    def run(self, n_epochs: int) -> DivergentResult:
+        """Drive this rank ``n_epochs`` epochs with a reconciliation
+        round every ``reconcile_every_epochs`` and, while a rank lags,
+        the bounded backoff rounds past the budget (see
+        :meth:`DivergentDriver.run`: every rank evaluates the same loop
+        condition from the gathered rounds, so all take the same
+        rounds)."""
+        proto = self.protocol
+        rounds: list[RoundResult] = []
+        target = 0
+        round_idx = 0
+        n_epochs = int(n_epochs)
+        while target < n_epochs:
+            target = min(target + proto.every, n_epochs)
+            rounds.append(self.reconcile_round(round_idx, target))
+            target = max(target, max(rounds[-1].steps))
+            round_idx += 1
+        extra_rounds = 0
+        while rounds and (proto.laggy or not rounds[-1].converged):
+            if proto.laggy:
+                attempt = max(1, max(
+                    int(proto.stall_rounds[r]) - proto.deadline + 1
+                    for r in sorted(proto.laggy)
+                ))
+            else:
+                extra_rounds += 1
+                if extra_rounds > proto.deadline + proto.retry_max:
+                    break
+                attempt = extra_rounds
+            target += proto.backoff_epochs(attempt, self.driver.dt)
+            rounds.append(self.reconcile_round(round_idx, target))
+            target = max(target, max(rounds[-1].steps))
+            round_idx += 1
+        last = rounds[-1] if rounds else None
+        return DivergentResult(
+            rounds=rounds,
+            merged=self.merged,
+            states=[self.state],
+            converged=bool(last.converged) if last else True,
+            laggy=tuple(sorted(proto.laggy)),
+            total_steps=self.cur,
+        )

@@ -34,8 +34,12 @@ scrubs through two independent lanes (:meth:`Scrubber.note_stripe_writes`,
 :meth:`Scrubber.scrub_stripe_buffer`, :meth:`DecodeVerifier.
 verify_stripe_buffer`): each resident slot's parity digest (K8 over the
 slots' parity rows on the buffer's device) against the write-time
-table, and a dense numpy GF(2) re-encode of its data.  The reference
-package's mesh-sharded scrub (ROADMAP §1, item 4) is not ported yet.
+table, and a dense numpy GF(2) re-encode of its data.
+
+Under a mesh (:func:`sharded_scrub_step`, ``Scrubber(mesh=)``) the PG
+axis splits over the ranks: each rank runs K8 over its slice of PGs,
+the damage histogram and total are summed over the ranks, and the
+per-PG bitmask is all-gathered so every rank can plan the repair.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ import torch
 
 from .. import resolve_device
 from ..common.perf_counters import PerfCounters, PerfCountersBuilder, registry
+from ..common.rank_guard import assert_rank_identical, rank_checks_enabled
 from ..common.tracing import trace_annotation
+from ..parallel.padding import pad_to_multiple
 
 I32 = torch.int32
 I64 = torch.int64
@@ -327,23 +333,50 @@ def crc_rows(data: torch.Tensor) -> torch.Tensor:
 # device scrub step
 
 
-def scrub_step(data: torch.Tensor, expected: torch.Tensor):
+def scrub_step(data: torch.Tensor, expected: torch.Tensor, in_range=None):
     """One scrub reduction on ``data``'s device.
 
     ``data [n_pgs, n_shards, chunk]`` u8, ``expected [n_pgs,
-    n_shards]`` int64 stored checksums (u32 values).  Returns
-    ``(bad_mask [n_pgs] int64, hist [n_shards] int32, n_bad int32)`` —
-    ``bad_mask`` bit ``s`` set iff shard ``s``'s recomputed CRC
-    disagrees with the stored one, ``hist[s]`` the count of PGs damaged
-    at slot ``s``."""
+    n_shards]`` int64 stored checksums (u32 values), ``in_range``
+    ``[n_pgs]`` bool (None: every row; a padded tail never votes).
+    Returns ``(bad_mask [n_pgs] int64, hist [n_shards] int32, n_bad
+    int32)`` — ``bad_mask`` bit ``s`` set iff shard ``s``'s recomputed
+    CRC disagrees with the stored one, ``hist[s]`` the count of PGs
+    damaged at slot ``s``."""
     n_pgs, n_shards, chunk = data.shape
     crcs = crc_rows(data.reshape(n_pgs * n_shards, chunk))
     bad = crcs.reshape(n_pgs, n_shards) != expected
+    if in_range is not None:
+        bad = bad & in_range[:, None]
     weights = torch.ones(n_shards, dtype=I64, device=data.device) << torch.arange(
         n_shards, dtype=I64, device=data.device)
     bad_mask = (bad.to(I64) * weights).sum(dim=1)
     hist = bad.sum(dim=0, dtype=I32)
     return bad_mask, hist, hist.sum(dtype=I32)
+
+
+def sharded_scrub_step(mesh, gather: bool = True):
+    """Mesh scrub step: ``f(data, expected, valid) -> (bad_mask, hist,
+    n_bad)``.  ``data [n_pgs, n_shards, chunk]`` and ``expected`` are the
+    whole pool, padded on the PG axis to a rank multiple (every rank
+    passes the same); each rank runs K8 over its slice of PGs, and the
+    histogram and total are summed over the ranks so every rank agrees
+    on the damage counts.  ``bad_mask`` is this rank's slice — the whole
+    padded pool's with ``gather`` — and the rows past ``valid`` never
+    vote."""
+    size, rank = mesh.size, mesh.rank
+
+    def step(data: torch.Tensor, expected: torch.Tensor, valid: int):
+        w = data.shape[0] // size
+        lo = rank * w
+        in_range = (torch.arange(w, device=data.device) + lo) < int(valid)
+        bad_mask, hist, n_bad = scrub_step(data[lo:lo + w].contiguous(),
+                                           expected[lo:lo + w], in_range)
+        if gather:
+            bad_mask = mesh.all_gather(bad_mask)
+        return bad_mask, mesh.psum(hist), mesh.psum(n_bad)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -398,9 +431,10 @@ class Scrubber:
     K8 on ``device``); every :meth:`scrub` pass restacks the live shard
     bytes, admits them through the arbiter's ``"scrub"`` class (so scrub
     bandwidth obeys mclock policy), runs K8 and the reduction on
-    ``device``, and returns the per-PG inconsistent bitmask.  A ``mesh``
-    (the reference package's sharded scrub) is not ported (ROADMAP §1,
-    item 4) and raises.
+    ``device``, and returns the per-PG inconsistent bitmask.  With a
+    ``mesh`` (every rank scrubbing the same store), each rank runs K8
+    over its slice of PGs on its device (:func:`sharded_scrub_step`) and
+    every rank gets the whole bitmask.
     """
 
     def __init__(
@@ -413,16 +447,14 @@ class Scrubber:
         clock=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Scrubber: the mesh-sharded scrub is not ported (ROADMAP §1, "
-                "item 4: multi-device)")
+        self.mesh = mesh
+        self._step = sharded_scrub_step(mesh) if mesh is not None else None
         self.n_pgs = int(n_pgs)
         self.n_shards = int(n_shards)
         self.arbiter = arbiter
         self.journal = journal
         self.clock = clock
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.pc = scrub_counters()
         self.checksums: np.ndarray | None = None  # [n_pgs, n_shards] u32
         # staggered deep scrub: virtual time the phase window last
@@ -561,11 +593,24 @@ class Scrubber:
                 expected = expected.copy()
                 expected[~due] = zero_crc[0]
             dev = self.device
-            bad_mask, hist, n_bad = scrub_step(
-                torch.from_numpy(data).to(dev),
-                torch.from_numpy(expected.astype(np.int64)).to(dev),
-            )
-            bad_mask = bad_mask.cpu().numpy()
+            if self.mesh is None:
+                bad_mask, hist, n_bad = scrub_step(
+                    torch.from_numpy(data).to(dev),
+                    torch.from_numpy(expected.astype(np.int64)).to(dev),
+                )
+            else:
+                size = self.mesh.size
+                data, _ = pad_to_multiple(data, size, axis=0)
+                expected, _ = pad_to_multiple(expected, size, axis=0)
+                if rank_checks_enabled():
+                    assert_rank_identical("scrub_pass", data, expected,
+                                          np.int64(self.n_pgs), mesh=self.mesh)
+                bad_mask, hist, n_bad = self._step(
+                    torch.from_numpy(data).to(dev),
+                    torch.from_numpy(expected.astype(np.int64)).to(dev),
+                    self.n_pgs,
+                )
+            bad_mask = bad_mask.cpu().numpy()[: self.n_pgs]
             hist = hist.cpu().numpy()
             n_bad = int(n_bad)
         self.pc.inc("scrub_passes")

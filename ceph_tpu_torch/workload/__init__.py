@@ -15,7 +15,7 @@ arbiter that shares bandwidth between clients and recovery.
   each epoch's committed writes absorbed by the stripe buffer
   (:mod:`ceph_tpu_torch.ec.online`, K9 and K6).
 
-``sharded_traffic_step`` raises (ROADMAP §1, item 4).
+``sharded_traffic_step`` is the traffic step over the ranks of a mesh.
 """
 
 from .histogram import (

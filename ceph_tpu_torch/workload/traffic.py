@@ -32,8 +32,14 @@ The step is torch ops on one device (u32 hashes carried in int64, as
 in :mod:`ceph_tpu_torch.core.hashes`); it routes the batch once and
 uses the route for both the load scatter and the reduce.  Every
 per-step input is data, so chaos epochs, overload windows and recovery
-interference build nothing new.  The reference's mesh step
-(``sharded_traffic_step``) is ROADMAP §1 item 4.
+interference build nothing new.
+
+Under a mesh (:func:`sharded_traffic_step`, ``TrafficEngine(mesh=)``)
+each rank makes its own slice of op ids from its rank, the per-OSD load
+is summed over the ranks *before* the queue model (every op sees the
+cluster-wide utilization), counts and histograms are summed, the peak
+utilization takes the max, and the float sums are added in rank order,
+so every rank holds the same outputs.
 """
 
 from __future__ import annotations
@@ -76,8 +82,6 @@ RHO_MAX = 0.97
 _SALT2 = np.uint32(0x9E3779B9)  # decorrelates the read/write coin
 _SALT3 = np.uint32(0x85EBCA6B)  # decorrelates the popularity-skew coin
 
-#: what ``mesh=`` and ``sharded_traffic_step`` say when asked for
-MULTI_DEVICE = "not ported yet (ROADMAP §1, item 4: multi-device)"
 
 
 @dataclass(frozen=True)
@@ -232,15 +236,21 @@ def _queue_model(load, idx, is_write, degraded, k: int, service_ms,
 
 
 def _traffic_outcomes(idx, is_write, blocked, degraded, load, k: int, service_ms,
-                      cap_ops, rho_recovery, n_buckets: int, lat_min: float):
+                      cap_ops, rho_recovery, n_buckets: int, lat_min: float,
+                      in_range=None):
     """``(counts [3], lat_hist, qd_hist, sums [2], max_rho)`` of one
     routed op batch, given the per-OSD load and the primaries' indices
     into it.  Along the last axis: ``[lanes, n_ops]`` ops give each
     output a leading lane axis, every lane reduced on its own (the sums
-    in the same fixed pairwise order as one batch alone)."""
+    in the same fixed pairwise order as one batch alone).  ``in_range``
+    (a mesh rank's padded id tail: False) keeps ops out of every
+    output."""
     rho, qd, lat = _queue_model(load, idx, is_write, degraded, k, service_ms,
                                 cap_ops, rho_recovery)
-    ok = ~blocked
+    if in_range is not None:
+        blocked = blocked & in_range
+        rho = torch.where(in_range, rho, 0.0)
+    ok = ~blocked if in_range is None else in_range & ~blocked
     okw = ok.to(I32)
     counts = torch.stack([
         (ok & ~degraded).sum(-1), (ok & degraded).sum(-1), blocked.sum(-1),
@@ -269,13 +279,13 @@ def _pairwise_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _traffic_reduce(pg, idx, is_write, blocked, degraded, load, n_pgs: int,
                     k: int, service_ms, cap_ops, rho_recovery,
-                    n_buckets: int, lat_min: float):
+                    n_buckets: int, lat_min: float, in_range=None):
     """Outcome counts + histograms for one routed op batch, given the
     per-OSD load and the primaries' indices into it."""
     counts, lat_hist, qd_hist, sums, max_rho = _traffic_outcomes(
         idx, is_write, blocked, degraded, load, k, service_ms, cap_ops, rho_recovery,
-        n_buckets, lat_min)
-    ok = ~blocked
+        n_buckets, lat_min, in_range)
+    ok = ~blocked if in_range is None else in_range & ~blocked
     # per-PG integrity feed: which PGs took a committed write (their
     # checksum rows must refresh: checksum-at-write) and which served
     # a degraded read (verify against the table before trusting the
@@ -325,10 +335,54 @@ def traffic_step(
     return step
 
 
-def sharded_traffic_step(*args, **kwargs):
-    """The reference's mesh step (per-device id slices, psum'd load and
-    outputs): :data:`MULTI_DEVICE`."""
-    raise NotImplementedError(f"sharded_traffic_step is {MULTI_DEVICE}")
+def sharded_traffic_step(
+    mesh,
+    ops_per_device: int,
+    n_osds: int,
+    n_buckets: int = N_BUCKETS,
+    lat_min: float = LAT_MIN_MS,
+):
+    """Mesh step: :func:`traffic_step`'s inputs plus ``valid`` (the
+    global op count).  Each rank makes its op ids from its rank,
+    ``rank * ops_per_device + arange(ops_per_device)``, masks ids at or
+    past ``valid`` (the padded tail), and routes them on its device; the
+    per-OSD load is summed over the ranks *before* the queue model, so
+    every op sees the cluster-wide utilization (its partials are integer
+    costs, exact in float32, added in rank order).  Counts, histograms
+    and the per-PG feeds are summed, ``max_rho`` takes the max, and the
+    float ``sums`` add each rank's fixed-order partials in rank order:
+    every rank holds identical outputs."""
+    ids_by_device: dict = {}
+
+    def step(
+        mask, n_alive, acting_primary, salt, pg_b, pg_bmask,
+        k, size, min_size, write_permille,
+        service_ms, cap_ops, rho_recovery, valid,
+    ):
+        dev = mask.device
+        ids = ids_by_device.get(dev)
+        if ids is None:
+            ids = ids_by_device[dev] = (
+                torch.arange(ops_per_device, dtype=I64, device=dev)
+                + mesh.rank * ops_per_device)
+        in_range = ids < int(valid)
+        k, size = int(k), int(size)
+        pg, prim, is_write, blocked, degraded, cost = _route(
+            mask, n_alive, acting_primary, ids, salt, pg_b, pg_bmask,
+            k, size, int(min_size), write_permille,
+        )
+        idx, ok_idx = _osd_index(prim, n_osds)
+        load = mesh.psum_ordered(_scatter_load(idx, ok_idx & in_range, blocked, cost, n_osds))
+        (counts, lat_hist, qd_hist, sums, max_rho, written,
+         deg_read) = _traffic_reduce(
+            pg, idx, is_write, blocked, degraded, load, mask.shape[0],
+            k, service_ms, cap_ops, rho_recovery, n_buckets, lat_min, in_range,
+        )
+        return (mesh.psum(counts), mesh.psum(lat_hist), mesh.psum(qd_hist),
+                mesh.psum_ordered(sums), mesh.pmax(max_rho), mesh.psum(written),
+                mesh.psum(deg_read))
+
+    return step
 
 
 def dirty_fraction(series) -> float:
@@ -463,7 +517,11 @@ class TrafficEngine:
     copied there otherwise.  One :meth:`observe` brings its outputs back
     in one device-to-host copy, inside the timed window; the per-PG
     integrity feed comes back only when a scrubber is attached.
-    ``mesh=`` raises (:data:`MULTI_DEVICE`).
+
+    With a ``mesh`` (every rank observing the same peering), each rank
+    routes its ``ceil(ops_per_step / size)`` slice of the batch on its
+    device (:func:`sharded_traffic_step`) and every rank gets the same
+    sample.
     """
 
     def __init__(
@@ -495,10 +553,9 @@ class TrafficEngine:
         read_shard=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"TrafficEngine mesh= is {MULTI_DEVICE}")
         cfg = config or global_config()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.clock = clock
         self.n_osds = int(n_osds)
         self.pg_num = int(pg_num)
@@ -556,9 +613,17 @@ class TrafficEngine:
         self.lat_min = float(lat_min)
         self.edges = bucket_edges(self.n_buckets, self.lat_min)
         self.pc = workload_counters(self.edges)
-        self._step = traffic_step(
-            self.ops_per_step, self.n_osds, self.n_buckets, self.lat_min,
-        )
+        if mesh is None:
+            self._step = traffic_step(
+                self.ops_per_step, self.n_osds, self.n_buckets, self.lat_min,
+            )
+            self.n_devices = 1
+        else:
+            self.n_devices = mesh.size
+            self._step = sharded_traffic_step(
+                mesh, -(-self.ops_per_step // mesh.size), self.n_osds,
+                n_buckets=self.n_buckets, lat_min=self.lat_min,
+            )
         self._steps = 0
         self._last_t: float | None = None
         self._last_bytes = 0
@@ -669,6 +734,7 @@ class TrafficEngine:
                 mask_in, alive_in, prim_in, salt, self.pg_num, self.pg_bmask,
                 self.k, self.size, self.min_size, self.write_permille,
                 self.service_ms, cap_ops, rho_recovery,
+                *(() if self.mesh is None else (self.ops_per_step,)),
             )
             packed = torch.cat([
                 counts, lat_hist, qd_hist, sums.view(I32), max_rho.reshape(1).view(I32),

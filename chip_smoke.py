@@ -229,12 +229,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
    file must hold ``calc_pg_upmaps``'s plan for the saved map (the
    file's text is held to the reference's in ``tests/test_torch_cli.py``);
    ec_bench for reed_sol_van and cauchy_good (packetsize 2048) k=8 m=3,
-   and one object of its size encoded on the card equal to the CPU's.
+   and one object of its size encoded on the card equal to the CPU's;
+13. multidevice: a real NCCL process group of one rank (``file://``
+   store), its mesh, and every mesh path through it, each bit-equal to
+   the single-device path on the card: placement of 1M objects on
+   build_simple(1024) (K3) and 65,536 on a general-engine map (K1), the
+   rebalance sim, the sharded decode of k=8 m=3 at an odd and an aligned
+   width (K4's unaligned and TMA variants, each held to the plain
+   version), the mesh executor on config 4's rack failure (K3's
+   peering, K4 sharded, K6 bit-level), a mesh scrub (K8), the traffic
+   step and the PG-state classifier, the rank guard; then the
+   work-stealing dispatcher on 4 virtual chips on the card under
+   tests/test_dispatch.py's fault matrix: bytes equal the static
+   decode, decisions equal the CPU's.  The group is destroyed after.
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
 general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
 traffic and scrub_qos; 10b: epoch; 10c: fleet; 10d: divergent; 10e:
-checkpoint; 10f: writepath; 11: balancer; 12: cli, each from 0),
+checkpoint; 10f: writepath; 11: balancer; 12: cli; 13: multidevice,
+each from 0),
 each phase's wall seconds, the kernels
 line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
@@ -242,11 +255,21 @@ K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
 on the traffic path, K3 on the epoch, fleet, divergent and balancer
 paths, K3 and K8 on the checkpoint path, K3, K6, K9 and its commit on
-the writepath path),
+the writepath path, K1, K3, K4, K6 and K8 on the multidevice path),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 no CUDA device is present.
+
+    python3 chip_smoke.py --mesh-world N
+
+runs the mesh paths in an N-rank NCCL world, one card a rank (a box of
+N cards): every rank's placement, rebalance sim, sharded decode,
+executor (sharded and work-stealing), supervised loop, traffic step,
+PG states and scrub against a world of one on the same inputs, the rank
+guard and the dispatcher's typed loss on every rank, and
+``RankReconciler`` against the in-process ``DivergentDriver``; one JSON
+line of gates and walls.
 
     python3 chip_smoke.py --stripe-probe [ROOT]
 
@@ -3660,8 +3683,8 @@ def phase_rebalance(dev, counts, reset) -> dict:
     per_launch = REBALANCE_CHUNK * REBALANCE_CHUNKS_PER_LAUNCH
     objects = per_launch * REBALANCE_LAUNCHES
     ideal = REBALANCE_FAILED * REPLICAS / REBALANCE_OSDS
-    step = sharded_rebalance_sim(dense, rule, REPLICAS, REBALANCE_CHUNK,
-                                 REBALANCE_CHUNKS_PER_LAUNCH, dev)
+    step = sharded_rebalance_sim(None, dense, rule, REPLICAS, REBALANCE_CHUNK,
+                                 REBALANCE_CHUNKS_PER_LAUNCH, device=dev)
     reset()
     syncs = interp_batch.HOST_SYNCS
     torch.cuda.synchronize()
@@ -3677,7 +3700,8 @@ def phase_rebalance(dev, counts, reset) -> dict:
            "profile_one_launch": profile_call(lambda: step(w_before, w_after, 0))}
     steps = [(s.op, s.arg1, s.arg2) for s in rule.steps]
     crush_arg, fn = make_batch_runner(dense, rule, REPLICAS, device=dev)
-    sample_sim = sharded_rebalance_sim(dense, rule, REPLICAS, REBALANCE_SAMPLE, 1, dev)
+    sample_sim = sharded_rebalance_sim(None, dense, rule, REPLICAS, REBALANCE_SAMPLE, 1,
+                                       device=dev)
     samples = []
     for start in (0, (REBALANCE_LAUNCHES - 1) * per_launch):
         xs = np.arange(start, start + REBALANCE_SAMPLE, dtype=np.uint32)
@@ -4011,10 +4035,406 @@ def phase_cli(dev, launch_counts, reset_launches, work_dir: str,
     return out
 
 
+MD_CHUNK = 4096                 # shard bytes a PG in the mesh executor (config 4's map)
+MD_GENERAL_OBJECTS = 1 << 16
+MD_REBALANCE = (1 << 16, 4)     # chunk, chunks: 262,144 objects before and after
+MD_DECODE_WIDTHS = (8 * MIB + 13, 8 * MIB)  # K4 unaligned and TMA variants, k=8 m=3
+MD_SCRUB = (1024, 11, 4096)     # PGs, shards, chunk
+MD_TRAFFIC_OPS = 65536
+MD_CHIPS = 4                    # virtual chips of the dispatcher on the card
+# tests/test_dispatch.py's fault matrix, its chips taken modulo MD_CHIPS
+MD_MATRIX = [("queued_drop_retry", ["chipdrop:3"]), ("queued_drop_convict", ["chipdrop:0"]),
+             ("inflight_stall_hedge", ["chipstall:1.1"]),
+             ("inflight_stall_convict", ["chipstall:1.0"]),
+             ("inflight_slow_steal", ["chipslow:2.6"]), ("precommit_hedge_race", ["chipslow:1.9"]),
+             ("combined", ["chipstall:0.0", "chipdrop:1", "chipslow:2.3"])]
+MD_DISPATCH_WIDTHS = (6000, 3000, 9000)
+
+
+def md_store(codec, pgs: np.ndarray, chunk: int, dev):
+    """Seeded data for the degraded PGs (parity by one encode on the
+    card): ``read_shard(pg, s)`` over one host array."""
+    k = codec.get_data_chunk_count()
+    data = card_bytes((k, len(pgs) * chunk), SEED + 13, dev)
+    full = torch.cat([data, codec.codec.encode_async(data)]).cpu().numpy()
+    col = {int(pg): i * chunk for i, pg in enumerate(pgs)}
+    return full, lambda pg, s: full[s, col[pg]:col[pg] + chunk]
+
+
+def shards_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        sorted(a[pg]) == sorted(b[pg]) and all(np.array_equal(a[pg][s], b[pg][s]) for s in b[pg])
+        for pg in b)
+
+
+def dispatch_matrix(devices, specs, seed: int = 3) -> tuple:
+    """The dispatcher over ``devices`` under ``specs`` on three seeded
+    k=8 m=3 jobs: (outputs, stats, committed (seq, chip, t_start))."""
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ec.backend import TableEncoder
+    from ceph_tpu_torch.recovery.dispatch import ChipFaultSchedule, WorkStealingDispatcher
+
+    faults = ChipFaultSchedule.from_specs(specs, len(devices)) if specs else None
+    disp = WorkStealingDispatcher(devices, Config(env={}), faults=faults, seed=seed)
+    mat = gf.vandermonde_matrix(8, 3)
+    enc = TableEncoder(mat, devices[0])
+    jobs = []
+    for i, w in enumerate(MD_DISPATCH_WIDTHS):
+        src = np.random.default_rng(SEED + i).integers(0, 256, (8, w), dtype=np.uint8)
+        jobs.append((disp.submit(enc, src), src))
+    disp.drain()
+    outs = [(disp.result(job), src) for job, src in jobs]
+    committed = [sorted((s, lc.chip.chip_id, lc.t_start) for s, lc in job.committed.items())
+                 for job, _ in jobs]
+    return outs, dataclasses.asdict(disp.stats), committed
+
+
+def phase_multidevice(dev, counts, reset, work_dir: str, n_osds: int = RECOVERY_OSDS,
+                      pg_num: int = RECOVERY_PGS, objects: int = OBJECTS) -> dict:
+    """Item 4 on the card: an NCCL world of one, every mesh path through
+    its collectives equal to the single-device path, and the
+    work-stealing dispatcher on virtual chips (see the module
+    docstring).  The mesh paths run between ``reset()`` and
+    ``counts()``; the single-device runs they are held to, the kernel
+    checks and the dispatcher matrix run after."""
+    import copy
+
+    import torch.distributed as dist
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.common.rank_guard import assert_rank_identical
+    from ceph_tpu_torch.ec import create, gf, gf_kernels
+    from ceph_tpu_torch.ec.backend import TableEncoder
+    from ceph_tpu_torch.models.clusters import build_osdmap, build_simple
+    from ceph_tpu_torch.obs import PGStateClassifier
+    from ceph_tpu_torch.parallel import make_mesh, multihost
+    from ceph_tpu_torch.parallel.placement import sharded_placement_step, sharded_rebalance_sim
+    from ceph_tpu_torch.recovery.sharded import ShardedDecoder
+    from ceph_tpu_torch.workload import TrafficEngine
+
+    t0 = time.perf_counter()
+    store_path = os.path.join(work_dir, "nccl_store")
+    multihost.init(f"file://{store_path}", world_size=1, rank=0, device=dev.type)
+    try:
+        mesh = make_mesh(device=dev.type)
+        backend = str(dist.get_backend())
+        # inputs, made before the counts start
+        simple = build_simple(1024)
+        s_dense, s_rule = simple.to_dense(), simple.rule_by_name("replicated_rule")
+        w = np.full(s_dense.max_devices, 0x10000, np.uint32)
+        w_out = w.copy()
+        w_out[np.random.default_rng(SEED).choice(1024, 32, replace=False)] = 0
+        xs = torch.arange(objects, dtype=torch.int64, device=dev)
+        mixed = mixed_hierarchy(32, 8, 4)
+        g_dense, g_rule = mixed.to_dense(), mixed.rule_by_name("ec_rule")
+        gxs = torch.arange(MD_GENERAL_OBJECTS, dtype=torch.int64, device=dev)
+        mat = gf.vandermonde_matrix(8, 3)
+        srcs = [card_bytes((8, wd), SEED + 21 + i, dev).cpu().numpy()
+                for i, wd in enumerate(MD_DECODE_WIDTHS)]
+        cur = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
+        prev = copy.deepcopy(cur)
+        rec.inject(cur, RECOVERY_FAILURE)
+        codes = {"rs_8_3_auto": RECOVERY_CODES["rs_8_3_auto"], "rs_8_3_on": RECOVERY_CODES["rs_8_3_on"]}
+        codecs = {name: create(profile, device=dev) for name, (profile, _) in codes.items()}
+        n_pg, n_sh, ch = MD_SCRUB
+        scrub_clean = np.random.default_rng(SEED + 5).integers(0, 256, (n_pg, n_sh, ch),
+                                                              dtype=np.uint8)
+        scrub_rot = scrub_clean.copy()
+        for pg, sh, b in ((3, 1, 7), (n_pg // 2, 10, 0), (n_pg - 1, 4, ch - 1)):
+            scrub_rot[pg, sh, b] ^= 0x5A
+
+        reset()
+        t_mesh = time.perf_counter()
+        mesh_out: dict = {}
+        mesh_out["placement"] = sharded_placement_step(mesh, s_dense, s_rule, REPLICAS,
+                                                       gather=True)(w_out, xs)
+        mesh_out["general"] = sharded_placement_step(mesh, g_dense, g_rule, 6, gather=True)(
+            w_out, gxs)
+        mesh_out["rebalance"] = int(sharded_rebalance_sim(mesh, s_dense, s_rule, REPLICAS,
+                                                          *MD_REBALANCE)(w, w_out, 0))
+        dec = ShardedDecoder(mesh)
+        enc = TableEncoder(mat, dev)
+        mesh_out["decode"] = [dec.decode(enc, src, MD_CHUNK) for src in srcs]
+        peering = rec.peer_pool(prev, cur, 1, device=dev)
+        plan_by, store_by = {}, {}
+        cfg_by = {}
+        for name, (profile, mode) in codes.items():
+            cfg = Config(env={})
+            cfg.set("recovery_xor_schedule", mode)
+            cfg.set("recovery_shard_min_bytes", 0)
+            cfg_by[name] = cfg
+            plan_by[name] = rec.build_plan(peering, codecs[name])
+            store_by[name] = md_store(codecs[name], peering.pgs_with(rec.PG_STATE_DEGRADED),
+                                      MD_CHUNK, dev)
+            mesh_out[name] = rec.RecoveryExecutor(codecs[name], config=cfg, mesh=mesh).run(
+                plan_by[name], store_by[name][1])
+        sc = rec.Scrubber(n_pg, n_sh, mesh=mesh)
+        sc.build_checksums(lambda pg, s_: scrub_clean[pg, s_])
+        mesh_out["scrub"] = sc.scrub(lambda pg, s_: scrub_rot[pg, s_])
+        mesh_out["traffic"] = TrafficEngine(
+            lambda: 0.0, n_osds, pg_num, 8, 11, peering.min_size, ops_per_step=MD_TRAFFIC_OPS,
+            mesh=mesh).observe(peering).to_dict()
+        mesh_out["pg_states"] = PGStateClassifier(mesh)(peering, 8)
+        assert_rank_identical("multidevice", np.arange(8), mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t_mesh
+        launches = counts()
+
+        # the single-device paths, held bit for bit
+        want_backend = "nccl" if dev.type == "cuda" else "gloo"
+        gates = {"process_group": backend == want_backend and mesh.group is not None
+                 and mesh.size == 1}
+        res, lens, hist = mesh_out["placement"]
+        one = sharded_placement_step(None, s_dense, s_rule, REPLICAS, device=dev)(w_out, xs)
+        gates["placement_equal"] = all(torch.equal(a, b) for a, b in zip((res, lens, hist), one))
+        one = sharded_placement_step(None, g_dense, g_rule, 6, device=dev)(w_out, gxs)
+        gates["general_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(mesh_out["general"], one))
+        moved = int(sharded_rebalance_sim(None, s_dense, s_rule, REPLICAS, *MD_REBALANCE,
+                                          device=dev)(w, w_out, 0))
+        gates["rebalance_equal"] = moved == mesh_out["rebalance"] and moved > 0
+        decode_rows = []
+        for (out, nb, sh), src, wd in zip(mesh_out["decode"], srcs, MD_DECODE_WIDTHS):
+            want = enc.encode(src)
+            data = torch.from_numpy(src).to(dev)
+            kernel = gf_kernels.matrix_encode(enc.tables, data, enc.nibbles)
+            plain = gf_kernels.matrix_encode_plain(enc.tables, data)
+            ok, err = compare(kernel, plain)
+            decode_rows.append({"width": wd, "aligned": wd % 16 == 0, "equal": bool(
+                np.array_equal(out, want)) and nb == 3 * wd and sh == 3 * wd // MD_CHUNK,
+                "k4_vs_plain": ok, "max_abs_err": err})
+        gates["decode_equal"] = all(r["equal"] for r in decode_rows)
+        gates["k4_variants_equal_plain"] = all(r["k4_vs_plain"] for r in decode_rows)
+        exec_rows = {}
+        for name in codes:
+            m_res = mesh_out[name]
+            single = rec.RecoveryExecutor(codecs[name], config=cfg_by[name], device=dev).run(
+                plan_by[name], store_by[name][1])
+            read = store_by[name][1]
+            truth = all(np.array_equal(m_res.shards[int(pg)][s_], read(int(pg), s_))
+                        for g in plan_by[name].groups for pg in g.pgs for s_ in g.missing)
+            exec_rows[name] = {"launches": m_res.launches,
+                               "sharded_launches": m_res.sharded_launches,
+                               "schedule_launches": m_res.schedule_launches,
+                               "bytes_rebuilt": m_res.bytes_recovered,
+                               "psum_bytes_rebuilt": m_res.psum_bytes_rebuilt,
+                               "equal": shards_equal(m_res.shards, single.shards) and truth}
+        gates["executor_equal"] = all(r["equal"] for r in exec_rows.values())
+        gates["executor_sharded"] = exec_rows["rs_8_3_auto"]["sharded_launches"] > 0 and (
+            exec_rows["rs_8_3_auto"]["psum_bytes_rebuilt"]
+            == exec_rows["rs_8_3_auto"]["bytes_rebuilt"])
+        sc1 = rec.Scrubber(n_pg, n_sh, device=dev)
+        sc1.build_checksums(lambda pg, s_: scrub_clean[pg, s_])
+        r1, rm = sc1.scrub(lambda pg, s_: scrub_rot[pg, s_]), mesh_out["scrub"]
+        gates["scrub_equal"] = (np.array_equal(r1.inconsistent_mask, rm.inconsistent_mask)
+                                and np.array_equal(r1.hist, rm.hist)
+                                and r1.n_inconsistent == rm.n_inconsistent == 3)
+        t1 = TrafficEngine(lambda: 0.0, n_osds, pg_num, 8, 11, peering.min_size,
+                           ops_per_step=MD_TRAFFIC_OPS, device=dev).observe(peering).to_dict()
+        t1.pop("ops_per_sec_wall")
+        mesh_out["traffic"].pop("ops_per_sec_wall")
+        gates["traffic_equal"] = t1 == mesh_out["traffic"]
+        p1 = PGStateClassifier(device=dev)(peering, 8)
+        gates["pg_states_equal"] = all(np.array_equal(a, b)
+                                       for a, b in zip(p1, mesh_out["pg_states"]))
+        # the dispatcher on virtual chips of the card, against the CPU
+        t_disp = time.perf_counter()
+        matrix = {}
+        for name, specs in MD_MATRIX:
+            card_outs, card_stats, card_commit = dispatch_matrix([dev] * MD_CHIPS, specs)
+            _, cpu_stats, cpu_commit = dispatch_matrix([torch.device("cpu")] * MD_CHIPS, specs)
+            static = all(np.array_equal(out, TableEncoder(mat, dev).encode(src))
+                         for out, src in card_outs)
+            matrix[name] = {"bytes_equal_static": static,
+                            "decisions_equal_cpu": card_stats == cpu_stats
+                            and card_commit == cpu_commit,
+                            **{k: card_stats[k] for k in ("launches", "stolen_subshards",
+                                                          "hedged_launches", "drop_retries",
+                                                          "chip_convictions")}}
+        dispatch_s = time.perf_counter() - t_disp
+        gates["dispatch_bytes_equal"] = all(r["bytes_equal_static"] for r in matrix.values())
+        gates["dispatch_decisions_equal_cpu"] = all(r["decisions_equal_cpu"]
+                                                    for r in matrix.values())
+    finally:
+        multihost.shutdown()
+    return {"phase": "multidevice", "backend": backend, "world_size": 1, "gates": gates,
+            "objects": objects, "general_objects": MD_GENERAL_OBJECTS,
+            "rebalance_objects": MD_REBALANCE[0] * MD_REBALANCE[1], "moved": moved,
+            "decode": decode_rows, "executor": exec_rows, "executor_chunk": MD_CHUNK,
+            "degraded_pgs": int(len(peering.pgs_with(rec.PG_STATE_DEGRADED))),
+            "scrub": {"pgs": n_pg, "shards": n_sh, "chunk": ch,
+                      "n_inconsistent": rm.n_inconsistent},
+            "traffic_ops": MD_TRAFFIC_OPS, "dispatch_chips": MD_CHIPS, "dispatch": matrix,
+            "mesh_paths_s": mesh_s, "dispatch_s": dispatch_s,
+            "wall_s": time.perf_counter() - t0, "launches": launches}
+
+
+MW_OBJECTS = 1 << 20             # placement lanes of the N-rank world check
+MW_REBALANCE = (1 << 14, 2)     # chunk, chunks a rank
+MW_EXEC_MASKS = [0b00011111111, 0b11111110001, 0b10101011111, 0b01111111110]  # k=8 m=3
+MW_EXEC_CHUNK = 1 << 20 | 13    # an odd width: the padding path is live
+MW_SKEW = [(0.05, "rankdelay:1.2500"), (0.30, "osd:3:down_out"), (0.80, "osd:9:down_out")]
+MW_MEAN_RTOL = 1e-6             # the traffic step's float sums add in another order over N ranks
+
+
+def mesh_world_cases(n: int, cover: int) -> list:
+    """The mesh cases of ``testing/mesh_cases.py`` for an ``n``-rank
+    world, on seeded inputs every world shares; the rebalance sim covers
+    the objects of ``cover`` ranks."""
+    from ceph_tpu_torch.models.clusters import build_osdmap, build_simple
+
+    cases = "ceph_tpu_torch.testing.mesh_cases"
+    simple = build_simple(1024)
+    w = np.full(simple.to_dense().max_devices, 0x10000, np.uint32)
+    w_out = w.copy()
+    w_out[np.random.default_rng(SEED).choice(1024, 32, replace=False)] = 0
+    xs = np.random.default_rng(SEED + 1).integers(0, 2**32, MW_OBJECTS, dtype=np.uint32)
+    rs = np.random.default_rng(SEED + 2)
+    src = rs.integers(0, 256, (8, MW_EXEC_CHUNK), dtype=np.uint8)
+    mat = np.asarray(rs.integers(1, 256, (3, 8)), np.uint8)
+    small = build_osdmap(64, pg_num=32, size=6, pool_kind="erasure").encode()
+    clean = rs.integers(0, 256, (1024, 11, 4096), dtype=np.uint8)
+    rot = clean.copy()
+    rot[[3, 500, 1023], [1, 10, 4], [7, 0, 4095]] ^= 0x5A
+    arrays = {"survivor_mask": rs.integers(0, 1 << 11, 8192).astype(np.uint32),
+              "n_alive": rs.integers(6, 12, 8192).astype(np.int32),
+              "acting_primary": rs.integers(0, 1024, 8192).astype(np.int32),
+              "flags": np.zeros(8192, np.int32), "size": 11, "min_size": 9}
+    reconcile_map = build_osdmap(32, pg_num=64, size=6, pool_kind="erasure").encode()
+    rebalance_chunks = MW_REBALANCE[1] * cover // n
+    return [
+        (f"{cases}:placement", {"crush_obj": simple.to_obj(), "rule": "replicated_rule",
+                                "weights": w_out, "xs": xs}),
+        (f"{cases}:rebalance", {"crush_obj": simple.to_obj(), "rule": "replicated_rule",
+                                "w_before": w, "w_after": w_out, "chunk": MW_REBALANCE[0],
+                                "n_chunks": rebalance_chunks, "starts": [0]}),
+        (f"{cases}:sharded_decode", {"matrix": mat, "src": src, "chunk": 4096,
+                                     "gather": True}),
+        (f"{cases}:executor", {"k": 8, "m_par": 3, "masks": MW_EXEC_MASKS, "chunk": 4096,
+                               "seed": 7, "overrides": {"recovery_shard_min_bytes": 0}}),
+        (f"{cases}:executor", {"k": 8, "m_par": 3, "masks": MW_EXEC_MASKS, "chunk": 4096,
+                               "seed": 7, "overrides": {"recovery_shard_min_bytes": 0,
+                                                        "recovery_work_stealing": "on"},
+                               "chip_faults": ["chipslow:0.4"], "dispatch_devices": 2}),
+        (f"{cases}:supervised", {"map_bytes": small, "failure": "host:host0_1:down_out",
+                                 "timeline": [], "k": 4, "m_par": 2, "chunk": 4096, "seed": 3,
+                                 "overrides": {"recovery_shard_min_bytes": 0}}),
+        (f"{cases}:traffic", {"arrays": arrays, "engine_args": (1024, 8192, 8, 11, 9),
+                              "engine_kwargs": {"ops_per_step": 65536 + 7, "seed": 6}}),
+        (f"{cases}:pg_states", {"arrays": arrays, "k": 8}),
+        (f"{cases}:scrub", {"chunks": rot, "checksum_chunks": clean}),
+        (f"{cases}:rank_identical", {"differ_on": 1 if n > 1 else None}),
+        (f"{cases}:stalled_worksteal", {"k": 4, "m_par": 2, "masks": [0b001111, 0b110011]}),
+        (f"{cases}:reconcile", {"map_bytes": reconcile_map,
+                                "timeline": MW_SKEW if n > 1 else MW_SKEW[1:],
+                                "n_epochs": 16, "overrides": {"reconcile_every_epochs": 4},
+                                "seed": 4, "n_ops": 16}),
+    ]
+
+
+def mesh_world_check(n: int, work_dir: str, kind: str = "cuda") -> dict:
+    """The mesh paths in an ``n``-rank world (NCCL, one card a rank, on
+    ``cuda``; gloo on ``cpu``), every rank held against a world of one
+    on the same inputs (the rebalance sim: one rank over the same
+    objects), the dispatcher's typed loss and the rank guard on every
+    rank, and ``RankReconciler`` against the in-process
+    ``DivergentDriver`` of ``n`` ranks.  Returns the gates and walls."""
+    from ceph_tpu_torch import convert
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.recovery.chaos import ChaosTimeline
+    from ceph_tpu_torch.recovery.reconcile import DivergentDriver
+    from ceph_tpu_torch.testing import mesh_cases
+    from ceph_tpu_torch.testing.world import run_world
+
+    walls = {}
+    runs = {}
+    for size in (1, n):
+        t0 = time.perf_counter()
+        runs[size] = run_world(size, mesh_world_cases(size, n),
+                               os.path.join(work_dir, f"world{size}"), device=kind,
+                               timeout_s=600.0, collective_timeout_s=120.0)
+        walls[f"world_{size}_s"] = time.perf_counter() - t0
+    one = runs[1][0]
+    names = ["placement", "rebalance", "decode", "executor_sharded", "executor_worksteal",
+             "supervised", "traffic", "pg_states", "scrub"]
+
+    def equal(a, b) -> bool:
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, np.ndarray):
+            return a.dtype == b.dtype and np.array_equal(a, b)
+        return a == b
+
+    # what a world's size changes: the decoder's rank count, the
+    # dispatcher's chips (its telemetry), and the order of the traffic
+    # step's float sums (each rank's fixed-order partial, then rank
+    # order), so mean_ms is held at MW_MEAN_RTOL; the bytes and every
+    # count may not change
+    skip = {"decode": ("n_devices",), "traffic": ("mean_ms",),
+            "executor_worksteal": ("stolen_subshards", "hedged_launches", "hedge_wasted_bytes",
+                                   "chip_convictions", "idle_fraction_per_chip",
+                                   "static_idle_fraction_per_chip")}
+    gates = {}
+    for i, name in enumerate(names):
+        drop = skip.get(name, ())
+        trim = (lambda d: {k: v for k, v in d.items() if k not in drop}) if drop else (
+            lambda d: d)
+        gates[f"{name}_equal"] = all(equal(trim(runs[n][r][i]), trim(one[i]))
+                                     for r in range(n))
+    mean_rel = max(abs(runs[n][r][6]["mean_ms"] - one[6]["mean_ms"]) / abs(one[6]["mean_ms"])
+                   for r in range(n))
+    gates["traffic_mean_within_rtol"] = mean_rel <= MW_MEAN_RTOL
+    gates["rank_guard_raised_everywhere"] = all(
+        runs[n][r][9]["raised"] is not None for r in range(n))
+    gates["chip_lost_everywhere"] = all(
+        runs[n][r][10] == {"error": "ChipLostError", "chips": [r]} for r in range(n))
+    cfg = Config(env={})
+    cfg.set("reconcile_every_epochs", 4)
+    d = DivergentDriver(convert.osdmap_from_reference(mesh_world_cases(n, n)[-1][1]["map_bytes"]),
+                        ChaosTimeline.from_pairs(MW_SKEW), n, config=cfg, seed=4, n_ops=16,
+                        device=kind)
+    res = d.run(16)
+    gates["reconcile_equal_driver"] = all(
+        runs[n][r][11]["rounds"] == res.rounds
+        and equal(runs[n][r][11]["merged"], mesh_cases._state_lanes(res.merged))
+        and equal(runs[n][r][11]["state"], mesh_cases._state_lanes(res.states[r]))
+        for r in range(n))
+    return {"phase": "mesh_world", "ranks": n, "device": kind, "gates": gates, **walls,
+            "sharded_launches": runs[n][0][3]["sharded_launches"],
+            "worksteal_launches": runs[n][0][4]["worksteal_launches"],
+            "traffic_mean_ms": [runs[n][0][6]["mean_ms"], one[6]["mean_ms"]],
+            "traffic_mean_rel_diff": mean_rel}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--mesh-world"]:
+        # the mesh paths in an N-rank NCCL world, one card a rank (run with
+        # N cards); every rank against a world of one
+        sys.path.insert(0, HERE)
+        import tempfile
+
+        from ceph_tpu_torch import _cuda
+
+        _cuda.build_all()
+        n = int(argv[1]) if len(argv) > 1 else torch.cuda.device_count()
+        if torch.cuda.device_count() < n:
+            print(f"chip_smoke: --mesh-world {n} needs {n} cards", file=sys.stderr)
+            return 2
+        with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as work_dir:
+            out = mesh_world_check(n, work_dir)
+        print(json.dumps(out), flush=True)
+        print(nvidia_smi("name,power.limit"), flush=True)
+        bad = [g for g, ok in out["gates"].items() if not ok]
+        if bad:
+            raise AssertionError(f"the {n}-rank world failed its gates: {bad}")
+        return 0
     if argv[:1] == ["--stripe-probe"]:
         sys.path.insert(0, os.path.abspath(argv[1]) if len(argv) > 1 else HERE)
         from ceph_tpu_torch import _cuda
@@ -4191,6 +4611,13 @@ def main(argv: list[str]) -> int:
         cli = phase_cli(dev, counts, reset, work_dir)
     emit(cli)
     paths["cli"] = cli["launches"]
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as work_dir:
+        multidevice = phase_multidevice(dev, counts, reset, work_dir)
+    emit(multidevice)
+    paths["multidevice"] = multidevice["launches"]
+    bad = [g for g, ok in multidevice["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the mesh paths failed their gates: {bad}")
     emit({"launches_by_path": paths})
     print(json.dumps({"phase_walls_s": PHASE_WALLS,
                       "total_s": time.perf_counter() - T_START}), flush=True)
@@ -4207,7 +4634,9 @@ def main(argv: list[str]) -> int:
             "checkpoint": ("descend", "crc32c_rows"),
             "writepath": ("descend", "schedule_apply", "stripe_absorb", "stripe_commit"),
             "balancer": ("descend",),
-            "cli": ("descend", "matrix_encode", "bitmatrix_encode")}
+            "cli": ("descend", "matrix_encode", "bitmatrix_encode"),
+            "multidevice": ("negdraw", "descend", "matrix_encode", "schedule_apply",
+                            "crc32c_rows")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"a kernel of a main path never launched: {missing}")

@@ -203,8 +203,8 @@ def test_placement_entry_points_default_to_the_card():
     m = build_simple(8)
     dense, rule = m.to_dense(), m.rule_by_name("replicated_rule")
     for call in (lambda: StaticCrushMap(dense),
-                 lambda: placement.sharded_placement_step(dense, rule, 3),
-                 lambda: placement.sharded_rebalance_sim(dense, rule, 3, 16, 1)):
+                 lambda: placement.sharded_placement_step(None, dense, rule, 3),
+                 lambda: placement.sharded_rebalance_sim(None, dense, rule, 3, 16, 1)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
@@ -270,3 +270,30 @@ def test_scan_covers_checkpoints_flight_and_the_write_path(tmp_path):
                  lambda: _crashbox.main([str(cfg)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_scan_covers_the_mesh_modules():
+    """The multi-device modules (the mesh, the world launcher, the
+    sharded decode, the dispatcher) are in both scans; the mesh and the
+    world default to the card and raise without one; ``init`` never
+    forms a group whose backend cannot serve the device."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    for mod in ("parallel/mesh.py", "parallel/multihost.py", "parallel/padding.py",
+                "recovery/sharded.py", "recovery/dispatch.py", "testing/world.py",
+                "testing/mesh_cases.py"):
+        assert mod in rel
+    mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
+    assert {"ceph_tpu_torch.parallel.mesh", "ceph_tpu_torch.parallel.multihost",
+            "ceph_tpu_torch.recovery.sharded", "ceph_tpu_torch.recovery.dispatch",
+            "ceph_tpu_torch.testing.world"} <= mods
+    from ceph_tpu_torch.parallel import make_mesh, multihost
+    from ceph_tpu_torch.testing.world import run_world
+
+    assert _device_default(run_world) == "cuda"
+    assert _device_default(make_mesh) == "cuda"
+    assert _device_default(multihost.init) == "cuda"
+    assert _device_default(multihost.global_mesh) == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()

@@ -84,8 +84,24 @@ def test_pg_state_classifier_matches_reference(seed, k):
 
 
 def test_pg_state_classifier_rejects_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        obs.PGStateClassifier(mesh=object(), device="cpu")
+    """The mesh seam (once refused) on a world of one: the sharded
+    classifier's counts equal the single-device classifier's and the
+    reference's on ``make_mesh(1)`` (gloo worlds of 2 and 4:
+    tests/test_torch_mesh_paths.py)."""
+    from ceph_tpu.parallel.placement import make_mesh as ref_make_mesh
+    from ceph_tpu_torch.parallel import make_mesh
+
+    masks, alive, flags = _random_pool(7, n=97)
+    mesh = make_mesh(axis="pgs", device="cpu")
+    for k in (None, 3):
+        hist, aux = obs.PGStateClassifier(mesh)(_synth(PeeringResult, masks, alive, flags), k)
+        one = obs.PGStateClassifier(device="cpu")(_synth(PeeringResult, masks, alive, flags), k)
+        r_hist, r_aux = RefClassifier(ref_make_mesh(1, axis="pgs"))(
+            _synth(RefPeeringResult, masks, alive, flags), k)
+        for got in (hist, one[0]):
+            np.testing.assert_array_equal(got, np.asarray(r_hist))
+        for got in (aux, one[1]):
+            np.testing.assert_array_equal(got, np.asarray(r_aux))
 
 
 def _passes():

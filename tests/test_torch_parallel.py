@@ -1,7 +1,7 @@
 """The port's placement step and rebalance sim vs the reference package.
 
-``ceph_tpu_torch.parallel.placement.sharded_rebalance_sim`` runs on one
-device, so ``n_chunks * 8`` chunks of it cover what the reference's
+``ceph_tpu_torch.parallel.placement.sharded_rebalance_sim`` without a
+mesh runs on one device, so ``n_chunks * 8`` chunks of it cover what the reference's
 ``sharded_rebalance_sim`` covers with ``n_chunks`` chunks on each of
 the 8 virtual devices of ``make_mesh(8)``: the moved counts must be
 equal, over the same object range, and equal to the reference on
@@ -85,8 +85,8 @@ def _reference_moved(n_devices: int, n_chunks: int, start: int, chunk: int = CHU
 def _port_moved(n_chunks: int, start: int, chunk: int = CHUNK,
                 kind: str = "straw2") -> torch.Tensor:
     _, tm, wb, wa = _setup(kind)
-    step = sharded_rebalance_sim(tm.to_dense(), tm.rule_by_name("replicated_rule"), 3, chunk,
-                                 n_chunks, device="cpu")
+    step = sharded_rebalance_sim(None, tm.to_dense(), tm.rule_by_name("replicated_rule"), 3,
+                                 chunk, n_chunks, device="cpu")
     return step(wb, wa, start)
 
 
@@ -131,7 +131,7 @@ def test_placement_step_histogram_is_bincount_of_results():
     _, tm, wb, wa = _setup()
     dense = tm.to_dense()
     rule = tm.rule_by_name("replicated_rule")
-    step = sharded_placement_step(dense, rule, 3, device="cpu")
+    step = sharded_placement_step(None, dense, rule, 3, device="cpu")
     xs = np.random.default_rng(3).integers(0, 2**32, 2000, dtype=np.uint32)
     res, lens, hist = step(wa, xs)
     assert hist.shape == (dense.max_devices,) and hist.dtype == torch.int32

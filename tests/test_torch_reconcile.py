@@ -17,9 +17,10 @@ by which ranks share one (``rank_fingerprint`` hashes dtypes, so the
 numbers differ between the packages); journals by their record names,
 the health timeline's rank series and SLO verdicts exactly.  Also the
 merge laws (commutative, associative, idempotent on the normalized
-domain; normalize a projection) on random views, and the refusals of
-what waits for ROADMAP §1 items 2d and 4.  The reference's two-process
-``slow`` tests wait for item 4.
+domain; normalize a projection) on random views, and the multi-process
+pieces (``RankReconciler``, ``ViewMerger``, ``assert_rank_identical``) on
+a world of one; their gloo worlds of 2 and 4 are in
+tests/test_torch_mesh_paths.py and tests/test_torch_mesh.py.
 """
 
 import copy
@@ -520,14 +521,28 @@ def test_driver_validates_rank_specs_loudly():
 
 
 def test_what_waits_raises_and_names_its_item():
+    """What waited for item 4 now runs; on a world of one: the
+    multi-process ``RankReconciler`` (its merge through ``ViewMerger``'s
+    collectives) equals the one-rank in-process driver round for round
+    and lane for lane, and ``assert_rank_identical`` passes (worlds of
+    2 and 4: tests/test_torch_mesh_paths.py and test_torch_mesh.py)."""
+    from ceph_tpu_torch.parallel import make_mesh
+
     _ref_m, m = _maps(16, 32)
     # checkpointed runs (item 2d) are ported: tests/test_torch_checkpoint.py
     d = rc.DivergentDriver(m, ChaosTimeline(), 2, config=_cfgs()[1], n_ops=16, device="cpu")
     assert d.run(4).converged
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rc.ViewMerger(mesh=None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rc.RankReconciler()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rank_guard.assert_rank_identical("seam", np.zeros(2), mesh=None)
+    _ref_tl, tl = _timelines([(0.30, ("osd:3:down_out",))])
+    mesh = make_mesh(device="cpu")
+    _ref_m, m = _maps(32, 64)
+    one = rc.DivergentDriver(m, tl, 1, config=_cfgs()[1], seed=8, n_ops=16, device="cpu")
+    rr = rc.RankReconciler(m, tl, mesh=mesh, config=_cfgs()[1], seed=8, n_ops=16)
+    want, got = one.run(8), rr.run(8)
+    assert got.rounds == want.rounds and got.converged
+    assert _leaves_equal(got.merged, want.merged) == []
+    assert _leaves_equal(got.states[0], want.states[0]) == []
+    assert rc.ViewMerger(mesh).gather_rows([1, 2, 3]).tolist() == [[1, 2, 3]]
+    with pytest.raises(ValueError, match="one process a rank"):
+        rc.RankReconciler(m, tl, rank=1, n_ranks=2, mesh=mesh, config=_cfgs()[1], n_ops=16)
+    rank_guard.assert_rank_identical("seam", np.zeros(2), mesh=mesh)
     assert not rank_guard.rank_checks_enabled()

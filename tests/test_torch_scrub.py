@@ -139,8 +139,27 @@ def test_scrubber_matches_reference(staggered):
 
 
 def test_scrubber_rejects_a_mesh_and_needs_checksums():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        scrub.Scrubber(4, 2, mesh=object(), device="cpu")
+    """The mesh seam (once refused) on a world of one equals the
+    single-device scrubber and the reference's ``make_mesh(1)`` scrub
+    (gloo worlds of 2 and 4: tests/test_torch_mesh_paths.py); a scrub
+    still needs its checksums first."""
+    from ceph_tpu.parallel.placement import make_mesh as ref_make_mesh
+    from ceph_tpu.recovery.scrub import Scrubber as RefScrubber
+    from ceph_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(11)
+    clean = rng.integers(0, 256, (5, 3, 32), dtype=np.uint8)
+    rot = clean.copy()
+    rot[1, 2, 4] ^= 1
+    rot[4, 0, 31] ^= 0x80
+    got = []
+    for sc in (scrub.Scrubber(5, 3, mesh=make_mesh(axis="pgs", device="cpu")),
+               scrub.Scrubber(5, 3, device="cpu"), RefScrubber(5, 3, mesh=ref_make_mesh(1))):
+        sc.build_checksums(lambda pg, s: clean[pg, s])
+        r = sc.scrub(lambda pg, s: rot[pg, s])
+        got.append((r.inconsistent_mask.tolist(), np.asarray(r.hist).tolist(),
+                    r.n_inconsistent, np.asarray(sc.checksums).tolist()))
+    assert got[0] == got[1] == got[2] and got[0][2] == 2
     with pytest.raises(RuntimeError):
         scrub.Scrubber(4, 2, device="cpu").scrub(lambda pg, s: np.zeros(4, np.uint8))
 

@@ -103,8 +103,10 @@ def _store(code: str) -> dict:
     return out
 
 
-def _run(port: bool, case: str):
-    """One supervised run of ``case`` through either package."""
+def _run(port: bool, case: str, cfg_over=None, **sup_kw):
+    """One supervised run of ``case`` through either package (config
+    overrides in ``cfg_over``, extra ``SupervisedRecovery`` kwargs in
+    ``sup_kw``)."""
     code, xor, scrub, grace, faults = CASES[case]
     scenario = case.split("/")[0]
     ref_map = ref_build_osdmap(N_OSDS, pg_num=PG_NUM, size=K + M, pool_kind="erasure")
@@ -113,6 +115,8 @@ def _run(port: bool, case: str):
     R = rec if port else ref_rec
     cfg = Config(env={}) if port else RefConfig(env={})
     cfg.set("recovery_xor_schedule", xor)
+    for key, val in (cfg_over or {}).items():
+        cfg.set(key, val)
     if grace is not None:
         cfg.set("osd_heartbeat_grace", grace)
         cfg.set("mon_osd_min_down_reporters", 1)
@@ -140,7 +144,7 @@ def _run(port: bool, case: str):
         kw["write_shard"] = lambda pg, s, buf: store[pg].__setitem__(s, np.asarray(buf, np.uint8))
     codec = create(PROFILES[code], device="cpu") if port else ref_create(PROFILES[code])
     sup = R.SupervisedRecovery(codec, chaos, config=cfg, seed=7, journal=journal,
-                               health=health, op_tracker=tracker, **kw, **dev)
+                               health=health, op_tracker=tracker, **kw, **sup_kw, **dev)
     res = sup.run(m_prev, 1, lambda pg, s: store[pg][s])
     return {"summary": res.summary(), "res": res, "store": store, "journal": journal.records,
             "series": health.series(), "slo": evaluate(health, spec).to_dict()
@@ -188,17 +192,47 @@ def test_supervised_run_matches_reference(case):
 
 
 def test_supervised_rejects_multi_device_and_traffic():
+    """The multi-device seams (once refused) on a world of one against
+    the reference's ``make_mesh(1)``: the supervised loop with a mesh
+    (co-scheduling windows, the sharded decode), and with the
+    work-stealing dispatcher under a chip fault, report, journal and
+    rebuild what the reference does; a chip fault without the
+    dispatcher is refused.  Gloo worlds of 2 and 4:
+    tests/test_torch_sharded.py, tests/test_torch_dispatch.py."""
+    from ceph_tpu.parallel.placement import make_mesh as ref_make_mesh
+    from ceph_tpu.recovery.failure import parse_spec as ref_parse_spec
+    from ceph_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(axis="bytes", device="cpu")
+    shard_all = {"recovery_shard_min_bytes": 0}
+    runs = [(_run(False, "mid-repair-loss", mesh=ref_make_mesh(1, axis="bytes")),
+             _run(True, "mid-repair-loss", mesh=mesh)),
+            (_run(False, "flap", shard_all, mesh=ref_make_mesh(1, axis="bytes")),
+             _run(True, "flap", shard_all, mesh=mesh))]
+    fault = "chipslow:0.4"
+    ws = {"recovery_work_stealing": "on", **shard_all}
+    ref_ws = _run(False, "flap", ws, mesh=ref_make_mesh(1, axis="bytes"),
+                  chip_faults=[ref_parse_spec(fault)])
+    port_ws = _run(True, "flap", ws, mesh=mesh, chip_faults=[fault])
+    runs.append((ref_ws, port_ws))
+    for ref, port in runs:
+        assert port["summary"] == ref["summary"]
+        assert _journal_view(port["journal"]) == _journal_view(ref["journal"])
+        assert port["series"] == ref["series"]
+        for pg, shards in ref["res"].shards.items():
+            for s_, chunk in shards.items():
+                np.testing.assert_array_equal(port["res"].shards[pg][s_], chunk)
+    assert runs[0][1]["res"].coscheduled_windows >= 1
+    assert runs[1][1]["summary"]["sharded_launches"] > 0
+    assert port_ws["summary"]["worksteal_launches"] > 0
     m = convert.osdmap_from_reference(
         ref_build_osdmap(16, pg_num=16, size=K + M, pool_kind="erasure").encode())
     codec = create(PROFILES["rs"], device="cpu")
     chaos = rec.ChaosEngine(m, rec.ChaosTimeline(), device="cpu")
-    for kw in ({"mesh": object()}, {"chip_faults": ["chipstall:0"]}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rec.SupervisedRecovery(codec, chaos, device="cpu", **kw)
-    # traffic= is ported (tests/test_torch_traffic.py); its mesh is not
-    with pytest.raises(NotImplementedError, match="ROADMAP §1, item 4"):
-        TrafficEngine(chaos.clock.now, 16, 16, K, K + M, K + 1, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="work-stealing dispatcher"):
+        rec.SupervisedRecovery(codec, chaos, device="cpu", chip_faults=["chipstall:0.0"])
+    eng = TrafficEngine(chaos.clock.now, 16, 16, K, K + M, K + 1, mesh=mesh, device="cpu")
+    assert eng.n_devices == 1 and eng.device == mesh.device
     cfg = Config(env={})
     cfg.set("recovery_work_stealing", "on")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        rec.RecoveryExecutor(codec, config=cfg, device="cpu")
+    assert rec.RecoveryExecutor(codec, config=cfg, device="cpu")._dispatcher.n_chips == 1

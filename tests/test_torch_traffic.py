@@ -390,10 +390,44 @@ def test_engine_sequence_matches_reference(scenario):
 
 
 def test_engine_rejects_the_mesh_and_a_peering_on_another_device():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        wl.TrafficEngine(lambda: 0.0, 8, 32, 4, 6, 5, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        wl.sharded_traffic_step(None, 1024, 8)
+    """The mesh seam (once refused) on a world of one: the engine's
+    samples equal the single-device engine's bit for bit and the
+    reference's on ``make_mesh(1)`` (``mean_ms`` at RTOL, as above), and
+    the raw mesh step is the single-device step, padded op tail
+    included (gloo worlds of 2 and 4: tests/test_torch_mesh_paths.py).
+    A peering's device tensors on another device are still refused."""
+    from ceph_tpu.parallel.placement import make_mesh as ref_make_mesh
+    from ceph_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(axis="ops", device="cpu")
+    samples = []
+    for kind in ("mesh", "single", "ref"):
+        clock = (rec.VirtualClock if kind != "ref" else ref_rec.VirtualClock)()
+        kw = dict(ops_per_step=1001, osd_capacity_ops_per_s=1e6, seed=9)
+        if kind == "ref":
+            eng = ref_wl.TrafficEngine(clock.now, 8, 32, 4, 6, 5,
+                                       mesh=ref_make_mesh(1, axis="ops"), **kw)
+        else:
+            eng = wl.TrafficEngine(clock.now, 8, 32, 4, 6, 5, device="cpu",
+                                   mesh=mesh if kind == "mesh" else None, **kw)
+        out = []
+        for _ in range(3):
+            d = eng.observe(_synth(kind != "ref", _PG_MASKS, _PG_ALIVE)).to_dict()
+            d.pop("ops_per_sec_wall")
+            out.append(d)
+            clock.advance(1.0)
+        samples.append(out)
+    assert samples[0] == samples[1]
+    for got, want in zip(samples[0], samples[2]):
+        assert got["mean_ms"] == pytest.approx(want["mean_ms"], rel=RTOL)
+        assert {**got, "mean_ms": 0} == {**want, "mean_ms": 0}
+    dev_in = (torch.tensor(_PG_MASKS, dtype=torch.int64), torch.tensor(_PG_ALIVE, dtype=torch.int32),
+              torch.arange(32, dtype=torch.int32) % 8)
+    scalars = (77, 32, 31, 4, 6, 5, 250, 0.5, 40.0, 0.0)
+    one = wl.traffic_step(1000, 8)(*dev_in, *scalars)
+    sharded = wl.sharded_traffic_step(mesh, 1024, 8)(*dev_in, *scalars, 1000)
+    for a, b in zip(sharded, one):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
     class Elsewhere:
         device = torch.device("meta")
