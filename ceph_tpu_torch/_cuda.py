@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, at first use, into the ignored
-``ceph_tpu_torch/_build/`` directory; a library newer than its source is
-reused.  The libraries are loaded with ctypes.  Nothing is imported or
+shared library with a plain C interface, at first use, into the build
+directory (:mod:`~ceph_tpu_torch.common.compile_cache`: the ignored
+``ceph_tpu_torch/_build/`` unless overridden).  A library is named by a
+hash of its source and the compiler flags (:func:`lib_path`) and reused
+while that file exists.  The libraries are loaded with ctypes.  Nothing is imported or
 built when this module is imported: the CPU tests import every module of
 the package and never reach a kernel.
 
@@ -14,6 +16,7 @@ launch raises.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -24,6 +27,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
+# the package's ignored scratch directory (work files of the chip checks);
+# the libraries go to the build cache's directory (lib_path)
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -61,6 +66,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # seconds each library took to build in this process (0.0 when reused)
 BUILD_SECONDS: dict[str, float] = {}
+#: ``callable(name, event)`` for every :func:`build`, ``event`` being
+#: "compile" (nvcc ran) or "cache_hit" (the library was on disk):
+#: ``analysis.runtime_guard.CompileCounter`` registers here
+BUILD_LISTENERS: list = []
 
 
 def nvcc() -> str:
@@ -70,26 +79,57 @@ def nvcc() -> str:
     return path
 
 
+def source_key(name: str) -> str:
+    """16 hex digits of the SHA-256 of ``csrc/<name>.cu`` and
+    ``NVCC_FLAGS``: the library's content address."""
+    h = hashlib.sha256()
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str, directory: str | None = None) -> str:
+    """Where library ``name`` of this checkout's source lives in the
+    build directory (``lib<name>-<sha16>.so``)."""
+    from .common.compile_cache import cache_dir
+
+    return os.path.join(cache_dir(directory), f"lib{name}-{source_key(name)}.so")
+
+
+def ptxas_path(name: str, directory: str | None = None) -> str:
+    """The compiler's resource report kept beside :func:`lib_path`."""
+    return lib_path(name, directory)[:-len(".so")] + ".ptxas.txt"
+
+
+def _notify(name: str, event: str) -> None:
+    for fn in list(BUILD_LISTENERS):
+        fn(name, event)
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the library is current; returns
-    the library's path.  The compiler's resource report (registers,
-    shared memory, spills) is kept beside it as ``<name>.ptxas.txt``."""
+    """Compile ``csrc/<name>.cu`` unless its library is in the build
+    directory; returns the library's path.  The compiler's resource
+    report (registers, shared memory, spills) is kept beside it
+    (:func:`ptxas_path`)."""
     src = os.path.join(CSRC, f"{name}.cu")
-    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    lib = lib_path(name)
+    if os.path.exists(lib):
         BUILD_SECONDS.setdefault(name, 0.0)
+        _notify(name, "cache_hit")
         return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
+    with open(ptxas_path(name), "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     BUILD_SECONDS[name] = time.perf_counter() - t0
-    with open(os.path.join(BUILD_DIR, f"{name}.ptxas.txt"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+    _notify(name, "compile")
     return lib
 
 

@@ -590,6 +590,8 @@ def calc_pg_upmaps(
                 if len(under) == 0 and gc_removed == 0:
                     break
                 if scorer == "device":
+                    # the scored candidates go back to the host, which picks the round's moves
+                    # torchlint: disable=J003
                     gains, pgs, frms, tos = _score_candidate_moves_device(
                         up_all, deviation, dom, under, max_deviation, n_osd,
                         mapping.device, stats=stats,

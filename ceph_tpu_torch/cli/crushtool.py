@@ -181,7 +181,9 @@ def run_test(m: CrushMap, args, out) -> int:
             else:
                 results, lens = run_batch(dense, rule, xs, weights, num_rep,
                                           device=args.device)
+                # torchlint: disable=J003  # the CLI prints the rule's mappings: one read a rule
                 results = results.cpu().numpy()
+                # torchlint: disable=J003  # the rule's result lengths, read with its mappings
                 lens = lens.cpu().numpy()
             if args.show_mappings:
                 for x, row, ln in zip(xs, results, lens):

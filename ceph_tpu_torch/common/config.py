@@ -279,10 +279,19 @@ SCHEMA: list[Option] = [
            "epochs overwrite: crash dumps carry the last ring_epochs "
            "epochs", min=2,
            see_also=("flight_recorder",)),
+    Option("debug_bucket_checks", OPT_BOOL, False, LEVEL_ADVANCED,
+           "assert power-of-two bucketing (assert_bucketed) on the "
+           "padded seam sizes entering the device path — the write "
+           "path's batch bucket: an unbucketed data-dependent count "
+           "raises UnbucketedShapeError at the seam instead of giving "
+           "every batch a shape of its own.  Host-side integer checks "
+           "only — debug/CI only"),
     Option("debug_fsync_audit", OPT_BOOL, False, LEVEL_ADVANCED,
            "audit the durable-write commit chain (FsyncAudit) around "
-           "checkpoint saves: not ported (ROADMAP §1, item 5: tooling), "
-           "so 'true' makes a checkpoint save raise"),
+           "checkpoint saves: every os.replace must see a prior file "
+           "fsync and a later directory fsync or FsyncAuditError is "
+           "raised (the runtime twin of the lint's J016).  Patches "
+           "os.fsync/os.replace for the save scope — debug/CI only"),
     Option("debug_rank_checks", OPT_BOOL, False, LEVEL_ADVANCED,
            "raise RankDivergenceError when a divergent run's live ranks "
            "stay at the same step and epoch with different view "

@@ -248,6 +248,7 @@ def view_delta(old: ClusterState, new: ClusterState) -> ViewDelta:
         )
 
     def host(s: ClusterState):
+        # torchlint: disable=J003  # the round seam's view diff reads each lane back once
         return {name: t.cpu().numpy() for name, t in (
             ("osd_up", s.pool.osd_up), ("down", s.down), ("out", s.out),
             ("acting", s.acting), ("epoch", s.epoch), ("step", s.step),

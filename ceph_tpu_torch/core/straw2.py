@@ -5,7 +5,8 @@ takes tensors on one device.  On a CUDA tensor it launches its kernel
 from ``csrc/straw2.cu`` (or raises); on a CPU tensor it runs its plain
 PyTorch version, which the CPU tests hold against the reference package
 and ``chip_smoke.py`` holds the kernel against on the card.  Each
-wrapper counts its kernel launches in ``LAUNCHES``.
+wrapper counts its calls in ``CALLS`` (on entry, on any device) and its
+kernel launches in ``LAUNCHES``.
 
 - K1 :func:`negdraw`: the straw2 draw of every slot of gathered bucket
   rows (the ``draw`` mode's hot op).
@@ -30,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..analysis.runtime_guard import plain_stand_in
 from . import hashes
 
 ITEM_NONE = 0x7FFFFFFF
@@ -37,6 +39,7 @@ CTYPE_DANGLING = 255
 MAX_LEVELS = 32  # the descend kernel's level bound (csrc/straw2.cu kMaxLevels)
 
 LAUNCHES = {"negdraw": 0, "level_choose": 0, "descend": 0}
+CALLS = dict.fromkeys(LAUNCHES, 0)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -44,7 +47,7 @@ I64 = torch.int64
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CALLS[k] = 0
 
 
 class DescendTables:
@@ -147,8 +150,10 @@ def negdraw(x, r, ids, weights, magic) -> torch.Tensor:
 
     x, r: int32 [B]; ids, weights: int32 [B, F]; magic: int64 [B, F].
     Returns int64 [B, F], zero weights as ``hashes.NEGDRAW_NONE``."""
+    CALLS["negdraw"] += 1
     if x.device.type == "cpu":
-        return negdraw_plain(x, r, ids, weights, magic)
+        with plain_stand_in():
+            return negdraw_plain(x, r, ids, weights, magic)
     from .. import _cuda
 
     _check_cuda(ids, weights, magic, x, r)
@@ -303,8 +308,10 @@ def level_choose(x, r, lidx, tb: DescendTables, lv: int):
 
     x, r, lidx: int32 [B] (lidx indexes level ``lv``'s buckets).
     Returns (item, ctype, nlidx, size), int32 [B] each."""
+    CALLS["level_choose"] += 1
     if x.device.type == "cpu":
-        return level_choose_plain(x, r, lidx, tb, lv)
+        with plain_stand_in():
+            return level_choose_plain(x, r, lidx, tb, lv)
     from .. import _cuda
 
     _check_cuda(x, r, lidx)
@@ -376,9 +383,11 @@ def descend_fused(x, r, lidx0, active, tb: DescendTables, target_type: int,
 
     x, r, lidx0: int32 [B]; active: bool [B].
     Returns (item int32, ok bool, hard bool, nlidx int32), all [B]."""
+    CALLS["descend"] += 1
     if x.device.type == "cpu":
-        return descend_plain(x, r, lidx0, active, tb, target_type, empty_is_hard,
-                             max_devices)
+        with plain_stand_in():
+            return descend_plain(x, r, lidx0, active, tb, target_type, empty_is_hard,
+                                 max_devices)
     from .. import _cuda
 
     _check_cuda(x, r, lidx0, active)

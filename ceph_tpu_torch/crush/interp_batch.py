@@ -340,6 +340,7 @@ def _leaf_firstn(leaf, osd_weight, x, start, has_bucket, base, recurse_tries: in
     leaf_ok = torch.zeros_like(has_bucket)
     found = torch.full_like(x, ITEM_NONE)
     for ft in range(recurse_tries):
+        # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
         if ft and not _any(has_bucket & ~settled):
             break
         active = has_bucket & ~settled
@@ -409,6 +410,8 @@ def _choose_firstn_batch(top, leaf, osd_weight, x, start, start_active,
             leaf_acc = torch.where(good, found, ITEM_NONE)
             placed = good
             ftl = torch.ones(B, dtype=I32, device=dev)  # rounds each lane has run
+            # the compacted ladder's one read a round: the stragglers' indices
+            # torchlint: disable=J003
             while (idx := _stragglers(~settled & (ftl < tries))) is not None:
                 ftl_v = ftl.index_select(0, idx)
                 good, stop, item, found = one_round(
@@ -424,6 +427,8 @@ def _choose_firstn_batch(top, leaf, osd_weight, x, start, start_active,
             leaf_acc = _full(B, ITEM_NONE, dev)
             placed = torch.zeros_like(settled)
             for ft in range(tries):
+                # the retry ladder's one read a round: whether a lane retries
+                # torchlint: disable=J003
                 if ft and not _any(start_active & ~settled):
                     break
                 active = start_active & ~settled
@@ -450,6 +455,7 @@ def _leaf_indep(leaf, osd_weight, x, start, has_bucket, base, recurse_tries: int
     got = torch.zeros_like(has_bucket)
     found = torch.full_like(x, ITEM_NONE)
     for ft in range(recurse_tries):
+        # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
         if ft and not _any(has_bucket & ~settled):
             break
         active = has_bucket & ~settled
@@ -495,6 +501,8 @@ def _choose_indep_batch(top, leaf, osd_weight, x, start, start_active,
             found = item
             if leaf is not None:
                 is_bucket = item < 0
+                # the leaf descent runs its own retry ladder (one read a round)
+                # torchlint: disable=J003
                 lf, lok = _leaf_indep(leaf, osd_weight, xv, lstart, active & good & is_bucket,
                                       r + rep, recurse_tries)
                 good = good & (lok | ~is_bucket)
@@ -513,6 +521,8 @@ def _choose_indep_batch(top, leaf, osd_weight, x, start, start_active,
         # below, as the masked rounds leave them
         one_round(None, 0, start_active, out, out2)
         ftl = torch.ones(B, dtype=I32, device=dev)  # rounds each lane has run
+        # the compacted ladder's one read a round: the stragglers' indices
+        # torchlint: disable=J003
         while (idx := _stragglers((out == ITEM_UNDEF).any(dim=1) & (ftl < tries))) is not None:
             out_v, out2_v = out.index_select(0, idx), out2.index_select(0, idx)
             ftl_v = ftl.index_select(0, idx)
@@ -522,6 +532,7 @@ def _choose_indep_batch(top, leaf, osd_weight, x, start, start_active,
             ftl[idx] = ftl_v + 1
     else:
         for ft in range(tries):
+            # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
             if ft and not _any(out == ITEM_UNDEF):
                 break
             one_round(None, ft, start_active, out, out2)
@@ -728,6 +739,8 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                     leaf = (_pack_descent(leaf_pack, 0, False, 1, max_devices, mode)
                             if p["recurse"] else None)
                     for e in range(entries):
+                        # each rule entry's retry ladder reads once a round
+                        # torchlint: disable=J003
                         out, out2, outpos = _choose_firstn_batch(
                             top, leaf, osd_weight, x, ent_lidx[e], ent_active[e],
                             p["numrep"], p["type"], cap, p["tries"], recurse_tries,
@@ -744,6 +757,8 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                     leaf = (_pack_descent(leaf_pack, 0, True, p["numrep"], max_devices, mode)
                             if p["recurse"] else None)
                     for e in range(entries):
+                        # each rule entry's retry ladder reads once a round
+                        # torchlint: disable=J003
                         o, o2 = _choose_indep_batch(
                             top, leaf, osd_weight, x, ent_lidx[e], ent_active[e],
                             os_e, p["type"], p["tries"], recurse_tries, False,

@@ -141,6 +141,7 @@ class _SystematicCodec:
         self, available: dict[int, np.ndarray], want: set[int]
     ) -> dict[int, np.ndarray]:
         """Reconstruct wanted chunk ids (0..k-1 data, k..k+m-1 coding)."""
+        # torchlint: disable=J003  # the decoded chunks are the result: one read a wanted chunk
         return {i: to_host(t) for i, t in self.decode_async(available, want).items()}
 
     def decode_async(self, available: dict, want: set[int]) -> dict[int, torch.Tensor]:

@@ -5,7 +5,8 @@ tensors on one device.  On a CUDA tensor it launches its kernel from
 ``csrc/ec.cu`` (or raises); on a CPU tensor it runs its plain PyTorch
 version, which the CPU tests hold against the reference package and
 ``chip_smoke.py`` holds the kernel against on the card.  Each wrapper
-counts its kernel launches in ``LAUNCHES``.
+counts its calls in ``CALLS`` (on entry, on any device) and its kernel
+launches in ``LAUNCHES``.
 
 - K4 :func:`matrix_encode`: ``coding[j] = XOR_i mul[M[j, i]][data[i]]``,
   the GF(2^8) matrix product of every table codec's encode and decode
@@ -22,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.runtime_guard import plain_stand_in
 from . import gf
 
 U8 = torch.uint8
@@ -29,11 +31,12 @@ SMEM_BYTES = 232448  # csrc/ec.cu kMaxSmem: a block's shared memory
 NIBBLE_SMEM_BYTES = 16384  # csrc/ec.cu kNibbleSmem: K4 stages nibble tables up to this
 
 LAUNCHES = {"matrix_encode": 0, "byte_lut": 0}
+CALLS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CALLS[k] = 0
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:
@@ -107,8 +110,10 @@ def matrix_encode(tables: torch.Tensor, data: torch.Tensor,
     m, k, _ = tables.shape
     if data.dim() != 2 or data.shape[0] != k or tables.shape[2] != 256:
         raise ValueError(f"matrix_encode: tables {tuple(tables.shape)}, data {tuple(data.shape)}")
+    CALLS["matrix_encode"] += 1
     if data.device.type == "cpu":
-        return matrix_encode_plain(tables, data)
+        with plain_stand_in():
+            return matrix_encode_plain(tables, data)
     from .. import _cuda
 
     if nibbles is None or nibbles.shape != (m, k, 32):
@@ -139,8 +144,10 @@ def byte_lut(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     on x's device."""
     if table.shape != (256,):
         raise ValueError(f"byte_lut takes a [256] table, got {tuple(table.shape)}")
+    CALLS["byte_lut"] += 1
     if x.device.type == "cpu":
-        return byte_lut_plain(x, table)
+        with plain_stand_in():
+            return byte_lut_plain(x, table)
     from .. import _cuda
 
     _check_cuda(x, table)

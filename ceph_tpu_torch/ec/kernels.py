@@ -3,7 +3,8 @@
 The counterpart of ``ceph_tpu/ec/pallas_kernels.py``.  Each wrapper
 takes tensors on one device: on a CUDA tensor it launches the kernel
 from ``csrc/ec.cu`` (or raises), on a CPU tensor it runs the plain
-PyTorch version.  Launches are counted in ``LAUNCHES``.
+PyTorch version.  Calls are counted in ``CALLS`` (on entry, on any
+device), launches in ``LAUNCHES``.
 
 - K5 :func:`bitmatrix_encode`: the GF(2) bitmatrix product over packet
   rows, ``out[r] = XOR_s (d[s] & bitmatrix[r, s])``, for any word size
@@ -48,6 +49,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..analysis.runtime_guard import plain_stand_in
 from .gf_kernels import SMEM_BYTES
 
 U8 = torch.uint8
@@ -72,11 +74,12 @@ BLOCK_SMEM_RESERVED = 1024  # the shared memory the runtime keeps per block
 MAX_THREADS_SM = 2048
 
 LAUNCHES = {"bitmatrix_encode": 0, "schedule_apply": 0}
+CALLS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CALLS[k] = 0
 
 
 class Bitmatrix:
@@ -218,6 +221,8 @@ def bitmatrix_walk_plain(bm: Bitmatrix, data: torch.Tensor, packetsize: int,
         dst = g * wp + (x - g * p)
         for _, i, t, ents in rows:
             acc = torch.zeros(K5_TILE, dtype=U8, device=data.device)
+            # the plain walk of K5's program: host program entries, no device read
+            # torchlint: disable=J003
             for s in (ents & 0xFFFF).tolist():
                 acc ^= stage[s]
             out[(i * S + dst + t * p)[live]] = acc[live]
@@ -228,8 +233,10 @@ def bitmatrix_encode(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -> torc
     """K5: ``[k, S]`` u8 chunks -> ``[MW / w, S]`` u8 through the GF(2)
     bitmatrix, ``S`` a multiple of ``w * packetsize``."""
     _groups(bm, data, packetsize)
+    CALLS["bitmatrix_encode"] += 1
     if data.device.type == "cpu":
-        return bitmatrix_encode_plain(bm, data, packetsize)
+        with plain_stand_in():
+            return bitmatrix_encode_plain(bm, data, packetsize)
     from .. import _cuda
 
     if data.dtype != U8 or not data.is_contiguous():
@@ -303,6 +310,8 @@ class XorProgram:
         for stage in range(stages):
             slot = np.where(src < self.n_work, src, src - self.n_work + in0 + stage * self.n_in)
             t0 = 0
+            # K6's program groups are host data (numpy), read while packing
+            # torchlint: disable=J003
             for g, size in enumerate(self.groups.tolist()):
                 out[stage, g, 0, :size] = slot[t0:t0 + size] * unit
                 out[stage, g, 1, :size] = dst[t0:t0 + size]
@@ -483,6 +492,7 @@ def program_apply_plain(program: XorProgram, words: torch.Tensor) -> torch.Tenso
     acc = torch.zeros(nw, dtype=torch.int32, device=words.device)
     t0 = 0
     for size in program.groups.tolist():
+        # torchlint: disable=J003  # the plain model of K6's program: host program terms
         group = program.terms[t0:t0 + size].tolist()
         vals = [slots[s & 0xFFFF].clone() if (s & 0xFFFF) < program.n_work
                 else words[(s & 0xFFFF) - program.n_work] for s in group]
@@ -636,8 +646,10 @@ def schedule_apply(table: StepTable, words: torch.Tensor, n_out: int) -> torch.T
     ``[n_out, NW]`` int32, the output buffers ``n_in : n_in + n_out`` of
     ``table``."""
     _check_schedule(table, words, n_out)
+    CALLS["schedule_apply"] += 1
     if words.device.type == "cpu":
-        return schedule_apply_plain(table, words, n_out)
+        with plain_stand_in():
+            return schedule_apply_plain(table, words, n_out)
     from .. import _cuda
 
     if not words.is_contiguous():

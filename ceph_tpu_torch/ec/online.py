@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.runtime_guard import plain_stand_in
 from ..common.perf_counters import PerfCounters, PerfCountersBuilder, registry
 from ..core.hashes import crush_hash32_2
 from .kernels import schedule_apply
@@ -71,13 +72,14 @@ WP_LANES = (
     "delta_words", "full_words", "touched_slots",
 )
 #: K9's launch counts, its absorb and its commit (each wrapper adds one
-#: where it launches)
+#: where it launches), and its wrappers' calls (on entry, on any device)
 LAUNCHES = {"stripe_absorb": 0, "stripe_commit": 0}
+CALLS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CALLS[k] = 0
 
 
 def _i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -294,6 +296,8 @@ def stripe_absorb_plain(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bf
             sets, *_batch_host(bkeys, bchunks, bfulls, bseeds, bvalid))):
         if not val:
             continue
+        # K9's plain version: CPU tensors only, its lanes walked on the host
+        # torchlint: disable=J003
         _absorb_one(keys, data, parity, dirty, lru, ddata, slot_of, entry_of, s, lane, key,
                     chunk, full, seed, tick, k, w, counts)
         tick += 1
@@ -322,6 +326,8 @@ def stripe_absorb_by_set_plain(keys, data, parity, dirty, lru, tick, bkeys, bchu
     for s in range(n_sets):
         for i, ((ls, key, chunk, full, seed, val), t) in enumerate(zip(lanes, ticks)):
             if val and ls == s:
+                # K9's plain version: CPU tensors only, its lanes walked on the host
+                # torchlint: disable=J003
                 _absorb_one(keys, data, parity, dirty, lru, ddata, slot_of, entry_of, s, i,
                             key, chunk, full, seed, t, k, w, counts)
     return _absorb_out(keys, data, parity, dirty, lru, tick0 + n_valid, ddata, slot_of,
@@ -375,8 +381,10 @@ def stripe_absorb(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls, 
     version returns."""
     batch = (bkeys, bchunks, bfulls, bseeds, bvalid)
     _check_absorb(keys, data, parity, dirty, lru, tick, batch)
+    CALLS["stripe_absorb"] += 1
     if data.device.type == "cpu":
-        return stripe_absorb_plain(keys, data, parity, dirty, lru, tick, *batch, k, w)
+        with plain_stand_in():
+            return stripe_absorb_plain(keys, data, parity, dirty, lru, tick, *batch, k, w)
     from .. import _cuda
 
     n_sets, ways, kw, words = (int(v) for v in data.shape)
@@ -433,8 +441,10 @@ def stripe_commit(parity, dpar, slot_of, row, totals, tick, tick_new) -> None:
                             f"got {list(t.shape)} {t.dtype}")
         if t.device != parity.device:
             raise ValueError(f"stripe_commit: {name} on {t.device}, parity on {parity.device}")
+    CALLS["stripe_commit"] += 1
     if parity.device.type == "cpu":
-        return stripe_commit_plain(parity, dpar, slot_of, row, totals, tick, tick_new)
+        with plain_stand_in():
+            return stripe_commit_plain(parity, dpar, slot_of, row, totals, tick, tick_new)
     from .. import _cuda
 
     _cuda.launch("online", "online_stripe_commit", parity.device, _cuda.ptr(dpar),
@@ -450,7 +460,7 @@ def stripe_commit(parity, dpar, slot_of, row, totals, tick, tick_new) -> None:
 def stripe_buffer_step(buf: StripeBufferState, table, n_out: int, k: int, w: int, keys,
                        chunks, fulls, seeds, valid):
     """Absorb one epoch's fixed-shape write batch into ``buf`` in place
-    (the step consumes it: see :class:`StripeBufferState`); returns
+    (the step consumes it, ``consumes=buf``: see :class:`StripeBufferState`); returns
     ``buf`` itself and the epoch's counter row (``WP_LANES`` order,
     int64).
 

@@ -348,7 +348,7 @@ class crash_dump_guard:
         self.journal = journal
         self.state = state or {}
         if types is None:
-            from ..common.rank_guard import RankStalledError
+            from ..analysis.runtime_guard import RankStalledError
             from ..recovery.checkpoint import CheckpointError
             from ..recovery.dispatch import ChipLostError
 

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..common.rank_guard import assert_rank_identical, rank_checks_enabled
+from ..analysis.runtime_guard import assert_rank_identical, rank_checks_enabled
 from ..parallel.padding import pad_to_multiple
 from ..recovery.peering import (
     PG_STATE_BACKFILL,

@@ -330,6 +330,7 @@ class OSDMapMapping:
             pgs = torch.arange(pool.pg_num, dtype=I64, device=self.device)
             up, upp, acting, actp = fn(crush_arg, state, pgs)
             self._results[pool.id] = tuple(
+                # torchlint: disable=J003  # the pool's four mapping tables are the result
                 t.cpu().numpy() for t in (up, upp, acting, actp))
 
     def get(self, pgid: PGId):

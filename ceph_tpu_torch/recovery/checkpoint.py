@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis import runtime_guard
 from ..convert import lane_bytes, lane_specs, state_from_lanes
 from ..core.cluster_state import apply_incremental, index_state, stack_states
 from ..osdmap.map import Incremental
@@ -268,12 +269,6 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _fsync_audit_enabled() -> bool:
-    from ..common.config import global_config
-
-    return bool(global_config().get("debug_fsync_audit"))
-
-
 class CheckpointStore:
     """Durable, crash-consistent snapshots of device-resident state.
 
@@ -337,10 +332,6 @@ class CheckpointStore:
         lanes take; ``series`` an optional ``{column: ndarray}`` payload
         (the run's series so far); ``meta`` small JSON-able bookkeeping
         (the resume cursor)."""
-        if _fsync_audit_enabled():
-            raise NotImplementedError(
-                "debug_fsync_audit: FsyncAudit is tooling, not ported yet "
-                "(ROADMAP §1, item 5)")
         for fn in os.listdir(self.root):
             if fn.startswith(".tmp-"):
                 os.remove(os.path.join(self.root, fn))
@@ -378,7 +369,9 @@ class CheckpointStore:
             if self.journal is not None else nullcontext()
         )
         first = lens[0] if lens else 0
-        with span:
+        audit = (runtime_guard.FsyncAudit(f"checkpoint save seq={seq}")
+                 if runtime_guard.fsync_audit_enabled() else None)
+        with span, (audit if audit is not None else nullcontext()):
             with open(tmp, "wb") as fh:
                 fh.write(
                     (json.dumps(header, sort_keys=True) + "\n").encode()
@@ -409,6 +402,10 @@ class CheckpointStore:
                 ) + "\n")
                 fh.flush()
                 os.fsync(fh.fileno())
+        if audit is not None:
+            # the commit chain just performed: fsync before the replace,
+            # directory fsync after
+            audit.verify()
         self.bytes_written += total
         if self.health is not None:
             self.health.note_checkpoint()
@@ -428,6 +425,8 @@ class CheckpointStore:
             fname = str(ent.get("file", ""))
             path = os.path.join(self.root, fname)
             try:
+                # each candidate snapshot's lane CRCs are checked on the host
+                # torchlint: disable=J003
                 meta, state, series = self._load_file(path, template)
             except (OSError, ValueError, KeyError) as e:
                 self.torn.append(f"{fname}: {e}")
@@ -518,6 +517,8 @@ class CheckpointStore:
         for lane, v in zip(lanes, views):
             if lane["name"].startswith("series."):
                 series[lane["name"][len("series."):]] = np.frombuffer(
+                    # a loaded series lane is the result, returned as numpy
+                    # torchlint: disable=J003
                     v.cpu().numpy().tobytes(), np.dtype(lane["dtype"])
                 ).reshape(tuple(lane["shape"]))
         return header.get("meta", {}), state, series
@@ -875,6 +876,7 @@ def diff_states(a, b) -> list[str]:
         return ["<treedef>"]
     out = []
     for i, (x, y) in enumerate(zip(la, lb)):
+        # torchlint: disable=J003  # a diff of two states (a check): each leaf compared on the host
         if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
             out.append(f"leaf{i}")
     return out

@@ -73,7 +73,7 @@ class ChipLostError(RuntimeError):
     caller's report can name them.  Raised synchronously from
     :meth:`WorkStealingDispatcher.result`, never from inside a
     collective: the multihost analog of
-    :class:`~ceph_tpu_torch.common.rank_guard.RankStalledError`."""
+    :class:`~ceph_tpu_torch.analysis.runtime_guard.RankStalledError`."""
 
     def __init__(self, chips):
         self.chips = sorted(int(c) for c in chips)
@@ -451,6 +451,8 @@ class WorkStealingDispatcher:
         for launch in wins:
             sub = launch.sub
             # deliberate host seam: the winner's padded slice, trimmed
+            # the deliberate host seam: the winning launch's slice, trimmed
+            # torchlint: disable=J003
             host = launch.out.cpu().numpy()
             out[:, sub.start:sub.start + sub.width] = host[:, :sub.width]
         return out

@@ -214,6 +214,7 @@ def estimate_durability(
     lf_ci, av_ci, tz_ci = _bootstrap(indices.to(dev), lost, avail, ttzd_s,
                                      alpha / 2.0, 1.0 - alpha / 2.0)
     lost_h, avail_h, ttzd_h, lf_ci, av_ci, tz_ci = (
+        # torchlint: disable=J003  # the estimate's lanes are the result
         t.cpu().numpy() for t in (lost, avail, ttzd_s, lf_ci, av_ci, tz_ci))
     n_lost = int(lost_h.sum())
     exposure = n_clusters * mission_s

@@ -603,6 +603,8 @@ class FleetDriver:
             epoch += plan.bumps[e]
             active = plan.sup_any[e] | plan.slow_any[e] | any_down | any_laggy
             tape_dirty = plan.tape_dirty[e]
+            # a busy fleet epoch's one read after the tick (map moved, keys)
+            # torchlint: disable=J003
             fstate, live, read = self._live(fstate, e, now, bool(active.any()),
                                             bool(tape_dirty.any()))
             dirty = tape_dirty

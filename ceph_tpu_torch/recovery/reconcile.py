@@ -31,7 +31,7 @@ exchange; this module simulates that:
 - **The protocol** (:class:`ReconcileProtocol`, copied): divergence
   retries under seeded exponential backoff in virtual epochs, the
   laggy deadline, the ``rankstalled`` flag, journal and health notes,
-  and :class:`~ceph_tpu_torch.common.rank_guard.RankStalledError` for a
+  and :class:`~ceph_tpu_torch.analysis.runtime_guard.RankStalledError` for a
   rank that never comes back.  A revived rank replays its own missed
   window through the same body (bit-exact, no state injection).
 
@@ -55,14 +55,14 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from ..common.config import global_config
-from ..common.rank_guard import (
+from ..analysis.runtime_guard import (
     RankDivergenceError,
     RankStalledError,
     assert_rank_identical,
     rank_checks_enabled,
     rank_fingerprint,
 )
+from ..common.config import global_config
 from ..core.cluster_state import ClusterState, _pad_to, index_state, stack_states, view_delta
 from ..osdmap.map import OSDMap
 from ..osdmap.mapping import PoolMapState
@@ -399,6 +399,7 @@ def view_fingerprint(state) -> int:
     port's dtypes, so its value differs from the reference's where the
     dtypes differ; equal views give equal fingerprints in either."""
     pool = state.pool
+    # torchlint: disable=J003  # the view fingerprint hashes each lane on the host (round seam)
     return rank_fingerprint(*(_host(x) for x in (
         pool.osd_up, pool.osd_exists, pool.osd_weight, pool.primary_affinity,
         *(getattr(state, f) for f in _FP_LANES))))
@@ -723,6 +724,8 @@ class DivergentDriver:
         seam: each view's lanes read back once)."""
         steps = [self.cur[r] for r in range(self.n_ranks)]
         epochs = [int(h.epoch) for h in self.hosts]
+        # the between-rounds seam: each rank's view read back once a round
+        # torchlint: disable=J003
         fps = [view_fingerprint(s) for s in self.states]
         return steps, epochs, fps
 
@@ -752,6 +755,8 @@ class DivergentDriver:
                 self._advance(r, target)
             now = self._now_at(target)
             self.merged = self._merge(now)
+            # the between-rounds seam: each rank's view read back once a round
+            # torchlint: disable=J003
             steps, epochs, fps = self._gather()
             converged, diverged = proto.agreement(steps, epochs, fps)
         result = proto.observe(
@@ -1080,6 +1085,8 @@ class RankReconciler:
             if self.rank in proto.live():
                 self._advance(target)
             now = self._now_at(target)
+            # the between-rounds seam: each rank's view read back once a round
+            # torchlint: disable=J003
             steps, epochs, fps = self._round_io(now)
             converged, diverged = proto.agreement(steps, epochs, fps)
         result = proto.observe(

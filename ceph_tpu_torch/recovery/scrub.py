@@ -52,8 +52,12 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.runtime_guard import (
+    assert_rank_identical,
+    plain_stand_in,
+    rank_checks_enabled,
+)
 from ..common.perf_counters import PerfCounters, PerfCountersBuilder, registry
-from ..common.rank_guard import assert_rank_identical, rank_checks_enabled
 from ..common.tracing import trace_annotation
 from ..parallel.padding import pad_to_multiple
 
@@ -65,15 +69,17 @@ U8 = torch.uint8
 #: ``ceph_crc32c`` and iSCSI/ext4's checksum.
 CRC32C_POLY = 0x82F63B78
 
-#: K8's launches (``chip_smoke.py`` reads and resets these)
+#: K8's launches (``chip_smoke.py`` reads and resets these) and its
+#: wrapper's calls (on entry, on any device)
 LAUNCHES = {"crc32c_rows": 0}
+CALLS = dict.fromkeys(LAUNCHES, 0)
 
 _TABLE: np.ndarray | None = None
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = CALLS[k] = 0
 
 
 def crc32c_table() -> np.ndarray:
@@ -311,8 +317,10 @@ def crc_rows(data: torch.Tensor) -> torch.Tensor:
     if data.dim() != 2 or data.dtype != U8:
         raise ValueError(f"crc_rows takes a [n, L] uint8 tensor, got "
                          f"{tuple(data.shape)} {data.dtype}")
+    CALLS["crc32c_rows"] += 1
     if data.device.type == "cpu":
-        return crc_rows_plain(data)
+        with plain_stand_in():
+            return crc_rows_plain(data)
     from .. import _cuda
 
     if not data.is_contiguous():

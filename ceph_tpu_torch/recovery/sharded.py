@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..common import rank_guard
+from ..analysis import runtime_guard
 from ..ec.backend import TableEncoder
 from ..parallel.padding import pad_to_multiple, trim_to_size
 
@@ -102,8 +102,8 @@ class ShardedDecoder:
         valid)``; pass ``out``/``valid`` to :meth:`fetch` for the trimmed
         host bytes."""
         padded, valid = pad_to_multiple(np.asarray(src, np.uint8), self.n_devices, axis=1)
-        if rank_guard.rank_checks_enabled():
-            rank_guard.assert_rank_identical(
+        if runtime_guard.rank_checks_enabled():
+            runtime_guard.assert_rank_identical(
                 "sharded_decode", enc.matrix, padded, np.int64(int(chunk)),
                 mesh=self.mesh, axis=self.axis)
         out, nbytes, shards = self._step(enc, padded, valid, chunk)

@@ -1015,8 +1015,12 @@ class EpochDriver:
         now, epoch, dirty, packed = [], [], [], []
         for e in range(start, stop):
             if fs is None:
+                # a busy epoch's one read after the tick, and the ladder's rung read
+                # torchlint: disable=J003
                 state, (d, row) = self._epoch_step(state, host, e)
             else:
+                # a busy epoch's one read after the tick, and the ladder's rung read
+                # torchlint: disable=J003
                 state, (d, row), extras = self._epoch_step(state, host, e, traced=True)
                 fs = self._record(fs, row, extras)
             now.append(host.now)
@@ -1089,6 +1093,7 @@ class EpochDriver:
         start = 0
         while start < n_epochs:
             size = min(chunk, n_epochs - start)
+            # torchlint: disable=J003  # a chunk reads as its epochs do: one read a busy epoch
             state, fs, rows = self.advance(state, host, start, start + size, fs)
             self.final_state, self.flight = state, fs
             if fs is not None and journal is not None:
@@ -1134,19 +1139,24 @@ class EpochDriver:
         for e in range(n_epochs):
             prev_now = host.now
             state, tape_dirty = self._tape_apply(state, host, e)
+            # torchlint: disable=J003  # the staged reference path reads its idle test every epoch
             idle = not bool(torch.stack([
                 state.suppressed.any(), state.slow.any(), state.down.any(),
                 (state.laggy != 0).any()]).any())
+            # torchlint: disable=J003  # the staged reference path reads its tick every epoch
             state, live, trans = self._live(state, host, idle)
             # the host detector's per-tick mirror of the heartbeat lanes
             for lane in (state.last_ack, state.laggy, state.markdowns, state.down,
                          state.down_since, state.out):
+                # the staged path mirrors the host detector: a lane read a tick
+                # torchlint: disable=J003
                 lane.cpu()
             dirty = tape_dirty or trans
             if dirty:
                 state = self._peer_hist(state)
             traffic = self._traffic_apply(state, e, host.now)
             row = self._row(state, traffic, live, self._scrub_due(prev_now, host.now))
+            # torchlint: disable=J003  # the staged reference path reads each epoch's row
             rows.append((host.now, host.epoch, int(dirty), row.cpu().numpy()))
             if snapshot_every and (e + 1) % snapshot_every == 0:
                 self.final_state = self._with_scalars(state, host)

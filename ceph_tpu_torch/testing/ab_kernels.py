@@ -30,6 +30,7 @@ non-zero if a run fails.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import subprocess
@@ -71,9 +72,10 @@ def run(checkout: str, timeout: int = 1200) -> dict:
     out = {"checkout": checkout, "exit": proc.returncode,
            "ok": proc.returncode == 0 and '"ok": true' in (lines[-1] if lines else ""),
            "card": lines[-2] if len(lines) > 1 else None}
-    lib = os.path.join(checkout, "ceph_tpu_torch", "_build", "libstraw2.so")
-    if os.path.exists(lib):
-        out["draw_split"] = sass.straw2_splits(sass.cuobjdump_sass(lib))
+    # a checkout names its library libstraw2.so, or by its content hash
+    libs = sorted(glob.glob(os.path.join(checkout, "ceph_tpu_torch", "_build", "libstraw2*.so")))
+    if libs:
+        out["draw_split"] = sass.straw2_splits(sass.cuobjdump_sass(libs[-1]))
     for ln in lines:
         if ln.startswith('{"phase": "kernels"'):
             for r in json.loads(ln)["results"]:

@@ -312,7 +312,7 @@ def reconcile(mesh, map_bytes: bytes, timeline, n_epochs: int, overrides=None,
 def rank_identical(mesh, differ_on: int | None) -> dict:
     """``assert_rank_identical`` on an operand that rank ``differ_on``
     changes (None: every rank passes the same): each rank's verdict."""
-    from ..common.rank_guard import RankDivergenceError, assert_rank_identical
+    from ..analysis.runtime_guard import RankDivergenceError, assert_rank_identical
 
     a = np.arange(16, dtype=np.int32)
     if differ_on is not None and mesh.rank == differ_on:

@@ -1,6 +1,6 @@
 """Counts over the SASS of the port's built kernels (``cuobjdump -sass``).
 
-    python -m ceph_tpu_torch.testing.sass ceph_tpu_torch/_build/libstraw2.so
+    python -m ceph_tpu_torch.testing.sass ceph_tpu_torch/_build/libstraw2-<sha16>.so
 
 prints, for each straw2 kernel, the instructions it issues per straw2
 draw, split by the pipe that executes them.  The count is taken over the

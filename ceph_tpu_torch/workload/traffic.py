@@ -728,6 +728,7 @@ class TrafficEngine:
         with self._jspan("traffic.step", epoch=ep, ops=self.ops_per_step):
             # real wall rate for the step: the launches and the one copy
             # back that waits for them
+            # torchlint: disable=J010  # the step's real wall rate, reported beside simulated time
             t0 = time.perf_counter()
             (counts, lat_hist, qd_hist, sums, max_rho, written,
              deg_read) = self._step(
@@ -741,6 +742,7 @@ class TrafficEngine:
             ]).cpu().numpy()
             # measured step wall rate, reported next to simulated time
             # and never mixed into it
+            # torchlint: disable=J010  # the step's real wall rate, reported beside simulated time
             wall = time.perf_counter() - t0
         nb = self.n_buckets
         served, degraded, blocked = (int(c) for c in packed[:3])

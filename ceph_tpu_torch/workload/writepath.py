@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..analysis import runtime_guard
 from ..core.hashes import crush_hash32_2
 from ..ec.online import (
     WP_LANES,
@@ -178,6 +179,8 @@ class WritepathDriver:
             max_writes if max_writes is not None else driver.n_ops
         )
         self.batch_size = _pow2_bucket(self.max_writes)
+        if runtime_guard.bucket_checks_enabled():
+            runtime_guard.assert_bucketed("writepath batch bucket", self.batch_size)
         self._init_buf = empty_stripe_buffer(
             self.n_sets, self.ways, self.k * self.w, self.m * self.w,
             self.words, device=self.device,
@@ -339,7 +342,9 @@ class WritepathDriver:
         rows, wrows = [], []
         for e in range(int(n_epochs)):
             state, buf, _fs, (d, row), wrow = self._wp_epoch(state, host, buf, e, cap)
+            # torchlint: disable=J003  # the staged reference path reads each epoch's rows
             rows.append((host.now, host.epoch, int(d), row.cpu().numpy()))
+            # torchlint: disable=J003  # the staged reference path reads each epoch's rows
             wrows.append(wrow.cpu().numpy())
         self.final_state, self.final_buf = drv._with_scalars(state, host), buf
         drv.final_state = self.final_state

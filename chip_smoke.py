@@ -242,12 +242,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    work-stealing dispatcher on 4 virtual chips on the card under
    tests/test_dispatch.py's fault matrix: bytes equal the static
    decode, decisions equal the CPU's.  The group is destroyed after.
+14. tooling: the runtime guard and the non-regression archive
+   (``analysis/runtime_guard.py``, ``testing/nonregression.py``): no
+   library built by a second ``_cuda.build_all()`` (``CompileCounter``),
+   the archive's CRUSH and EC digests from ``generate("cuda")`` equal to
+   ``tests/golden/archive.json``, every ``launch_budget_cases("cuda")``
+   scenario inside its budget (calls, launches, seam reads and
+   sync-debug warnings of each second run; every call a launch), one
+   checkpoint save under ``debug_fsync_audit`` (audited, and it loads
+   back) and one ``WritepathDriver`` under ``debug_bucket_checks``.
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
 general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
 traffic and scrub_qos; 10b: epoch; 10c: fleet; 10d: divergent; 10e:
-checkpoint; 10f: writepath; 11: balancer; 12: cli; 13: multidevice,
-each from 0),
+checkpoint; 10f: writepath; 11: balancer; 12: cli; 13: multidevice;
+14: tooling, each from 0),
 each phase's wall seconds, the kernels
 line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
@@ -255,7 +264,8 @@ K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
 on the traffic path, K3 on the epoch, fleet, divergent and balancer
 paths, K3 and K8 on the checkpoint path, K3, K6, K9 and its commit on
-the writepath path, K1, K3, K4, K6 and K8 on the multidevice path),
+the writepath path, K1, K3, K4, K6 and K8 on the multidevice path,
+K3-K9 and K9's commit on the tooling path),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -435,7 +445,7 @@ def ptxas_report(lib: str) -> dict:
     from ceph_tpu_torch import _cuda
 
     out, name = {}, None
-    with open(os.path.join(_cuda.BUILD_DIR, f"{lib}.ptxas.txt")) as f:
+    with open(_cuda.ptxas_path(lib)) as f:
         for ln in f:
             if "Compiling entry function" in ln:
                 name = kernel_name(ln.split("'")[1])
@@ -4103,8 +4113,8 @@ def phase_multidevice(dev, counts, reset, work_dir: str, n_osds: int = RECOVERY_
     import torch.distributed as dist
 
     from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.analysis.runtime_guard import assert_rank_identical
     from ceph_tpu_torch.common.config import Config
-    from ceph_tpu_torch.common.rank_guard import assert_rank_identical
     from ceph_tpu_torch.ec import create, gf, gf_kernels
     from ceph_tpu_torch.ec.backend import TableEncoder
     from ceph_tpu_torch.models.clusters import build_osdmap, build_simple
@@ -4410,6 +4420,68 @@ def mesh_world_check(n: int, work_dir: str, kind: str = "cuda") -> dict:
             "traffic_mean_rel_diff": mean_rel}
 
 
+def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
+    """Item 5 on the card (see the module docstring).  Everything but the
+    rebuild check runs between ``reset()`` and ``counts()``; the phase's
+    wrapper calls are read beside, and every call must have launched."""
+    from ceph_tpu_torch import _cuda
+    from ceph_tpu_torch.analysis import runtime_guard
+    from ceph_tpu_torch.common.config import global_config
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery.chaos import ChaosTimeline
+    from ceph_tpu_torch.recovery.checkpoint import CheckpointStore
+    from ceph_tpu_torch.recovery.superstep import EpochDriver
+    from ceph_tpu_torch.testing import nonregression as nr
+    from ceph_tpu_torch.workload.writepath import WritepathDriver
+
+    t0 = time.perf_counter()
+    gates = {}
+    with runtime_guard.CompileCounter() as cc:
+        _cuda.build_all()
+    gates["no_rebuild"] = cc.backend_compiles == 0
+    rebuild = {"backend_compiles": cc.backend_compiles, "cache_hits": cc.cache_hits}
+    reset()
+    t_arch = time.perf_counter()
+    archive = nr.render(nr.generate(dev))
+    with open(os.path.join(HERE, "tests", "golden", "archive.json")) as f:
+        gates["archive_equal"] = archive == f.read()
+    archive_s = time.perf_counter() - t_arch
+    t_budget = time.perf_counter()
+    budgets = nr.launch_budget_cases(dev)  # raises over budget or on a call without launch
+    budgets_s = time.perf_counter() - t_budget
+    gates["budgets_held"] = sorted(budgets) == sorted(nr.BUDGETS)
+    gates["budget_launches_equal_calls"] = all(
+        b["launches"] == b["calls"] for b in budgets.values())
+    cfg = global_config()
+    prev = {k: cfg.get(k) for k in ("debug_fsync_audit", "debug_bucket_checks")}
+    try:
+        cfg.set("debug_fsync_audit", True)
+        cfg.set("debug_bucket_checks", True)
+        m = build_osdmap(32, pg_num=16, size=6, pool_kind="erasure")
+        drv = EpochDriver(m, ChaosTimeline(), n_ops=64, device=dev)
+        drv.run_superstep(4, pull=False)
+        store = CheckpointStore(os.path.join(work_dir, "audited"), device=dev)
+        with runtime_guard.FsyncAudit("chip_smoke audited save") as audit:
+            store.save(drv.final_state, meta={"epoch": 4})
+        audit.verify()
+        gates["fsync_audited_save"] = store.load_latest(drv.final_state) is not None
+        wdrv = WritepathDriver(drv, n_sets=8, ways=2, max_writes=8)
+        gates["bucket_checked_writepath"] = runtime_guard.is_pow2(wdrv.batch_size)
+    finally:
+        for k, v in prev.items():
+            cfg.set(k, v)
+    torch.cuda.synchronize()
+    launches = counts()
+    calls = runtime_guard.kernel_counts("CALLS")
+    gates["launches_equal_calls"] = launches == calls
+    return {"phase": "tooling", "gates": gates, "rebuild": rebuild, "archive_s": archive_s,
+            "budgets_s": budgets_s, "seconds": time.perf_counter() - t0,
+            "budgets": {n: {k: b[k] for k in ("calls", "launches", "host_reads",
+                                                "reads_by_seam", "sync_warnings")}
+                        for n, b in budgets.items()},
+            "launches": launches, "calls": calls}
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4444,10 +4516,8 @@ def main(argv: list[str]) -> int:
         return 0
     sys.path.insert(0, HERE)
     from ceph_tpu_torch import _cuda
-    from ceph_tpu_torch.core import straw2
+    from ceph_tpu_torch.analysis import runtime_guard
     from ceph_tpu_torch.crush import interp_batch
-    from ceph_tpu_torch.ec import gf_kernels, kernels as ec_kernels, online as online_mod
-    from ceph_tpu_torch.recovery import scrub as scrub_mod
 
     dev = torch.device("cuda")
     card = nvidia_smi("name,power.limit")
@@ -4458,7 +4528,7 @@ def main(argv: list[str]) -> int:
     from ceph_tpu_torch.testing import sass
 
     splits = sass.straw2_splits(
-        sass.cuobjdump_sass(os.path.join(_cuda.BUILD_DIR, "libstraw2.so")))
+        sass.cuobjdump_sass(_cuda.lib_path("straw2")))
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": built, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda, "ptxas": ptxas,
           "ops_per_draw": OPS_PER_DRAW, "draw_split_sass": splits})
@@ -4494,8 +4564,7 @@ def main(argv: list[str]) -> int:
     if bad:
         raise AssertionError(f"K6 disagrees with its plain version: {bad}")
     scrub_phase = phase_scrub_kernel(int_rate, dev)
-    fold_split = sass.crc_split(sass.cuobjdump_sass(os.path.join(_cuda.BUILD_DIR,
-                                                                 "libscrub.so")))
+    fold_split = sass.crc_split(sass.cuobjdump_sass(_cuda.lib_path("scrub")))
     for r in scrub_phase["results"]:
         # dynamic shared memory: csrc/scrub.cu's kSmemBytes (T0..T3 one copy a
         # bank, 128 KiB; the staged lines, 72 KiB)
@@ -4516,15 +4585,11 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"K9 disagrees with its plain version: {bad}")
 
     def counts() -> dict:
-        return {**straw2.LAUNCHES, **gf_kernels.LAUNCHES, **ec_kernels.LAUNCHES,
-                **scrub_mod.LAUNCHES, **online_mod.LAUNCHES}
+        return runtime_guard.kernel_counts("LAUNCHES")
 
     def reset() -> None:
-        straw2.reset_launches()
-        gf_kernels.reset_launches()
-        ec_kernels.reset_launches()
-        scrub_mod.reset_launches()
-        online_mod.reset_launches()
+        for mod in runtime_guard.kernel_modules():
+            mod.reset_launches()
 
     # each main path from 0: placement (raw CRUSH in every mode, then the
     # OSDMap), EC (encode, decode, the plugins), recovery
@@ -4618,6 +4683,13 @@ def main(argv: list[str]) -> int:
     bad = [g for g, ok in multidevice["gates"].items() if not ok]
     if bad:
         raise AssertionError(f"the mesh paths failed their gates: {bad}")
+    with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as work_dir:
+        tooling = phase_tooling(dev, counts, reset, work_dir)
+    emit(tooling)
+    paths["tooling"] = tooling["launches"]
+    bad = [g for g, ok in tooling["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the tooling failed its gates: {bad}")
     emit({"launches_by_path": paths})
     print(json.dumps({"phase_walls_s": PHASE_WALLS,
                       "total_s": time.perf_counter() - T_START}), flush=True)
@@ -4636,7 +4708,9 @@ def main(argv: list[str]) -> int:
             "balancer": ("descend",),
             "cli": ("descend", "matrix_encode", "bitmatrix_encode"),
             "multidevice": ("negdraw", "descend", "matrix_encode", "schedule_apply",
-                            "crc32c_rows")}
+                            "crc32c_rows"),
+            "tooling": ("descend", "matrix_encode", "bitmatrix_encode", "schedule_apply",
+                        "byte_lut", "crc32c_rows", "stripe_absorb", "stripe_commit")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"a kernel of a main path never launched: {missing}")

@@ -505,3 +505,54 @@ def test_reference_snapshot_restores_in_the_port(tmp_path, config7_small):
     assert np.array_equal(out.sums[4:], port.sums[4:])
     assert diff_states(d.final_state, port_final) == []
     _assert_lanes_equal(d.final_state, ref_final)
+
+
+# ---- debug_fsync_audit -------------------------------------------------
+
+
+@pytest.fixture
+def fsync_audit_on():
+    from ceph_tpu_torch.common.config import global_config
+
+    cfg = global_config()
+    prev = cfg.get("debug_fsync_audit")
+    cfg.set("debug_fsync_audit", True)
+    yield
+    cfg.set("debug_fsync_audit", prev)
+
+
+def test_save_under_fsync_audit_audits_and_passes(tmp_path, fsync_audit_on, monkeypatch):
+    """``debug_fsync_audit`` runs the save under ``FsyncAudit`` and
+    verifies the commit chain (the reference's ``save``), no longer
+    raising; the audit saw the data fsync before each rename and the
+    directory fsync after it."""
+    from ceph_tpu_torch.analysis import runtime_guard
+
+    audits = []
+    real = runtime_guard.FsyncAudit
+
+    class Recorded(real):
+        def verify(self):
+            audits.append([k for k, _ in self.events])
+            return super().verify()
+
+    monkeypatch.setattr(runtime_guard, "FsyncAudit", Recorded)
+    d, _ref, _fin = _story("flap")
+    store = CheckpointStore(str(tmp_path), device="cpu")
+    path = store.save(d._init_state, meta={"next_epoch": 1},
+                      series={"now": np.arange(2, dtype=np.float32)})
+    assert path.endswith(".bin") and len(audits) == 1
+    kinds = audits[0]
+    assert kinds.index("fsync") < kinds.index("replace") < kinds.index("fsync_dir")
+    meta, state = store.load_latest(d._init_state)
+    assert meta["next_epoch"] == 1 and diff_states(state, d._init_state) == []
+
+
+def test_save_without_directory_fsync_fails_the_audit(tmp_path, fsync_audit_on, monkeypatch):
+    from ceph_tpu_torch.analysis.runtime_guard import FsyncAuditError
+    from ceph_tpu_torch.recovery import checkpoint
+
+    monkeypatch.setattr(checkpoint, "_fsync_dir", lambda path: None)
+    d, _ref, _fin = _story("flap")
+    with pytest.raises(FsyncAuditError, match="no later directory fsync"):
+        CheckpointStore(str(tmp_path), device="cpu").save(d._init_state, meta={})

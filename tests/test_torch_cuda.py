@@ -725,3 +725,30 @@ def test_stripe_absorb_kernel_matches_plain_version(card, edge):
     for g, p in zip(committed["kernel"], committed["plain"]):
         assert torch.equal(g, p)
     assert int(committed["kernel"][2]) == int(want[5])
+
+
+def test_transfer_counter_counts_sync_warnings_on_the_card(card):
+    """On the card the seam reads and the sync-debug warnings are both
+    counted, and the sync-debug mode is put back."""
+    from ceph_tpu_torch.analysis.runtime_guard import TransferCounter
+
+    t = torch.arange(1024, device=card)
+    with TransferCounter(sync_debug=True) as tc:
+        t.sum().item()
+        t.cpu()
+    assert tc.host_transfers == 2 and tc.sync_warnings >= 2
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_launch_counter_sees_every_call_launch_on_the_card(card):
+    """Each wrapper call on a CUDA tensor launches its kernel: the
+    ``LAUNCHES`` delta equals the ``CALLS`` delta."""
+    from ceph_tpu_torch.analysis.runtime_guard import LaunchCounter
+    from ceph_tpu_torch.ec import gf_kernels
+    from ceph_tpu_torch.recovery import scrub
+
+    with LaunchCounter(check_launches=True) as lc:
+        scrub.crc_rows(torch.zeros((4, 64), dtype=torch.uint8, device=card))
+        gf_kernels.byte_lut(torch.zeros(64, dtype=torch.uint8, device=card),
+                            torch.arange(256, device=card).to(torch.uint8))
+    assert lc.calls == lc.launches == {"crc32c_rows": 1, "byte_lut": 1}

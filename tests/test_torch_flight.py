@@ -38,7 +38,7 @@ from ceph_tpu_torch import convert
 from ceph_tpu_torch import recovery as rec
 from ceph_tpu_torch.cli import status as status_cli
 from ceph_tpu_torch.common.config import Config
-from ceph_tpu_torch.common.rank_guard import RankStalledError
+from ceph_tpu_torch.analysis.runtime_guard import RankStalledError
 from ceph_tpu_torch.ec.online import WP_LANES
 from ceph_tpu_torch.obs import traceexport
 from ceph_tpu_torch.obs.flight import (

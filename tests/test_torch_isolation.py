@@ -210,16 +210,18 @@ def test_placement_entry_points_default_to_the_card():
 
 
 def test_scan_covers_fleets_durability_and_reconcile():
-    """The fleet, durability and reconcile modules, the rank guard and the
-    status CLI's panels are in both scans, and their entry points run on
-    the card unless asked for the CPU."""
+    """The fleet, durability and reconcile modules, the rank guard (in the
+    runtime guard since the tooling slice) and the status CLI's panels
+    are in both scans, and their entry points run on the card unless
+    asked for the CPU."""
     rel = {os.path.relpath(p, PKG) for p in _sources()}
     for mod in ("recovery/fleet.py", "recovery/durability.py", "recovery/reconcile.py",
-                "common/rank_guard.py", "cli/status.py"):
+                "analysis/runtime_guard.py", "cli/status.py"):
         assert mod in rel
+    assert "common/rank_guard.py" not in rel
     mods = {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")}
     assert {"ceph_tpu_torch.recovery.fleet", "ceph_tpu_torch.recovery.durability",
-            "ceph_tpu_torch.recovery.reconcile", "ceph_tpu_torch.common.rank_guard"} <= mods
+            "ceph_tpu_torch.recovery.reconcile", "ceph_tpu_torch.analysis.runtime_guard"} <= mods
     from ceph_tpu_torch.models.clusters import build_osdmap as port_build_osdmap
     from ceph_tpu_torch.recovery import (
         ChaosTimeline,
@@ -297,3 +299,30 @@ def test_scan_covers_the_mesh_modules():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh()
+
+
+def test_scan_covers_the_tooling():
+    """The tooling (``analysis/``, ``cli/lint.py``, ``common/compile_cache.py``,
+    ``testing/nonregression.py``) is in both scans, and importing it in a
+    fresh interpreter loads neither jax nor the reference package."""
+    rel = {os.path.relpath(p, PKG) for p in _sources()}
+    tooling = ("analysis/__init__.py", "analysis/findings.py", "analysis/runner.py",
+               "analysis/checkers.py", "analysis/runtime_guard.py", "cli/lint.py",
+               "common/compile_cache.py", "testing/nonregression.py")
+    for mod in tooling:
+        assert mod in rel
+    assert "common/hermetic.py" not in rel  # not ported on purpose
+    names = ["ceph_tpu_torch." + m[:-3].replace("/", ".").removesuffix(".__init__")
+             for m in tooling]
+    assert set(names) <= {m.name for m in pkgutil.walk_packages([PKG], "ceph_tpu_torch.")} | {
+        "ceph_tpu_torch.analysis"}
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {names!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(k for k in sys.modules "
+        "if k.split('.')[0] in ('jax', 'jaxlib', 'ceph_tpu'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -49,7 +49,7 @@ from ceph_tpu.recovery.failure import (
 )
 from ceph_tpu.recovery.liveness import ClusterFlags as RefFlags
 from ceph_tpu_torch import convert
-from ceph_tpu_torch.common import rank_guard
+from ceph_tpu_torch.analysis import runtime_guard as rank_guard
 from ceph_tpu_torch.common.config import Config
 from ceph_tpu_torch.core.cluster_state import ClusterState
 from ceph_tpu_torch.obs import EventJournal, HealthTimeline, SLOSpec, evaluate

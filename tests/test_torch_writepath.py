@@ -429,3 +429,31 @@ def test_stripe_absorb_checks_its_lanes():
                              *lanes, K, W)
     with pytest.raises(ValueError, match="power of two"):
         online.empty_stripe_buffer(6, 2, 4, 2, 1, device="cpu")
+
+
+# ---- debug_bucket_checks ----------------------------------------------
+
+
+def test_writepath_batch_bucket_checked_under_debug_bucket_checks(monkeypatch):
+    """``debug_bucket_checks`` makes ``WritepathDriver`` assert its batch
+    bucket is a power of two (the reference's seam), and a broken bucket
+    helper raises there."""
+    from ceph_tpu_torch.analysis.runtime_guard import UnbucketedShapeError
+    from ceph_tpu_torch.common.config import global_config
+    from ceph_tpu_torch.workload import writepath
+
+    m = convert.osdmap_from_reference(
+        ref_build_osdmap(32, pg_num=16, size=6, pool_kind="erasure").encode())
+    d = rec.EpochDriver(m, rec.ChaosTimeline(), n_ops=64, device="cpu")
+    cfg = global_config()
+    prev = cfg.get("debug_bucket_checks")
+    cfg.set("debug_bucket_checks", True)
+    try:
+        for cap in (1, 5, 8, 13):
+            assert WritepathDriver(d, n_sets=8, ways=2, max_writes=cap).batch_size in (1, 8, 16)
+        monkeypatch.setattr(writepath, "_pow2_bucket", lambda n: n)
+        with pytest.raises(UnbucketedShapeError, match="writepath batch bucket"):
+            WritepathDriver(d, n_sets=8, ways=2, max_writes=13)
+    finally:
+        cfg.set("debug_bucket_checks", prev)
+    WritepathDriver(d, n_sets=8, ways=2, max_writes=13)  # the knob off: no check
