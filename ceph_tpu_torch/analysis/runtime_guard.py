@@ -6,15 +6,23 @@ The counterpart of the reference package's ``analysis/runtime_guard.py``.
 The port traces nothing, so its three counts are:
 
 - :class:`CompileCounter`: ``nvcc`` builds of a ``csrc/*.cu`` library in
-  scope (``backend_compiles``) and libraries found in the build cache
-  (``cache_hits``), from ``_cuda.build``'s listeners.  ``n_compiles`` is
+  scope (``backend_compiles``), libraries found in the build cache
+  (``cache_hits``), from ``_cuda.build``'s listeners, and CUDA graph
+  captures (``captures``, from :func:`note_capture`).  ``n_compiles`` is
   their sum, as in the reference: a cache hit still means a library was
-  asked for.
+  asked for, and a capture is the port's compile of a program.
 - :class:`LaunchCounter`: calls of the hand-written kernels' wrappers by
   kernel name, from each kernel module's ``CALLS`` (ticked on entry to
-  the wrapper, before the device branch, so a CPU run counts them too).
-  On the card it also asserts that every call launched its kernel: the
-  ``LAUNCHES`` delta equals the ``CALLS`` delta.
+  the wrapper, before the device branch, so a CPU run counts them too),
+  and the kernel launches that ran, from ``LAUNCHES``: those a wrapper
+  made and those CUDA graph replays ran.  A call captured into a graph
+  runs nothing then: it ticks ``CALLS`` only (``captured``).  Each
+  replay adds the launches it ran to ``LAUNCHES`` and to the module's
+  ``REPLAYS`` (``replays``; :func:`note_replay`, and for the launches in
+  the graph's WHILE bodies, :func:`ceph_tpu_torch.core.graphs.collect`,
+  which :func:`kernel_counts` runs before it reads).  On the card it
+  also asserts that every call outside a capture launched its kernel:
+  ``launches - replays`` equals ``calls - captured``.
 - :class:`TransferCounter`: device->host reads at the seams the port
   uses (``Tensor.item``/``.tolist``/``.cpu``/``.numpy``, ``__bool__``,
   ``__int__``, ``__float__``, ``__index__``, ``__array__`` and
@@ -25,7 +33,8 @@ The port traces nothing, so its three counts are:
   (:func:`plain_stand_in`), whose reads the card's kernel does not make.
   So the count is the same on the CPU as on the card.  On the card it
   also counts the warnings of ``torch.cuda.set_sync_debug_mode("warn")``
-  (``sync_warnings``).
+  (``sync_warnings``).  :func:`forbid_host_reads` turns the same seams
+  into errors for CUDA tensors (a graph capture's scope).
 
 :func:`track` composes them::
 
@@ -53,17 +62,33 @@ import numpy as np
 # ---------------------------------------------------------------- builds
 
 
+#: ``callable(captured)`` for every CUDA graph capture
+#: (:func:`note_capture`): :class:`CompileCounter` and
+#: :class:`LaunchCounter` register here
+CAPTURE_LISTENERS: list = []
+
+
+def note_capture(captured: dict | None = None) -> None:
+    """Tell the listeners that a CUDA graph was captured
+    (:func:`ceph_tpu_torch.core.graphs.capture`), with the wrapper calls
+    it recorded by kernel (``captured``)."""
+    for fn in list(CAPTURE_LISTENERS):
+        fn(dict(captured or {}))
+
+
 class CompileCounter:
-    """Counts kernel-library builds (and build-cache hits) in scope."""
+    """Counts kernel-library builds, build-cache hits and CUDA graph
+    captures in scope."""
 
     def __init__(self) -> None:
         self.backend_compiles = 0
         self.cache_hits = 0
+        self.captures = 0
         self._registered = False
 
     @property
     def n_compiles(self) -> int:
-        return self.backend_compiles + self.cache_hits
+        return self.backend_compiles + self.cache_hits + self.captures
 
     def _on_build(self, name: str, event: str) -> None:
         if event == "compile":
@@ -71,10 +96,14 @@ class CompileCounter:
         else:
             self.cache_hits += 1
 
+    def _on_capture(self, _captured: dict) -> None:
+        self.captures += 1
+
     def __enter__(self) -> "CompileCounter":
         from .. import _cuda
 
         _cuda.BUILD_LISTENERS.append(self._on_build)
+        CAPTURE_LISTENERS.append(self._on_capture)
         self._registered = True
         return self
 
@@ -84,6 +113,7 @@ class CompileCounter:
         from .. import _cuda
 
         _cuda.BUILD_LISTENERS.remove(self._on_build)
+        CAPTURE_LISTENERS.remove(self._on_capture)
         self._registered = False
 
 
@@ -92,7 +122,8 @@ class CompileCounter:
 
 def kernel_modules() -> tuple:
     """The modules of the hand-written kernels' wrappers, each with its
-    ``CALLS``, ``LAUNCHES`` and ``reset_launches()``."""
+    ``CALLS``, ``LAUNCHES`` and ``reset_launches()`` (and ``REPLAYS``
+    where a graph replays its kernels)."""
     from ..core import straw2
     from ..ec import gf_kernels, kernels, online
     from ..recovery import scrub
@@ -101,41 +132,82 @@ def kernel_modules() -> tuple:
 
 
 def kernel_counts(which: str = "CALLS") -> dict[str, int]:
-    """Every kernel module's ``CALLS`` (or ``LAUNCHES``), merged."""
+    """Every kernel module's ``CALLS`` (or ``LAUNCHES``, or ``REPLAYS``
+    where a module's kernels are replayed in graphs), merged.  Before it
+    reads ``LAUNCHES`` or ``REPLAYS`` it counts the launches of graph
+    bodies replayed since (:func:`ceph_tpu_torch.core.graphs.collect`:
+    one read of the card, when such a graph was replayed)."""
+    if which != "CALLS":
+        from ..core import graphs
+
+        graphs.collect()
     out: dict[str, int] = {}
     for mod in kernel_modules():
-        out.update(getattr(mod, which))
+        out.update(getattr(mod, which, {}))
     return out
 
 
+def note_replay(launched: dict) -> None:
+    """Count kernel launches that graph replays ran (kernel -> launches)
+    in their modules' ``LAUNCHES`` and ``REPLAYS``."""
+    for mod in kernel_modules():
+        replays = getattr(mod, "REPLAYS", None)
+        if replays is None:
+            continue
+        for k in replays:
+            replays[k] += launched.get(k, 0)
+            mod.LAUNCHES[k] += launched.get(k, 0)
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 class LaunchCounter:
-    """Kernel-wrapper calls by kernel name in scope (``calls``), and the
-    kernel launches among them (``launches``: 0 on the CPU, where each
-    wrapper runs its plain version).  ``check_launches=True`` raises on
-    exit when some call on the card did not launch its kernel (the
-    ``LAUNCHES`` delta differs from the ``CALLS`` delta); pass it only
-    where every tensor is on the card."""
+    """Kernel-wrapper calls by kernel name in scope (``calls``), those
+    among them captured into CUDA graphs (``captured``), the kernel
+    launches that ran (``launches``: 0 on the CPU, where each wrapper
+    runs its plain version), and those among them that graph replays ran
+    (``replays``).  ``check_launches=True`` raises on exit when some call
+    on the card outside a capture did not launch its kernel
+    (``launches - replays`` differs from ``calls - captured``); pass it
+    only where every tensor is on the card."""
 
     def __init__(self, check_launches: bool = False) -> None:
         self.check_launches = check_launches
         self.calls: dict[str, int] = {}
         self.launches: dict[str, int] = {}
+        self.replays: dict[str, int] = {}
+        self.captured: dict[str, int] = {}
         self._c0: dict[str, int] | None = None
         self._l0: dict[str, int] | None = None
+        self._r0: dict[str, int] | None = None
 
     def __enter__(self) -> "LaunchCounter":
         self._c0 = kernel_counts("CALLS")
         self._l0 = kernel_counts("LAUNCHES")
+        self._r0 = kernel_counts("REPLAYS")
+        CAPTURE_LISTENERS.append(self._on_capture)
         return self
 
+    def _on_capture(self, captured: dict) -> None:
+        for k, v in captured.items():
+            self.captured[k] = self.captured.get(k, 0) + v
+
     def __exit__(self, exc_type, exc, tb) -> None:
+        CAPTURE_LISTENERS.remove(self._on_capture)
         c1, l1 = kernel_counts("CALLS"), kernel_counts("LAUNCHES")
+        r1 = kernel_counts("REPLAYS")
         self.calls = {k: c1[k] - self._c0[k] for k in c1 if c1[k] != self._c0[k]}
         self.launches = {k: l1[k] - self._l0[k] for k in l1 if l1[k] != self._l0[k]}
-        if exc_type is None and self.check_launches and self.launches != self.calls:
+        self.replays = {k: r1[k] - self._r0[k] for k in r1 if r1[k] != self._r0[k]}
+        issued = _nonzero({k: v - self.captured.get(k, 0) for k, v in self.calls.items()})
+        eager = _nonzero({k: v - self.replays.get(k, 0) for k, v in self.launches.items()})
+        if exc_type is None and self.check_launches and eager != issued:
             raise AssertionError(
-                f"kernel calls that did not launch their kernel: calls {self.calls}, "
-                f"launches {self.launches}")
+                f"kernel calls that did not launch their kernel: calls {self.calls} "
+                f"({self.captured} captured), launches {self.launches} "
+                f"({self.replays} by graph replays)")
 
 
 # ---------------------------------------------------------------- host reads
@@ -146,6 +218,26 @@ TENSOR_SEAMS = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__", "__floa
 
 # depth of seams and plain stand-ins in progress: a seam counts only at 0
 _DEPTH = [0]
+
+
+def _patch_seams(wrap) -> list:
+    """Replace every seam by ``wrap(name, original)`` (on ``torch.Tensor``
+    and ``torch.nonzero``); returns the undo callables, to run last
+    first."""
+    import torch
+
+    cls = torch.Tensor
+    undo = []
+    for name in TENSOR_SEAMS:
+        own = name in cls.__dict__
+        orig = getattr(cls, name)
+        setattr(cls, name, wrap(name, orig))
+        undo.append((lambda n=name, o=orig: setattr(cls, n, o)) if own
+                    else (lambda n=name: delattr(cls, n)))
+    orig_nz = torch.nonzero
+    torch.nonzero = wrap("torch.nonzero", orig_nz)
+    undo.append(lambda: setattr(torch, "nonzero", orig_nz))
+    return undo
 
 
 @contextlib.contextmanager
@@ -191,17 +283,7 @@ class TransferCounter:
     def __enter__(self) -> "TransferCounter":
         import torch
 
-        cls = torch.Tensor
-        for name in TENSOR_SEAMS:
-            own = name in cls.__dict__
-            orig = getattr(cls, name)
-            setattr(cls, name, self._wrap(name, orig))
-            self._undo.append(
-                (lambda n=name, o=orig: setattr(cls, n, o)) if own
-                else (lambda n=name: delattr(cls, n)))
-        orig_nz = torch.nonzero
-        torch.nonzero = self._wrap("torch.nonzero", orig_nz)
-        self._undo.append(lambda: setattr(torch, "nonzero", orig_nz))
+        self._undo.extend(_patch_seams(self._wrap))
         if self.sync_debug:
             import warnings
 
@@ -220,6 +302,48 @@ class TransferCounter:
             self.sync_warnings = sum(1 for w in self._seen if "synchroniz" in str(w.message))
             self._warn_cm.__exit__(*exc)
             self._warn_cm = None
+
+
+@contextlib.contextmanager
+def guard_read():
+    """Scope of the guard's own reads of the card (a graph's pass
+    counters, :func:`ceph_tpu_torch.core.graphs.collect`): a
+    :class:`TransferCounter` does not count them, and they raise no
+    sync-debug warning, since the program did not make them."""
+    import torch
+
+    _DEPTH[0] += 1
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        _DEPTH[0] -= 1
+
+
+@contextlib.contextmanager
+def forbid_host_reads(what: str):
+    """Scope in which a host read of a CUDA tensor at a seam raises
+    :class:`~ceph_tpu_torch.core.graphs.HostReadInCapture` (CPU tensors
+    read as usual)."""
+    import torch
+
+    from ..core.graphs import HostReadInCapture
+
+    def guard(name, orig):
+        def wrapped(t, *a, **kw):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                raise HostReadInCapture(f"{name} reads a CUDA tensor to the host inside {what}")
+            return orig(t, *a, **kw)
+        return wrapped
+
+    undo = _patch_seams(guard)
+    try:
+        yield
+    finally:
+        while undo:
+            undo.pop()()
 
 
 @dataclass
@@ -241,6 +365,7 @@ class GuardStats:
     @property
     def cache_hits(self) -> int:
         return self.compile_counter.cache_hits
+
 
     @property
     def host_transfers(self) -> int:
@@ -274,20 +399,22 @@ def track(transfers: bool = True, sync_debug: bool = False, check_launches: bool
 
 @contextlib.contextmanager
 def assert_no_recompile(what: str = "steady state"):
-    """Raise if any kernel library is built or looked up in the scope."""
+    """Raise if any kernel library is built or looked up, or any CUDA
+    graph captured, in the scope."""
     with CompileCounter() as cc:
         yield cc
     if cc.n_compiles:
         raise AssertionError(
             f"{what}: expected zero recompiles, observed "
             f"{cc.backend_compiles} backend compile(s) + "
-            f"{cc.cache_hits} cache hit(s)"
+            f"{cc.cache_hits} cache hit(s) + {cc.captures} graph capture(s)"
         )
 
 
 class CompileBudget:
     """Context manager failing the scope when more than ``budget``
-    kernel libraries are built (or looked up in the build cache) in it.
+    kernel libraries are built (or looked up in the build cache), or CUDA
+    graphs captured, in it.
 
     ::
 
@@ -314,7 +441,8 @@ class CompileBudget:
             raise AssertionError(
                 f"{self.what}: compile budget {self.budget} exceeded — "
                 f"observed {self._cc.backend_compiles} backend "
-                f"compile(s) + {self._cc.cache_hits} cache hit(s)"
+                f"compile(s) + {self._cc.cache_hits} cache hit(s) + "
+                f"{self._cc.captures} graph capture(s)"
             )
 
 

@@ -19,8 +19,8 @@ Commands: ``status`` (default; the ``ceph -s`` shape), ``health``
 (SLO healthchecks), ``timeline`` (the per-epoch PG-state series, with a
 client-io column under ``--traffic``), ``journal`` (correlated
 span/event records; demo mode only unless the daemon registered a
-journal), ``caches`` (the EC schedule cache's hit/miss/eviction
-counters), ``fleet`` (the Monte Carlo durability panel from the latest
+journal), ``caches`` (the fused placement->peering pipeline cache's and
+the EC schedule cache's hit/miss/eviction counters), ``fleet`` (the Monte Carlo durability panel from the latest
 ``fleet_epoch_rate_per_sec`` record — per-scenario survival fraction,
 MTTDL confidence interval, worst-cluster health) and ``ranks`` (the
 divergent-rank panel from the latest
@@ -29,9 +29,10 @@ convergence latency, retries, per-rank final progress).  ``fleet`` and
 ``ranks`` read JSON lines from ``--bench-log`` files (default:
 ``BENCH*.json`` in the working directory; ``chip_smoke.py``'s output
 holds one line of each), never run a demo, and render a record as the
-reference's CLI does.  ``caches`` reports the schedule cache alone: the
-reference package's fused placement->peering pipeline cache is not
-ported, on purpose (ROADMAP §1).
+reference's CLI does.  ``caches`` reports the reference's
+``{"pipeline": ..., "schedule": ...}`` panel
+(:func:`ceph_tpu_torch.recovery.pipeline.dump_placement_caches`; with
+``--socket``, the daemon's ``dump_placement_caches`` hook).
 
 ``checkpoint`` (the durable-snapshot panel from the latest
 ``checkpoint_write_bandwidth_bps`` record: write bandwidth,
@@ -56,23 +57,9 @@ COMMANDS = ("status", "health", "timeline", "journal", "caches",
 
 #: CLI command -> admin-socket prefix (identity unless listed)
 _SOCKET_PREFIX = {
-    "caches": "dump_ec_schedules",
+    "caches": "dump_placement_caches",
     "writepath": "dump_stripe_cache",
 }
-
-
-def schedule_panel(counters: dict) -> dict:
-    """The ``caches`` reply: the EC schedule cache's aggregate counters
-    (``schedule_counters().dump()``) in the reference's ``"schedule"``
-    shape."""
-    sched = counters.get("ec_schedule", {})
-    return {
-        "schedule": {
-            "hits": int(sched.get("schedule_cache_hits", 0)),
-            "misses": int(sched.get("schedules_compiled", 0)),
-            "evictions": int(sched.get("schedule_cache_evictions", 0)),
-        },
-    }
 
 
 def _render(cmd: str, reply: dict, as_json: bool, out) -> None:
@@ -421,7 +408,6 @@ def _demo(args) -> dict:
 
     from ..ec.backend import MatrixCodec
     from ..ec.gf import vandermonde_matrix
-    from ..ec.schedule import schedule_counters
     from ..models.clusters import build_osdmap
     from ..obs import (
         EventJournal,
@@ -574,18 +560,19 @@ def _demo(args) -> dict:
             ),
         }
     liveness_panel = chaos.liveness.summary()
-    # the schedule cache's counters are process-global; this is their
-    # runtime window
-    caches = schedule_panel(schedule_counters().dump())
+    # compiled-program cache counters (the pipeline and schedule caches
+    # are process-global; this is their runtime window)
+    from ..recovery.pipeline import dump_placement_caches
+
     return {
         "status": status_dict(
             timeline, spec, scrub=scrub_panel, liveness=liveness_panel,
-            caches=caches,
+            caches=dump_placement_caches(),
         ),
         "health": evaluate(timeline, spec).to_dict(),
         "timeline": {"series": timeline.to_dicts()},
         "journal": {"records": journal.records},
-        "caches": caches,
+        "caches": dump_placement_caches(),
     }
 
 
@@ -709,8 +696,6 @@ def main(argv=None) -> int:
         if "error" in reply and len(reply) == 1:
             print(f"status: {reply['error']}", file=sys.stderr)
             return 1
-        if args.command == "caches":
-            reply = schedule_panel(reply.get("counters", {}))
         _render(args.command, reply, args.as_json, out)
         return 0
 

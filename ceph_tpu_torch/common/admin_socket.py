@@ -6,10 +6,10 @@ a background thread serves newline-delimited JSON commands
 (``{"prefix": "perf dump"}``) over a unix socket, replying with JSON.
 Custom hooks register like ``AdminSocketHook``s.
 
-Of the reference package's cache dumps ``dump_ec_schedules`` and
-``dump_stripe_cache`` (the online write path's stripe buffers) are
-served; the fused placement pipeline (``dump_placement_caches``) is not
-ported.
+The reference package's cache dumps are served: ``dump_ec_schedules``,
+``dump_placement_caches`` (the fused placement->peering pipeline cache
+and the EC schedule cache's counters) and ``dump_stripe_cache`` (the
+online write path's stripe buffers).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ class AdminSocket:
         self.register("config show", lambda cmd: self.config.show())
         self.register("config set", self._config_set)
         self.register("dump_ec_schedules", self._dump_ec_schedules)
+        self.register("dump_placement_caches", self._dump_placement_caches)
         self.register("dump_stripe_cache", self._dump_stripe_cache)
         self.register("help", lambda cmd: {"commands": sorted(self._hooks)})
 
@@ -50,6 +51,13 @@ class AdminSocket:
         from ..ec.schedule import dump_ec_schedules
 
         return dump_ec_schedules()
+
+    @staticmethod
+    def _dump_placement_caches(cmd: dict) -> dict:
+        # lazy import, same reason as _dump_ec_schedules
+        from ..recovery.pipeline import dump_placement_caches
+
+        return dump_placement_caches()
 
     @staticmethod
     def _dump_stripe_cache(cmd: dict) -> dict:

@@ -6,7 +6,13 @@ from ``csrc/straw2.cu`` (or raises); on a CPU tensor it runs its plain
 PyTorch version, which the CPU tests hold against the reference package
 and ``chip_smoke.py`` holds the kernel against on the card.  Each
 wrapper counts its calls in ``CALLS`` (on entry, on any device) and its
-kernel launches in ``LAUNCHES``.
+kernel launches that ran in ``LAUNCHES``.  A call captured into a CUDA
+graph (:mod:`ceph_tpu_torch.core.graphs`) ticks ``CALLS`` only: it runs
+nothing then.  The launches graph replays run are added to ``LAUNCHES``
+and to ``REPLAYS`` (by the runtime guard).  The
+wrappers are safe to capture once warmed up: they read nothing back,
+allocate through PyTorch, and their one upload (the crush_ln table block,
+:func:`_ln_stacked`) happens on first use, which a capture refuses.
 
 - K1 :func:`negdraw`: the straw2 draw of every slot of gathered bucket
   rows (the ``draw`` mode's hot op).
@@ -40,6 +46,7 @@ MAX_LEVELS = 32  # the descend kernel's level bound (csrc/straw2.cu kMaxLevels)
 
 LAUNCHES = {"negdraw": 0, "level_choose": 0, "descend": 0}
 CALLS = dict.fromkeys(LAUNCHES, 0)
+REPLAYS = dict.fromkeys(LAUNCHES, 0)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -47,11 +54,21 @@ I64 = torch.int64
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = CALLS[k] = 0
+        LAUNCHES[k] = CALLS[k] = REPLAYS[k] = 0
+
+
+def _launched(name: str) -> None:
+    """Count a launch that ran: one captured into a graph runs when the
+    graph replays, and is counted then."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 class DescendTables:
     """Stacked straw2 tables of one descent, on one device."""
+
+    #: the tables' tensors, by attribute (a CUDA graph copies them into its own)
+    TENSORS = ("ids", "weights", "magic", "ctnl", "size", "slots")
 
     def __init__(self, ids, weights, magic, ctnl, size, meta):
         self.ids = ids            # int32 [S]
@@ -166,7 +183,7 @@ def negdraw(x, r, ids, weights, magic) -> torch.Tensor:
     _cuda.launch("straw2", "straw2_negdraw", x.device, _cuda.ptr(x), _cuda.ptr(r), _cuda.ptr(ids),
                  _cuda.ptr(weights), _cuda.ptr(magic), _cuda.ptr(out), B * F, F,
                  _cuda.ptr(_ln_stacked(x.device)))
-    LAUNCHES["negdraw"] += 1
+    _launched("negdraw")
     return out
 
 
@@ -270,9 +287,13 @@ _LN_CACHE: dict = {}
 
 def _ln_stacked(device) -> torch.Tensor:
     """The kernels' crush_ln table block on ``device``: RH/LH[0..257]
-    then LL[0..255], int64 (cached)."""
+    then LL[0..255], int64 (cached; uploaded on first use, which must
+    come before any graph capture: a capture cannot copy from the host)."""
     hit = _LN_CACHE.get(device)
     if hit is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the crush_ln table's first upload inside a graph capture: "
+                               "run the program once before capturing it")
         block = np.concatenate([hashes._RH_LH_NP, hashes._LL_NP])
         hit = _LN_CACHE[device] = torch.from_numpy(block).to(device)
     return hit
@@ -325,7 +346,7 @@ def level_choose(x, r, lidx, tb: DescendTables, lv: int):
     _cuda.launch("straw2", "straw2_level_choose", x.device, _cuda.ptr(x), _cuda.ptr(r),
                  _cuda.ptr(lidx), B, *_tables_args(tb), ctypes.addressof(level),
                  _cuda.ptr(_ln_stacked(x.device)), *(_cuda.ptr(o) for o in outs))
-    LAUNCHES["level_choose"] += 1
+    _launched("level_choose")
     return tuple(outs)
 
 
@@ -408,5 +429,5 @@ def descend_fused(x, r, lidx0, active, tb: DescendTables, target_type: int,
                  tb.n_levels, int(target_type), int(bool(empty_is_hard)), int(max_devices),
                  _cuda.ptr(_ln_stacked(x.device)), _cuda.ptr(item), _cuda.ptr(nlidx),
                  _cuda.ptr(ok), _cuda.ptr(hard))
-    LAUNCHES["descend"] += 1
+    _launched("descend")
     return item, ok, hard, nlidx

@@ -36,7 +36,10 @@ takes the whole batch and walks it in masked steps.
   A round here costs the card many torch ops a level over ``[B, F]``
   rows, so the ladders' rounds after the first run on the unsettled
   lanes only (same results, bit for bit); on the H100 this made the
-  mixed maps' calls of 1M objects ~40% faster (PERF.md).
+  mixed maps' calls of 1M objects ~40% faster (PERF.md).  A run that is
+  being captured into a CUDA graph does not compact, whatever its size
+  (the straggler count is a host read): its rounds are a WHILE node
+  (``interp_batch._run_ladder``).
 
 Scope, as the reference's: single-TAKE rules with one choose step per
 take, taken from a bucket; uniform and straw2 buckets only (list, tree
@@ -54,7 +57,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core import hashes, straw2
+from ..core import graphs, hashes, straw2
 from . import interp_batch
 from .interp_batch import _append_rows, as_i32
 from .map import (
@@ -89,6 +92,9 @@ COMPACT_MIN_BATCH = 1 << 16
 class StaticCrushMap:
     """The dense map's tensors on one device, with its static shape and
     tunables; the straw2 magic reciprocals are computed once here."""
+
+    #: the map's tensors, by attribute (a CUDA graph copies them into its own)
+    TENSORS = ("alg", "btype", "size", "items", "weights", "magic", "uniform")
 
     def __init__(self, dense: DenseCrushMap, device="cuda"):
         self.device = resolve_device(device)
@@ -287,6 +293,11 @@ def _smap_descent(smap: StaticCrushMap, target_type: int, empty_is_hard: bool,
     return run
 
 
+def _compacts(x: torch.Tensor) -> bool:
+    """Whether the ladders over the lanes ``x`` compact their rounds."""
+    return x.shape[0] >= COMPACT_MIN_BATCH and not graphs.capturing(x)
+
+
 def _choose_firstn(smap: StaticCrushMap, osd_weight, x, take_bidx: int, numrep: int,
                    target_type: int, out_size: int, tries: int, recurse_tries: int,
                    recurse_to_leaf: bool, vary_r: int, stable: int):
@@ -303,7 +314,7 @@ def _choose_firstn(smap: StaticCrushMap, osd_weight, x, take_bidx: int, numrep: 
     every = torch.ones(B, dtype=torch.bool, device=x.device)
     return interp_batch._choose_firstn_batch(top, leaf, osd_weight, x, start, every, numrep,
                                              target_type, out_size, tries, recurse_tries,
-                                             vary_r, stable, B >= COMPACT_MIN_BATCH)
+                                             vary_r, stable, _compacts(x))
 
 
 def _choose_indep(smap: StaticCrushMap, osd_weight, x, take_bidx: int, out_size: int, numrep: int,
@@ -319,8 +330,7 @@ def _choose_indep(smap: StaticCrushMap, osd_weight, x, take_bidx: int, out_size:
     start = torch.full((B,), take_bidx, dtype=I64, device=x.device)
     every = torch.ones(B, dtype=torch.bool, device=x.device)
     return interp_batch._choose_indep_batch(top, leaf, osd_weight, x, start, every, out_size,
-                                            target_type, tries, recurse_tries,
-                                            B >= COMPACT_MIN_BATCH)
+                                            target_type, tries, recurse_tries, _compacts(x))
 
 
 _CHOOSE_OPS = (OP_CHOOSE_FIRSTN, OP_CHOOSE_INDEP, OP_CHOOSELEAF_FIRSTN, OP_CHOOSELEAF_INDEP)
@@ -435,6 +445,22 @@ def dense_signature(dense: DenseCrushMap) -> tuple:
     arguments, not constants)."""
     return (dense.n_buckets, dense.max_fanout, dense.max_devices, max(dense.max_depth, 1),
             dense.tunables, tuple(sorted(dense.algs_present())))
+
+
+def program_constants(smap: StaticCrushMap, rule: Rule) -> tuple:
+    """What :func:`compile_rule`'s program takes from ``smap``'s host
+    arrays beyond :func:`dense_signature`: the permutation's width and,
+    for each choose step, its descents' level bounds.  A captured
+    program bakes them in (``recovery/pipeline.py`` keys on them)."""
+    out: list = [smap.perm_width]
+    take: int | None = None
+    for s in rule.steps:
+        if s.op == OP_TAKE:
+            take = s.arg1
+        elif s.op in _CHOOSE_OPS and take is not None and take < 0:
+            out.append((int(smap.levels(s.arg2)[-1 - take]), smap.leaf_levels(s.arg2)))
+            take = None
+    return tuple(out)
 
 
 def smap_signature(smap: StaticCrushMap) -> tuple:

@@ -23,8 +23,18 @@ crush_choose_indep``), lane for lane, restructured batch-first:
   re-descends the batch with per-lane r.  The ladders take the descent
   as a function, so the general engine (``interp.py``) runs the same
   ones over its own descent.  This engine runs every round masked over
-  the whole batch; each loop test after the first round is one
-  ``.any()`` on the device, one host sync (counted in ``HOST_SYNCS``).
+  the whole batch, through :func:`_run_ladder`, which decides whether a
+  round after the first runs: eagerly, by one ``.any()`` read on the
+  host, one sync (counted in ``HOST_SYNCS``), and the loop ends when no
+  lane is left; while a CUDA graph is captured on the lanes' device, on
+  the card: the rounds after the first are the body of a WHILE node
+  whose condition (a lane retries, rounds are left) is computed on the
+  device, with the round number a device counter, so a replay stops at
+  the first round no lane needs and reads nothing
+  (:mod:`ceph_tpu_torch.core.graphs`).  A round no lane needs changes
+  nothing, so the two give the same results bit for bit (and so does a
+  ladder that runs out every round).  A round updates the ladder's
+  state in place, as a graph needs.
 - **Compacted-straggler retry** (the ladders' ``compact``, which the
   general engine sets for large batches): round 1 runs on the whole
   batch and every later round only on the lanes still unsettled.  One
@@ -36,7 +46,8 @@ crush_choose_indep``), lane for lane, restructured batch-first:
   with a filler index is a static-shape workaround, not carried over.)
   This engine does not compact: its round is one K3 launch, the call is
   host-bound, and on the H100 the gathers and scatters cost the host
-  more than the card saves (PERF.md).
+  more than the card saves (PERF.md).  No ladder compacts under a
+  capture (the straggler count is a host read).
 - **General rule programs.**  Multi-TAKE chains and chained choose
   steps run natively: each choose consumes the working vector entry by
   entry.  Working-vector bucket ids are translated to the next pack's
@@ -55,7 +66,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import hashes, straw2
+from ..core import graphs, hashes, straw2
 from .map import (
     ALG_STRAW2,
     ITEM_NONE,
@@ -111,8 +122,14 @@ def rule_signature(rule: Rule) -> tuple:
     return tuple((s.op, s.arg1, s.arg2) for s in rule.steps)
 
 
+def _no_read_in_capture(t: torch.Tensor, what: str) -> None:
+    if graphs.capturing(t):
+        raise graphs.HostReadInCapture(f"{what} inside a CUDA graph capture")
+
+
 def _any(t: torch.Tensor) -> bool:
     global HOST_SYNCS
+    _no_read_in_capture(t, "the retry ladder's read")
     HOST_SYNCS += 1
     return bool(t.any())
 
@@ -121,9 +138,34 @@ def _stragglers(mask: torch.Tensor) -> torch.Tensor | None:
     """Indices (int64) of the lanes in ``mask``, or None when there are
     none: one host sync."""
     global HOST_SYNCS
+    _no_read_in_capture(mask, "the compacted ladder's straggler read")
     HOST_SYNCS += 1
     idx = torch.nonzero(mask).squeeze(1)
     return idx if idx.numel() else None
+
+
+def _run_ladder(like: torch.Tensor, tries: int, pending, round_) -> None:
+    """Run ``round_(ft)`` for retry rounds ``ft = 0, 1, ... < tries``: the
+    first always, each later one while ``pending()`` (the [B] mask of
+    lanes that still retry) holds a lane -- eagerly one host read a round;
+    under a capture a WHILE node over a device round counter (``ft`` a
+    0-dim int32 tensor there).  ``round_`` updates the ladder's state in
+    place."""
+    if tries <= 0:
+        return
+    if graphs.capturing(like):
+        round_(0)
+        if tries > 1:
+            ft = torch.ones((), dtype=I32, device=like.device)
+            with graphs.while_node(lambda: pending().any() & (ft < tries)):
+                round_(ft)
+                ft.add_(1)
+        return
+    for ft in range(tries):
+        # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
+        if ft and not _any(pending()):
+            break
+        round_(ft)
 
 
 def check_mode(mode: str | None) -> str:
@@ -339,17 +381,17 @@ def _leaf_firstn(leaf, osd_weight, x, start, has_bucket, base, recurse_tries: in
     settled = torch.zeros_like(has_bucket)
     leaf_ok = torch.zeros_like(has_bucket)
     found = torch.full_like(x, ITEM_NONE)
-    for ft in range(recurse_tries):
-        # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
-        if ft and not _any(has_bucket & ~settled):
-            break
+
+    def round_(ft):
         active = has_bucket & ~settled
         it, ok, hard, _, _ = leaf(x, start, base, ft, active)
         rejected = ok & (_collides(out2, outpos, it) | _is_out(osd_weight, it, x))
         good = active & ok & ~rejected
-        settled = settled | good | (active & hard)
-        leaf_ok = leaf_ok | good
-        found = torch.where(good, it, found)
+        settled.bitwise_or_(good | (active & hard))
+        leaf_ok.bitwise_or_(good)
+        torch.where(good, it, found, out=found)
+
+    _run_ladder(x, recurse_tries, lambda: has_bucket & ~settled, round_)
     return found, leaf_ok
 
 
@@ -426,17 +468,17 @@ def _choose_firstn_batch(top, leaf, osd_weight, x, start, start_active,
             item_acc = _full(B, ITEM_NONE, dev)
             leaf_acc = _full(B, ITEM_NONE, dev)
             placed = torch.zeros_like(settled)
-            for ft in range(tries):
-                # the retry ladder's one read a round: whether a lane retries
-                # torchlint: disable=J003
-                if ft and not _any(start_active & ~settled):
-                    break
-                active = start_active & ~settled
-                good, stop, item, found = one_round(None, rep, ft, active)
-                settled = settled | good | stop
-                item_acc = torch.where(good, item, item_acc)
-                leaf_acc = torch.where(good, found, leaf_acc)
-                placed = placed | good
+
+            def round_(ft):
+                good, stop, item, found = one_round(None, rep, ft, start_active & ~settled)
+                settled.bitwise_or_(good | stop)
+                torch.where(good, item, item_acc, out=item_acc)
+                torch.where(good, found, leaf_acc, out=leaf_acc)
+                placed.bitwise_or_(good)
+
+            # the retry ladder's one read a round: whether a lane retries
+            # torchlint: disable=J003
+            _run_ladder(x, tries, lambda: start_active & ~settled, round_)
 
         place = (placed & (outpos < cap))[:, None] & (col_ids == outpos[:, None])
         out = torch.where(place, item_acc[:, None], out)
@@ -454,16 +496,16 @@ def _leaf_indep(leaf, osd_weight, x, start, has_bucket, base, recurse_tries: int
     settled = torch.zeros_like(has_bucket)
     got = torch.zeros_like(has_bucket)
     found = torch.full_like(x, ITEM_NONE)
-    for ft in range(recurse_tries):
-        # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
-        if ft and not _any(has_bucket & ~settled):
-            break
+
+    def round_(ft):
         active = has_bucket & ~settled
         it, ok, hard, _, _ = leaf(x, start, base, ft, active)
         newly = active & ok & ~_is_out(osd_weight, it, x)
-        settled = settled | newly | (active & hard)
-        got = got | newly
-        found = torch.where(newly, it, found)
+        settled.bitwise_or_(newly | (active & hard))
+        got.bitwise_or_(newly)
+        torch.where(newly, it, found, out=found)
+
+    _run_ladder(x, recurse_tries, lambda: has_bucket & ~settled, round_)
     return torch.where(got, found, ITEM_NONE), got
 
 
@@ -531,11 +573,8 @@ def _choose_indep_batch(top, leaf, osd_weight, x, start, start_active,
             out2[idx] = out2_v
             ftl[idx] = ftl_v + 1
     else:
-        for ft in range(tries):
-            # torchlint: disable=J003  # the retry ladder's one read a round: whether a lane retries
-            if ft and not _any(out == ITEM_UNDEF):
-                break
-            one_round(None, ft, start_active, out, out2)
+        _run_ladder(x, tries, lambda: out == ITEM_UNDEF,
+                    lambda ft: one_round(None, ft, start_active, out, out2))
     out = torch.where(out == ITEM_UNDEF, ITEM_NONE, out)
     out2 = torch.where(out2 == ITEM_UNDEF, ITEM_NONE, out2)
     return out, out2
@@ -674,6 +713,11 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
         elif p["op"] == "emit":
             width = None
 
+    # the chained choose's root ids, uploaded here (a run may be captured)
+    for p in plans:
+        if p.get("root_ids") is not None:
+            p["rid"] = torch.tensor(p["root_ids"], dtype=I32, device=device)
+
     pack_args = tuple(
         (p["pack"], p["leaf_pack"])
         for p in plans
@@ -714,7 +758,7 @@ def compile_rule_batch(dense: DenseCrushMap, rule: Rule, result_max: int,
                     if w_vals is None:
                         continue
                     entries = w_vals.shape[1]
-                    rid = torch.tensor(p["root_ids"], dtype=I32, device=dev)
+                    rid = p["rid"]
                     local = torch.arange(len(p["root_ids"]), dtype=I32, device=dev)
                     ent_lidx, ent_active = [], []
                     for e in range(entries):

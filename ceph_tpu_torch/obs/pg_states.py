@@ -115,6 +115,12 @@ def pg_state_step(mask, n_alive, flags, k: int, size: int):
     return pg_state_reduce(mask, n_alive, flags, k, size)
 
 
+def _count(codes: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each value in ``[0, n)`` among ``codes`` (int64)."""
+    return torch.zeros(n, dtype=I64, device=codes.device).scatter_add_(
+        0, codes, torch.ones_like(codes))
+
+
 def pg_state_reduce(mask, n_alive, flags, k: int, size: int, in_range=None):
     """:func:`pg_state_step` over the rows where ``in_range`` ([pg] bool;
     None: every row), the reference's ``_reduce``: rows outside it (a
@@ -131,12 +137,14 @@ def pg_state_reduce(mask, n_alive, flags, k: int, size: int, in_range=None):
         codes = torch.where(in_range, codes, N_STATES)
         degraded = torch.where(in_range, degraded, 0)
         misplaced = misplaced & in_range
+    # scatter_add, not bincount: bincount reads its input's maximum back
+    # to the host on the card, which a graph capture cannot hold
     if codes.dim() == 1:
-        hist = torch.bincount(codes, minlength=N_STATES + 1)[:N_STATES].to(I32)
+        hist = _count(codes, N_STATES + 1)[:N_STATES].to(I32)
     else:
         lanes = codes.shape[0]
         offs = torch.arange(lanes, dtype=I64, device=codes.device)[:, None] * (N_STATES + 1)
-        hist = torch.bincount((codes + offs).reshape(-1), minlength=lanes * (N_STATES + 1))
+        hist = _count((codes + offs).reshape(-1), lanes * (N_STATES + 1))
         hist = hist.view(lanes, N_STATES + 1)[:, :N_STATES].to(I32)
     return hist, torch.stack([degraded.sum(-1), misplaced.sum(-1)], dim=-1).to(I32)
 

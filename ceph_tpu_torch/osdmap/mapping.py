@@ -18,8 +18,8 @@ import torch
 
 from .. import resolve_device
 from ..core.hashes import ceph_stable_mod, crush_hash32_2
-from ..crush.engine import make_batch_runner
-from ..crush.interp_batch import as_i32
+from ..crush.engine import make_batch_runner, runner_signature
+from ..crush.interp_batch import as_i32, check_mode
 from ..crush.map import ITEM_NONE
 from .map import (
     DEFAULT_PRIMARY_AFFINITY,
@@ -141,6 +141,24 @@ def _compact_left(rows: torch.Tensor, valid: torch.Tensor):
     count = valid.sum(dim=1)
     slot = torch.arange(rows.shape[1], device=rows.device)[None, :]
     return torch.where(slot < count[:, None], shifted, ITEM_NONE), count
+
+
+def pool_program_key(dense, pool: Pool, rule, mode: str | None = None) -> tuple:
+    """Hashable static signature of one pool's mapping program: the
+    CRUSH runner signature plus every pool constant baked into the
+    program, and the straw2 kernel ``mode`` (it picks the kernel).  The
+    fused placement->peering pipeline's cache key
+    (:mod:`ceph_tpu_torch.recovery.pipeline`): incremental map epochs
+    that change only state tensors share one entry."""
+    return (
+        runner_signature(dense, rule, pool.size, mode),
+        pool.id,
+        pool.size,
+        pool.pgp_num,
+        pool.hashpspool,
+        pool.can_shift_osds(),
+        check_mode(mode),
+    )
 
 
 def make_seeds(pool: Pool):

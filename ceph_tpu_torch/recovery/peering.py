@@ -193,12 +193,21 @@ class PeeringEngine:
     Holds the pool's mapping program; :meth:`run` evaluates it for two
     :class:`PoolMapState` epochs and classifies the diff.  All dynamic
     state is data, so any number of trial epochs (the fault injector's
-    output, balancer what-ifs) reuse the same program.  A pass maps the
-    previous epoch, maps the current one and classifies the diff; it
-    reads nothing back from the device until the result is built.
+    output, balancer what-ifs) reuse the same program.
+
+    By default :meth:`run` is the fused placement->peering program of
+    :mod:`ceph_tpu_torch.recovery.pipeline` (cached per program key): on
+    the card one CUDA graph replay, captured on the key's first call, on
+    the CPU the same program run eagerly.  Maps on the host C++ CRUSH
+    tier, and runs under ``CEPH_TPU_FUSED_PIPELINE=0``, take the staged
+    pass (:meth:`run_staged`: map the previous epoch, map the current
+    one, classify the diff, each retry round a host read); both give the
+    same result bit for bit (``tests/test_torch_pipeline.py``).
     """
 
     def __init__(self, m: OSDMap, pool_id: int, mode: str | None = None, device="cuda"):
+        from . import pipeline
+
         self.osdmap = m
         self.pool = m.pools[pool_id]
         self.device = resolve_device(device)
@@ -208,6 +217,8 @@ class PeeringEngine:
         self._crush_arg, self._fn = compile_pool_mapping(
             dense, self.pool, rule, mode, self.device
         )
+        self._fused_arg, self._fused = pipeline.compile_fused_peering(
+            dense, self.pool, rule, mode=mode, device=self.device)
         self._pgs = torch.arange(self.pool.pg_num, dtype=I64, device=self.device)
 
     def map_epoch(self, state: PoolMapState):
@@ -248,9 +259,28 @@ class PeeringEngine:
         self, state_prev: PoolMapState, state_cur: PoolMapState,
         epoch_prev: int = 0, epoch_cur: int = 0,
     ) -> PeeringResult:
+        if self._fused is None:
+            return self.run_staged(state_prev, state_cur, epoch_prev, epoch_cur)
+        up, upp, act, actp, pact, flags, mask, n_alive = self._fused(
+            self._fused_arg, state_prev, state_cur, self._pgs, self.pool.min_size)
+        return self._result(epoch_prev, epoch_cur, up, upp, act, actp, pact, flags, mask,
+                            n_alive)
+
+    def run_staged(
+        self, state_prev: PoolMapState, state_cur: PoolMapState,
+        epoch_prev: int = 0, epoch_cur: int = 0,
+    ) -> PeeringResult:
+        """The three-step pass (map prev, map cur, classify): the host
+        CRUSH tier's path, and the differential the fused program is
+        held against."""
         _pup, _pupp, pact, _pactp = self.map_epoch(state_prev)
         up, upp, act, actp = self.map_epoch(state_cur)
         flags, mask, n_alive = classify_rows(pact, up, act, self.pool.min_size)
+        return self._result(epoch_prev, epoch_cur, up, upp, act, actp, pact, flags, mask,
+                            n_alive)
+
+    def _result(self, epoch_prev, epoch_cur, up, upp, act, actp, pact, flags, mask,
+                n_alive) -> PeeringResult:
         return PeeringResult(
             pool_id=self.pool.id,
             epoch_prev=epoch_prev,

@@ -33,14 +33,16 @@ epoch, and the suppressed/slow bits (the tape alone sets them).  So:
   OSD) reads nothing back;
 - a non-idle epoch reads one small tensor after the liveness tick (a
   transition happened, any OSD down, any laggy): the dirty decision;
-- a dirty epoch adds the CRUSH engine's reads (one a retry round,
-  ``interp_batch._any``) and, with the dirty-set ladder on, one read
-  of the dirty-PG count that picks the rung.
+- a dirty epoch's dense peering reads nothing on the card (one replay
+  of the fused pipeline's graph, below); on the CPU it makes the CRUSH
+  engine's reads (one a retry round, ``interp_batch._any``), as do the
+  dirty-set ladder's rungs below dense on either device, and with the
+  ladder on, one read of the dirty-PG count picks the rung.
 
 Each epoch's outputs stay on the device as one int32 row; a chunk's
 rows come back as one copy (:meth:`EpochSeries.from_device`).  There is
-no CUDA graph of an epoch yet: the retry ladders' reads rule out a
-capture (ROADMAP §1 item 2a).
+no CUDA graph of a whole epoch: the host's reads of the liveness tick
+and of the rung stay.
 
 Two drivers
 -----------
@@ -64,12 +66,16 @@ any range of epochs from a state and its host view, and
 state's scalars (the checkpointed runs of
 :mod:`~ceph_tpu_torch.recovery.checkpoint`).
 
-``compile_fused_peering`` (the reference's fused placement and peering
-program) is not ported: peering here is the mapping program of
-:func:`~ceph_tpu_torch.osdmap.mapping.compile_pool_mapping` on the
-epoch's pool state, diffed by :func:`~ceph_tpu_torch.recovery.peering.
-classify_rows` against the baseline epoch's acting table, mapped once
-when the driver is built.
+The dense dirty branch (:meth:`EpochDriver._peer_hist`) is the
+current-epoch half of the fused placement->peering program
+(:meth:`ceph_tpu_torch.recovery.pipeline.FusedPeering.peer_hist`): the
+epoch's pool state mapped, classified against the baseline epoch's
+acting table (mapped once when the driver is built) and reduced to the
+PG-state histogram, on the card one CUDA graph replay.  The dirty-set
+ladder's rungs below dense run the mapping program of
+:func:`~ceph_tpu_torch.osdmap.mapping.compile_pool_mapping` eagerly on
+their buckets.  Under ``CEPH_TPU_FUSED_PIPELINE=0`` the dense branch
+runs that program eagerly too.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ from ..osdmap.mapping import build_pool_state, compile_pool_mapping
 from .chaos import ChaosTimeline
 from .liveness import heartbeat_step
 from .peering import classify_rows
+from .pipeline import compile_fused_peering, peer_current
 from .scrub import scrub_phases
 
 I32 = torch.int32
@@ -560,6 +567,7 @@ class EpochDriver:
                 "host C++ tier keep the per-epoch supervised loop)"
             )
         self._crush_arg, self._map_fn = compile_pool_mapping(dense, pool, rule, device=dev)
+        self._fused_arg, self._fused = compile_fused_peering(dense, pool, rule, device=dev)
         self._pg_idx = torch.arange(self.pg_num, dtype=I64, device=dev)
         # the dirty-set ladder: 'on' compacts wherever the geometry
         # leaves a rung below dense, 'auto' only when the dense width
@@ -737,12 +745,15 @@ class EpochDriver:
         return up, upp, acting, actp, flags, mask, n_alive
 
     def _peer_hist(self, state: ClusterState) -> ClusterState:
-        """Re-peer and reclassify every PG: the dense dirty branch."""
-        from ..obs.pg_states import pg_state_reduce
-
-        up, upp, acting, actp, flags, mask, n_alive = self._peer_rows(
-            state, self._pg_idx, self._prev_acting)
-        hist, aux = pg_state_reduce(mask, n_alive, flags, self.k, self.size)
+        """Re-peer and reclassify every PG: the dense dirty branch, the
+        fused pipeline's current-epoch half (eagerly under the lever)."""
+        if self._fused is not None:
+            outs = self._fused.peer_hist(self._fused_arg, state.pool, self._prev_acting,
+                                         self._pg_idx, self.min_size, self.k)
+        else:
+            outs = peer_current(self._map_fn, self._crush_arg, state.pool, self._prev_acting,
+                                self._pg_idx, self.min_size, self.k)
+        up, upp, acting, actp, flags, mask, n_alive, hist, aux = outs
         return replace(state, up=up, up_primary=upp, acting=acting, acting_primary=actp,
                        flags=flags, survivor_mask=mask, n_alive=n_alive,
                        pg_hist=hist, pg_aux=aux)

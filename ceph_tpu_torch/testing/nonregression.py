@@ -21,11 +21,11 @@ second run must stay within :data:`BUDGETS`: no build, at most the
 stated calls of each hand-written kernel, at most the stated host reads
 (seam calls, counted alike on the CPU and on the card).  On the card
 every call must also launch its kernel, and the sync-debug warnings are
-reported beside the seam reads.
-
-The reference's ``fused_placement`` scenario is left out:
-``recovery/pipeline.py``, the fused placement->peering program, is not
-ported on purpose (ROADMAP §1).
+reported beside the seam reads.  A CUDA graph capture counts as a build;
+a graph replay makes no wrapper call, and the launches it ran count as
+replayed launches.  In ``fused_placement`` on the card the second run
+is one replay of the fused placement->peering program's graph with no
+seam read.
 """
 
 from __future__ import annotations
@@ -187,6 +187,10 @@ BUDGETS: dict[str, Budget] = {
         {}, 24,
         "each of the two ticks reads its six lanes back for the host's markdown "
         "bookkeeping (recovery/liveness.py `tick`: `.cpu().numpy()` each)"),
+    "fused_placement": Budget(
+        {"descend": 36}, 18,
+        f"on the CPU the fused program runs eagerly, two epochs' mappings: all are {_LADDER} "
+        "(on the card the run is one graph replay: no wrapper call and no read)"),
     "epoch_superstep": Budget(
         {"descend": 170}, 114,
         f"100 are {_LADDER}; 14 are {_EPOCH_READ} (`.cpu().tolist()`, 7 epochs)"),
@@ -245,6 +249,7 @@ class _Second:
     def report(self) -> dict:
         return {"builds": self.budget.n_compiles, "calls": dict(self.launches.calls),
                 "launches": dict(self.launches.launches),
+                "replayed_launches": dict(self.launches.replays),
                 "host_reads": self.reads.host_transfers,
                 "reads_by_seam": dict(self.reads.by_seam),
                 "sync_warnings": self.reads.sync_warnings}
@@ -423,6 +428,37 @@ def _case_heartbeat_tick(dev):
         det.tick()
     assert det.osds_down >= 1, det.summary()
     return s.report()
+
+
+@_case
+def _case_fused_placement(dev):
+    """The fused placement->peering program (recovery/pipeline.py) across
+    a down-OSD/reweight epoch after a warm one: every changed bit is an
+    input of the one program, so the second epoch builds and captures
+    nothing; on the card it is one replay of the graph the first call
+    captured.  The second epoch's outputs equal the staged pass's."""
+    from ..models.clusters import build_osdmap
+    from ..osdmap.mapping import build_pool_state
+    from ..recovery.peering import PeeringEngine
+
+    m = build_osdmap(32, pg_num=16)
+    eng = PeeringEngine(m, 1, device=dev)
+    fused = eng._fused
+    state_a = build_pool_state(m, m.pools[1], device=dev)
+    fused(eng._fused_arg, state_a, state_a, eng._pgs, eng.pool.min_size)
+    m.mark_down(3)
+    m.osd_weight[5] = 0x8000  # value-only edits: same shapes
+    state_b = build_pool_state(m, m.pools[1], device=dev)
+    replays = fused.replays
+    with _Second("fused placement second epoch", dev) as s:
+        out = fused(eng._fused_arg, state_a, state_b, eng._pgs, eng.pool.min_size)
+    staged = eng.run_staged(state_a, state_b)
+    names = ("up", "up_primary", "acting", "acting_primary", "prev_acting", "flags",
+             "survivor_mask", "n_alive")
+    for name, got in zip(names, out):
+        want = getattr(staged, name)
+        assert np.array_equal(got.cpu().numpy().astype(want.dtype), want), name
+    return {**s.report(), "pipeline_replays": fused.replays - replays}
 
 
 def _erasure_map():

@@ -248,15 +248,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the archive's CRUSH and EC digests from ``generate("cuda")`` equal to
    ``tests/golden/archive.json``, every ``launch_budget_cases("cuda")``
    scenario inside its budget (calls, launches, seam reads and
-   sync-debug warnings of each second run; every call a launch), one
+   sync-debug warnings of each second run; every call outside a capture
+   a launch), one
    checkpoint save under ``debug_fsync_audit`` (audited, and it loads
-   back) and one ``WritepathDriver`` under ``debug_bucket_checks``.
+   back) and one ``WritepathDriver`` under ``debug_bucket_checks``;
+   ``fused_placement``'s second run is one graph replay with no wrapper
+   call and no seam read, whose launches are counted;
+15. pipeline: the fused placement->peering program
+   (``recovery/pipeline.py``) as one CUDA graph: the card's torch,
+   CUDA runtime and driver; five chaos epochs on config 4's map and a
+   CRUSH reweight (the same key, other tables) through one private
+   program cache (one miss, five hits, one capture, the graph's nodes,
+   conditional nodes, captured, sure and replayed launches, capture ms
+   and the device memory the capture reserved), each epoch equal to a
+   staged pass on its map; ``PeeringEngine.run`` (the graph) equal to
+   ``run_staged`` on every output, bit for bit, on config 4's map and
+   failure and on :func:`mixed_hierarchy`'s map (the general tier, K1),
+   a host-tier map with no program; one call of each path under the
+   runtime guard (wrapper calls, launches, seam reads, sync-debug
+   warnings: no call and no read in the replay, and its launches
+   counted, those in its WHILE bodies too); both paths timed in turns (wall ms and CUDA-event
+   ms, median of PIPELINE_TURNS each after a warm-up); config 7's
+   dense ``EpochDriver._peer_hist`` on a dirty state, eager against
+   the graph, equal and timed in turns.
 
 Then the launch counts of each main path (phases 4-5: placement; 5a:
 general; 5b: rebalance; 6-8: EC; 10: recovery; 10a: supervised,
 traffic and scrub_qos; 10b: epoch; 10c: fleet; 10d: divergent; 10e:
 checkpoint; 10f: writepath; 11: balancer; 12: cli; 13: multidevice;
-14: tooling, each from 0),
+15: pipeline; 14: tooling, each from 0; a kernel's launches are those
+that ran: its wrapper's outside a capture and those graph replays ran,
+each WHILE body's launches as often as its pass counter says),
 each phase's wall seconds, the kernels
 line (each kernel's
 launches summed over the paths; every kernel must launch on its paths,
@@ -264,8 +286,8 @@ K1 on the general path, K3 on the rebalance path, K6 on the recovery
 path, K3, K4 and K8 on the supervised and scrub_qos paths, K3 and K4
 on the traffic path, K3 on the epoch, fleet, divergent and balancer
 paths, K3 and K8 on the checkpoint path, K3, K6, K9 and its commit on
-the writepath path, K1, K3, K4, K6 and K8 on the multidevice path,
-K3-K9 and K9's commit on the tooling path),
+the writepath path, K1, K3, K4, K6 and K8 on the multidevice path, K3
+and K1 on the pipeline path, K3-K9 and K9's commit on the tooling path),
 the card's name and power limit, and
 the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -3569,6 +3591,265 @@ def mixed_hierarchy(racks: int, hosts: int, osds: int):
     return m
 
 
+# phase pipeline: the fused placement->peering graph
+PIPELINE_TURNS = 10             # calls of each path timed in turns (the median)
+PIPELINE_EPOCHS = 5             # chaos epochs through one program cache
+EPOCH_PEER_OSDS = 1024          # config 7's map for the dense _peer_hist
+EPOCH_PEER_PGS = 8192
+
+
+def general_osdmap(pg_num: int):
+    """An OSDMap over :func:`mixed_hierarchy` (32 racks of 8 uniform hosts
+    of 4 OSDs) with a 6-slot EC pool on its EC rule: the general tier."""
+    from ceph_tpu_torch.osdmap.map import OSDMap, Pool
+
+    crush = mixed_hierarchy(32, 8, 4)
+    m = OSDMap(crush)
+    for o in range(1024):
+        m.add_osd(o)
+    m.add_pool(Pool(id=1, name="general", kind="erasure", size=6, pg_num=pg_num,
+                    pgp_num=pg_num, crush_rule=crush.rule_by_name("ec_rule").id))
+    return m
+
+
+def graph_record(g) -> dict:
+    """A graph's capture (nodes, captured and sure launches, ms, the
+    device memory its capture reserved) and the launches its replays ran
+    (read from its pass counters first)."""
+    from ceph_tpu_torch.core import graphs
+
+    graphs.collect()
+    return {"nodes": g.nodes, "conditional_nodes": g.cond_nodes,
+            "captured_launches": g.launches, "sure_launches": g.sure,
+            "capture_ms": g.capture_ms, "capture_reserved_bytes": g.pool_bytes,
+            "replays": g.replays, "replayed_launches": dict(g.launched)}
+
+
+def crush_reweight(m) -> None:
+    """A CRUSH reweight in place: the first item of the first four straw2
+    buckets at half its weight (the shapes, so the program key, stay)."""
+    from ceph_tpu_torch.crush.map import ALG_STRAW2
+
+    buckets = [b for b in m.crush.buckets.values() if b.alg == ALG_STRAW2 and len(b.items) > 1]
+    for b in buckets[:4]:
+        b.item_weights[0] = b.item_weights[0] // 2 + 1
+    m.crush._mutated()
+
+
+def peer_equal(got, want) -> dict:
+    """Each output of a fused call (tensors) against a PeeringResult."""
+    fields = ("up", "up_primary", "acting", "acting_primary", "prev_acting", "flags",
+              "survivor_mask", "n_alive")
+    return {f: bool(np.array_equal(g.cpu().numpy().astype(np.int64),
+                                   np.asarray(getattr(want, f)).astype(np.int64)))
+            for f, g in zip(fields, got)}
+
+
+def event_ms(fn) -> tuple[float, float]:
+    """(wall ms, CUDA-event ms) of one call of ``fn`` on the current
+    stream, the card synchronised before and after."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return (time.perf_counter() - t0) * 1e3, a.elapsed_time(b)
+
+
+def turns_ms(runners: dict, reps: int) -> dict:
+    """Each runner ``reps`` times in turns (the order reversed every
+    other turn), after one warm-up call each: medians and all of the
+    wall and CUDA-event ms."""
+    for fn in runners.values():
+        fn()
+    walls = {k: [] for k in runners}
+    events = {k: [] for k in runners}
+    labels = list(runners)
+    for i in range(reps):
+        for k in (labels if i % 2 == 0 else labels[::-1]):
+            w, e = event_ms(runners[k])
+            walls[k].append(w)
+            events[k].append(e)
+    return {k: {"wall_ms": float(np.median(walls[k])), "event_ms": float(np.median(events[k])),
+                "all_wall_ms": walls[k], "all_event_ms": events[k]} for k in labels}
+
+
+def phase_pipeline(dev, counts, reset, n_osds: int = RECOVERY_OSDS,
+                   pg_num: int = RECOVERY_PGS, reps: int = PIPELINE_TURNS) -> dict:
+    """Phase 15 (see the module docstring).  The path's launch counts run
+    from ``reset()`` before the chaos epochs to ``counts()`` after the
+    fused runs on both tiers; the staged passes they are held against,
+    the guard and the timing calls come after."""
+    import copy
+    from dataclasses import replace
+
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.analysis import runtime_guard
+    from ceph_tpu_torch.core import graphs
+    from ceph_tpu_torch.crush.engine import runner_signature
+    from ceph_tpu_torch.crush.map import ALG_LIST
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.osdmap.mapping import build_pool_state
+    from ceph_tpu_torch.recovery import pipeline
+    from ceph_tpu_torch.recovery.peering import PeeringEngine
+
+    t0 = time.perf_counter()
+    gates = {}
+    runtime, driver = graphs.runtime_versions()
+    out = {"phase": "pipeline", "torch": torch.__version__, "torch_cuda": torch.version.cuda,
+           "cuda_runtime": runtime, "cuda_driver": driver,
+           "capture_mode": graphs.CAPTURE_MODE}
+
+    # five chaos epochs with one key through a cache of their own, then a
+    # CRUSH reweight (same key, other tables), then both tiers' engines
+    base = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
+    cache = pipeline.PipelineCache()
+    pgs = torch.arange(pg_num, dtype=torch.int64, device=dev)
+    reset()
+    epochs, fns, checks = [], [], []
+    m_prev = base
+    specs = ["rack:0:down_out", "osd:100:down", "osd:101:out", "osd:100:up",
+             "host:host3_0:down"][:PIPELINE_EPOCHS] + ["crush_reweight"]
+    for spec in specs:
+        m = copy.deepcopy(m_prev)
+        if spec == "crush_reweight":
+            crush_reweight(m)
+        else:
+            rec.inject(m, spec)
+        pool = m.pools[1]
+        crush_arg, fn = pipeline.compile_fused_peering(
+            m.crush.to_dense(), pool, m.crush.rules[pool.crush_rule], cache=cache, device=dev)
+        fns.append(fn)
+        sp = build_pool_state(m_prev, m_prev.pools[1], device=dev)
+        sc = build_pool_state(m, pool, device=dev)
+        res = []
+        wall, ev = event_ms(lambda: res.append(fn(crush_arg, sp, sc, pgs, pool.min_size)))
+        epochs.append({"spec": spec, "wall_ms": wall, "event_ms": ev})
+        checks.append((m, sp, sc, res[0]))
+        m_prev = m
+    cur = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
+    prev = copy.deepcopy(cur)
+    rec.inject(cur, RECOVERY_FAILURE)
+    gen = general_osdmap(pg_num)
+    gen_prev = copy.deepcopy(gen)
+    for o in range(0, n_osds, 32):
+        gen.osd_weight[o] = 0
+    gen.mark_down(100)
+    cases = {"config4": (prev, cur), "general": (gen_prev, gen)}
+    engines, fused_runs = {}, {}
+    for name, (mp, mc) in cases.items():
+        eng = PeeringEngine(mc, 1, device=dev)
+        sp = build_pool_state(mp, mp.pools[1], device=dev)
+        sc = build_pool_state(mc, mc.pools[1], device=dev)
+        fused_runs[name] = eng.run(sp, sc)
+        engines[name] = (eng, sp, sc)
+    torch.cuda.synchronize()
+    out["launches"] = counts()
+
+    out["epochs"] = epochs
+    fused = fns[0]
+    gates["one_program"] = all(fn is fused for fn in fns)
+    out["cache"] = cache.stats()
+    out["captures"], out["replays"] = fused.captures, fused.replays
+    gates["one_miss_then_hits"] = cache.stats() == {
+        "entries": 1, "hits": len(specs) - 1, "misses": 1, "evictions": 0}
+    gates["one_capture"] = fused.captures == 1 and fused.replays == len(specs)
+    out["graph"] = graph_record(fused.graphs()[0])
+    out["program_device_bytes"] = fused.device_bytes()
+    # every epoch (the reweight too) equal to a staged pass on its own map
+    for rec_, (m, sp, sc, got) in zip(epochs, checks):
+        rec_["equal"] = peer_equal(got, PeeringEngine(m, 1, device=dev).run_staged(sp, sc))
+    gates["epochs_bit_equal_staged"] = all(all(e["equal"].values()) for e in epochs)
+
+    # the graph equal to the staged pass, on both device tiers
+    out["tiers"] = {}
+    fields = ("up", "up_primary", "acting", "acting_primary", "prev_acting", "flags",
+              "survivor_mask", "n_alive")
+    for name, (eng, sp, sc) in engines.items():
+        got, want = fused_runs[name], eng.run_staged(sp, sc)
+        equal = {f: bool(np.array_equal(getattr(got, f), getattr(want, f))) for f in fields}
+        gates[f"{name}_bit_equal"] = all(equal.values())
+        mc = eng.osdmap
+        dense = mc.crush.to_dense()
+        sig = runner_signature(dense, mc.crush.rules[mc.pools[1].crush_rule], mc.pools[1].size)
+        out["tiers"][name] = {"tier": sig[0], "equal": equal, "counts": got.counts(),
+                              "graph": graph_record(eng._fused.graphs()[0]),
+                              "program_device_bytes": eng._fused.device_bytes()}
+    gates["general_is_general"] = out["tiers"]["general"]["tier"] == "general"
+    host = build_osdmap(32, pg_num=32)
+    for b in host.crush.buckets.values():
+        if host.crush.types[b.type_id] == "host":
+            b.alg = ALG_LIST
+    host.crush._mutated()
+    hpool = host.pools[1]
+    gates["host_tier_no_program"] = pipeline.compile_fused_peering(
+        host.crush.to_dense(), hpool, host.crush.rules[hpool.crush_rule], device=dev) == (None,
+                                                                                          None)
+
+    # one call of each path under the guard
+    eng, sp, sc = engines["config4"]
+    guard = {}
+    for name, fn in (("staged_run", lambda: eng.run_staged(sp, sc)),
+                     ("fused_run", lambda: eng.run(sp, sc)),
+                     ("replay", lambda: eng._fused(eng._fused_arg, sp, sc, eng._pgs,
+                                                   eng.pool.min_size))):
+        with runtime_guard.track(sync_debug=True) as g:
+            fn()
+            torch.cuda.synchronize()
+        guard[name] = {"kernel_calls": dict(g.launch_counter.calls),
+                       "kernel_launches": dict(g.launch_counter.launches),
+                       "replayed_launches": dict(g.launch_counter.replays),
+                       "host_reads": g.host_transfers,
+                       "sync_warnings": g.transfer_counter.sync_warnings,
+                       "builds_and_captures": g.n_compiles}
+    out["guard"] = guard
+    gates["replay_no_wrapper_call"] = guard["replay"]["kernel_calls"] == {}
+    # a replay's launches are counted, those of its WHILE bodies too
+    sure = eng._fused.graphs()[0].sure.get("descend", 0)
+    gates["replay_launches_counted"] = (
+        guard["replay"]["kernel_launches"] == guard["replay"]["replayed_launches"]
+        and guard["replay"]["kernel_launches"].get("descend", 0) > sure)
+    gates["replay_no_host_read"] = guard["replay"]["host_reads"] == 0
+    gates["replay_no_capture"] = guard["replay"]["builds_and_captures"] == 0
+
+    # both paths in turns
+    out["turns"] = {}
+    for name, (eng, sp, sc) in engines.items():
+        out["turns"][name] = turns_ms({"staged": lambda: eng.run_staged(sp, sc),
+                                       "fused": lambda: eng.run(sp, sc)}, reps)
+
+    # config 7's dense dirty branch: eager against the graph
+    m7 = build_osdmap(EPOCH_PEER_OSDS, pg_num=EPOCH_PEER_PGS, size=6, pool_kind="erasure")
+    d = rec.EpochDriver(m7, rec.build_scenario("flap", m7), n_ops=64, device=dev)
+    dirty = copy.deepcopy(m7)
+    rec.inject(dirty, "rack:1:down")
+    state = replace(d._init_state, pool=build_pool_state(dirty, dirty.pools[1], device=dev))
+    fused_half = d._fused
+
+    def eager():
+        d._fused = None
+        try:
+            return d._peer_hist(state)
+        finally:
+            d._fused = fused_half
+
+    a, b = eager(), d._peer_hist(state)
+    names = ("up", "up_primary", "acting", "acting_primary", "flags", "survivor_mask",
+             "n_alive", "pg_hist", "pg_aux")
+    gates["peer_hist_graph_equals_eager"] = all(
+        torch.equal(getattr(a, f), getattr(b, f)) for f in names)
+    out["epoch_peer_hist"] = {
+        "osds": EPOCH_PEER_OSDS, "pgs": EPOCH_PEER_PGS, "dirty": "rack:1:down",
+        "graphs": [graph_record(g) for g in fused_half.graphs()],
+        "turns": turns_ms({"eager": eager, "graph": lambda: d._peer_hist(state)}, reps)}
+    out["gates"] = gates
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 #: calls of each way the general phase times in turns
 GENERAL_TURNS = 2
 GENERAL_PROFILED = "b_mixed_ec"  # the map whose compacted call is profiled
@@ -4422,8 +4703,9 @@ def mesh_world_check(n: int, work_dir: str, kind: str = "cuda") -> dict:
 
 def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
     """Item 5 on the card (see the module docstring).  Everything but the
-    rebuild check runs between ``reset()`` and ``counts()``; the phase's
-    wrapper calls are read beside, and every call must have launched."""
+    rebuild check runs between ``reset()`` and ``counts()``, inside a
+    ``LaunchCounter`` whose check holds that every wrapper call outside a
+    capture launched its kernel."""
     from ceph_tpu_torch import _cuda
     from ceph_tpu_torch.analysis import runtime_guard
     from ceph_tpu_torch.common.config import global_config
@@ -4441,6 +4723,7 @@ def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
     gates["no_rebuild"] = cc.backend_compiles == 0
     rebuild = {"backend_compiles": cc.backend_compiles, "cache_hits": cc.cache_hits}
     reset()
+    window = runtime_guard.LaunchCounter(check_launches=True).__enter__()
     t_arch = time.perf_counter()
     archive = nr.render(nr.generate(dev))
     with open(os.path.join(HERE, "tests", "golden", "archive.json")) as f:
@@ -4450,8 +4733,9 @@ def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
     budgets = nr.launch_budget_cases(dev)  # raises over budget or on a call without launch
     budgets_s = time.perf_counter() - t_budget
     gates["budgets_held"] = sorted(budgets) == sorted(nr.BUDGETS)
-    gates["budget_launches_equal_calls"] = all(
-        b["launches"] == b["calls"] for b in budgets.values())
+    gates["budget_launches_equal_calls"] = all(  # the launches not made by a replay
+        {k: v - b["replayed_launches"].get(k, 0) for k, v in b["launches"].items()
+         if v != b["replayed_launches"].get(k, 0)} == b["calls"] for b in budgets.values())
     cfg = global_config()
     prev = {k: cfg.get(k) for k in ("debug_fsync_audit", "debug_bucket_checks")}
     try:
@@ -4473,13 +4757,21 @@ def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
     torch.cuda.synchronize()
     launches = counts()
     calls = runtime_guard.kernel_counts("CALLS")
-    gates["launches_equal_calls"] = launches == calls
+    window.__exit__(None, None, None)  # raises on a call outside a capture without launch
+    gates["calls_outside_captures_launched"] = True
+    fp = budgets["fused_placement"]
+    gates["fused_placement_one_replay"] = (
+        fp["pipeline_replays"] == 1 and fp["calls"] == {} and fp["host_reads"] == 0
+        and fp["launches"] == fp["replayed_launches"] != {})
     return {"phase": "tooling", "gates": gates, "rebuild": rebuild, "archive_s": archive_s,
             "budgets_s": budgets_s, "seconds": time.perf_counter() - t0,
-            "budgets": {n: {k: b[k] for k in ("calls", "launches", "host_reads",
-                                                "reads_by_seam", "sync_warnings")}
+            "budgets": {n: {k: b[k] for k in ("calls", "launches", "replayed_launches",
+                                                "host_reads", "reads_by_seam", "sync_warnings")
+                            if k in b}
                         for n, b in budgets.items()},
-            "launches": launches, "calls": calls}
+            "fused_placement_replays": budgets["fused_placement"]["pipeline_replays"],
+            "launches": launches, "calls": calls, "captured": window.captured,
+            "replayed": window.replays}
 
 
 def main(argv: list[str]) -> int:
@@ -4517,6 +4809,7 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, HERE)
     from ceph_tpu_torch import _cuda
     from ceph_tpu_torch.analysis import runtime_guard
+    from ceph_tpu_torch.core import graphs
     from ceph_tpu_torch.crush import interp_batch
 
     dev = torch.device("cuda")
@@ -4585,9 +4878,12 @@ def main(argv: list[str]) -> int:
         raise AssertionError(f"K9 disagrees with its plain version: {bad}")
 
     def counts() -> dict:
+        # the launches that ran, whether a wrapper made them or a graph
+        # replay did (the replays' WHILE bodies read from their counters)
         return runtime_guard.kernel_counts("LAUNCHES")
 
     def reset() -> None:
+        graphs.collect()  # a replay before the reset counts before it
         for mod in runtime_guard.kernel_modules():
             mod.reset_launches()
 
@@ -4683,6 +4979,12 @@ def main(argv: list[str]) -> int:
     bad = [g for g, ok in multidevice["gates"].items() if not ok]
     if bad:
         raise AssertionError(f"the mesh paths failed their gates: {bad}")
+    pipeline_phase = phase_pipeline(dev, counts, reset)
+    emit(pipeline_phase)
+    paths["pipeline"] = pipeline_phase["launches"]
+    bad = [g for g, ok in pipeline_phase["gates"].items() if not ok]
+    if bad:
+        raise AssertionError(f"the fused pipeline failed its gates: {bad}")
     with tempfile.TemporaryDirectory(dir=_cuda.BUILD_DIR) as work_dir:
         tooling = phase_tooling(dev, counts, reset, work_dir)
     emit(tooling)
@@ -4709,6 +5011,7 @@ def main(argv: list[str]) -> int:
             "cli": ("descend", "matrix_encode", "bitmatrix_encode"),
             "multidevice": ("negdraw", "descend", "matrix_encode", "schedule_apply",
                             "crc32c_rows"),
+            "pipeline": ("negdraw", "descend"),
             "tooling": ("descend", "matrix_encode", "bitmatrix_encode", "schedule_apply",
                         "byte_lut", "crc32c_rows", "stripe_absorb", "stripe_commit")}
     missing = [(p, k) for p, ks in need.items() for k in ks if paths[p].get(k, 0) <= 0]

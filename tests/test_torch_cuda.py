@@ -25,7 +25,10 @@ stripe buffer's write loop) against ``stripe_absorb_plain`` on its edge
 batches (``ceph_tpu_torch/testing/online_edges.py``) and a random batch,
 each on its own clone of the buffer: buffers, the compact Δdata,
 ``slot_of`` and counter rows, and K9's commit against
-``stripe_commit_plain``.  Run them
+``stripe_commit_plain``; the fused placement->peering program's CUDA
+graph (``recovery/pipeline.py``) on both device tiers against the
+program run eagerly (and on the CPU), a replay making no wrapper call
+and no host read, and a capture with a host read raising.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -752,3 +755,147 @@ def test_launch_counter_sees_every_call_launch_on_the_card(card):
         gf_kernels.byte_lut(torch.zeros(64, dtype=torch.uint8, device=card),
                             torch.arange(256, device=card).to(torch.uint8))
     assert lc.calls == lc.launches == {"crc32c_rows": 1, "byte_lut": 1}
+
+
+# ---------------------------------------------------------------- the fused pipeline's graph
+
+PEER_FIELDS = ("up", "up_primary", "acting", "acting_primary", "prev_acting", "flags",
+               "survivor_mask", "n_alive")
+
+
+def _pipeline_maps(general: bool):
+    """(prev, cur) port maps whose ladders retry (an EC pool with out
+    OSDs); the general tier's form has uniform hosts."""
+    import copy
+
+    from ceph_tpu_torch.crush.map import ALG_UNIFORM
+    from ceph_tpu_torch.models.clusters import build_osdmap
+
+    m = build_osdmap(48, pg_num=256, size=6, pool_kind="erasure")
+    if general:
+        for b in m.crush.buckets.values():
+            if m.crush.types[b.type_id] == "host":
+                b.alg = ALG_UNIFORM
+        m.crush._mutated()
+    prev = copy.deepcopy(m)
+    for o in (1, 6, 11, 30):
+        m.osd_weight[o] = 0
+    m.mark_down(17)
+    return prev, m
+
+
+def _pipeline_case(dev, general: bool, cache=None, maps=None):
+    """(fused program, crush_arg, state_prev, state_cur, pgs, min_size) of
+    :func:`_pipeline_maps` (or ``maps``) through ``cache`` (a new one by
+    default)."""
+    from ceph_tpu_torch.osdmap.mapping import build_pool_state
+    from ceph_tpu_torch.recovery import pipeline
+
+    prev, m = maps or _pipeline_maps(general)
+    pool = m.pools[1]
+    crush_arg, fn = pipeline.compile_fused_peering(
+        m.crush.to_dense(), pool, m.crush.rules[pool.crush_rule],
+        cache=pipeline.PipelineCache() if cache is None else cache, device=dev)
+    sp = build_pool_state(prev, prev.pools[1], device=dev)
+    sc = build_pool_state(m, pool, device=dev)
+    return fn, crush_arg, sp, sc, torch.arange(pool.pg_num, device=dev), pool.min_size
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["fast", "general"])
+def test_pipeline_replay_equals_the_eager_program(card, general, monkeypatch):
+    """The captured graph's replay equals the program run eagerly on the
+    card and on the CPU, and a second replay with other inputs leaves
+    the first result as it was.  The general tier's eager runs compact
+    their ladders (a low threshold); its capture does not."""
+    from ceph_tpu_torch.crush import interp
+
+    monkeypatch.setattr(interp, "COMPACT_MIN_BATCH", 16)
+    fn, crush_arg, sp, sc, pgs, min_size = _pipeline_case(card, general)
+    eager = fn.program(crush_arg, sp, sc, pgs, min_size)
+    first = fn(crush_arg, sp, sc, pgs, min_size)   # warm-up, capture, replay
+    assert fn.captures == 1 and fn.graphs()[0].cond_nodes > 0
+    for name, a, b in zip(PEER_FIELDS, first, eager):
+        assert torch.equal(a, b), name
+    kept = [t.clone() for t in first]
+    again = fn(crush_arg, sc, sp, pgs, min_size)    # the epochs swapped: a replay
+    assert fn.captures == 1 and fn.replays == 2
+    want = fn.program(crush_arg, sc, sp, pgs, min_size)
+    for name, a, b, k in zip(PEER_FIELDS, again, want, kept):
+        assert torch.equal(a, b), name
+    for name, a, k in zip(PEER_FIELDS, first, kept):
+        assert torch.equal(a, k), name
+    cpu = _pipeline_case(torch.device("cpu"), general)
+    for name, a, b in zip(PEER_FIELDS, first, cpu[0](*cpu[1:])):
+        assert torch.equal(a.cpu(), b), name
+
+
+def test_pipeline_replay_makes_no_wrapper_call_and_no_read(card):
+    """A replay makes no wrapper call and no read; its launches are
+    counted, those its WHILE bodies ran too (more than the sure ones),
+    and the capture's calls launched nothing."""
+    from ceph_tpu_torch.analysis import runtime_guard
+
+    fn, crush_arg, sp, sc, pgs, min_size = _pipeline_case(card, False)
+    with runtime_guard.LaunchCounter(check_launches=True) as first:
+        fn(crush_arg, sp, sc, pgs, min_size)
+    graph = fn.graphs()[0]
+    assert first.captured == graph.launches
+    torch.cuda.synchronize()
+    with runtime_guard.track(sync_debug=True, check_launches=True) as g:
+        fn(crush_arg, sp, sc, pgs, min_size)
+        torch.cuda.synchronize()
+    lc = g.launch_counter
+    assert lc.calls == {} and lc.captured == {}
+    assert lc.launches == lc.replays and lc.launches["descend"] > graph.sure["descend"]
+    assert g.host_transfers == 0 and g.n_compiles == 0
+    assert g.transfer_counter.sync_warnings == 0
+
+
+@pytest.mark.parametrize("general", [False, True], ids=["fast", "general"])
+def test_pipeline_replays_a_reweighted_map_with_its_own_tables(card, general):
+    """A CRUSH reweight keeps the key: its program is the first map's
+    graph, replayed with the reweighted tables copied in, and equals the
+    reweighted map's eager program and staged pass bit for bit."""
+    import copy
+
+    from ceph_tpu_torch.crush.map import ALG_STRAW2
+    from ceph_tpu_torch.recovery import pipeline
+    from ceph_tpu_torch.recovery.peering import PeeringEngine
+
+    cache = pipeline.PipelineCache()
+    prev, m = _pipeline_maps(general)
+    fn, arg_a, sp, sc, pgs, min_size = _pipeline_case(card, general, cache, (prev, m))
+    first = fn(arg_a, sp, sc, pgs, min_size)
+    heavy = copy.deepcopy(m)
+    buckets = [b for b in heavy.crush.buckets.values()
+               if b.alg == ALG_STRAW2 and len(b.items) > 1]
+    for b in buckets[:4]:
+        b.item_weights[0] = b.item_weights[0] // 2 + 1
+    heavy.crush._mutated()
+    fn_b, arg_b, _, sh, _, _ = _pipeline_case(card, general, cache, (prev, heavy))
+    assert fn_b is fn and cache.stats()["hits"] == 1
+    got = fn(arg_b, sp, sh, pgs, min_size)
+    assert fn.captures == 1 and fn.replays == 2
+    eager = fn.program(arg_b, sp, sh, pgs, min_size)
+    staged = PeeringEngine(heavy, 1, device=card).run_staged(sp, sh)
+    for name, a, b in zip(PEER_FIELDS, got, eager):
+        assert torch.equal(a, b), name
+        want = getattr(staged, name)
+        assert np.array_equal(a.cpu().numpy().astype(np.int64), want.astype(np.int64)), name
+    assert not all(torch.equal(a, b) for a, b in zip(first, got))  # the weights matter
+    back = fn(arg_a, sp, sc, pgs, min_size)  # and the first map's tables come back
+    for name, a, b in zip(PEER_FIELDS, back, first):
+        assert torch.equal(a, b), name
+
+
+def test_a_capture_with_a_host_read_raises(card):
+    """A host read inside a capture raises (no eager fallback), and the
+    card stays usable."""
+    from ceph_tpu_torch.core import graphs
+
+    x = torch.arange(8, device=card)
+    with pytest.raises(graphs.HostReadInCapture):
+        graphs.capture(lambda: bool((x + 1).any()), card)
+    with pytest.raises(graphs.HostReadInCapture):
+        graphs.capture(lambda: interp_batch._any(x > 3), card)
+    assert int(x.sum()) == 28

@@ -8,7 +8,7 @@ digests through the port's batch engine, EC chunk digests through
 Every ``launch_budget_cases`` scenario stays inside its budget on the
 CPU (no build, the kernel calls and seam reads of ``BUDGETS``), each
 budget is tight there, and the scenario names are pinned: the
-reference's ``compile_once_cases`` less ``fused_placement``.
+reference's ``compile_once_cases``, ``fused_placement`` among them.
 """
 
 import os
@@ -23,8 +23,9 @@ from ceph_tpu_torch.testing import nonregression as nr
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHIVE = os.path.join(REPO, "tests", "golden", "archive.json")
 SCENARIOS = ("pool_mapping", "pattern_decode", "schedule_decode", "scrub_pass",
-             "heartbeat_tick", "epoch_superstep", "fleet_superstep", "compacted_superstep",
-             "online_write_batch", "reconcile_round", "worksteal_dispatch")
+             "heartbeat_tick", "fused_placement", "epoch_superstep", "fleet_superstep",
+             "compacted_superstep", "online_write_batch", "reconcile_round",
+             "worksteal_dispatch")
 
 
 def _archive() -> str:
@@ -47,11 +48,11 @@ def test_module_prints_the_archive():
 def test_scenario_names_are_pinned():
     assert tuple(nr._CASES) == SCENARIOS
     assert set(nr.BUDGETS) == set(SCENARIOS)
-    # the reference's scenarios, but the fused program not ported on purpose
+    # the reference's scenarios, the fused placement program's among them
     from ceph_tpu.testing import nonregression as ref_nr
 
     doc = ref_nr.compile_once_cases.__doc__
-    assert all(f"``{name}``" in doc for name in SCENARIOS + ("fused_placement",))
+    assert all(f"``{name}``" in doc for name in SCENARIOS)
 
 
 @pytest.mark.parametrize("name", SCENARIOS)

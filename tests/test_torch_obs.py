@@ -275,6 +275,5 @@ def test_admin_socket_matches_reference(tmp_path):
     assert port["scrub_delta"]["inconsistencies_found"] == 2
     for key in ("schema", "status", "health", "timeline", "ops", "config"):
         assert port[key] == ref[key], key
-    # the fused placement pipeline's cache dump is not ported on purpose
-    assert set(ref["help"]) - set(port["help"]) == {"dump_placement_caches"}
-    assert set(port["help"]) <= set(ref["help"])
+    # every hook of the reference's is served, the pipeline's cache dump too
+    assert set(port["help"]) == set(ref["help"])

@@ -5,8 +5,8 @@ Demo mode: the same arguments (the reference tests' 64-OSD, 32-PG seeded
 flap demo, and again with ``--traffic --ops-per-step 2048``) through
 both CLIs, the port's with ``--device cpu``.  ``status`` text, ``health
 --json``, ``timeline --json`` and ``journal --json`` must be equal,
-except: the ``caches`` panel (the port has no fused placement pipeline
-cache, and both packages' cache counters are process-wide), each traffic
+except: the ``caches`` panel (both packages' cache counters are
+process-wide; its keys are held to the reference's), each traffic
 sample's ``ops_per_sec_wall`` (a wall-clock rate) and the journal's wall
 times, left out; each traffic sample's ``mean_ms`` within ``rtol=1e-6``
 (a float32 sum reduced in another order).  Socket mode: both CLIs against
@@ -153,14 +153,21 @@ def test_timeline_text_and_determinism(capsys):
 
 
 def test_caches_panel_is_the_schedule_cache(capsys):
+    """The panel is the reference's: the pipeline cache and the schedule
+    cache, each with the reference's counters."""
+    assert ref_cli.main(["caches", "--json"] + DEMO) == 0
+    ref = json.loads(capsys.readouterr().out)
     assert cli.main(["caches", "--json", "--device", "cpu"] + DEMO) == 0
     reply = json.loads(capsys.readouterr().out)
-    assert list(reply) == ["schedule"]
-    assert set(reply["schedule"]) == {"hits", "misses", "evictions"}
-    assert all(isinstance(v, int) and v >= 0 for v in reply["schedule"].values())
+    assert set(reply) == set(ref) == {"pipeline", "schedule"}
+    for name in reply:
+        assert set(reply[name]) == set(ref[name]), name
+        assert all(isinstance(v, int) and v >= 0 for v in reply[name].values())
+    assert set(reply["pipeline"]) == {"entries", "hits", "misses", "evictions"}
     assert cli.main(["caches", "--device", "cpu"] + DEMO) == 0
-    out = capsys.readouterr().out
-    assert out.startswith("schedule: ") and "hits" in out and "evictions" in out
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("pipeline: ") and "entries" in out[0]
+    assert out[1].startswith("schedule: ") and "evictions" in out[1]
 
 
 # the ids the cases had beside fleet (argv0) and ranks (argv1), which
@@ -242,7 +249,7 @@ def test_socket_mode_matches_reference(tmp_path, capsys):
     assert json.loads(port["health"]) == json.loads(ref["health"])
     assert_series_equal(json.loads(port["timeline"])["series"],
                         json.loads(ref["timeline"])["series"])
-    assert set(port["caches"]) == {"schedule"}
+    assert set(port["caches"]) == {"pipeline", "schedule"}
     assert cli.main(["status", "--socket", str(tmp_path / "none.asok")]) == 1
     assert "cannot reach" in capsys.readouterr().err
 
