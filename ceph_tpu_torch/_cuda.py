@@ -63,7 +63,8 @@ SIGNATURES = {
     "graph": {
         "graph_runtime": [_P, _P],
         "graph_stream_create": [_P],
-        "graph_while_begin": [_P, _P, _P, _I, _P, _P],
+        "graph_cond_add": [_P, _P, _I, _I, _I, _P, _P],
+        "graph_body_begin": [_P, _P, _I],
         "graph_cond_set": [_P, ctypes.c_ulonglong, _P],
         "graph_cond_end": [_P, _P, _P],
         "graph_capture_nodes": [_P, _P],

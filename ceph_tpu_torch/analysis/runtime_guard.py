@@ -19,8 +19,10 @@ The port traces nothing, so its three counts are:
   runs nothing then: it ticks ``CALLS`` only (``captured``).  Each
   replay adds the launches it ran to ``LAUNCHES`` and to the module's
   ``REPLAYS`` (``replays``; :func:`note_replay`, and for the launches in
-  the graph's WHILE bodies, :func:`ceph_tpu_torch.core.graphs.collect`,
-  which :func:`kernel_counts` runs before it reads).  On the card it
+  the graph's conditional bodies -- WHILE, IF and else, SWITCH branches,
+  each counted as often as it ran --
+  :func:`ceph_tpu_torch.core.graphs.collect`, which :func:`kernel_counts`
+  runs before it reads).  On the card it
   also asserts that every call outside a capture launched its kernel:
   ``launches - replays`` equals ``calls - captured``.
 - :class:`TransferCounter`: device->host reads at the seams the port
@@ -313,12 +315,14 @@ def guard_read():
     import torch
 
     _DEPTH[0] += 1
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(0)
+    mode = torch.cuda.get_sync_debug_mode() if torch.cuda.is_available() else None
+    if mode is not None:
+        torch.cuda.set_sync_debug_mode(0)
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(mode)
+        if mode is not None:
+            torch.cuda.set_sync_debug_mode(mode)
         _DEPTH[0] -= 1
 
 

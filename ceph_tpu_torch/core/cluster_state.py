@@ -479,8 +479,9 @@ def apply_incremental_fleet(fleet: ClusterState, incs) -> ClusterState:
 # peering on the bucket only, and scatters the results back, the pad
 # slots carrying the out-of-range sentinel.  Bucket widths form a small
 # ladder; the narrowest rung that holds the dirty count is picked from
-# one host read of that count, with the dense full width as the top
-# rung (the bit-equality reference and the fallback).
+# one host read of that count (on the device in the compiled superstep:
+# ladder_rung_device), with the dense full width as the top rung (the
+# bit-equality reference and the fallback).
 
 
 def compact_dirty_indices(dirty: torch.Tensor):
@@ -526,6 +527,16 @@ def ladder_rung(n_dirty, widths: tuple[int, ...]) -> int:
     the rung."""
     n = int(n_dirty)
     return sum(1 for w in widths if n > w)
+
+
+def ladder_rung_device(n_dirty: torch.Tensor, widths: tuple[int, ...]) -> torch.Tensor:
+    """:func:`ladder_rung` on the device: ``sum(n_dirty > w for w in
+    widths)`` as a 0-d int32 tensor beside ``n_dirty``, read nothing back
+    (the compiled superstep's SWITCH index)."""
+    rung = torch.zeros((), dtype=I32, device=n_dirty.device)
+    for w in widths:
+        rung = rung + (n_dirty > int(w)).to(I32)
+    return rung
 
 
 def gather_rows(table: torch.Tensor, take: torch.Tensor, width: int) -> torch.Tensor:

@@ -10,12 +10,23 @@
 // this library asks the CUDA runtime directly (CUDA 12.4 or later, as
 // the nodes need), on the stream PyTorch is capturing.
 //
-// graph_while_begin(stream, pred, body_stream, mode, &body, &handle):
+// The epoch loop (recovery/superstep.py) puts a whole chunk of epochs in
+// one graph: a WHILE node over the steps, IF nodes for the liveness tick
+// and the dirty branch, SWITCH nodes for the tape rows' edits and the
+// compaction ladder's rungs, each nested in the others' bodies.
+//
+// graph_cond_add(stream, pred, pred_is_index, type, size, bodies, &handle):
 //   on `stream`, which is capturing, creates a conditional handle in the
-//   graph being captured, captures set_cond_kernel (handle <- *pred != 0),
-//   adds a WHILE node after it, makes the node the stream's only
-//   dependency, and starts capturing the node's body graph on
-//   `body_stream` (in `mode`, the main capture's cudaStreamCaptureMode).
+//   graph being captured, captures the kernel that sets it (IF and WHILE:
+//   *pred != 0 from a bool; SWITCH: the int32 *pred, where a value past
+//   the last body runs none), adds a conditional node of `type` (0 IF,
+//   1 WHILE, 2 SWITCH) with `size` bodies after it (an IF's second body
+//   is its else), makes the node the stream's only dependency, and
+//   returns the bodies' graphs.  IF with an else and SWITCH need CUDA
+//   12.8; IF and WHILE with one body 12.4.
+// graph_body_begin(body_stream, body, mode): starts capturing one body
+//   graph on `body_stream` (in `mode`, the main capture's
+//   cudaStreamCaptureMode); graph_cond_end ends it.
 // graph_cond_set(stream, handle, pred): captures set_cond_kernel on
 //   `stream` (the body's last node: the condition of the next pass).
 // graph_cond_end(body_stream, body, &nodes): ends the body's capture and
@@ -37,6 +48,11 @@ namespace {
 
 __global__ void set_cond_kernel(cudaGraphConditionalHandle handle, const uint8_t* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+__global__ void set_index_kernel(cudaGraphConditionalHandle handle, const int32_t* index) {
+  // a negative index runs no body, as one past the last does
+  cudaGraphSetConditional(handle, static_cast<unsigned int>(*index));
 }
 
 cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph, const cudaGraphNode_t** deps,
@@ -72,12 +88,27 @@ int graph_stream_create(void** stream) {
   return (int)err;
 }
 
-int graph_while_begin(void* stream, const void* pred, void* body_stream, int mode,
-                      void** body_out, unsigned long long* handle_out) {
+int graph_cond_add(void* stream, const void* pred, int pred_is_index, int type, int size,
+                   void** bodies_out, unsigned long long* handle_out) {
   cudaGetLastError();
 #if CUDART_VERSION < 12040
   return (int)cudaErrorNotSupported;
 #else
+  cudaGraphConditionalNodeType kind;
+  switch (type) {
+    case 0: kind = cudaGraphCondTypeIf; break;
+    case 1: kind = cudaGraphCondTypeWhile; break;
+#if CUDART_VERSION >= 12080
+    case 2: kind = cudaGraphCondTypeSwitch; break;
+#endif
+    default: return (int)cudaErrorNotSupported;
+  }
+#if CUDART_VERSION < 12080
+  if (size != 1) return (int)cudaErrorNotSupported;
+#endif
+  if (size < 1 || (type == 1 && size != 1) || (type == 0 && size > 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
@@ -87,7 +118,11 @@ int graph_while_begin(void* stream, const void* pred, void* body_stream, int mod
   cudaGraphConditionalHandle handle;
   err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
   if (err != cudaSuccess) return (int)err;
-  set_cond_kernel<<<1, 1, 0, s>>>(handle, static_cast<const uint8_t*>(pred));
+  if (pred_is_index) {
+    set_index_kernel<<<1, 1, 0, s>>>(handle, static_cast<const int32_t*>(pred));
+  } else {
+    set_cond_kernel<<<1, 1, 0, s>>>(handle, static_cast<const uint8_t*>(pred));
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = capture_info(s, &graph, &deps, &n_deps);
@@ -95,8 +130,8 @@ int graph_while_begin(void* stream, const void* pred, void* body_stream, int mod
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
-  params.conditional.type = cudaGraphCondTypeWhile;
-  params.conditional.size = 1;
+  params.conditional.type = kind;
+  params.conditional.size = static_cast<unsigned int>(size);
   cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
   err = cudaGraphAddNode(&node, graph, deps, nullptr, n_deps, &params);
@@ -104,7 +139,7 @@ int graph_while_begin(void* stream, const void* pred, void* body_stream, int mod
   err = cudaGraphAddNode(&node, graph, deps, n_deps, &params);
 #endif
   if (err != cudaSuccess) return (int)err;
-  cudaGraph_t body = params.conditional.phGraph_out[0];
+  for (int i = 0; i < size; ++i) bodies_out[i] = params.conditional.phGraph_out[i];
 #if CUDART_VERSION >= 13000
   err = cudaStreamUpdateCaptureDependencies(s, &node, nullptr, 1,
                                             cudaStreamSetCaptureDependencies);
@@ -112,13 +147,15 @@ int graph_while_begin(void* stream, const void* pred, void* body_stream, int mod
   err = cudaStreamUpdateCaptureDependencies(s, &node, 1, cudaStreamSetCaptureDependencies);
 #endif
   if (err != cudaSuccess) return (int)err;
-  err = cudaStreamBeginCaptureToGraph(static_cast<cudaStream_t>(body_stream), body, nullptr,
-                                      nullptr, 0, static_cast<cudaStreamCaptureMode>(mode));
-  if (err != cudaSuccess) return (int)err;
-  *body_out = body;
   *handle_out = handle;
   return 0;
 #endif
+}
+
+int graph_body_begin(void* body_stream, void* body, int mode) {
+  return (int)cudaStreamBeginCaptureToGraph(static_cast<cudaStream_t>(body_stream),
+                                            static_cast<cudaGraph_t>(body), nullptr, nullptr,
+                                            0, static_cast<cudaStreamCaptureMode>(mode));
 }
 
 int graph_cond_set(void* stream, unsigned long long handle, const void* pred) {

@@ -9,7 +9,8 @@ ring of per-epoch telemetry rows rides the epoch loop on the device:
   every epoch ever recorded; the row a record lands in is ``head & (R -
   1)``, worked out on the device.
 - :func:`flight_record` writes one row with an indexed copy and reads
-  nothing back.  Per-stage cost is carried as **cycle proxies**:
+  nothing back (:func:`flight_record_` in place, as a graph replay
+  does).  Per-stage cost is carried as **cycle proxies**:
   deterministic op counts (the peering bucket width, the routed ops,
   the scrub window), never the wall clock, so two runs compare exactly.
 - :func:`drain_flight` un-rotates the ring on one copy back;
@@ -140,6 +141,17 @@ def flight_record(fs: FlightState, row: torch.Tensor) -> FlightState:
     idx = (fs.head & (r - 1)).reshape(1)
     ring = fs.ring.index_copy(fs.ring.dim() - 2, idx, row.unsqueeze(-2).to(I64))
     return FlightState(ring=ring, head=fs.head + 1)
+
+
+def flight_record_(fs: FlightState, row: torch.Tensor) -> FlightState:
+    """:func:`flight_record` in place: the row copied into ``fs.ring`` at
+    ``head & (R - 1)`` and ``fs.head`` advanced, both on the device (the
+    compiled superstep's ring, which a graph replay writes)."""
+    r = fs.ring.shape[-2]
+    idx = (fs.head & (r - 1)).reshape(1)
+    fs.ring.index_copy_(fs.ring.dim() - 2, idx, row.unsqueeze(-2).to(I64))
+    fs.head.add_(1)
+    return fs
 
 
 # ---------------------------------------------------------------------------

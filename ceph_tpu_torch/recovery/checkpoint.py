@@ -714,8 +714,10 @@ def checkpointed_superstep(
         state, fs, rows = driver.advance(state, host, start, end, fs)
         driver.flight = fs
         cols = _append(cols, EpochSeries.from_device(rows), _SERIES_FIELDS)
+        # a compiled chunk set the state's scalars on the device; its host view is stale
         _commit(store, sched, end, (state, fs) if flight_on else state,
-                meta={"next_epoch": end, "n_epochs": n_epochs}, series=cols, host=host)
+                meta={"next_epoch": end, "n_epochs": n_epochs}, series=cols,
+                host=None if host.stale else host)
         if wal is not None:
             wal.reset()
             wal.append_cursor(step=end, tape_cursor=host.cursor, now=host.now)

@@ -19,7 +19,9 @@ state flags and survivor bitmask -- is one program
   copies of the outputs (a later replay overwrites the graph's own).
   The previous epoch's up/up_primary/acting_primary are not returned.
 - on the CPU the same program runs eagerly, with the kernels' plain
-  versions.
+  versions; under another capture (the compiled epoch superstep of
+  :mod:`ceph_tpu_torch.recovery.superstep`) it runs inline, into that
+  graph.
 
 Programs are memoized in a :class:`PipelineCache`.  The key is
 :func:`ceph_tpu_torch.osdmap.mapping.pool_program_key` (CRUSH program
@@ -238,16 +240,22 @@ class FusedPeering:
     # -- the calls -----------------------------------------------------
 
     def __call__(self, crush_arg, state_prev, state_cur, pg_indices, min_size: int):
+        from ..core import graphs
+
         min_size = int(min_size)
-        if not pg_indices.is_cuda:
+        if not pg_indices.is_cuda or graphs.capturing(pg_indices):
             return self.program(crush_arg, state_prev, state_cur, pg_indices, min_size)
         return self._replay(("peer", min_size), crush_arg, (state_prev, state_cur, pg_indices),
                             lambda c, sp, sc, pgs: self.program(c, sp, sc, pgs, min_size))
 
     def peer_hist(self, crush_arg, state, prev_acting, pg_indices, min_size: int, k: int):
-        """:meth:`current`, through its own graph on the card."""
+        """:meth:`current`, through its own graph on the card; inline
+        while another graph is captured (the compiled epoch superstep's
+        dense branch), whose capture then holds the program."""
+        from ..core import graphs
+
         min_size, k = int(min_size), int(k)
-        if not pg_indices.is_cuda:
+        if not pg_indices.is_cuda or graphs.capturing(pg_indices):
             return self.current(crush_arg, state, prev_acting, pg_indices, min_size, k)
         return self._replay(("hist", min_size, k), crush_arg, (state, prev_acting, pg_indices),
                             lambda c, st, pa, pgs: self.current(c, st, pa, pgs, min_size, k))

@@ -16,33 +16,52 @@ bump)`` rows, resolved against the baseline map once, as the
 reference does: map actions become :data:`TAPE_DOWN`/:data:`TAPE_UP`/
 :data:`TAPE_OUT`/:data:`TAPE_IN` rows (the first map row of each event
 carries ``bump=1``, its epoch advance), ``netsplit:``/``slow:`` specs
-become NET/SLOW rows, ``bitrot:`` specs are only counted.  The tape
-stays on the host: an epoch's window ``(cursor, searchsorted(t, now)]``
-is known there without a read from the device, and its rows apply in
-order as one small device edit a row.
+become NET/SLOW rows, ``bitrot:`` specs are only counted.  An epoch's
+window ``(cursor, searchsorted(t, now)]`` is known on the host without
+a read from the device, and its rows apply in order as one small device
+edit a row: from a host slice in the host-decided loop, from a device
+cursor over the tape's kind and OSD columns on the card in the compiled
+superstep.
 
 How the loop syncs
 ------------------
 
-The reference compiles an epoch into one traced program and scans it.
-The port runs eager torch ops and keeps on the host everything the
-host can know without a read: the clock, the tape cursor, the map
-epoch, and the suppressed/slow bits (the tape alone sets them).  So:
+The reference compiles a chunk of epochs into one traced program and
+scans it.  So does the port on the card: :class:`SuperstepProgram`
+(:meth:`EpochDriver.compile_superstep`, and its flight-recorder twin)
+is one CUDA graph a chunk, a WHILE node over the chunk's steps whose
+body makes every decision of the epoch on the device, as the
+reference's traces do: the tape window a WHILE node over its rows from
+a device cursor (each row's edit a SWITCH node on its kind), the
+liveness tick an IF node on the device's idle test, the dirty branch an
+IF node holding a SWITCH on the compaction ladder's rung, whose top
+body is the dense re-peer (the fused pipeline's program inline).  What
+depends only on the step (the clock, the tape window's stop, bumps and
+map rows, the traffic salt and capacity, the scrub count) is computed
+on the host once a run, as the host driver computes it, into per-step
+tables the body indexes (:meth:`EpochDriver.step_tables`).  A chunk
+reads nothing back; its rows come back as one copy when pulled
+(:meth:`EpochSeries.from_device`), with the epoch, dirty and rung lanes
+among them.
+
+On the CPU :meth:`EpochDriver.run_superstep` keeps the host-decided
+loop (:meth:`EpochDriver._advance_host`), which keeps on the host
+everything the host can know without a read: the clock, the tape
+cursor, the map epoch, and the suppressed/slow bits (the tape alone sets
+them).  So:
 
 - a quiet idle epoch (no map row, no suppressed, slow, down or laggy
   OSD) reads nothing back;
 - a non-idle epoch reads one small tensor after the liveness tick (a
   transition happened, any OSD down, any laggy): the dirty decision;
-- a dirty epoch's dense peering reads nothing on the card (one replay
-  of the fused pipeline's graph, below); on the CPU it makes the CRUSH
-  engine's reads (one a retry round, ``interp_batch._any``), as do the
-  dirty-set ladder's rungs below dense on either device, and with the
-  ladder on, one read of the dirty-PG count picks the rung.
+- a dirty epoch makes the CRUSH engine's reads (one a retry round,
+  ``interp_batch._any``), and with the ladder on, one read of the
+  dirty-PG count picks the rung.
 
-Each epoch's outputs stay on the device as one int32 row; a chunk's
-rows come back as one copy (:meth:`EpochSeries.from_device`).  There is
-no CUDA graph of a whole epoch: the host's reads of the liveness tick
-and of the rung stay.
+The write path, the fleet and the divergent ranks run that host-decided
+body too.  The compiled program runs on the CPU as well, eagerly, each
+decision one read of its predicate (what the CPU tests hold against the
+reference).
 
 Two drivers
 -----------
@@ -71,17 +90,19 @@ current-epoch half of the fused placement->peering program
 (:meth:`ceph_tpu_torch.recovery.pipeline.FusedPeering.peer_hist`): the
 epoch's pool state mapped, classified against the baseline epoch's
 acting table (mapped once when the driver is built) and reduced to the
-PG-state histogram, on the card one CUDA graph replay.  The dirty-set
-ladder's rungs below dense run the mapping program of
-:func:`~ceph_tpu_torch.osdmap.mapping.compile_pool_mapping` eagerly on
-their buckets.  Under ``CEPH_TPU_FUSED_PIPELINE=0`` the dense branch
-runs that program eagerly too.
+PG-state histogram; in the host-decided loop on the card one replay of
+that program's own graph, inside the compiled superstep's graph inline.
+The dirty-set ladder's rungs below dense run the mapping program of
+:func:`~ceph_tpu_torch.osdmap.mapping.compile_pool_mapping` on their
+buckets.  Under ``CEPH_TPU_FUSED_PIPELINE=0`` the dense branch runs that
+program too.
 """
 
 from __future__ import annotations
 
+import functools
 import os
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, fields, replace
 
 import numpy as np
 import torch
@@ -262,6 +283,16 @@ def compile_event_tape(timeline: ChaosTimeline, m: OSDMap) -> EventTape:
 # Each edit takes int64 indices into the flattened lanes (``osd`` for one
 # cluster, ``lane * n_osds + osd`` for a fleet; no index repeats in one
 # call) and edits them in place: a few launches, nothing read back.
+# ``now32`` is a host float, or a [1] float32 tensor on the device (the
+# compiled superstep's step, whose clock is a table entry).
+
+
+def _stamp(t, i, now32):
+    """``t[i] = now32`` in place."""
+    if isinstance(now32, torch.Tensor):
+        t.index_copy_(0, i, now32.expand(i.shape[0]))
+    else:
+        t.index_fill_(0, i, now32)
 
 
 def _edit_down(f, i, now32, exists):
@@ -272,7 +303,7 @@ def _edit_up(f, i, now32, exists):
     # the effective bit becomes exists (a non-existing OSD stays down);
     # an authoritative up re-arms the detector
     f["up"].index_copy_(0, i, exists.index_select(0, i))
-    f["ack"].index_fill_(0, i, now32)
+    _stamp(f["ack"], i, now32)
     f["sup"].index_fill_(0, i, False)
     f["out"].index_fill_(0, i, False)
 
@@ -284,18 +315,18 @@ def _edit_out(f, i, now32, exists):
 def _edit_in(f, i, now32, exists):
     w = f["w"].index_select(0, i)
     f["w"].index_copy_(0, i, torch.where(w == 0, 0x10000, w))
-    f["ack"].index_fill_(0, i, now32)
+    _stamp(f["ack"], i, now32)
     f["sup"].index_fill_(0, i, False)
     f["out"].index_fill_(0, i, False)
 
 
 def _edit_net_drop(f, i, now32, exists):
-    f["ack"].index_fill_(0, i, now32)
+    _stamp(f["ack"], i, now32)
     f["sup"].index_fill_(0, i, True)
 
 
 def _edit_net_restore(f, i, now32, exists):
-    f["ack"].index_fill_(0, i, now32)
+    _stamp(f["ack"], i, now32)
     f["sup"].index_fill_(0, i, False)
 
 
@@ -359,19 +390,46 @@ def _packed_cols() -> dict[str, int]:
     return cols
 
 
+#: the compiled superstep's row lanes after the packed ones (int32 words):
+#: the map epoch, dirty, the rung taken (:data:`NO_RUNG` when none) and the
+#: clock's float64 in two words
+_ROW_LANES = ("epoch", "dirty", "rung", "now_lo", "now_hi")
+#: the rung lane of an epoch that took no rung of the ladder (a quiet
+#: epoch, or a driver without a ladder)
+NO_RUNG = -2
+
+
 @dataclass
 class EpochRows:
     """A run's epoch rows before they are pulled: the host lanes as
     arrays and the rest as one ``[n, width]`` int32 tensor on the
-    device (:func:`_packed_layout`)."""
+    device (:func:`_packed_layout`).  Rows of the compiled superstep
+    keep their host lanes on the device too: ``lanes`` is ``[n, width +
+    len(_ROW_LANES)]`` (``packed`` its first ``width`` columns) and
+    ``now``/``epoch``/``dirty`` are None until :meth:`host` reads it."""
 
-    now: np.ndarray
-    epoch: np.ndarray
-    dirty: np.ndarray
+    now: np.ndarray | None
+    epoch: np.ndarray | None
+    dirty: np.ndarray | None
     packed: torch.Tensor
+    lanes: torch.Tensor | None = None
+    _read: np.ndarray | None = field(default=None, repr=False)
 
     def __len__(self) -> int:
-        return int(self.now.shape[0])
+        return int(self.packed.shape[0])
+
+    def host(self) -> np.ndarray:
+        """The device rows on the host: one read, kept."""
+        if self._read is None:
+            self._read = self.lanes.cpu().numpy()
+        return self._read
+
+    def rungs(self) -> list[int]:
+        """The rungs the rows' dirty epochs took (from the rung lane)."""
+        if self.lanes is None:
+            return []
+        lane = self.host()[:, self.packed.shape[1] + _ROW_LANES.index("rung")]
+        return [int(r) for r in lane if r != NO_RUNG]
 
 
 @dataclass(frozen=True)
@@ -422,7 +480,13 @@ class EpochSeries:
     @classmethod
     def from_device(cls, rows: EpochRows) -> "EpochSeries":
         """The series of a chunk's rows: one copy back."""
-        return cls.from_rows(rows.now, rows.epoch, rows.dirty, rows.packed.cpu().numpy())
+        if rows.lanes is None:
+            return cls.from_rows(rows.now, rows.epoch, rows.dirty, rows.packed.cpu().numpy())
+        a = rows.host()
+        w = rows.packed.shape[1]
+        lane = {name: w + i for i, name in enumerate(_ROW_LANES)}
+        now = np.ascontiguousarray(a[:, lane["now_lo"]:lane["now_hi"] + 1]).view(np.float64)
+        return cls.from_rows(now[:, 0], a[:, lane["epoch"]], a[:, lane["dirty"]], a[:, :w])
 
     @classmethod
     def concat(cls, parts: list["EpochSeries"]) -> "EpochSeries":
@@ -464,6 +528,10 @@ class _HostView:
     slow: np.ndarray
     any_down: bool = False
     any_laggy: bool = False
+    #: after a compiled chunk only the clock and cursors are the host's
+    #: (the step tables'); the epoch, last tick, bits and flags stayed on
+    #: the device (:meth:`EpochDriver.host_view` reads them)
+    stale: bool = False
 
     def copy(self) -> "_HostView":
         return replace(self, suppressed=self.suppressed.copy(), slow=self.slow.copy())
@@ -580,9 +648,8 @@ class EpochDriver:
             ladder = ()
         self._dirty_ladder: tuple[int, ...] = ladder
         self.compaction_enabled = bool(ladder)
-        #: the rung each dirty epoch of the last run took (len(ladder):
-        #: dense; -1: nothing to re-peer), for reports
-        self.rungs_taken: list[int] = []
+        self._rungs: list[int] = []
+        self._rung_rows: list[EpochRows] = []
         # the previous epoch of survivor classification: the baseline
         # placement, fixed for the run, mapped once
         self._state_prev = build_pool_state(m, pool, max_items, dev)
@@ -627,6 +694,24 @@ class EpochDriver:
         #: the recorder's ring after the most recent run or chunk
         self.flight = self._init_flight
         self._probe = None
+        # the compiled supersteps (recorder off, on) and the step tables
+        self._programs: dict[bool, SuperstepProgram | None] = {}
+        self._tables_host: dict | None = None
+        self._tables_dev: dict | None = None
+
+    @property
+    def rungs_taken(self) -> list[int]:
+        """The rung each dirty epoch of the last run took (len(ladder):
+        dense; -1: nothing to re-peer), for reports.  A compiled run's
+        come from its rows' rung lane, read here unless already pulled."""
+        for rows in self._rung_rows:
+            self._rungs.extend(rows.rungs())
+        self._rung_rows = []
+        return self._rungs
+
+    @rungs_taken.setter
+    def rungs_taken(self, rungs) -> None:
+        self._rungs, self._rung_rows = list(rungs), []
 
     # -- the pieces (shared by both drivers) ---------------------------
 
@@ -794,8 +879,6 @@ class EpochDriver:
         peer on the bucket, scatter back, and refold ``pg_hist``/
         ``pg_aux`` by exact integer deltas over the bucket's valid
         lanes."""
-        from ..obs.pg_states import pg_state_reduce
-
         widths = self._dirty_ladder
         dirty_pg, heavy = self._dirty_pgs(state, prev_up, prev_w)
         take, n_dirty = compact_dirty_indices(dirty_pg)
@@ -803,14 +886,21 @@ class EpochDriver:
         self._probe = (nd, heavy)
         rung = ladder_rung(nd, widths)
         if rung == len(widths):
-            self.rungs_taken.append(rung)
+            self._rungs.append(rung)
             return self._peer_hist(state)
         if nd == 0:
             # every lane a pad: the scatters drop all, the refold adds 0
-            self.rungs_taken.append(-1)
+            self._rungs.append(-1)
             return state
-        self.rungs_taken.append(rung)
-        W = widths[rung]
+        self._rungs.append(rung)
+        return self._compact_branch(state, take, n_dirty, widths[rung])
+
+    def _compact_branch(self, state: ClusterState, take, n_dirty, W: int) -> ClusterState:
+        """One compacted rung of width ``W``: the first ``W`` dirty PGs
+        of ``take`` peered on the bucket, scattered back, ``pg_hist``/
+        ``pg_aux`` refolded over the bucket's valid lanes."""
+        from ..obs.pg_states import pg_state_reduce
+
         idx = take[:W].clamp(0, self.pg_num - 1)
         up, upp, acting, actp, flags, mask, n_alive = self._peer_rows(
             state, idx, self._prev_acting[idx])
@@ -842,6 +932,30 @@ class EpochDriver:
         (``[lanes, ...]`` tables) with a ``[lanes, 1]`` int64 salt-base
         tensor steps every lane at once, each on its own tables and
         salt, each output with a leading lane axis."""
+        salt, cap = self._traffic_params(step, now, salt_base)
+        return self._traffic_core(state, salt, cap)
+
+    def _traffic_params(self, step: int, now: float, salt_base=None):
+        """``(salt, cap)`` of step ``step`` at clock ``now``: the
+        TrafficEngine's per-step salt (u32 wraparound; a tensor for a
+        tensor salt base) and the per-OSD capacity (float32), which a
+        workload mix's burst collapses by ``burst_factor`` for
+        ``burst_duty`` of every period."""
+        salt_base = self.salt_base if salt_base is None else salt_base
+        if not isinstance(salt_base, torch.Tensor):
+            salt_base = int(salt_base)
+        salt = (salt_base + step * _SALT_STEP) & _M32
+        mix = self._mix
+        cap = np.float32(self.cap_ops)
+        if (mix is not None and mix.burst_factor > 1.0 and mix.burst_period_s > 0.0
+                and now % mix.burst_period_s < mix.burst_duty * mix.burst_period_s):
+            cap = cap / np.float32(mix.burst_factor)
+        return salt, cap
+
+    def _traffic_core(self, state: ClusterState, salt, cap):
+        """:meth:`_traffic_apply` given the step's salt and capacity
+        (host numbers, or 0-d tensors on the device: the compiled
+        superstep's table entries)."""
         from ..workload.histogram import LAT_MIN_MS, N_BUCKETS
         from ..workload.traffic import (
             _osd_index,
@@ -851,21 +965,10 @@ class EpochDriver:
             _traffic_outcomes,
         )
 
-        salt_base = self.salt_base if salt_base is None else salt_base
-        if not isinstance(salt_base, torch.Tensor):
-            salt_base = int(salt_base)
-        # the TrafficEngine's per-step salt, u32 wraparound
-        salt = (salt_base + step * _SALT_STEP) & _M32
         mix = self._mix
         ids = self._ids
         if mix is not None and mix.hot_permille > 0:
             ids = _skew_ids(ids, salt, mix.hot_permille, mix.hot_objects)
-        cap = np.float32(self.cap_ops)
-        if (mix is not None and mix.burst_factor > 1.0 and mix.burst_period_s > 0.0
-                and now % mix.burst_period_s < mix.burst_duty * mix.burst_period_s):
-            # bursty arrivals as capacity collapsing by burst_factor for
-            # burst_duty of every period
-            cap = cap / np.float32(mix.burst_factor)
         pg_bmask = (1 << max(self.pg_num - 1, 1).bit_length()) - 1
         pg, prim, is_write, blocked, degraded, cost = _route(
             state.survivor_mask, state.n_alive, state.acting_primary, ids, salt,
@@ -887,14 +990,11 @@ class EpochDriver:
         """PGs whose staggered scrub window ticked in ``(prev_now,
         now]`` ([1] int32): a full period elapsed -> all; otherwise the
         phase window ``(lo, hi]``, wrapping."""
-        period = self.scrub_period_s
-        if period <= 0:
+        if self.scrub_period_s <= 0:
             return self._zero_i32
-        if now - prev_now >= period:
+        in_win = _scrub_window(self._phases, self.scrub_period_s, prev_now, now)
+        if in_win is None:
             return torch.full((1,), self.pg_num, dtype=I32, device=self.device)
-        lo, hi = prev_now % period, now % period
-        ph = self._phases
-        in_win = ((ph > lo) & (ph <= hi)) if lo <= hi else ((ph > lo) | (ph <= hi))
         return in_win.sum(dtype=I32).reshape(1)
 
     @staticmethod
@@ -919,6 +1019,9 @@ class EpochDriver:
         rung, n_dirty, heavy)`` third: the dirty-set probe of a dirty
         epoch, read only (the compacted branch's own count, or the same
         predicate on the device), so every epoch lane stays as it is."""
+        if host.stale:
+            raise RuntimeError("the host view is stale after a compiled chunk: rebuild it "
+                               "with EpochDriver.host_view(state)")
         prev_now = host.now
         # the pool lanes before this epoch's edits: the compacted dirty
         # branch diffs against them to find the PGs the edits can reach
@@ -1022,7 +1125,20 @@ class EpochDriver:
         """Epochs ``start .. stop - 1`` from ``state`` and its host view
         (advanced in place); with a flight state ``fs`` the ring records
         each epoch.  Returns ``(state, fs, rows)``: the state with its
-        scalars set, the ring, and the epochs' :class:`EpochRows`."""
+        scalars set, the ring, and the epochs' :class:`EpochRows`.  On
+        the card the compiled superstep runs them (:meth:`compile_superstep`,
+        or its flight twin with ``fs``): the view keeps only the clock
+        and cursors then (``host.stale``)."""
+        if self.device.type == "cuda":
+            prog = self.compile_superstep() if fs is None else self.compile_superstep_flight()
+            return prog.advance(state, host, start, stop, fs)
+        return self._advance_host(state, host, start, stop, fs)
+
+    def _advance_host(self, state: ClusterState, host: _HostView, start: int, stop: int,
+                      fs=None):
+        """:meth:`advance` decided on the host, one epoch at a time: the
+        tape window a host slice, a busy epoch's one read after the tick,
+        the ladder's rung read (the CPU's driver, and the write path's)."""
         now, epoch, dirty, packed = [], [], [], []
         for e in range(start, stop):
             if fs is None:
@@ -1049,6 +1165,24 @@ class EpochDriver:
 
         return flight_record(fs, self._flight_row(row, extras, wrow))
 
+    def compile_superstep(self) -> "SuperstepProgram":
+        """The ONE program of a chunk of epochs (:class:`SuperstepProgram`,
+        built once a driver): on the card one CUDA graph, captured on its
+        first chunk and replayed for every later one."""
+        if self._programs.get(False) is None:
+            self._programs[False] = SuperstepProgram(self, flight=False)
+        return self._programs[False]
+
+    def compile_superstep_flight(self) -> "SuperstepProgram":
+        """The recorder-carrying twin of :meth:`compile_superstep`: the
+        ring rides the chunk and each epoch writes its row in place."""
+        if not self.flight_on:
+            raise RuntimeError("flight recorder is off for this driver (flight_recorder=on "
+                               "enables it)")
+        if self._programs.get(True) is None:
+            self._programs[True] = SuperstepProgram(self, flight=True)
+        return self._programs[True]
+
     def drain_flight(self) -> dict:
         """The recorder's ring brought to the host and un-rotated (a pure
         read)."""
@@ -1059,6 +1193,55 @@ class EpochDriver:
                 "flight recorder is off for this driver (flight_recorder=on "
                 "enables it)")
         return drain_flight(self.flight)
+
+    # -- the compiled superstep's step tables --------------------------
+
+    def step_tables(self, n_steps: int) -> dict[str, np.ndarray]:
+        """What each of steps ``0 .. n_steps - 1`` knows before it runs,
+        from the step, the static tape and the static config alone, each
+        value computed as the host driver computes it: the clock
+        (``now``, float64, and ``now32``, float32), the tape window's
+        stop, its epoch bumps and whether it holds a map row (the window
+        starts where the last one stopped), the traffic salt and
+        capacity (:meth:`_traffic_params`) and the scrub count
+        (:meth:`_scrub_due`, from the previous step's clock)."""
+        tape = self.tape
+        n = int(n_steps)
+        now = np.array([self._now_of(s) for s in range(n)], np.float64)
+        stop = np.searchsorted(tape.t, now, side="right").astype(np.int64)
+        lo = np.concatenate([[0], stop[:-1]]).astype(np.int64)
+        bumps = np.concatenate([[0], np.cumsum(tape.bump, dtype=np.int64)])
+        maps = np.concatenate([[0], np.cumsum(np.isin(tape.kind, _MAP_KINDS), dtype=np.int64)])
+        params = [self._traffic_params(s, float(now[s])) for s in range(n)]
+        scrub = np.zeros(n, np.int32)
+        if self.scrub_period_s > 0:
+            phases = scrub_phases(self.pg_num, self.scrub_period_s)
+            for s in range(n):
+                in_win = _scrub_window(phases, self.scrub_period_s, self._now_of(s - 1),
+                                       float(now[s]))
+                scrub[s] = self.pg_num if in_win is None else int(in_win.sum())
+        return {
+            "now": now,
+            "now32": now.astype(np.float32),
+            "stop": stop.astype(np.int32),
+            "bump": (bumps[stop] - bumps[lo]).astype(np.int32),
+            "map": (maps[stop] - maps[lo]) > 0,
+            "salt": np.array([int(salt) for salt, _cap in params], np.int64),
+            "cap": np.array([cap for _salt, cap in params], np.float32),
+            "scrub": scrub,
+        }
+
+    def _tables(self, n_steps: int) -> tuple[dict, dict]:
+        """The step tables covering ``n_steps`` (host arrays, tensors on
+        the device), made once for a power-of-two bucket of steps and
+        kept: a later run as long reads them without a copy."""
+        have = 0 if self._tables_host is None else len(self._tables_host["now"])
+        if have < n_steps:
+            n = 1 << max(int(n_steps) - 1, 63).bit_length()
+            self._tables_host = self.step_tables(n)
+            self._tables_dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                                for k, v in self._tables_host.items()}
+        return self._tables_host, self._tables_dev
 
     # -- drivers -------------------------------------------------------
 
@@ -1078,17 +1261,25 @@ class EpochDriver:
         pulled chunk (the journaling seam), with :attr:`final_state`
         already the state after it.  With ``pull=False`` and no
         snapshots, returns ``(state, rows)``: the last chunk's
-        :class:`EpochRows` still on the device.  A quiet epoch reads the
-        device at most once (the dirty decision); there is no CUDA
-        graph of an epoch yet.  With the flight recorder on, the ring
-        rides the loop (:attr:`flight` afterwards) and, given a
-        ``journal``, drains a ``flight.drain`` record at every chunk's
-        end."""
+        :class:`EpochRows` still on the device.  On the card a chunk is
+        one replay of the compiled superstep's graph, which reads
+        nothing back (:meth:`advance`); on the CPU a quiet epoch reads
+        the device at most once (the dirty decision).  With the flight
+        recorder on, the ring rides the loop (:attr:`flight` afterwards)
+        and, given a ``journal``, drains a ``flight.drain`` record at
+        every chunk's end."""
+        return self._run_chunks(self.advance, self._init_flight, n_epochs,
+                                snapshot_every=snapshot_every, on_snapshot=on_snapshot,
+                                pull=pull, journal=journal)
+
+    def _run_chunks(self, advance, fs, n_epochs: int, *, snapshot_every: int = 0,
+                    on_snapshot=None, pull: bool = True, journal=None):
+        """:meth:`run_superstep` over ``advance`` from the initial state
+        and the ring ``fs``."""
         from ..obs.flight import journal_drain
 
         state = self._init_state
         host = self._init_host.copy()
-        fs = self._init_flight
         self.flight = fs
         self.rungs_taken = []
         n_epochs = int(n_epochs)
@@ -1104,9 +1295,10 @@ class EpochDriver:
         start = 0
         while start < n_epochs:
             size = min(chunk, n_epochs - start)
-            # torchlint: disable=J003  # a chunk reads as its epochs do: one read a busy epoch
-            state, fs, rows = self.advance(state, host, start, start + size, fs)
+            state, fs, rows = advance(state, host, start, start + size, fs)
             self.final_state, self.flight = state, fs
+            if rows.lanes is not None:
+                self._rung_rows.append(rows)
             if fs is not None and journal is not None:
                 journal_drain(journal, fs, chunk_start=start)
             if pull or on_snapshot is not None:
@@ -1187,6 +1379,386 @@ class EpochDriver:
                                on_snapshot=on_snapshot)
 
 
+# ---------------------------------------------------------------------------
+# the compiled superstep
+
+
+def _get(obj, name: str):
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _state_names(state: ClusterState) -> list[str]:
+    """Every tensor of a state, by dotted name (the pool's first)."""
+    names = ["pool." + f.name for f in fields(state.pool)]
+    return names + [f.name for f in fields(state)
+                    if f.name != "pool" and getattr(state, f.name) is not None]
+
+
+def _clone_state(state: ClusterState) -> ClusterState:
+    pool = replace(state.pool, **{f.name: getattr(state.pool, f.name).clone()
+                                  for f in fields(state.pool)})
+    return replace(state, pool=pool, **{
+        f.name: getattr(state, f.name).clone() for f in fields(state)
+        if f.name != "pool" and getattr(state, f.name) is not None})
+
+
+def _assign(dst: ClusterState, src: ClusterState, names) -> None:
+    """Copy ``src``'s tensors ``names`` into ``dst``'s, in place."""
+    for name in names:
+        d, s = _get(dst, name), _get(src, name)
+        if d is not s:
+            d.copy_(s)
+
+
+#: the tensors the liveness tick and the dirty branch write
+_TICK_NAMES = ("pool.osd_up", "pool.osd_weight", "last_ack", "laggy", "markdowns", "down",
+               "down_since", "out")
+_PEER_NAMES = ("up", "up_primary", "acting", "acting_primary", "flags", "survivor_mask",
+               "n_alive", "pg_hist", "pg_aux")
+
+
+def _tape_lanes(state: ClusterState) -> dict:
+    """The six lanes the tape's edits write, by :data:`_LANE_EDITS`' keys."""
+    return {"up": state.pool.osd_up, "w": state.pool.osd_weight, "ack": state.last_ack,
+            "sup": state.suppressed, "slow": state.slow, "out": state.out}
+
+
+class _Carry:
+    """The buffers a compiled chunk reads and writes in place: the state
+    and the recorder's ring, the rows ``[capacity, width +
+    len(_ROW_LANES)]``, the step tables' window ``[capacity]`` (entry
+    ``j`` is step ``start + j``), the step counter and its bounds, and
+    the epoch's decisions (whether the tick moved the map, dirty, the
+    rung, the flight probe) with the tick's liveness lanes."""
+
+    def __init__(self, driver: EpochDriver, state: ClusterState, fs, capacity: int):
+        from ..obs.flight import FlightState
+
+        dev = driver.device
+        self.capacity = int(capacity)
+        self.st = _clone_state(state)
+        self.fs = None if fs is None else FlightState(ring=fs.ring.clone(), head=fs.head.clone())
+        self.width = sum(w for _f, w, _d in _packed_layout())
+        self.rows = torch.zeros((self.capacity, self.width + len(_ROW_LANES)), dtype=I32,
+                                device=dev)
+        _host, tables = driver._tables(1)
+        self.tab = {k: torch.zeros(self.capacity, dtype=v.dtype, device=dev)
+                    for k, v in tables.items()}
+
+        def zero(dtype):
+            return torch.zeros((), dtype=dtype, device=dev)
+
+        self.start, self.stop, self.step = zero(I64), zero(I64), zero(I64)
+        self.live = torch.zeros(5, dtype=I32, device=dev)
+        self.trans, self.dirty, self.heavy = zero(torch.bool), zero(torch.bool), zero(torch.bool)
+        self.rung, self.frung, self.nd = zero(I32), zero(I32), zero(I64)
+        self.prev_up = self.st.pool.osd_up.clone()
+        self.prev_w = self.st.pool.osd_weight.clone()
+
+    def load(self, state: ClusterState, fs) -> None:
+        """Copy a chunk's starting state (and ring) in."""
+        for name in _state_names(self.st):
+            _get(self.st, name).copy_(_get(state, name))
+        if self.fs is not None:
+            self.fs.ring.copy_(fs.ring)
+            self.fs.head.copy_(fs.head)
+
+    def window(self, tables: dict, start: int, stop: int) -> None:
+        """Steps ``start .. stop - 1``: their table entries and bounds."""
+        for k, t in self.tab.items():
+            t[:stop - start].copy_(tables[k][start:stop])
+        self.start.fill_(start)
+        self.stop.fill_(stop)
+
+    def state(self) -> ClusterState:
+        return _clone_state(self.st)
+
+    def flight(self):
+        from ..obs.flight import FlightState
+
+        if self.fs is None:
+            return None
+        return FlightState(ring=self.fs.ring.clone(), head=self.fs.head.clone())
+
+
+class SuperstepProgram:
+    """The compiled superstep of one :class:`EpochDriver`: a chunk of
+    epochs as one program, every decision of the epoch body made on the
+    device (:meth:`EpochDriver.compile_superstep`, and
+    :meth:`EpochDriver.compile_superstep_flight` with the recorder's ring
+    riding it).
+
+    - On the card it is one CUDA graph (:mod:`ceph_tpu_torch.core.graphs`),
+      captured on the first chunk and replayed for every later one: a
+      WHILE node over the chunk's steps, whose body is the epoch body
+      with the tape window a WHILE node over its rows (each row's edit a
+      SWITCH node on its kind), the liveness tick an IF node on the
+      device's idle test, the dirty branch an IF node holding a SWITCH on
+      the compaction ladder's rung (the dense branch its top body).  A
+      chunk copies its bounds and its window of the step tables
+      (:meth:`EpochDriver.step_tables`) into the graph's buffers, replays,
+      and copies the rows, state and ring out: no wrapper call and no
+      read.  A chunk longer than the graph's buffers runs as several
+      replays.
+    - On the CPU the same body runs eagerly, each decision one host read
+      of its predicate (:func:`~ceph_tpu_torch.core.graphs.cond`,
+      :func:`~ceph_tpu_torch.core.graphs.switch`,
+      :func:`~ceph_tpu_torch.core.graphs.loop`).
+
+    ``program(n_epochs, **kw)`` runs as :meth:`EpochDriver.run_superstep`;
+    :meth:`advance` is :meth:`EpochDriver.advance`'s compiled form."""
+
+    def __init__(self, driver: EpochDriver, *, flight: bool):
+        dev = driver.device
+        self.driver = driver
+        self.flight = bool(flight)
+        self.graph = None  # graphs.Graph, on the card
+        self.captures = 0
+        self.replays = 0
+        self._carry: _Carry | None = None
+        self._kind = torch.from_numpy(np.ascontiguousarray(driver.tape.kind)).to(dev)
+        self._osd = torch.from_numpy(driver.tape.osd.astype(np.int64)).to(dev)
+        widths = tuple(driver._dirty_ladder) + (driver.pg_num,)
+        self._peer_widths = torch.tensor(widths, dtype=I64).to(dev)
+
+    @property
+    def compiled(self) -> bool:
+        """Whether a chunk is a graph replay (on the card)."""
+        return self.driver.device.type == "cuda"
+
+    def __call__(self, n_epochs: int, **kw):
+        d = self.driver
+        return d._run_chunks(self.advance, d._init_flight if self.flight else None, n_epochs,
+                             **kw)
+
+    def run_eager(self, n_epochs: int, **kw):
+        """The same body run eagerly on the driver's device, each decision
+        read to the host: what the graph is held against on the card."""
+        d = self.driver
+        return d._run_chunks(functools.partial(self._advance, compiled=False),
+                             d._init_flight if self.flight else None, n_epochs, **kw)
+
+    def advance(self, state: ClusterState, host: _HostView, start: int, stop: int, fs=None):
+        """Epochs ``start .. stop - 1`` from ``state``: ``(state, fs,
+        rows)`` as :meth:`EpochDriver.advance` returns them, the rows'
+        host lanes on the device.  ``host`` keeps the clock and cursors
+        (the tables'), the rest of it stale."""
+        return self._advance(state, host, start, stop, fs, compiled=self.compiled)
+
+    def _advance(self, state, host, start, stop, fs=None, *, compiled: bool):
+        d = self.driver
+        start, stop = int(start), int(stop)
+        fs = fs if self.flight else None
+        if stop <= start:
+            return state, fs, d._empty_rows()
+        tables_host, tables = d._tables(stop)
+        c = self._carry_for(state, fs, stop - start)
+        parts = []
+        for lo in range(start, stop, c.capacity):
+            hi = min(stop, lo + c.capacity)
+            c.window(tables, lo, hi)
+            if compiled:
+                # torchlint: disable=J003  # a replay reads nothing (the first's warm-up reads)
+                self._replay(c)
+            else:
+                for step in range(lo, hi):
+                    c.step.fill_(step)
+                    self._step(c)
+            parts.append(c.rows[:hi - lo].clone())
+        lanes = parts[0] if len(parts) == 1 else torch.cat(parts)
+        host.step, host.now = stop - 1, float(tables_host["now"][stop - 1])
+        host.cursor, host.stale = int(tables_host["stop"][stop - 1]), True
+        return c.state(), c.flight(), EpochRows(None, None, None, lanes[:, :c.width], lanes)
+
+    def _carry_for(self, state, fs, n: int) -> _Carry:
+        c = self._carry
+        if c is None or (not self.compiled and c.capacity < n):
+            # the graph's buffers: a power-of-two bucket of the first chunk
+            cap = 1 << max(n - 1, 15).bit_length() if self.compiled else n
+            c = self._carry = _Carry(self.driver, state, fs, cap)
+        c.load(state, fs)
+        return c
+
+    # -- the graph -------------------------------------------------------
+
+    def _replay(self, c: _Carry) -> None:
+        from ..core import graphs
+
+        if self.graph is None:
+            self._warm(c)
+
+            def chunk():
+                c.step.copy_(c.start)
+                with graphs.while_node(lambda: c.step < c.stop):
+                    self._step(c)
+                    c.step.add_(1)
+
+            self.graph = graphs.capture(chunk, self.driver.device)
+            self.captures += 1
+        self.graph.replay()
+        self.replays += 1
+
+    def _warm(self, c: _Carry) -> None:
+        """Run the body and every branch of it once, eagerly, on a copy
+        of ``c``: the kernels built, their tables uploaded and their
+        launch settings read at every width the graph launches them."""
+        from ..core.cluster_state import compact_dirty_indices as compact
+
+        d = self.driver
+        w = _Carry(d, c.st, c.fs, c.capacity)
+        for k, t in w.tab.items():
+            t.copy_(c.tab[k])
+        for t, src in ((w.start, c.start), (w.stop, c.stop), (w.step, c.start)):
+            t.copy_(src)
+        self._step(w)
+        now, now32 = w.tab["now"][:1], w.tab["now32"][:1]
+        lanes = _tape_lanes(w.st)
+        first = torch.zeros(1, dtype=I64, device=d.device)
+        for edit in _LANE_EDITS:
+            edit(lanes, first, now32, w.st.pool.osd_exists)
+        self._tick(w, now, now32)
+        take, n_dirty = compact(torch.ones(d.pg_num, dtype=torch.bool, device=d.device))
+        for width in d._dirty_ladder:
+            self._compact(w, take, n_dirty, width)
+        self._dense(w)
+        self._dirty(w)
+        torch.cuda.synchronize(d.device)
+
+    # -- the epoch body, its decisions on the device ---------------------
+
+    def _step(self, c: _Carry) -> None:
+        """Step ``c.step`` of the epoch loop, in place: the reference's
+        fused epoch body."""
+        from ..core import graphs
+
+        d, st = self.driver, c.st
+        j = (c.step - c.start).reshape(1)
+
+        def at(name):
+            return c.tab[name].index_select(0, j)
+
+        now, now32 = at("now"), at("now32")
+        c.prev_up.copy_(st.pool.osd_up)
+        c.prev_w.copy_(st.pool.osd_weight)
+        if len(d.tape):
+            # the tape window: its rows from the device cursor, in order
+            stop = at("stop")
+            lanes, exists = _tape_lanes(st), st.pool.osd_exists
+
+            def row():
+                i = st.tape_cursor.to(I64).reshape(1)
+                osd = self._osd.index_select(0, i)
+                graphs.switch(self._kind.index_select(0, i),
+                              [functools.partial(edit, lanes, osd, now32, exists)
+                               for edit in _LANE_EDITS])
+                st.tape_cursor.add_(1)
+
+            graphs.loop(lambda: (st.tape_cursor < stop).reshape(()), row)
+        st.epoch.add_(at("bump").reshape(()))
+        # the liveness tick, skipped when idle (last_tick then stays)
+        idle = ~(st.suppressed.any() | st.slow.any() | st.down.any() | (st.laggy != 0).any())
+        c.live.zero_()
+        c.trans.zero_()
+        graphs.cond(~idle, lambda: self._tick(c, now, now32))
+        c.dirty.copy_(at("map").reshape(()) | c.trans)
+        c.rung.fill_(NO_RUNG)
+        c.frung.fill_(-1)
+        c.nd.zero_()
+        c.heavy.zero_()
+        graphs.cond(c.dirty, lambda: self._dirty(c))
+        traffic = d._traffic_core(st, at("salt").reshape(()), at("cap").reshape(()))
+        row = d._row(st, traffic, c.live, at("scrub"))
+        meta = torch.cat([st.epoch.reshape(1), c.dirty.to(I32).reshape(1), c.rung.reshape(1),
+                          now.view(I32)])
+        c.rows.index_copy_(0, j, torch.cat([row, meta]).unsqueeze(0))
+        st.now.copy_(now.reshape(()))
+        st.step.copy_(c.step)
+        if c.fs is not None:
+            from ..obs.flight import flight_record_
+
+            flight_record_(c.fs, self._flight_row(c, row))
+
+    def _tick(self, c: _Carry, now, now32) -> None:
+        d, st = self.driver, c.st
+        hl = torch.full((), max(d.laggy_halflife, 1e-9), dtype=F64, device=now.device)
+        decay = torch.pow(0.5, (now - st.last_tick).clamp_min(0.0) / hl).to(F32).reshape(())
+        new, live, flags = d._tick(st, now32.reshape(()), decay)
+        _assign(st, new, _TICK_NAMES)
+        c.live.copy_(live)
+        c.trans.copy_(flags[0])
+        st.epoch.add_(flags[0].to(I32))
+        st.last_tick.copy_(now.reshape(()))
+
+    def _dirty(self, c: _Carry) -> None:
+        """The dirty branch: through the ladder's rung on the device, or
+        dense."""
+        from ..core import graphs
+        from ..core.cluster_state import compact_dirty_indices, ladder_rung_device
+
+        d, st = self.driver, c.st
+        widths = d._dirty_ladder
+        if not widths:
+            if c.fs is not None:
+                dirty_pg, heavy = d._dirty_pgs(st, c.prev_up, c.prev_w)
+                c.frung.zero_()
+                c.nd.copy_(dirty_pg.sum(dtype=I64))
+                c.heavy.copy_(heavy)
+            self._dense(c)
+            return
+        dirty_pg, heavy = d._dirty_pgs(st, c.prev_up, c.prev_w)
+        take, n_dirty = compact_dirty_indices(dirty_pg)
+        rung = ladder_rung_device(n_dirty, widths)
+        c.frung.copy_(rung)
+        c.nd.copy_(n_dirty)
+        c.heavy.copy_(heavy)
+        # nothing to re-peer: no body (every lane a pad would add 0)
+        taken = torch.where(n_dirty == 0, -1, rung)
+        c.rung.copy_(taken)
+        graphs.switch(taken, [functools.partial(self._compact, c, take, n_dirty, w)
+                              for w in widths] + [functools.partial(self._dense, c)])
+
+    def _compact(self, c: _Carry, take, n_dirty, width: int) -> None:
+        _assign(c.st, self.driver._compact_branch(c.st, take, n_dirty, width), _PEER_NAMES)
+
+    def _dense(self, c: _Carry) -> None:
+        _assign(c.st, self.driver._peer_hist(c.st), _PEER_NAMES)
+
+    def _flight_row(self, c: _Carry, row: torch.Tensor) -> torch.Tensor:
+        """:meth:`EpochDriver._flight_row` from the device's probe."""
+        from ..obs.flight import flight_row
+
+        n_rungs = len(self.driver._dirty_ladder)
+        col = _packed_cols()
+
+        def lane(name, i=0):
+            return row[col[name] + i].to(I64)
+
+        served, degraded, blocked = lane("counts"), lane("counts", 1), lane("counts", 2)
+        rung = c.frung
+        peer = self._peer_widths.index_select(0, rung.clamp(0, n_rungs).to(I64).reshape(1))
+        return flight_row(
+            device=row.device, epoch=c.step, dirty=c.dirty, rung=rung, dirty_pgs=c.nd,
+            compact=c.dirty & (rung >= 0) & (rung < n_rungs), heavy=c.heavy,
+            served=served, degraded=degraded, blocked=blocked, writes=lane("writes"),
+            deg_reads=lane("deg_reads"), eff_down=lane("eff_down"), eff_up=lane("eff_up"),
+            eff_out=lane("eff_out"), down_total=lane("down_total"),
+            scrub_due=lane("scrub_due"),
+            cycles_peer=torch.where(c.dirty, peer.reshape(()), 0),
+            cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"))
+
+
+def _scrub_window(phases, period: float, prev_now: float, now: float):
+    """The PGs (a mask of ``phases``: a tensor or a numpy array of
+    float64 offsets) whose scrub window ticked in ``(prev_now, now]``,
+    or None when a whole period elapsed (every PG)."""
+    if now - prev_now >= period:
+        return None
+    lo, hi = prev_now % period, now % period
+    return ((phases > lo) & (phases <= hi)) if lo <= hi else ((phases > lo) | (phases <= hi))
+
+
 def _down_checksum(down: torch.Tensor) -> torch.Tensor:
     """Order-free integer fingerprint of the down set (sum of id+1),
     along the last axis."""
@@ -1214,11 +1786,13 @@ def build_epoch_driver(m: OSDMap, timeline: ChaosTimeline, **kwargs) -> EpochDri
     return EpochDriver(m, timeline, **kwargs)
 
 
-def compile_epoch_superstep(driver: EpochDriver):
-    """The chunk runner of a built driver: ``run(n_epochs, **kw)`` as
-    :meth:`EpochDriver.run_superstep` (eager torch: nothing is compiled
-    ahead; the name is the reference's)."""
-    return driver.run_superstep
+def compile_epoch_superstep(driver: EpochDriver) -> "SuperstepProgram":
+    """The compiled superstep of a built driver, the recorder-carrying
+    one when its flight recorder is on: ``run(n_epochs, **kw)`` as
+    :meth:`EpochDriver.run_superstep` takes them."""
+    if driver.flight_on:
+        return driver.compile_superstep_flight()
+    return driver.compile_superstep()
 
 
 def run_epochs(

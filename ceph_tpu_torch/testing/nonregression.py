@@ -25,7 +25,9 @@ reported beside the seam reads.  A CUDA graph capture counts as a build;
 a graph replay makes no wrapper call, and the launches it ran count as
 replayed launches.  In ``fused_placement`` on the card the second run
 is one replay of the fused placement->peering program's graph with no
-seam read.
+seam read; in ``epoch_superstep`` and ``compacted_superstep`` one replay
+of the compiled epoch superstep's graph a chunk, with no seam read and
+no sync-debug warning (the reference's zero).
 """
 
 from __future__ import annotations
@@ -193,15 +195,19 @@ BUDGETS: dict[str, Budget] = {
         "(on the card the run is one graph replay: no wrapper call and no read)"),
     "epoch_superstep": Budget(
         {"descend": 170}, 114,
-        f"100 are {_LADDER}; 14 are {_EPOCH_READ} (`.cpu().tolist()`, 7 epochs)"),
+        f"on the CPU the host-decided loop: 100 are {_LADDER}; 14 are {_EPOCH_READ} "
+        "(`.cpu().tolist()`, 7 epochs) (on the card the window is one replay of the compiled "
+        "superstep's graph: no wrapper call, no read and no sync warning)"),
     "fleet_superstep": Budget(
         {"descend": 272}, 176,
         f"172 are {_LADDER}; 4 read the active lanes' flags and keys once a window "
         "(recovery/fleet.py `FleetDriver._live`: `.cpu().numpy()`, twice)"),
     "compacted_superstep": Budget(
         {"descend": 360}, 215,
-        f"210 are {_LADDER}; 5 are the compaction ladder's rung read "
-        "(recovery/superstep.py `_peer_hist_compact`: `int(n_dirty)` picks the rung's width)"),
+        f"on the CPU the host-decided loop: 210 are {_LADDER}; 5 are the compaction ladder's "
+        "rung read (recovery/superstep.py `_peer_hist_compact`: `int(n_dirty)` picks the rung's "
+        "width) (on the card the walk is one replay of the compiled superstep's graph, the rung "
+        "a SWITCH node: no wrapper call, no read and no sync warning)"),
     "online_write_batch": Budget(
         {"descend": 170, "schedule_apply": 8, "stripe_absorb": 8, "stripe_commit": 8}, 114,
         f"100 are {_LADDER}; 14 are {_EPOCH_READ} (7 epochs)"),

@@ -222,9 +222,13 @@ def _queue_model(load, idx, is_write, degraded, k: int, service_ms,
     reference's expression in its order (no fused multiply-add), so the
     CPU and the card round each step alike.  ``cap_ops`` divides as a
     tensor on the device: CUDA multiplies by the reciprocal of a host
-    scalar divisor."""
-    cap = torch.full((), float(np.maximum(np.float32(cap_ops), np.float32(1e-6))),
-                     dtype=F32, device=load.device)
+    scalar divisor.  A 0-d float32 tensor ``cap_ops`` (a step table's
+    entry) is clamped on the device alike."""
+    if isinstance(cap_ops, torch.Tensor):
+        cap = cap_ops.to(F32).clamp_min(float(np.float32(1e-6)))
+    else:
+        cap = torch.full((), float(np.maximum(np.float32(cap_ops), np.float32(1e-6))),
+                         dtype=F32, device=load.device)
     rho = _take(load, idx) / cap
     rho = rho + float(np.float32(rho_recovery))
     rho = rho.clamp(0.0, RHO_MAX)

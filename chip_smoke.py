@@ -1841,16 +1841,26 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
     pg_num, size=6, erasure)``, ``slow:5`` and ``slow:17`` at t=0.1,
     EPOCH_OPS ops a step; ``epochs`` superstep epochs in chunks of
     ``chunk`` after a warm-up chunk, ``staged`` staged epochs after
-    EPOCH_STAGED_WARM: epochs/s, host syncs an epoch; (b) a dirty walk
-    (EPOCH_WALK over enough epochs that every event lands) with
-    compaction ``auto`` and ``off``, each through both paths; these runs
-    are the path's launch counts.  Then the checks, outside the counts:
-    the staged series over one chunk equal to the superstep's; the
-    launches an epoch by piece (torch.profiler) over EPOCH_PROFILED
-    config-7 epochs and over the auto walk; the walk at ``small`` size on
-    the card and on the CPU, every lane equal."""
+    EPOCH_STAGED_WARM: epochs/s, host syncs an epoch; on the card a
+    superstep chunk is one replay of the compiled superstep's CUDA graph
+    (its capture ms, nodes, conditional nodes and bodies, the memory it
+    reserves); (b) a dirty walk (EPOCH_WALK over enough epochs that every
+    event lands) with compaction ``auto`` and ``off``, each through the
+    graph, the same body run eagerly and the staged path; these runs are
+    the path's launch counts (K3 inside the graph by its bodies' pass
+    counters).  Then the checks, outside the counts: the staged series
+    over one chunk and the eager body's equal to the graph's; the
+    launches an epoch by piece (torch.profiler) of the host-decided loop
+    over EPOCH_PROFILED config-7 epochs and over the auto walk, and the
+    graph's busy share; a replayed chunk's wrapper calls, seam reads and
+    sync warnings; the graph, the eager body, the host-decided loop and
+    the staged path in turns; a capture with a host read in the body
+    raising; the walk at ``small`` size on the card and on the CPU,
+    every lane equal."""
     from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.analysis import runtime_guard
     from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.core import graphs
     from ceph_tpu_torch.models.clusters import build_osdmap
     from ceph_tpu_torch.recovery.failure import parse_spec
 
@@ -1888,13 +1898,29 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
         walls[name] = now - t_last[0]
         t_last[0] = now
 
-    # (a) config 7
+    def graph_info(d) -> dict:
+        prog = d.compile_superstep()
+        g = prog.graph
+        if g is None:  # the CPU runs the body eagerly
+            return {"captures": prog.captures, "replays": prog.replays}
+        return {"captures": prog.captures, "replays": prog.replays, "capture_ms": g.capture_ms,
+                "nodes": g.nodes, "conditional_nodes": g.cond_nodes,
+                "conditional_bodies": len(g.bodies), "pool_bytes": g.pool_bytes,
+                "buffer_epochs": prog._carry.capacity}
+
+    # (a) config 7: a chunk is one replay of the compiled superstep's graph
     t0 = time.perf_counter()
     driver = rec.EpochDriver(m, config7(), n_ops=EPOCH_OPS, device=dev)
     build_s = time.perf_counter() - t0
     reset_launches()
-    driver.run_superstep(chunk, snapshot_every=chunk)
     torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    driver.run_superstep(chunk, snapshot_every=chunk)  # warm-up, capture, one replay
+    torch.cuda.synchronize()
+    first_chunk_s = time.perf_counter() - t0
+    reserved_delta = torch.cuda.memory_reserved() - reserved0
+    prog = driver.compile_superstep()
     sup, sup_info = timed(lambda: driver.run_superstep(epochs, snapshot_every=chunk), epochs)
     pulls = -(-epochs // chunk)
     # the chunk pulls are a chunk's, not an epoch's: one copy back each
@@ -1905,27 +1931,36 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
     stg, stg_info = timed(lambda: driver.run_staged(staged), staged)
     add(launch_counts())
     out["config7"] = {"build_s": build_s, "superstep": sup_info, "staged": stg_info,
-                      "ratio": sup_info["epochs_per_s"] / stg_info["epochs_per_s"]}
+                      "ratio": sup_info["epochs_per_s"] / stg_info["epochs_per_s"],
+                      "graph": {**graph_info(driver), "first_chunk_s": first_chunk_s,
+                                "reserved_delta_bytes": reserved_delta}}
     lap("config7")
 
-    # (b) the dirty walk, compaction auto and off, each through both paths
+    # (b) the dirty walk, compaction auto and off, each through the graph,
+    # the body run eagerly and the staged path
     tape = rec.compile_event_tape(rec.build_scenario(EPOCH_WALK, m), m)
     n_walk = int(np.ceil(float(tape.t.max()) / driver.dt)) + 8
-    walks, walk_info, rungs, drivers = {}, {}, {}, {}
+    walks, walk_info, rungs, drivers, walk_graphs = {}, {}, {}, {}, {}
     for mode in ("auto", "off"):
         cfg = Config(env={})
         cfg.set("sparse_dirty_compaction", mode)
         d = rec.EpochDriver(m, rec.build_scenario(EPOCH_WALK, m), n_ops=EPOCH_OPS, config=cfg,
                             device=dev)
-        for how in ("superstep", "staged"):
+        runs = {"superstep": lambda d=d: d.run_superstep(n_walk),
+                "eager": lambda d=d: d.compile_superstep().run_eager(n_walk),
+                "staged": lambda d=d: d.run_staged(n_walk)}
+        for how in ("superstep", "eager", "staged"):
             reset_launches()
-            series, info = timed(lambda: getattr(d, "run_" + how)(n_walk), n_walk)
+            series, info = timed(runs[how], n_walk)
             info["launches"] = launch_counts()
             add(info["launches"])
             walks[(mode, how)] = series
             walk_info[f"{mode}/{how}"] = info
+            if how != "staged":
+                rungs[f"{mode}/{how}"] = d.rungs_taken
         rungs[mode] = {"compaction_enabled": d.compaction_enabled, "ladder": d._dirty_ladder,
                        "rungs_taken": d.rungs_taken}
+        walk_graphs[mode] = graph_info(d)
         drivers[mode] = d
     ref = walks[("off", "staged")]
     diffs = {f"{mode}/{how}": s.diff(ref) for (mode, how), s in walks.items()}
@@ -1933,37 +1968,86 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
     out["walk"] = {"scenario": EPOCH_WALK, "epochs": n_walk, "tape_rows": len(tape),
                    "dirty_epochs": int(ref.dirty.sum()),
                    "dirty_at": np.nonzero(ref.dirty)[0].tolist(), "runs": walk_info,
-                   "ladder": rungs, "diffs": diffs, "k3_launches": walk_k3}
+                   "ladder": rungs, "diffs": diffs, "k3_launches": walk_k3,
+                   "graph": walk_graphs}
     out["launches"] = path
     lap("walk")
 
     # the checks, outside the counts
     one_chunk = driver.run_staged(chunk).diff(series_head(sup, chunk))
     out["config7"]["staged_vs_superstep_one_chunk"] = one_chunk
+    out["config7"]["eager_vs_graph"] = prog.run_eager(EPOCH_TURN).diff(series_head(sup, EPOCH_TURN))
     lap("staged_check")
-    out["launch_split_config7"] = piece_launches(
-        driver, lambda: driver.run_superstep(EPOCH_PROFILED))
+
+    def host_decided(n):  # the host-decided loop (the CPU's, and the card's before the graph)
+        return driver._run_chunks(driver._advance_host, None, n)
+
+    out["launch_split_config7"] = piece_launches(driver, lambda: host_decided(EPOCH_PROFILED))
     out["launch_split_config7"]["epochs"] = EPOCH_PROFILED
-    out["host_ms_config7"] = piece_host_ms(driver, lambda: driver.run_superstep(EPOCH_TURN),
-                                           EPOCH_TURN)
-    # the two paths in turns, to read the rate's spread
+    out["host_ms_config7"] = piece_host_ms(driver, lambda: host_decided(EPOCH_TURN), EPOCH_TURN)
+    # the graph's replays under the profiler: the card's busy share
+    out["graph_profile_config7"] = piece_launches(driver,
+                                                  lambda: driver.run_superstep(EPOCH_TURN))
+    out["graph_profile_config7"]["epochs"] = EPOCH_TURN
+    # a replayed chunk: no wrapper call, no read, no sync warning, no build
+    with runtime_guard.track(sync_debug=True, check_launches=True) as g:
+        driver.run_superstep(EPOCH_TURN, pull=False)
+        torch.cuda.synchronize()
+    out["config7"]["replay"] = {"calls": g.launch_counter.calls,
+                                "host_reads": g.host_transfers,
+                                "sync_warnings": g.transfer_counter.sync_warnings,
+                                "builds": g.n_compiles}
+    # the paths in turns, to read the rate's spread
+    runs = {"graph": lambda n: driver.run_superstep(n), "eager": prog.run_eager,
+            "host": host_decided, "staged": driver.run_staged}
     turns = []
-    for how in ("superstep", "staged", "staged", "superstep"):
+    for how in ("graph", "eager", "host", "staged", "staged", "host", "eager", "graph"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        getattr(driver, "run_" + how)(EPOCH_TURN)
+        runs[how](EPOCH_TURN)
         torch.cuda.synchronize()
         turns.append([how, EPOCH_TURN / (time.perf_counter() - t0)])
     out["config7"]["epochs_per_s_in_turns"] = turns
+    out["config7"]["graph"].update(captures=prog.captures, replays=prog.replays)
+    # each walk through its graph (captured by now), its eager body and
+    # the staged path, in turns
+    for mode, d in drivers.items():
+        runs = {"graph": d.run_superstep, "eager": d.compile_superstep().run_eager,
+                "staged": d.run_staged}
+        turns = []
+        for how in ("graph", "eager", "staged", "staged", "eager", "graph"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[how](n_walk)
+            torch.cuda.synchronize()
+            turns.append([how, n_walk / (time.perf_counter() - t0)])
+        out["walk"]["graph"][mode]["epochs_per_s_in_turns"] = turns
     # the auto walk's first epochs, through its first dirty one
     d = drivers["auto"]
     n_prof = int(np.nonzero(ref.dirty)[0][0]) + 1
-    out["launch_split_walk"] = piece_launches(d, lambda: d.run_superstep(n_prof))
+    out["launch_split_walk"] = piece_launches(
+        d, lambda: d._run_chunks(d._advance_host, None, n_prof))
     out["launch_split_walk"].update(epochs=n_prof, dirty_epochs=int(ref.dirty[:n_prof].sum()))
     lap("profiles")
 
+    # a host read in the epoch body stops the capture with an error
     n_small, pgs_small = small
     m_small = build_osdmap(n_small, pg_num=pgs_small, size=6, pool_kind="erasure")
+    faulty = rec.EpochDriver(m_small, config7(), n_ops=EPOCH_SMALL_OPS, device=dev)
+    core = faulty._traffic_core
+
+    def reads(state, salt, cap):
+        bool(state.pg_hist.any())
+        return core(state, salt, cap)
+
+    faulty._traffic_core = reads
+    try:
+        faulty.run_superstep(8)
+        fault = "no error"
+    except graphs.HostReadInCapture as e:
+        fault = f"{type(e).__name__}: {e}"
+    out["capture_fault"] = fault
+
     small_runs = [rec.EpochDriver(m_small, rec.build_scenario(EPOCH_WALK, m_small),
                                   n_ops=EPOCH_SMALL_OPS, device=d_).run_superstep(n_walk)
                   for d_ in (dev, torch.device("cpu"))]
@@ -1973,11 +2057,21 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
     lap("card_equals_cpu")
     out["walls_s"] = walls
     quiet = sup_info["dirty_epochs"] == 0
+    replay = out["config7"]["replay"]
     out["gates"] = {
         "config7_quiet": quiet,
         "config7_one_sync_a_quiet_epoch": quiet and sup_info["host_syncs_per_epoch_less_pulls"] <= 1,
         "config7_staged_equals_superstep": one_chunk == [],
-        "walk_four_series_equal": all(v == [] for v in diffs.values()),
+        "config7_eager_equals_graph": out["config7"]["eager_vs_graph"] == [],
+        "config7_one_capture": prog.captures == 1 and prog.replays > pulls,
+        "config7_replay_no_call_read_or_warning": (replay["calls"] == {}
+                                                   and replay["host_reads"] == 0
+                                                   and replay["sync_warnings"] == 0
+                                                   and replay["builds"] == 0),
+        "walk_graphs_one_capture": all(v["captures"] == 1 for v in walk_graphs.values()),
+        "walk_rungs_equal": rungs["auto/superstep"] == rungs["auto/eager"] != [],
+        "capture_fault_raises": fault.startswith("HostReadInCapture"),
+        "walk_six_series_equal": all(v == [] for v in diffs.values()),
         "walk_dirty": int(ref.dirty.sum()) > 0,
         "walk_k3_launched": walk_k3 > 0,
         "walk_compacted": rungs["auto"]["compaction_enabled"],
@@ -4763,6 +4857,11 @@ def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
     gates["fused_placement_one_replay"] = (
         fp["pipeline_replays"] == 1 and fp["calls"] == {} and fp["host_reads"] == 0
         and fp["launches"] == fp["replayed_launches"] != {})
+    for name in ("epoch_superstep", "compacted_superstep"):  # the reference's zero
+        b = budgets[name]
+        gates[f"{name}_no_read_on_the_card"] = (
+            b["calls"] == {} and b["host_reads"] == 0 and b["sync_warnings"] == 0
+            and b["launches"] == b["replayed_launches"])
     return {"phase": "tooling", "gates": gates, "rebuild": rebuild, "archive_s": archive_s,
             "budgets_s": budgets_s, "seconds": time.perf_counter() - t0,
             "budgets": {n: {k: b[k] for k in ("calls", "launches", "replayed_launches",
@@ -4879,7 +4978,7 @@ def main(argv: list[str]) -> int:
 
     def counts() -> dict:
         # the launches that ran, whether a wrapper made them or a graph
-        # replay did (the replays' WHILE bodies read from their counters)
+        # replay did (the replays' conditional bodies read from their counters)
         return runtime_guard.kernel_counts("LAUNCHES")
 
     def reset() -> None:

@@ -28,7 +28,13 @@ each on its own clone of the buffer: buffers, the compact Δdata,
 ``stripe_commit_plain``; the fused placement->peering program's CUDA
 graph (``recovery/pipeline.py``) on both device tiers against the
 program run eagerly (and on the CPU), a replay making no wrapper call
-and no host read, and a capture with a host read raising.  Run them
+and no host read, and a capture with a host read raising; the graphs'
+IF and SWITCH nodes nested in WHILE and IF bodies against the same code
+run eagerly; the compiled epoch superstep (``recovery/superstep.py``)
+on a small config 7 and a compacted walk against the eager body and
+``run_staged`` (and the CPU), a second chunk of another length replayed
+without a capture, a replay with no call, read or sync warning, and a
+capture with a host read in the epoch body raising.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -899,3 +905,149 @@ def test_a_capture_with_a_host_read_raises(card):
     with pytest.raises(graphs.HostReadInCapture):
         graphs.capture(lambda: interp_batch._any(x > 3), card)
     assert int(x.sum()) == 28
+
+
+# ---------------------------------------------------------------- the epoch superstep's graph
+
+
+def _nested(dev, flag: bool, n: int):
+    """A WHILE over ``n`` passes inside an IF on ``flag``, each pass an
+    IF with an else and a SWITCH (one index past the last: no body):
+    ``(acc, program)`` with ``program`` the code (a capture's, or run
+    eagerly through the same helpers)."""
+    from ceph_tpu_torch.core import graphs
+
+    acc = torch.zeros(4, dtype=torch.int64, device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    top = torch.tensor(n, device=dev)
+    on = torch.tensor(flag, device=dev)
+
+    def passes():
+        i.zero_()
+
+        def one():
+            graphs.cond((i % 2) == 0, lambda: acc[0:1].add_(i), lambda: acc[1:2].add_(1))
+            graphs.switch((i % 4).to(torch.int32), [lambda: acc[2:3].add_(1),
+                                                      lambda: acc[3:4].add_(i),
+                                                      lambda: acc[2:3].add_(10)])
+            i.add_(1)
+
+        graphs.loop(lambda: i < top, one)
+
+    return acc, lambda: graphs.cond(on, passes)
+
+
+@pytest.mark.parametrize("flag,n", [(True, 7), (False, 7), (True, 0)])
+def test_nested_if_and_switch_inside_while_inside_if_give_the_eager_result(card, flag, n):
+    from ceph_tpu_torch.core import graphs
+
+    acc_e, eager = _nested(card, flag, n)
+    eager()
+    acc_g, program = _nested(card, flag, n)
+    g = graphs.capture(program, card)
+    assert g.cond_nodes == 4 and len(g.bodies) == 7
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(acc_g, acc_e)
+    g.replay()  # the state is the buffers': a second replay adds as much again
+    assert torch.equal(acc_g, 2 * acc_e)
+    graphs.collect()
+    g.release()
+
+
+def _superstep_driver(dev, case: str, flight: bool = False):
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery.failure import parse_spec
+
+    m = build_osdmap(64, pg_num=128, size=6, pool_kind="erasure")
+    cfg = Config(env={})
+    cfg.set("flight_recorder", "on" if flight else "off")
+    if case == "config7":
+        tl = rec.ChaosTimeline([rec.ChaosEvent(0.1, (parse_spec("slow:5"),
+                                                     parse_spec("slow:17")))])
+    else:
+        cfg.set("sparse_dirty_compaction", case)
+        cfg.set("sparse_min_bucket", 4)
+        tl = rec.build_scenario("flap", m)
+    return rec.EpochDriver(m, tl, n_ops=64, config=cfg, device=dev)
+
+
+@pytest.mark.parametrize("case,flight", [("config7", False), ("on", False), ("off", False),
+                                         ("on", True)])
+def test_superstep_graph_equals_the_eager_body_and_staged(card, case, flight):
+    """The chunk's replay equals the body run eagerly on the card,
+    ``run_staged`` and the CPU's host-decided superstep, every lane bit
+    for bit; the compacted walk takes the same rungs; with the recorder
+    on, the rings are equal."""
+    from ceph_tpu_torch import recovery as rec
+
+    d = _superstep_driver(card, case, flight)
+    n = 40
+    graph = d.run_superstep(n, snapshot_every=16)
+    rungs, ring = list(d.rungs_taken), d.drain_flight()["rows"] if flight else None
+    prog = rec.compile_epoch_superstep(d)
+    assert prog.captures == 1 and prog.replays == 3 and prog.graph.cond_nodes >= 4
+    eager = prog.run_eager(n, snapshot_every=16)
+    assert graph.diff(eager) == [] and list(d.rungs_taken) == rungs
+    if flight:
+        assert np.array_equal(d.drain_flight()["rows"], ring)
+    assert graph.diff(d.run_staged(n)) == []
+    cpu = _superstep_driver(torch.device("cpu"), case, flight)
+    assert graph.diff(cpu.run_superstep(n)) == [] and cpu.rungs_taken == rungs
+    if case != "config7":
+        assert graph.dirty.sum() > 0
+    if case == "on":
+        assert rungs and min(r for r in rungs if r >= 0) < len(d._dirty_ladder)
+
+
+def test_superstep_second_chunk_of_another_length_replays(card):
+    d = _superstep_driver(card, "on")
+    d.run_superstep(16)
+    prog = d.compile_superstep()
+    assert prog.captures == 1
+    short = d.run_superstep(7)
+    long = d.run_superstep(40)  # past the graph's buffers: several replays
+    assert prog.captures == 1 and prog.replays == 1 + 1 + 3
+    assert short.diff(d.run_staged(7)) == [] and long.diff(d.run_staged(40)) == []
+
+
+def test_superstep_replay_makes_no_call_no_read_and_no_sync_warning(card):
+    from ceph_tpu_torch.analysis import runtime_guard
+
+    d = _superstep_driver(card, "on")
+    d.run_superstep(32, pull=False)
+    torch.cuda.synchronize()
+    with runtime_guard.track(sync_debug=True, check_launches=True) as g:
+        state, rows = d.run_superstep(32, pull=False)
+        torch.cuda.synchronize()
+    lc = g.launch_counter
+    assert lc.calls == {} and lc.captured == {} and g.n_compiles == 0
+    assert g.host_transfers == 0 and g.transfer_counter.sync_warnings == 0
+    assert lc.launches == lc.replays and lc.launches.get("descend", 0) > 0
+    assert rec_series(rows).diff(d.run_staged(32)) == []
+
+
+def rec_series(rows):
+    from ceph_tpu_torch.recovery.superstep import EpochSeries
+
+    return EpochSeries.from_device(rows)
+
+
+def test_superstep_capture_with_a_host_read_in_the_body_raises(card, monkeypatch):
+    """A host read in the epoch body stops the capture with an error: no
+    chunk runs eagerly in its place."""
+    from ceph_tpu_torch.core import graphs
+
+    d = _superstep_driver(card, "config7")
+    core = d._traffic_core
+
+    def reads(state, salt, cap):
+        bool(state.pg_hist.any())
+        return core(state, salt, cap)
+
+    monkeypatch.setattr(d, "_traffic_core", reads)
+    with pytest.raises(graphs.HostReadInCapture):
+        d.run_superstep(8)
+    assert d.compile_superstep().graph is None
