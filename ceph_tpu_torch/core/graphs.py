@@ -45,7 +45,12 @@ fallback to running the program eagerly):
   driver;
 - state a body updates must be updated in place, in buffers made before
   the node: a tensor a body makes holds nothing where the body did not
-  run.
+  run;
+- Python's cyclic garbage collector is off while a capture runs: a
+  collection could free another graph or its memory pool (a driver
+  left in a reference cycle with its program), which a capturing stream
+  refuses and PyTorch's allocator aborts on.  :func:`capture` collects
+  first, outside it.
 
 A graph counts in the runtime guard.  Its capture is a build
 (:func:`~ceph_tpu_torch.analysis.runtime_guard.note_capture`); the
@@ -64,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import time
 
 import torch
@@ -400,8 +406,11 @@ def capture(fn, device) -> Graph:
     side = torch.cuda.Stream(dev)
     calls0 = runtime_guard.kernel_counts("CALLS")
     torch.cuda.synchronize(dev)
+    collecting = gc.isenabled()
+    gc.collect()  # the garbage's graphs and pools freed before the capture begins
     t0 = time.perf_counter()
     _ACTIVE.append(cap)
+    gc.disable()
     try:
         with torch.cuda.device(dev), runtime_guard.forbid_host_reads("a CUDA graph capture"):
             with torch.cuda.graph(graph, stream=side, capture_error_mode=CAPTURE_MODE):
@@ -413,6 +422,8 @@ def capture(fn, device) -> Graph:
                        "graph_capture_nodes")
     finally:
         _ACTIVE.pop()
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize(dev)
     capture_ms = (time.perf_counter() - t0) * 1e3
     # a captured launch ran nothing: it is a wrapper call, not a launch

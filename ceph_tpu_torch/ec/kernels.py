@@ -4,7 +4,10 @@ The counterpart of ``ceph_tpu/ec/pallas_kernels.py``.  Each wrapper
 takes tensors on one device: on a CUDA tensor it launches the kernel
 from ``csrc/ec.cu`` (or raises), on a CPU tensor it runs the plain
 PyTorch version.  Calls are counted in ``CALLS`` (on entry, on any
-device), launches in ``LAUNCHES``.
+device), launches in ``LAUNCHES``.  A call captured into a CUDA graph
+(:mod:`ceph_tpu_torch.core.graphs`: K6 in the compiled write path's
+body) ticks ``CALLS`` only; the launches its replays run are added to
+``LAUNCHES`` and ``REPLAYS`` by the runtime guard.
 
 - K5 :func:`bitmatrix_encode`: the GF(2) bitmatrix product over packet
   rows, ``out[r] = XOR_s (d[s] & bitmatrix[r, s])``, for any word size
@@ -75,11 +78,19 @@ MAX_THREADS_SM = 2048
 
 LAUNCHES = {"bitmatrix_encode": 0, "schedule_apply": 0}
 CALLS = dict.fromkeys(LAUNCHES, 0)
+REPLAYS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = CALLS[k] = 0
+        LAUNCHES[k] = CALLS[k] = REPLAYS[k] = 0
+
+
+def _launched(name: str) -> None:
+    """Count a launch that ran: one captured into a graph runs when the
+    graph replays, and is counted then."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 class Bitmatrix:
@@ -249,7 +260,7 @@ def bitmatrix_encode(bm: Bitmatrix, data: torch.Tensor, packetsize: int) -> torc
         return out
     _cuda.launch("ec", "ec_bitmatrix_encode", data.device, _cuda.ptr(bm.prog), bm.prog16,
                  _cuda.ptr(data), _cuda.ptr(out), bm.kw, bm.mw, bm.w, packetsize, S)
-    LAUNCHES["bitmatrix_encode"] += 1
+    _launched("bitmatrix_encode")
     return out
 
 
@@ -606,6 +617,12 @@ class StepTable:
         terms and group sizes."""
         hit = self._programs.get((n_in, n_out))
         if hit is None:
+            if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+                from ..core.graphs import HostReadInCapture
+
+                raise HostReadInCapture(
+                    "K6's program uploads on first use, which a graph capture cannot: run "
+                    "the program once before capturing it")
             prog = compile_program(self.host, self.n_bufs, n_in, n_out)
             config = schedule_config(prog)
             dev = self.steps.device
@@ -670,5 +687,5 @@ def schedule_apply(table: StepTable, words: torch.Tensor, n_out: int) -> torch.T
                  None if groups is None else _cuda.ptr(groups), prog.n_terms, len(prog.groups),
                  _cuda.ptr(words), _cuda.ptr(out), None if scratch is None else _cuda.ptr(scratch),
                  n_in, n_out, prog.n_work, n_slots, zero, out0, in0, threads, stages, nw)
-    LAUNCHES["schedule_apply"] += 1
+    _launched("schedule_apply")
     return out

@@ -72,14 +72,24 @@ WP_LANES = (
     "delta_words", "full_words", "touched_slots",
 )
 #: K9's launch counts, its absorb and its commit (each wrapper adds one
-#: where it launches), and its wrappers' calls (on entry, on any device)
+#: where it launches, outside a graph capture), its wrappers' calls (on
+#: entry, on any device), and the launches graph replays ran (counted by
+#: the runtime guard: the compiled write path's body)
 LAUNCHES = {"stripe_absorb": 0, "stripe_commit": 0}
 CALLS = dict.fromkeys(LAUNCHES, 0)
+REPLAYS = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = CALLS[k] = 0
+        LAUNCHES[k] = CALLS[k] = REPLAYS[k] = 0
+
+
+def _launched(name: str) -> None:
+    """Count a launch that ran: one captured into a graph runs when the
+    graph replays, and is counted then."""
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 def _i32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -404,7 +414,7 @@ def stripe_absorb(keys, data, parity, dirty, lru, tick, bkeys, bchunks, bfulls, 
                  _cuda.ptr(keys), _cuda.ptr(data), _cuda.ptr(parity), _cuda.ptr(dirty),
                  _cuda.ptr(lru), _cuda.ptr(tick), _cuda.ptr(tick_out), _cuda.ptr(ddata),
                  _cuda.ptr(slot_of), _cuda.ptr(row), n_sets, ways, kw, mw, words, int(k), int(w))
-    LAUNCHES["stripe_absorb"] += 1
+    _launched("stripe_absorb")
     return keys, data, parity, dirty, lru, tick_out, ddata, slot_of, row
 
 
@@ -450,7 +460,7 @@ def stripe_commit(parity, dpar, slot_of, row, totals, tick, tick_new) -> None:
     _cuda.launch("online", "online_stripe_commit", parity.device, _cuda.ptr(dpar),
                  _cuda.ptr(slot_of), _cuda.ptr(parity), _cuda.ptr(row), _cuda.ptr(tick_new),
                  _cuda.ptr(tick), _cuda.ptr(totals), n, mw, words)
-    LAUNCHES["stripe_commit"] += 1
+    _launched("stripe_commit")
 
 
 # ---------------------------------------------------------------------------

@@ -1069,12 +1069,6 @@ class EpochDriver:
             return row[..., col[name] + i].to(I64)
 
         served, degraded, blocked = lane("counts"), lane("counts", 1), lane("counts", 2)
-        stripe = {}
-        if wrow is not None:
-            from ..ec.online import WP_LANES
-
-            stripe = {f"stripe_{n}": wrow[..., WP_LANES.index(n)]
-                      for n in ("hits", "misses", "evictions", "delta_words")}
         is_dirty = np.asarray(dirty).any()
         return flight_row(
             device=row.device,
@@ -1086,7 +1080,7 @@ class EpochDriver:
             scrub_due=lane("scrub_due"),
             cycles_peer=table[min(max(rung, 0), len(widths))] if is_dirty else 0,
             cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"),
-            **stripe)
+            **_stripe_lanes(wrow))
 
     def _epoch_step_with(self, state: ClusterState, host: _HostView, step: int,
                          tape: EventTape, salt_base: int):
@@ -1472,6 +1466,18 @@ class _Carry:
         self.start.fill_(start)
         self.stop.fill_(stop)
 
+    def follow(self, other: "_Carry") -> None:
+        """Take ``other``'s window and bounds (a scratch copy's inputs)."""
+        for k, t in self.tab.items():
+            t.copy_(other.tab[k])
+        for t, src in ((self.start, other.start), (self.stop, other.stop),
+                       (self.step, other.start)):
+            t.copy_(src)
+
+    def take(self, n: int) -> tuple:
+        """The first ``n`` steps' output rows, copies of their own."""
+        return (self.rows[:n].clone(),)
+
     def state(self) -> ClusterState:
         return _clone_state(self.st)
 
@@ -1548,13 +1554,19 @@ class SuperstepProgram:
         return self._advance(state, host, start, stop, fs, compiled=self.compiled)
 
     def _advance(self, state, host, start, stop, fs=None, *, compiled: bool):
-        d = self.driver
         start, stop = int(start), int(stop)
         fs = fs if self.flight else None
         if stop <= start:
-            return state, fs, d._empty_rows()
-        tables_host, tables = d._tables(stop)
+            return state, fs, self.driver._empty_rows()
         c = self._carry_for(state, fs, stop - start)
+        (lanes,) = self._run(c, host, start, stop, compiled)
+        return c.state(), c.flight(), self._rows(c, lanes)
+
+    def _run(self, c: _Carry, host: _HostView, start: int, stop: int, compiled: bool) -> list:
+        """Steps ``start .. stop - 1`` through the carry, a window of its
+        capacity at a time: each output's rows (:meth:`_Carry.take`), the
+        host view's clock and cursor moved to ``stop``."""
+        tables_host, tables = self.driver._tables(stop)
         parts = []
         for lo in range(start, stop, c.capacity):
             hi = min(stop, lo + c.capacity)
@@ -1566,18 +1578,25 @@ class SuperstepProgram:
                 for step in range(lo, hi):
                     c.step.fill_(step)
                     self._step(c)
-            parts.append(c.rows[:hi - lo].clone())
-        lanes = parts[0] if len(parts) == 1 else torch.cat(parts)
+            parts.append(c.take(hi - lo))
         host.step, host.now = stop - 1, float(tables_host["now"][stop - 1])
         host.cursor, host.stale = int(tables_host["stop"][stop - 1]), True
-        return c.state(), c.flight(), EpochRows(None, None, None, lanes[:, :c.width], lanes)
+        return [p[0] if len(parts) == 1 else torch.cat(p) for p in zip(*parts)]
+
+    @staticmethod
+    def _rows(c: _Carry, lanes: torch.Tensor) -> EpochRows:
+        return EpochRows(None, None, None, lanes[:, :c.width], lanes)
+
+    def _new_carry(self, state, fs, capacity: int) -> _Carry:
+        """The buffers of a chunk (a subclass's carry adds its own)."""
+        return _Carry(self.driver, state, fs, capacity)
 
     def _carry_for(self, state, fs, n: int) -> _Carry:
         c = self._carry
         if c is None or (not self.compiled and c.capacity < n):
             # the graph's buffers: a power-of-two bucket of the first chunk
             cap = 1 << max(n - 1, 15).bit_length() if self.compiled else n
-            c = self._carry = _Carry(self.driver, state, fs, cap)
+            c = self._carry = self._new_carry(state, fs, cap)
         c.load(state, fs)
         return c
 
@@ -1607,11 +1626,8 @@ class SuperstepProgram:
         from ..core.cluster_state import compact_dirty_indices as compact
 
         d = self.driver
-        w = _Carry(d, c.st, c.fs, c.capacity)
-        for k, t in w.tab.items():
-            t.copy_(c.tab[k])
-        for t, src in ((w.start, c.start), (w.stop, c.stop), (w.step, c.start)):
-            t.copy_(src)
+        w = self._new_carry(c.st, c.fs, c.capacity)
+        w.follow(c)
         self._step(w)
         now, now32 = w.tab["now"][:1], w.tab["now32"][:1]
         lanes = _tape_lanes(w.st)
@@ -1675,10 +1691,18 @@ class SuperstepProgram:
         c.rows.index_copy_(0, j, torch.cat([row, meta]).unsqueeze(0))
         st.now.copy_(now.reshape(()))
         st.step.copy_(c.step)
+        self._epoch_end(c, row)
+
+    def _epoch_end(self, c: _Carry, row: torch.Tensor) -> None:
+        """What follows the epoch's row: the ring row, with the recorder
+        on (a subclass runs its own stage first and records after it)."""
+        self._record(c, row)
+
+    def _record(self, c: _Carry, row: torch.Tensor, wrow=None) -> None:
         if c.fs is not None:
             from ..obs.flight import flight_record_
 
-            flight_record_(c.fs, self._flight_row(c, row))
+            flight_record_(c.fs, self._flight_row(c, row, wrow))
 
     def _tick(self, c: _Carry, now, now32) -> None:
         d, st = self.driver, c.st
@@ -1725,8 +1749,9 @@ class SuperstepProgram:
     def _dense(self, c: _Carry) -> None:
         _assign(c.st, self.driver._peer_hist(c.st), _PEER_NAMES)
 
-    def _flight_row(self, c: _Carry, row: torch.Tensor) -> torch.Tensor:
-        """:meth:`EpochDriver._flight_row` from the device's probe."""
+    def _flight_row(self, c: _Carry, row: torch.Tensor, wrow=None) -> torch.Tensor:
+        """:meth:`EpochDriver._flight_row` from the device's probe (and
+        the write path's stripe lanes from its row ``wrow``)."""
         from ..obs.flight import flight_row
 
         n_rungs = len(self.driver._dirty_ladder)
@@ -1746,7 +1771,19 @@ class SuperstepProgram:
             eff_out=lane("eff_out"), down_total=lane("down_total"),
             scrub_due=lane("scrub_due"),
             cycles_peer=torch.where(c.dirty, peer.reshape(()), 0),
-            cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"))
+            cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"),
+            **_stripe_lanes(wrow))
+
+
+def _stripe_lanes(wrow) -> dict:
+    """The ring's stripe lanes from the write path's row (none without
+    one)."""
+    if wrow is None:
+        return {}
+    from ..ec.online import WP_LANES
+
+    return {f"stripe_{n}": wrow[..., WP_LANES.index(n)]
+            for n in ("hits", "misses", "evictions", "delta_words")}
 
 
 def _scrub_window(phases, period: float, prev_now: float, now: float):

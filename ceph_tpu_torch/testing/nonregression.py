@@ -26,8 +26,10 @@ a graph replay makes no wrapper call, and the launches it ran count as
 replayed launches.  In ``fused_placement`` on the card the second run
 is one replay of the fused placement->peering program's graph with no
 seam read; in ``epoch_superstep`` and ``compacted_superstep`` one replay
-of the compiled epoch superstep's graph a chunk, with no seam read and
-no sync-debug warning (the reference's zero).
+of the compiled epoch superstep's graph a chunk, and in
+``online_write_batch`` one replay of the compiled write path's graph
+(K9, K6 and K9's commit inside it), each with no seam read and no
+sync-debug warning (the reference's zero).
 """
 
 from __future__ import annotations
@@ -210,7 +212,9 @@ BUDGETS: dict[str, Budget] = {
         "a SWITCH node: no wrapper call, no read and no sync warning)"),
     "online_write_batch": Budget(
         {"descend": 170, "schedule_apply": 8, "stripe_absorb": 8, "stripe_commit": 8}, 114,
-        f"100 are {_LADDER}; 14 are {_EPOCH_READ} (7 epochs)"),
+        f"on the CPU the host-decided loop: 100 are {_LADDER}; 14 are {_EPOCH_READ} (7 epochs) "
+        "(on the card the run at the second cap is one replay of the compiled write path's "
+        "graph, captured at the first: no wrapper call, no read and no sync warning)"),
     "reconcile_round": Budget({}, 0),
     "worksteal_dispatch": Budget({"matrix_encode": 32}, 0),
 }

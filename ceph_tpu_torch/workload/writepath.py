@@ -17,12 +17,22 @@ epoch's step consumes the buffer in place, so every run starts from its
 own clone of the driver's cold buffer, which stays as it was.
 
 The batch holds the power-of-two bucket of ``max_writes`` lanes; the
-per-epoch cap is a host number, so any cap inside the bucket runs the
-same shapes.
+per-epoch cap is a value (a host number, or a 0-d buffer on the device),
+so any cap inside the bucket runs the same shapes.
+
+On the card a chunk of epochs is one replay of one CUDA graph
+(:class:`WritepathProgram`, :meth:`WritepathDriver.compile_writepath`):
+the compiled epoch superstep's body
+(:class:`~ceph_tpu_torch.recovery.superstep.SuperstepProgram`) with the
+write batch, the stripe step (K9, K6, K9's commit) and the write row
+after each epoch's row, the ring row last.  On the CPU the epochs are
+decided on the host (:meth:`WritepathDriver._advance_host`); the same
+compiled body runs eagerly through ``program.run_eager``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,14 +45,20 @@ from ..ec.online import (
     ParityDeltaEngine,
     StripeBufferState,
     _i32_bits,
-    _scalar,
     empty_stripe_buffer,
     register_stripe_cache,
     stripe_buffer_step,
     summarize_buffer,
     writepath_counters,
 )
-from ..recovery.superstep import _SALT_STEP, _SERIES_FIELDS, EpochRows, EpochSeries
+from ..recovery.superstep import (
+    _SALT_STEP,
+    _SERIES_FIELDS,
+    EpochRows,
+    EpochSeries,
+    SuperstepProgram,
+    _Carry,
+)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -191,22 +207,27 @@ class WritepathDriver:
         self.final_buf: StripeBufferState | None = None
         #: the recorder's ring after the most recent flight-on run
         self.flight = None
+        # the compiled write paths (recorder off, on)
+        self._programs: dict[bool, WritepathProgram] = {}
         register_stripe_cache(self)
 
     # -- the per-epoch write batch (drawn from the traffic step) -------
 
-    def _write_batch(self, state, step: int, cap: int):
+    def _write_batch(self, state, step, cap, *, salt=None):
         """Compact this epoch's committed writes into the fixed-shape
         batch: the SAME ids, salt and ``_route`` predicates the traffic
         step counted, so ``sum(valid)`` (uncapped) equals the epoch row's
-        ``writes`` lane.  Returns the batch lanes ``(keys, chunks, fulls,
-        seeds, valid)``, ``[B]`` each (keys and chunks int32, seeds int32
-        u32 bits)."""
-        from .traffic import _route, _skew_ids
+        ``writes`` lane.  ``step`` gives the salt, unless ``salt`` (the
+        step table's, a 0-d int64 tensor) is given; ``cap`` is a host
+        number or a 0-d tensor.  Returns the batch lanes ``(keys,
+        chunks, fulls, seeds, valid)``, ``[B]`` each (keys and chunks
+        int32, seeds int32 u32 bits)."""
+        from .traffic import _route, _salt_xor, _skew_ids, _u32_scalar
 
         drv = self.driver
         B = self.batch_size
-        salt = (drv.salt_base + step * _SALT_STEP) & _M32
+        if salt is None:
+            salt = (drv.salt_base + step * _SALT_STEP) & _M32
         ids = drv._ids
         mix = drv._mix
         if mix is not None and mix.hot_permille > 0:
@@ -217,12 +238,14 @@ class WritepathDriver:
             drv.pg_num, pg_bmask, drv.k, drv.size, drv.min_size, drv.write_permille)
         okw = ~blocked & is_write
         pos = torch.cumsum(okw.to(I32), 0) - 1
-        take = okw & (pos < min(int(cap), B))
+        limit = cap.clamp(max=B) if isinstance(cap, torch.Tensor) else min(int(cap), B)
+        take = okw & (pos < limit)
         # rejected lanes all write the fill to the spare slot B, which
         # is then cut off, so the scatter is order-free
         slot = torch.where(take, pos, B).to(I64)
+
         def coin(mask):
-            return crush_hash32_2(ids, _scalar(salt ^ mask, ids.device))
+            return crush_hash32_2(ids, _u32_scalar(_salt_xor(salt, mask), ids.device))
 
         stripe = coin(_STRIPE_SALT) % self.stripes_per_pg
         key = (pg.to(I64) * self.stripes_per_pg + stripe).to(I32)
@@ -259,7 +282,20 @@ class WritepathDriver:
     def advance(self, state, host, buf, start: int, stop: int, cap: int, fs=None):
         """Epochs ``start .. stop - 1``: ``(state, buf, fs, rows,
         wrows)``, the rows kept on the device (:class:`EpochRows` and an
-        int64 ``[n, len(WP_LANES)]`` tensor)."""
+        int64 ``[n, len(WP_LANES)]`` tensor).  ``buf`` is consumed; the
+        buffer returned is the caller's.  On the card the compiled write
+        path runs them (:meth:`compile_writepath`, or its flight twin
+        with ``fs``): the host view keeps only the clock and cursors
+        then (``host.stale``)."""
+        if self.device.type == "cuda":
+            prog = self.compile_writepath() if fs is None else self.compile_writepath_flight()
+            return prog.advance(state, host, buf, start, stop, cap, fs)
+        return self._advance_host(state, host, buf, start, stop, cap, fs)
+
+    def _advance_host(self, state, host, buf, start: int, stop: int, cap: int, fs=None):
+        """:meth:`advance` decided on the host, one epoch at a time (the
+        CPU's driver): the wrapped driver's reads of a busy epoch's tick
+        and the ladder's rung, the write stage after each epoch."""
         now, epoch, dirty, packed, wpacked = [], [], [], [], []
         for e in range(start, stop):
             state, buf, fs, (d, row), wrow = self._wp_epoch(state, host, buf, e, cap, fs)
@@ -271,11 +307,34 @@ class WritepathDriver:
         drv = self.driver
         state = drv._with_scalars(state, host)
         if not packed:
-            return (state, buf, fs, drv._empty_rows(),
-                    torch.zeros((0, len(WP_LANES)), dtype=I64, device=self.device))
+            return state, buf, fs, drv._empty_rows(), self._empty_wrows()
         rows = EpochRows(np.asarray(now, np.float64), np.asarray(epoch, np.int32),
                          np.asarray(dirty, np.int32), torch.stack(packed))
         return state, buf, fs, rows, torch.stack(wpacked)
+
+    def _empty_wrows(self) -> torch.Tensor:
+        return torch.zeros((0, len(WP_LANES)), dtype=I64, device=self.device)
+
+    def compile_writepath(self) -> "WritepathProgram":
+        """The ONE program of a chunk of write-path epochs
+        (:class:`WritepathProgram`, built once a driver): on the card one
+        CUDA graph, captured on its first chunk and replayed for every
+        later one.  The write cap is a buffer of the graph, so every cap
+        inside the batch bucket replays the same capture."""
+        if self._programs.get(False) is None:
+            self._programs[False] = WritepathProgram(self, flight=False)
+        return self._programs[False]
+
+    def compile_writepath_flight(self) -> "WritepathProgram":
+        """The recorder-carrying twin of :meth:`compile_writepath`: each
+        epoch's ring row written in place after the stripe step, its
+        stripe lanes from the write row."""
+        if not self.driver.flight_on:
+            raise RuntimeError("flight recorder is off for this driver (flight_recorder=on "
+                               "enables it)")
+        if self._programs.get(True) is None:
+            self._programs[True] = WritepathProgram(self, flight=True)
+        return self._programs[True]
 
     # -- drivers -------------------------------------------------------
 
@@ -292,17 +351,27 @@ class WritepathDriver:
         mirroring :meth:`EpochDriver.run_superstep` (``pull=False``
         returns ``(state, buf, rows, wrows)`` still on the device).  A
         ``buf`` given is consumed (stepped in place); without one the run
-        starts from a clone of the cold buffer.  With the wrapped
-        driver's flight recorder on, the ring rides the loop
-        and drains into ``journal`` at each chunk's end (:attr:`flight`
-        afterwards)."""
+        starts from a clone of the cold buffer.  On the card a chunk is
+        one replay of the compiled write path's graph (:meth:`advance`).
+        With the wrapped driver's flight recorder on, the ring rides the
+        loop and drains into ``journal`` at each chunk's end
+        (:attr:`flight` afterwards)."""
+        return self._run_chunks(self.advance, self.driver._init_flight, n_epochs, cap=cap,
+                                snapshot_every=snapshot_every, pull=pull, buf=buf,
+                                start_epoch=start_epoch, journal=journal)
+
+    def _run_chunks(self, advance, fs, n_epochs: int, *, cap: int | None = None,
+                    snapshot_every: int = 0, pull: bool = True,
+                    buf: StripeBufferState | None = None, start_epoch: int = 0, journal=None):
+        """:meth:`run_superstep` over ``advance`` from the initial state
+        and the ring ``fs``."""
         from ..obs.flight import journal_drain
 
         drv = self.driver
         state = drv._init_state
         host = drv._init_host.copy()
         buf = self._init_buf.clone() if buf is None else buf
-        fs = drv._init_flight
+        drv.rungs_taken = []
         cap = self.max_writes if cap is None else int(cap)
         n_epochs = int(n_epochs)
         chunk = int(snapshot_every) or max(n_epochs, 1)
@@ -312,13 +381,14 @@ class WritepathDriver:
         start = int(start_epoch)
         end_at = start + n_epochs
         if n_epochs <= 0:
-            state, buf, fs, rows, wrows = self.advance(state, host, buf, start, start, cap, fs)
+            state, buf, fs, rows, wrows = advance(state, host, buf, start, start, cap, fs)
             parts, wparts = [EpochSeries.from_device(rows)], [WritepathSeries.from_device(wrows)]
         while start < end_at:
             size = min(chunk, end_at - start)
-            state, buf, fs, rows, wrows = self.advance(state, host, buf, start, start + size,
-                                                       cap, fs)
+            state, buf, fs, rows, wrows = advance(state, host, buf, start, start + size, cap, fs)
             self.flight = drv.flight = fs
+            if rows.lanes is not None:
+                drv._rung_rows.append(rows)
             if fs is not None and journal is not None:
                 journal_drain(journal, fs, chunk_start=start, source="writepath")
             if pull:
@@ -424,9 +494,10 @@ def checkpointed_writepath(
         # the snapshot's copy of the buffer is queued on the stream before
         # the next step's kernels, which update the buffer in place, so
         # it reads the committed bytes
+        # a compiled chunk set the state's scalars on the device; its host view is stale
         _commit(store, sched, end, (state, buf) + ((fs,) if flight_on else ()),
                 meta={"next_epoch": end, "n_epochs": n_epochs},
-                series={**cols, "wp_lanes": wlanes}, host=host)
+                series={**cols, "wp_lanes": wlanes}, host=None if host.stale else host)
         start = end
     wdrv.final_state, wdrv.final_buf = state, buf
     drv.final_state = state
@@ -435,3 +506,114 @@ def checkpointed_writepath(
     wseries = WritepathSeries(lanes=wlanes)
     wdrv._note_totals(wseries)
     return EpochSeries(**cols), wseries
+
+
+# ---------------------------------------------------------------------------
+# the compiled write path
+
+
+class _WriteCarry(_Carry):
+    """:class:`~ceph_tpu_torch.recovery.superstep._Carry` with the write
+    path's buffers: the stripe buffer's lanes (updated in place by the
+    stripe step), the write rows ``[capacity, len(WP_LANES)]`` (int64)
+    and the write cap (0-d int32)."""
+
+    def __init__(self, wdrv: WritepathDriver, state, fs, capacity: int):
+        super().__init__(wdrv.driver, state, fs, capacity)
+        self.buf = wdrv._init_buf.clone()
+        self.wrows = torch.zeros((self.capacity, len(WP_LANES)), dtype=I64, device=wdrv.device)
+        self.cap = torch.zeros((), dtype=I32, device=wdrv.device)
+
+    def load_writes(self, buf: StripeBufferState, cap: int) -> None:
+        """Copy a chunk's starting buffer in and set the cap."""
+        self._load_buf(buf)
+        self.cap.fill_(int(cap))
+
+    def _load_buf(self, buf: StripeBufferState) -> None:
+        for dst, src in zip(_lanes(self.buf), _lanes(buf)):
+            dst.copy_(src)
+
+    def follow(self, other: "_WriteCarry") -> None:
+        super().follow(other)
+        self._load_buf(other.buf)
+        self.cap.copy_(other.cap)
+
+    def take(self, n: int) -> tuple:
+        return self.rows[:n].clone(), self.wrows[:n].clone()
+
+    def buffer(self) -> StripeBufferState:
+        """A copy of the buffer, the caller's own: the next chunk steps
+        the carry's in place."""
+        return self.buf.clone()
+
+
+def _lanes(buf: StripeBufferState) -> tuple:
+    return (buf.keys, buf.data, buf.parity, buf.dirty, buf.lru, buf.tick, buf.totals)
+
+
+class WritepathProgram(SuperstepProgram):
+    """The compiled write path of one :class:`WritepathDriver`
+    (:meth:`WritepathDriver.compile_writepath`, and
+    :meth:`WritepathDriver.compile_writepath_flight` with the recorder's
+    ring riding it): a chunk of epochs as one program.
+
+    Its epoch is the compiled superstep's (the tape window, the tick, the
+    dirty branch with K3, the traffic core, the epoch row), then the write
+    batch (:meth:`WritepathDriver._write_batch` on the step table's salt
+    and the cap buffer), the stripe step (K9, one K6 launch over the
+    compact Δdata, K9's commit, all updating the carry's buffer in place),
+    the write row written in place, and with the recorder on the ring row,
+    its stripe lanes from the write row.  On the card the chunk is one
+    CUDA graph, captured on the first chunk (after every branch and the
+    write stage ran once eagerly on scratch copies of the buffers) and
+    replayed for every later one, whatever its cap; on the CPU the same
+    body runs eagerly, each decision one host read of its predicate.
+
+    ``program(n_epochs, **kw)`` runs as :meth:`WritepathDriver.run_superstep`;
+    :meth:`advance` is :meth:`WritepathDriver.advance`'s compiled form."""
+
+    def __init__(self, wdrv: WritepathDriver, *, flight: bool):
+        super().__init__(wdrv.driver, flight=flight)
+        self.wdrv = wdrv
+
+    def __call__(self, n_epochs: int, **kw):
+        w = self.wdrv
+        return w._run_chunks(self.advance, w.driver._init_flight if self.flight else None,
+                             n_epochs, **kw)
+
+    def run_eager(self, n_epochs: int, **kw):
+        """The same body run eagerly on the driver's device, each decision
+        read to the host: what the graph is held against on the card."""
+        w = self.wdrv
+        return w._run_chunks(functools.partial(self._advance_writes, compiled=False),
+                             w.driver._init_flight if self.flight else None, n_epochs, **kw)
+
+    def advance(self, state, host, buf, start: int, stop: int, cap: int, fs=None):
+        """Epochs ``start .. stop - 1``: ``(state, buf, fs, rows, wrows)``
+        as :meth:`WritepathDriver.advance` returns them, the rows' host
+        lanes on the device."""
+        return self._advance_writes(state, host, buf, start, stop, cap, fs,
+                                    compiled=self.compiled)
+
+    def _advance_writes(self, state, host, buf, start, stop, cap, fs=None, *, compiled: bool):
+        start, stop = int(start), int(stop)
+        fs = fs if self.flight else None
+        if stop <= start:
+            return state, buf, fs, self.driver._empty_rows(), self.wdrv._empty_wrows()
+        c = self._carry_for(state, fs, stop - start)
+        c.load_writes(buf, cap)
+        lanes, wrows = self._run(c, host, start, stop, compiled)
+        return c.state(), c.buffer(), c.flight(), self._rows(c, lanes), wrows
+
+    def _new_carry(self, state, fs, capacity: int) -> _WriteCarry:
+        return _WriteCarry(self.wdrv, state, fs, capacity)
+
+    def _epoch_end(self, c: _WriteCarry, row: torch.Tensor) -> None:
+        """The write stage after the epoch's row, then the ring row."""
+        w = self.wdrv
+        j = (c.step - c.start).reshape(1)
+        salt = c.tab["salt"].index_select(0, j).reshape(())
+        _buf, wrow = stripe_buffer_step(c.buf, w.table, w.schedule.n_out, w.k, w.w,
+                                        *w._write_batch(c.st, None, c.cap, salt=salt))
+        c.wrows.index_copy_(0, j, wrow.unsqueeze(0))
+        self._record(c, row, wrow)

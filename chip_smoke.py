@@ -197,19 +197,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
 10f. writepath: BASELINE config 10 (``workload/writepath.py::
    WritepathDriver``: K9, K6 and K9's commit each epoch) at full width
    (config 7's map, 256 ops, 128 epochs of flap, ssd-steady, ssd-burst
-   and ssd-skew, a 1024 x 4 buffer of 4,096-byte chunks): encoded
-   bytes/s, hit rate, delta and full bytes, epochs/s a mix, launches an
-   epoch by piece (epoch body, write batch, the stripe step and within
-   it K9, K6, the commit), K9's, K6's and the commit's ms and the whole
-   stripe step's card ms on the last batch (a fresh clone of the buffer
-   before each call, outside its window); gated (``writepath_bitequal`` on the card for the five codec
-   families of bench/config10_online_ec.py, staged = superstep on both
-   series, the epoch lanes unchanged by the write stage, a wrong delta
+   and ssd-skew, a 1024 x 4 buffer of 4,096-byte chunks), a chunk one
+   replay of the compiled write path's CUDA graph (captured on each
+   driver's first run): encoded bytes/s, hit rate, delta and full
+   bytes, epochs/s a mix, the graph's capture ms, nodes, conditional
+   nodes, bodies and reserved memory, a replay's calls, reads, sync
+   warnings and builds, the graph, the eager body, the host-decided
+   loop and the staged path in turns, the card's busy share through the
+   graph and the host-decided loop, launches an epoch by piece of the
+   host-decided loop (epoch body, write batch, the stripe step and
+   within it K9, K6, the commit), K9's, K6's and the commit's ms and the
+   whole stripe step's card ms on the last batch (a fresh clone of the
+   buffer before each call, outside its window); gated
+   (``writepath_bitequal`` on the card for the five codec families of
+   bench/config10_online_ec.py, graph = eager body = host-decided =
+   staged on both series and the buffer, K9, K6 and the commit in every
+   replay, one capture a driver and none for a second cap, a replay with
+   no call, read or warning, a host read in the write stage failing the
+   capture, the epoch lanes unchanged by the write stage, a wrong delta
    caught by ``scrub_stripe_buffer``, ``flight_recorder=on``
-   bit-invisible with the ring's stripe lanes equal to the write rows and
-   its dump and trace export valid, the bench's own settings equal on
-   the card and the CPU); then one line of the reference's config-10
-   record (``cli/status.py writepath``);
+   bit-invisible through the graph's flight twin with its ring equal to
+   the host-decided loop's, the ring's stripe lanes equal to the write
+   rows and its dump and trace export valid, the bench's own settings
+   equal on the card and the CPU); then one line of the reference's
+   config-10 record (``cli/status.py writepath``);
 11. balancer: BASELINE config 3 — five bulk remaps of
    build_osdmap(1024, pg_num=10240), one reweight toggled before each
    (PG mappings/s); the upmap balancer (max_deviation 1.0, 2000
@@ -253,7 +264,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    checkpoint save under ``debug_fsync_audit`` (audited, and it loads
    back) and one ``WritepathDriver`` under ``debug_bucket_checks``;
    ``fused_placement``'s second run is one graph replay with no wrapper
-   call and no seam read, whose launches are counted;
+   call and no seam read, whose launches are counted, and
+   ``epoch_superstep``'s, ``compacted_superstep``'s and
+   ``online_write_batch``'s replays make no call, seam read or sync
+   warning;
 15. pipeline: the fused placement->peering program
    (``recovery/pipeline.py``) as one CUDA graph: the card's torch,
    CUDA runtime and driver; five chaos epochs on config 4's map and a
@@ -1898,16 +1912,6 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
         walls[name] = now - t_last[0]
         t_last[0] = now
 
-    def graph_info(d) -> dict:
-        prog = d.compile_superstep()
-        g = prog.graph
-        if g is None:  # the CPU runs the body eagerly
-            return {"captures": prog.captures, "replays": prog.replays}
-        return {"captures": prog.captures, "replays": prog.replays, "capture_ms": g.capture_ms,
-                "nodes": g.nodes, "conditional_nodes": g.cond_nodes,
-                "conditional_bodies": len(g.bodies), "pool_bytes": g.pool_bytes,
-                "buffer_epochs": prog._carry.capacity}
-
     # (a) config 7: a chunk is one replay of the compiled superstep's graph
     t0 = time.perf_counter()
     driver = rec.EpochDriver(m, config7(), n_ops=EPOCH_OPS, device=dev)
@@ -1932,7 +1936,7 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
     add(launch_counts())
     out["config7"] = {"build_s": build_s, "superstep": sup_info, "staged": stg_info,
                       "ratio": sup_info["epochs_per_s"] / stg_info["epochs_per_s"],
-                      "graph": {**graph_info(driver), "first_chunk_s": first_chunk_s,
+                      "graph": {**program_info(prog), "first_chunk_s": first_chunk_s,
                                 "reserved_delta_bytes": reserved_delta}}
     lap("config7")
 
@@ -1960,7 +1964,7 @@ def phase_epoch(dev, launch_counts, reset_launches, n_osds: int = EPOCH_OSDS,
                 rungs[f"{mode}/{how}"] = d.rungs_taken
         rungs[mode] = {"compaction_enabled": d.compaction_enabled, "ladder": d._dirty_ladder,
                        "rungs_taken": d.rungs_taken}
-        walk_graphs[mode] = graph_info(d)
+        walk_graphs[mode] = program_info(d.compile_superstep())
         drivers[mode] = d
     ref = walks[("off", "staged")]
     diffs = {f"{mode}/{how}": s.diff(ref) for (mode, how), s in walks.items()}
@@ -2502,7 +2506,8 @@ WP_SCENARIO = "flap"
 WP_MIXES = ("ssd-steady", "ssd-burst", "ssd-skew")
 WP_SEED = 0
 WP_GATE_UPDATES = 64             # delta updates a family of the writepath_bitequal gate
-WP_SHORT = 32                    # epochs of the staged, bare and flight-on comparisons
+WP_SHORT = 32                    # epochs of the bare, second-cap and flight-on comparisons
+WP_TURN = 32                     # epochs a run of the in-turns rates and the graph's profile
 WP_PROFILED = 4                  # epochs under torch.profiler for the split
 WP_SMALL = (64, 128, 64, 4, 8)   # OSDs, PGs, sets, ways, groups: bench/config10_online_ec.py's
 WP_BATCH = 256                   # K9's timed batch: config 10's power-of-two bucket of 256 ops
@@ -3070,7 +3075,8 @@ def stripe_probe(dev) -> dict:
     and memsets in one call; then the first mix's epochs/s over
     PROBE_RUNS runs, each on a new driver, and one more run's host ms an
     epoch in the epoch body, the write batch and the stripe step
-    (``piece_host_ms``)."""
+    (``piece_host_ms``).  Every run is the host-decided loop
+    (:func:`host_decided`), which every checkout has."""
     from ceph_tpu_torch.ec import online
     from ceph_tpu_torch.models.clusters import build_osdmap
     from ceph_tpu_torch.testing import online_edges
@@ -3099,7 +3105,7 @@ def stripe_probe(dev) -> dict:
                    None, buf)}}
     m = build_osdmap(WP_OSDS, pg_num=WP_PGS, size=6, pool_kind="erasure")
     wd = writepath_driver(m, dev, WP_MIXES[0])
-    state, buf, _rows, _wrows = wd.run_superstep(WP_EPOCHS, pull=False)
+    state, buf, _fs, _rows, _wrows = host_decided(wd, WP_EPOCHS)
     lanes = wd._write_batch(state, WP_EPOCHS, wd.max_writes)
     k9 = lambda b: online.stripe_absorb(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick,
                                         *lanes, wd.k, wd.w)
@@ -3111,16 +3117,31 @@ def stripe_probe(dev) -> dict:
         wd = writepath_driver(m, dev, WP_MIXES[0])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        wd.run_superstep(WP_EPOCHS)
+        host_decided(wd, WP_EPOCHS)
         torch.cuda.synchronize()
         rates.append(WP_EPOCHS / (time.perf_counter() - t0))
     out["epochs_per_s"] = rates
     wd = writepath_driver(m, dev, WP_MIXES[0])
     pieces = {"epoch_body": ((wd.driver, "_epoch_step"),), "write_batch": ((wd, "_write_batch"),),
               "stripe_step": ((wp_mod, "stripe_buffer_step"),)}
-    out["host_ms_per_epoch"] = piece_host_ms(None, lambda: wd.run_superstep(WP_EPOCHS),
+    out["host_ms_per_epoch"] = piece_host_ms(None, lambda: host_decided(wd, WP_EPOCHS),
                                              WP_EPOCHS, pieces)
     return out
+
+
+def host_decided(wd, n: int, start: int = 0, state=None, host=None, buf=None,
+                 cap: int | None = None, fs=None):
+    """Epochs ``start .. start + n - 1`` of the write path decided on the
+    host, one epoch at a time (``WritepathDriver._advance_host``; an
+    older checkout's ``advance`` is that loop), from the driver's initial
+    state and a clone of its cold buffer unless given: ``(state, buf, fs,
+    rows, wrows)``, the rows on the card."""
+    drv = wd.driver
+    advance = getattr(wd, "_advance_host", wd.advance)
+    return advance(drv._init_state if state is None else state,
+                   drv._init_host.copy() if host is None else host,
+                   wd._init_buf.clone() if buf is None else buf, start, start + n,
+                   wd.max_writes if cap is None else cap, fs)
 
 
 def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
@@ -3129,34 +3150,54 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
     """BASELINE config 10 (``workload/writepath.py::WritepathDriver`` over
     ``ec/online.py``: K9, K6 and K9's commit each epoch) at full width:
     config 7's map, WP_OPS ops a step, ``epochs`` epochs of flap for each
-    of WP_MIXES, a 1024 x 4 stripe buffer of 4,096-byte chunks (the three
-    runs are the path's launch counts): encoded bytes/s, hit rate, delta
-    and full bytes, epochs/s a mix; launches an epoch by piece (epoch
-    body, write batch, the stripe step's own and, inside it, K9's, K6's
-    and the commit's; torch.profiler spans over WP_PROFILED quiet epochs
-    after the first mix's run, on a clone of its final buffer), the
+    of WP_MIXES, a 1024 x 4 stripe buffer of 4,096-byte chunks.  On the
+    card a chunk is one replay of the compiled write path's CUDA graph
+    (``WritepathDriver.compile_writepath``: the epoch superstep's body,
+    the write batch, the stripe step and the write row, K3, K9, K6 and
+    the commit inside it): each mix's driver captures on a first run of
+    ``epochs`` epochs, then its timed run is one replay (these runs are
+    the path's launch counts): encoded bytes/s, hit rate, delta and full
+    bytes, epochs/s a mix; the graph's capture ms, nodes, conditional
+    nodes, bodies and the memory it reserves; a replayed chunk's wrapper
+    calls, seam reads, sync warnings and builds; the graph, the same body
+    eagerly, the host-decided loop (``_advance_host``) and the staged
+    path in turns over WP_TURN epochs; the card's busy share
+    (torch.profiler) through the graph over WP_TURN epochs and through
+    the host-decided loop over WP_PROFILED quiet epochs past the run's
+    end, on a clone of its final buffer, with the launches an epoch by
+    piece of the host-decided loop (epoch body, write batch, the stripe
+    step's own and, inside it, K9's, K6's and the commit's) and the
     stripe step's launches an epoch (the sum of those four); K9's, K6's
     and the commit's ms and the whole stripe step's card ms
     (``stripe_buffer_step`` between CUDA events, and the device time of
     its kernels and of K9's alone by torch.profiler) on the last epoch's
     batch, each call on a fresh clone of the final buffer made outside
-    its window.  Gates: ``writepath_bitequal``
-    (each codec family of bench/config10_online_ec.py: parity after
-    WP_GATE_UPDATES delta updates equal to a dense re-encode, on the
-    card); the staged path's epoch and write rows equal the superstep's
-    and the bare epoch loop's epoch rows equal the write path's
-    (WP_SHORT epochs); a wrong delta injected into a slot caught by
-    ``scrub_stripe_buffer`` (both lanes, then the re-encode lane alone);
-    ``flight_recorder=on`` bit-invisible over WP_SHORT epochs, the ring's
-    stripe lanes equal to the write rows, its dump written, read and
-    validated and the trace exported and validated; the bench's own
-    settings (``small``) over WP_SHORT epochs equal on the card and the
-    CPU.  Returns the phase line and the config-10 record."""
+    its window.  Gates: ``writepath_bitequal`` (each codec family of
+    bench/config10_online_ec.py: parity after WP_GATE_UPDATES delta
+    updates equal to a dense re-encode, on the card); the graph's series
+    and final buffer equal to the eager body's, the host-decided loop's
+    and the staged path's over ``epochs``; the bare epoch loop's epoch
+    rows equal to the write path's (WP_SHORT epochs); K9, K6 and the
+    commit among every mix's replayed launches (the bodies' pass
+    counters); one capture a driver, and a second run at another cap
+    inside the bucket with no new capture, equal to the host-decided run
+    at that cap; a replayed chunk with no call, read, sync warning or
+    build; a capture with a host read in the write stage raising; a
+    wrong delta injected into a slot caught by ``scrub_stripe_buffer``
+    (both lanes, then the re-encode lane alone); ``flight_recorder=on``
+    through the graph's flight twin bit-invisible over WP_SHORT epochs,
+    its ring equal to the host-decided loop's, the ring's stripe lanes
+    equal to the write rows, its dump written, read and validated and the
+    trace exported and validated; the bench's own settings (``small``)
+    over WP_SHORT epochs equal on the card and the CPU.  Returns the
+    phase line and the config-10 record."""
     import tempfile
     from dataclasses import replace
 
     from ceph_tpu_torch import _cuda
+    from ceph_tpu_torch.analysis import runtime_guard
     from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.core import graphs
     from ceph_tpu_torch.ec import online
     from ceph_tpu_torch.models.clusters import build_osdmap
     from ceph_tpu_torch.obs import flight, traceexport
@@ -3167,12 +3208,17 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
     verdicts = online_edges.bitequal_gate(WP_GATE_UPDATES, SEED, dev)
     m = build_osdmap(n_osds, pg_num=pg_num, size=6, pool_kind="erasure")
     sets, ways, groups = buffer
-    writepath_driver(m, dev, WP_MIXES[0], sets, ways, groups).run_superstep(2)  # first calls
-    drivers, panel, agg, best, best_wd = {}, [], None, 0.0, None
+    drivers, panel, agg, best, best_wd, graph_rows = {}, [], None, 0.0, None, {}
     reset_launches()
     for mix in WP_MIXES:
         wd = drivers[mix] = writepath_driver(m, dev, mix, sets, ways, groups)
         torch.cuda.synchronize()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        wd.run_superstep(epochs, pull=False)  # the warm-up, the capture, one replay
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        reserved = torch.cuda.memory_reserved() - reserved0
         t0 = time.perf_counter()
         sup, wsup = wd.run_superstep(epochs)
         torch.cuda.synchronize()
@@ -3183,12 +3229,17 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
         if bps > best:
             best, best_wd = bps, wd
         wd.series = (sup, wsup, wd.final_state, wd.final_buf)
+        graph_rows[mix] = {**program_info(wd.compile_writepath()), "first_run_s": first_s,
+                           "reserved_delta_bytes": reserved}
         panel.append({"mix": mix, "hit_rate": round(tot["hits"] / max(
             tot["hits"] + tot["misses"], 1), 6), "encoded_bytes_per_sec": round(bps, 1),
             "delta_bytes": 4 * tot["delta_words"], "full_bytes": 4 * tot["full_words"],
             "delta_writes": tot["delta_writes"], "full_writes": tot["full_writes"],
             "run_s": round(run_s, 6), "epochs_per_s": epochs / run_s})
     launches = launch_counts()
+    for mix, wd in drivers.items():  # collected by launch_counts: the bodies' passes
+        g = wd.compile_writepath().graph
+        graph_rows[mix]["replayed"] = dict(g.launched) if g is not None else {}
     lookups = agg["hits"] + agg["misses"]
     hit_rate = agg["hits"] / max(lookups, 1)
     out = {"phase": "writepath", "osds": n_osds, "pgs": pg_num, "ops": WP_OPS,
@@ -3197,14 +3248,73 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
            "buffer_bytes": 4 * (best_wd._init_buf.data.numel()
                                 + best_wd._init_buf.parity.numel()),
            "mix_panel": panel, "encoded_bytes_per_s": best, "hit_rate": hit_rate,
-           "totals": agg, "launches": launches, "families": verdicts}
+           "totals": agg, "launches": launches, "families": verdicts, "graph": graph_rows}
+    walls: dict[str, float] = {}
+    t_last = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        walls[name] = now - t_last[0]
+        t_last[0] = now
 
     wd = drivers[WP_MIXES[0]]
     sup, wsup, final_state, buf = wd.series
     drv = wd.driver
-    # launches an epoch by piece over quiet epochs past the run's end
-    # (flap's events all land in its first 3 s), on a clone of the final
-    # buffer (the step consumes its buffer); then the step and its
+    prog = wd.compile_writepath()
+
+    def runner(how):
+        if how == "graph":
+            return lambda n: wd.run_superstep(n)
+        if how == "eager":
+            return prog.run_eager
+        if how == "host":
+            return lambda n: wd._run_chunks(wd._advance_host, None, n)
+        return wd.run_staged
+
+    # the graph against the eager body, the host-decided loop and the
+    # staged path over the whole run: both series and the final buffer
+    paths_equal = {}
+    for how in ("eager", "host", "staged"):
+        s_, ws_ = runner(how)(epochs)
+        paths_equal[how] = (series_equal(s_, sup) and np.array_equal(ws_.lanes, wsup.lanes)
+                            and lanes_equal(wd.final_buf, buf))
+    lap("paths")
+    # in turns, to read the rates' spread
+    turns = []
+    for how in ("graph", "eager", "host", "staged", "staged", "host", "eager", "graph"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner(how)(WP_TURN)
+        torch.cuda.synchronize()
+        turns.append([how, WP_TURN / (time.perf_counter() - t0)])
+    out["epochs_per_s_in_turns"] = turns
+    lap("turns")
+    # a replayed chunk: no wrapper call, no read, no sync warning, no build
+    with runtime_guard.track(sync_debug=True, check_launches=dev.type == "cuda") as g:
+        wd.run_superstep(WP_TURN, pull=False)
+        torch.cuda.synchronize()
+    out["replay"] = {"calls": g.launch_counter.calls, "host_reads": g.host_transfers,
+                     "sync_warnings": g.transfer_counter.sync_warnings,
+                     "builds": g.n_compiles, "launches": g.launch_counter.launches,
+                     "replayed": g.launch_counter.replays}
+    # another cap inside the bucket: the same capture
+    cap = wd.batch_size * 5 // 8
+    captures = prog.captures
+    c_sup, c_wsup = wd.run_superstep(WP_SHORT, cap=cap)
+    h_sup, h_wsup = wd._run_chunks(wd._advance_host, None, WP_SHORT, cap=cap)
+    out["second_cap"] = {"cap": cap, "new_captures": prog.captures - captures,
+                         "writes": int((c_wsup.lane("delta_writes")
+                                        + c_wsup.lane("full_writes")).sum())}
+    second_cap_ok = bool(prog.captures == captures and series_equal(c_sup, h_sup)
+                         and np.array_equal(c_wsup.lanes, h_wsup.lanes)
+                         and (c_wsup.lane("delta_writes") + c_wsup.lane("full_writes")
+                              <= cap).all())
+    lap("replay_and_cap")
+
+    # launches an epoch by piece of the host-decided loop over quiet
+    # epochs past the run's end (flap's events all land in its first 3 s),
+    # on a clone of the final buffer (the step consumes its buffer); the
+    # graph's busy share over WP_TURN epochs; then the step and its
     # kernels alone on the last batch, each call on a fresh clone
     from ceph_tpu_torch.workload import writepath as wp_mod
 
@@ -3214,14 +3324,17 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
               "k9": ((online, "stripe_absorb"),), "k6": ((online, "schedule_apply"),),
               "k9_commit": ((online, "stripe_commit"),)}
     start_buf, start_host = buf.clone(), drv.host_view(final_state)
-    prof = piece_launches(None, lambda: wd.advance(
-        final_state, start_host, start_buf, epochs, epochs + WP_PROFILED, wd.max_writes),
-        pieces)
+    prof = piece_launches(None, lambda: host_decided(
+        wd, WP_PROFILED, epochs, final_state, start_host, start_buf), pieces)
     out["launches_per_epoch"] = {p: {k: v / WP_PROFILED for k, v in c.items()}
                                  for p, c in prof["split"].items()}
     out["stripe_step_launches_per_epoch"] = sum(
         v for p in step_pieces for v in out["launches_per_epoch"][p].values())
     out["profiled"] = {k: prof[k] for k in ("wall_ms", "device_ms", "device_busy")}
+    gprof = piece_launches(None, lambda: wd.run_superstep(WP_TURN), {})
+    out["graph_profiled"] = {"epochs": WP_TURN, **{k: gprof[k] for k in (
+        "wall_ms", "device_ms", "device_busy")}, "launch_calls": gprof["split"]["other"]}
+    lap("profiles")
     lanes = wd._write_batch(final_state, epochs, wd.max_writes)
     k9_call = lambda b: online.stripe_absorb(b.keys, b.data, b.parity, b.dirty, b.lru, b.tick,
                                              *lanes, wd.k, wd.w)
@@ -3242,15 +3355,26 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
     out["stripe_step_device_ms"] = {"k9": kernel_device_ms(k9_call, buf.clone,
                                                            "stripe_absorb_kernel"),
                                     "step": kernel_device_ms(step, buf.clone, "")}
+    lap("kernels")
 
-    # the staged path and the bare epoch loop over WP_SHORT epochs
-    staged, wstaged = wd.run_staged(WP_SHORT)
+    # the bare epoch loop over WP_SHORT epochs
     bare = drv.run_superstep(WP_SHORT)
     head = series_head(sup, WP_SHORT)
+    replay = out["replay"]
+    replayed = [graph_rows[mix]["replayed"] for mix in WP_MIXES]
     gates = {"writepath_bitequal": all(verdicts.values()),
-             "staged_equals_superstep": series_equal(staged, head)
-             and np.array_equal(wstaged.lanes, wsup.lanes[:WP_SHORT]),
-             "epoch_lanes_unchanged": series_equal(bare, head)}
+             "staged_equals_superstep": paths_equal["staged"],
+             "graph_equals_eager_host_staged": all(paths_equal.values()),
+             "epoch_lanes_unchanged": series_equal(bare, head),
+             "one_capture_a_driver": all(
+                 w_.compile_writepath().captures == 1 for w_ in drivers.values()),
+             "second_cap_no_capture_equals_host": second_cap_ok,
+             "replay_no_call_read_warning_or_build": (
+                 replay["calls"] == {} and replay["host_reads"] == 0
+                 and replay["sync_warnings"] == 0 and replay["builds"] == 0),
+             "k9_k6_commit_replayed": all(
+                 r.get(k, 0) >= epochs for r in replayed
+                 for k in ("stripe_absorb", "schedule_apply", "stripe_commit"))}
     # a wrong delta injected into a resident slot
     bm = wd.engine.bitmatrix
     sc = Scrubber(n_pgs=pg_num, n_shards=6, device=dev)
@@ -3269,31 +3393,38 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
         clean.status == "ok" and slot in caught.crc_bad and slot in caught.reencode_bad
         and reencode.crc_bad == [] and reencode.reencode_bad == [slot])
     out["scrub"] = {"slots": clean.checked_slots, "bytes": clean.scrubbed_bytes}
-    # the flight recorder riding the write path
+    # the flight recorder riding the write path: the graph's flight twin
+    # against the host-decided loop's ring
     cfg = Config(env={})
     cfg.set("flight_recorder", "on")
     wf = writepath_driver(m, dev, WP_MIXES[0], sets, ways, groups, config=cfg)
     journal = EventJournal()
     fsup, fwsup = wf.run_superstep(WP_SHORT, journal=journal)
-    drain = flight.drain_flight(wf.flight)
+    fring = wf.flight
+    drain = flight.drain_flight(fring)
     rows = drain["rows"]
+    wf._run_chunks(wf._advance_host, wf.driver._init_flight, WP_SHORT)
+    host_ring = flight.drain_flight(wf.flight)["rows"]
     stripe_ok = all(np.array_equal(rows[:, flight.FLIGHT_LANES.index(f"stripe_{n}")],
                                    fwsup.lanes[:, online.WP_LANES.index(n)])
                     for n in ("hits", "misses", "evictions", "delta_words"))
     work = tempfile.mkdtemp(dir=_cuda.BUILD_DIR, prefix="flight-")
-    dump = flight.write_flight_dump(work, wf.flight, reason="writepath", journal=journal,
+    dump = flight.write_flight_dump(work, fring, reason="writepath", journal=journal,
                                     state={"epochs": WP_SHORT})
     doc = flight.read_flight_dump(dump)
     trace = traceexport.export_trace(os.path.join(work, "trace.json"), journal.records, drain,
                                      dt=wf.driver.dt)
     gates["flight_bit_invisible"] = (series_equal(fsup, head)
                                      and np.array_equal(fwsup.lanes, wsup.lanes[:WP_SHORT]))
+    gates["flight_ring_equals_host_loop"] = (wf.compile_writepath_flight().captures == 1
+                                             and np.array_equal(rows, host_ring))
     gates["flight_stripe_lanes_equal_wrows"] = stripe_ok and len(rows) == WP_SHORT
     gates["flight_dump_and_trace_valid"] = (flight.validate_flight_dump(doc) == []
                                             and traceexport.validate_trace(trace) == []
                                             and len(journal.by_name("flight.drain")) == 1)
     out["flight"] = {"ring_epochs": drain["ring_epochs"], "rows": len(rows),
                      "trace_events": len(trace["traceEvents"])}
+    lap("scrub_and_flight")
     # the bench's own settings on the card and the CPU
     s_osds, s_pgs, s_sets, s_ways, s_groups = small
     sm = build_osdmap(s_osds, pg_num=s_pgs, size=6, pool_kind="erasure")
@@ -3306,11 +3437,30 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
                                 and np.array_equal(c_w.lanes, p_w.lanes)
                                 and lanes_equal(c_buf, p_buf)
                                 and int(c_w.lanes[:, 0].sum()) > 0)
+    # a host read in the write stage stops the capture with an error
+    faulty = writepath_driver(sm, dev, WP_MIXES[1], n_sets=s_sets, ways=s_ways, groups=s_groups)
+    batch = faulty._write_batch
+
+    def reads(state, step, cap, **kw):
+        bool(state.n_alive.any())
+        return batch(state, step, cap, **kw)
+
+    faulty._write_batch = reads
+    try:
+        faulty.run_superstep(8)
+        fault = "no error"
+    except graphs.HostReadInCapture as e:
+        fault = f"{type(e).__name__}: {e}"
+    out["capture_fault"] = fault
+    gates["capture_fault_raises"] = (fault.startswith("HostReadInCapture")
+                                     and faulty.compile_writepath().graph is None)
     gates["k9_launched"] = launches.get("stripe_absorb", 0) > 0
     gates["k9_commit_launched"] = launches.get("stripe_commit", 0) > 0
     gates["k6_launched"] = launches.get("schedule_apply", 0) > 0
     out["card_equals_cpu"] = {"osds": s_osds, "pgs": s_pgs, "sets": s_sets, "ways": s_ways,
                               "groups": s_groups, "epochs": WP_SHORT}
+    lap("card_equals_cpu")
+    out["walls_s"] = walls
     out["gates"] = gates
     families = [n for n, _b, _w in online_edges.gate_families()]
     record = writepath_record(epochs, sets, ways, best, hit_rate, all(gates.values()), families,
@@ -3321,6 +3471,18 @@ def phase_writepath(dev, launch_counts, reset_launches, n_osds: int = WP_OSDS,
 
     shutil.rmtree(work, ignore_errors=True)
     return out, record
+
+
+def program_info(prog) -> dict:
+    """A compiled superstep's or write path's graph figures (its captures
+    and replays alone where it has none: the CPU runs the body eagerly)."""
+    g = prog.graph
+    if g is None:
+        return {"captures": prog.captures, "replays": prog.replays}
+    return {"captures": prog.captures, "replays": prog.replays, "capture_ms": g.capture_ms,
+            "nodes": g.nodes, "conditional_nodes": g.cond_nodes,
+            "conditional_bodies": len(g.bodies), "pool_bytes": g.pool_bytes,
+            "buffer_epochs": prog._carry.capacity}
 
 
 def ec_batch(name: str, dev):
@@ -4857,7 +5019,8 @@ def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
     gates["fused_placement_one_replay"] = (
         fp["pipeline_replays"] == 1 and fp["calls"] == {} and fp["host_reads"] == 0
         and fp["launches"] == fp["replayed_launches"] != {})
-    for name in ("epoch_superstep", "compacted_superstep"):  # the reference's zero
+    # the reference's zero
+    for name in ("epoch_superstep", "compacted_superstep", "online_write_batch"):
         b = budgets[name]
         gates[f"{name}_no_read_on_the_card"] = (
             b["calls"] == {} and b["host_reads"] == 0 and b["sync_warnings"] == 0

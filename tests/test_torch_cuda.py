@@ -28,13 +28,19 @@ each on its own clone of the buffer: buffers, the compact Δdata,
 ``stripe_commit_plain``; the fused placement->peering program's CUDA
 graph (``recovery/pipeline.py``) on both device tiers against the
 program run eagerly (and on the CPU), a replay making no wrapper call
-and no host read, and a capture with a host read raising; the graphs'
+and no host read, a capture with a host read raising, and a graph left
+in a reference cycle not freed inside another capture; the graphs'
 IF and SWITCH nodes nested in WHILE and IF bodies against the same code
 run eagerly; the compiled epoch superstep (``recovery/superstep.py``)
 on a small config 7 and a compacted walk against the eager body and
 ``run_staged`` (and the CPU), a second chunk of another length replayed
 without a capture, a replay with no call, read or sync warning, and a
-capture with a host read in the epoch body raising.  Run them
+capture with a host read in the epoch body raising; the compiled write
+path (``workload/writepath.py``) on a small config 10 against the eager
+body, the host-decided loop, ``run_staged`` and the CPU (with the
+recorder too), one capture over two caps in one bucket, a replay with no
+call, read or sync warning, and a capture with a host read in the write
+stage raising.  Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -907,6 +913,42 @@ def test_a_capture_with_a_host_read_raises(card):
     assert int(x.sum()) == 28
 
 
+class _Cycle:
+    pass
+
+
+def test_a_graph_left_in_a_cycle_is_not_freed_inside_another_capture(card):
+    """A graph whose last reference is a reference cycle (a driver and its
+    program) made garbage while another graph is captured, with the
+    collector as eager as it gets: no collection runs inside the capture
+    (freeing a graph there aborts the process), and the new graph replays."""
+    import gc
+
+    from ceph_tpu_torch.core import graphs
+
+    x = torch.zeros(4, device=card)
+    keep = {"old": graphs.capture(lambda: x.add_(100), card)}
+
+    def program():
+        c = _Cycle()
+        c.me, c.graph = c, keep.pop("old")
+        del c
+        for _ in range(64):
+            x.add_(1)
+            [_Cycle() for _ in range(8)]
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        g = graphs.capture(program, card)
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()  # the old graph freed here, outside any capture
+    g.replay()
+    torch.cuda.synchronize()
+    assert x.tolist() == [64.0] * 4
+
+
 # ---------------------------------------------------------------- the epoch superstep's graph
 
 
@@ -1051,3 +1093,112 @@ def test_superstep_capture_with_a_host_read_in_the_body_raises(card, monkeypatch
     with pytest.raises(graphs.HostReadInCapture):
         d.run_superstep(8)
     assert d.compile_superstep().graph is None
+
+
+# ---------------------------------------------------------------- the write path's graph
+
+
+def _writepath_driver(dev, flight: bool = False, compaction: str = "on"):
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.workload import WritepathDriver
+
+    m = build_osdmap(64, pg_num=128, size=6, pool_kind="erasure")
+    cfg = Config(env={})
+    cfg.set("flight_recorder", "on" if flight else "off")
+    cfg.set("sparse_dirty_compaction", compaction)
+    cfg.set("sparse_min_bucket", 4)
+    d = rec.EpochDriver(m, rec.build_scenario("flap", m), n_ops=64, config=cfg, device=dev)
+    return WritepathDriver(d, n_sets=8, ways=2, max_writes=32, full_permille=250)
+
+
+def _buffers_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in ("keys", "data", "parity", "dirty", "lru", "tick", "totals"))
+
+
+@pytest.mark.parametrize("flight,compaction", [(False, "on"), (False, "off"), (True, "on")])
+def test_writepath_graph_equals_the_eager_body_host_loop_and_staged(card, flight, compaction):
+    """A chunk's replay (K3, K9, K6 and K9's commit inside the graph)
+    equals the body run eagerly on the card, the host-decided loop,
+    ``run_staged`` and the CPU's run, both series and the buffer bit for
+    bit; with the recorder on, the rings too."""
+    from ceph_tpu_torch.core import graphs
+
+    w = _writepath_driver(card, flight, compaction)
+    d = w.driver
+    n = 24
+    graph, wgraph = w.run_superstep(n, snapshot_every=8)
+    buf = w.final_buf
+    ring = d.drain_flight()["rows"] if flight else None
+    prog = w.compile_writepath_flight() if flight else w.compile_writepath()
+    assert prog.captures == 1 and prog.replays == 3 and prog.graph.cond_nodes >= 4
+    graphs.collect()  # the bodies' launches, by their pass counters
+    launched = prog.graph.launched
+    assert all(launched.get(k, 0) > 0 for k in ("stripe_absorb", "schedule_apply",
+                                                  "stripe_commit", "descend")), launched
+    runs = {"eager": lambda: prog.run_eager(n, snapshot_every=8),
+            "host": lambda: w._run_chunks(w._advance_host, d._init_flight, n, snapshot_every=8),
+            "staged": lambda: w.run_staged(n)}
+    for how, run in runs.items():
+        s, ws = run()
+        assert graph.diff(s) == [] and wgraph.diff(ws) == [], how
+        assert _buffers_equal(buf, w.final_buf), how
+        if flight and how != "staged":
+            assert np.array_equal(d.drain_flight()["rows"], ring), how
+    cpu = _writepath_driver(torch.device("cpu"), flight, compaction)
+    s, ws = cpu.run_superstep(n, snapshot_every=8)
+    assert graph.diff(s) == [] and wgraph.diff(ws) == [] and _buffers_equal(buf, cpu.final_buf)
+    assert graph.dirty.sum() > 0 and wgraph.totals()["full_writes"] > 0
+
+
+def test_writepath_one_capture_over_two_caps(card):
+    """Caps 5 and 7 (one bucket) replay the graph the first run captured,
+    each equal to the host-decided run at its cap."""
+    w = _writepath_driver(card)
+    d = w.driver
+    prog = w.compile_writepath()
+    for cap in (5, 7):
+        s, ws = w.run_superstep(16, cap=cap)
+        hs, hws = w._run_chunks(w._advance_host, None, 16, cap=cap)
+        assert s.diff(hs) == [] and ws.diff(hws) == [], cap
+        assert (ws.lane("delta_writes") + ws.lane("full_writes") <= cap).all()
+    assert prog.captures == 1 and prog.replays == 2 and d.compile_superstep().graph is None
+
+
+def test_writepath_replay_makes_no_call_no_read_and_no_sync_warning(card):
+    from ceph_tpu_torch.analysis import runtime_guard
+
+    w = _writepath_driver(card)
+    w.run_superstep(16, pull=False)
+    torch.cuda.synchronize()
+    with runtime_guard.track(sync_debug=True, check_launches=True) as g:
+        _state, _buf, rows, wrows = w.run_superstep(16, pull=False, cap=7)
+        torch.cuda.synchronize()
+    lc = g.launch_counter
+    assert lc.calls == {} and lc.captured == {} and g.n_compiles == 0
+    assert g.host_transfers == 0 and g.transfer_counter.sync_warnings == 0
+    assert lc.launches == lc.replays
+    assert all(lc.launches.get(k, 0) >= 16 for k in ("stripe_absorb", "schedule_apply",
+                                                       "stripe_commit"))
+    s, ws = w.run_staged(16, cap=7)
+    assert rec_series(rows).diff(s) == [] and np.array_equal(wrows.cpu().numpy(), ws.lanes)
+
+
+def test_writepath_capture_with_a_host_read_in_the_write_stage_raises(card, monkeypatch):
+    """A host read in the write stage stops the capture with an error: no
+    chunk runs eagerly in its place."""
+    from ceph_tpu_torch.core import graphs
+
+    w = _writepath_driver(card)
+    batch = w._write_batch
+
+    def reads(state, step, cap, **kw):
+        bool(state.n_alive.any())
+        return batch(state, step, cap, **kw)
+
+    monkeypatch.setattr(w, "_write_batch", reads)
+    with pytest.raises(graphs.HostReadInCapture):
+        w.run_superstep(8)
+    assert w.compile_writepath().graph is None
