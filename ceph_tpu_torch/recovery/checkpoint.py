@@ -737,11 +737,12 @@ def checkpointed_fleet(
     snapshot_every: int = 0,
     seeds=None,
     crashes=(),
+    path: str | None = None,
 ):
     """:meth:`FleetDriver.run_fleet` chunked over snapshot boundaries with
     a durable stacked-fleet snapshot at each; resume-from-store on
     entry.  Returns the cropped ``FleetSeries``, every lane bit-equal to
-    the uninterrupted fleet run's."""
+    the uninterrupted fleet run's.  ``path`` is :meth:`FleetDriver._run`'s."""
     from .fleet import FleetSeries, _empty_tape, compile_event_tape, stack_tapes
 
     n_epochs = int(n_epochs)
@@ -762,11 +763,11 @@ def checkpointed_fleet(
         cols = ({f: np.asarray(series[f]) for f in _SERIES_FIELDS} if series else None)
     if start == 0:
         fstate, cols = None, None
-    empty = FleetSeries.from_device(fdriver._run(0, lanes, salts)[1], len(tls))
+    empty = FleetSeries.from_device(fdriver._run(0, lanes, salts, path=path)[1], len(tls))
     while start < n_epochs:
         end = _aligned_end(start, n_epochs, every)
         fstate, rows = fdriver._run(n_epochs, lanes, salts, start=start, stop=end,
-                                    fstate=fstate)
+                                    fstate=fstate, path=path)
         part = FleetSeries.from_device(rows, len(tls))
         cols = _append(cols, part, _SERIES_FIELDS)
         _commit(store, sched, end, fstate,

@@ -16,11 +16,13 @@ stack_states`:
   padded ``[fleet, rows]`` tape, both axes rounded up to powers of two:
   pad rows carry ``t=+inf`` (no epoch's window reaches them), pad
   clusters carry empty tapes and are cropped from every output.
-- :class:`FleetDriver` advances every lane one epoch at a time with a
-  host loop (the reference's one ``lax.scan`` over a vmapped body).
+- :class:`FleetDriver` advances every lane together: on the card one
+  replay of :class:`FleetProgram`'s CUDA graph a window (the
+  reference's one ``lax.scan`` over a vmapped body), on the CPU a host
+  loop of epochs (below).
 
-How one fleet epoch runs
-------------------------
+How one fleet epoch runs (the host-decided loop)
+------------------------------------------------
 
 Only the clock is shared: ``t0`` and ``dt`` come from one template
 :class:`~ceph_tpu_torch.recovery.superstep.EpochDriver`.  Each lane
@@ -60,8 +62,15 @@ is the one-cluster piece along the last axis:
 - **scrub windows** are shared and broadcast; the **rows** stay on the
   device as ``[epochs, F_pad, width]`` and come back once a run.
 
+:class:`FleetProgram` makes the same epoch's decisions on the card: the
+edits from tables of the host plan's groups, the tick of the active
+lanes, the dirty lanes peered through the same memo of pool keys (kept
+on the device), all inside one graph.  ``run_fleet(path=...)`` picks the
+graph, its body run eagerly, or the host-decided loop.
+
 Every lane equals its own one-cluster run bit for bit
-(:meth:`FleetDriver.run_sequential`, and a plain ``EpochDriver``):
+(:meth:`FleetDriver.run_sequential`, the template's tape program on the
+card, and a plain ``EpochDriver``):
 held in ``tests/test_torch_fleet.py`` over the chaos zoo.  Outputs land
 as a :class:`FleetSeries` (the ``EpochSeries`` fields with a second,
 fleet axis), which :mod:`~ceph_tpu_torch.recovery.durability` reduces.
@@ -71,7 +80,9 @@ With the template driver's flight recorder on, a per-lane ring
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+import copy
+import functools
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -89,15 +100,26 @@ from ..osdmap.map import OSDMap
 from .chaos import ChaosTimeline, build_scenario
 from .superstep import (
     _LANE_EDITS,
+    _GraphProgram,
     _MAP_KINDS,
+    _M32,
+    _SALT_STEP,
     _SERIES_FIELDS,
+    _TICK_NAMES,
     EpochDriver,
     EpochRows,
     EpochSeries,
     EventTape,
+    _clone_state,
+    _get,
     _host_bits,
     _packed_layout,
+    _state_names,
+    _tape_lanes,
     compile_event_tape,
+    pick_path,
+    upload,
+    uploaded,
 )
 
 I32 = torch.int32
@@ -238,12 +260,18 @@ def stack_tapes(tapes: list[EventTape]) -> FleetTape:
 class FleetRows:
     """A fleet run's epoch rows before they are pulled: the host lanes as
     arrays and the rest as one ``[n, fleet_pad, width]`` int32 tensor on
-    the device (:func:`~ceph_tpu_torch.recovery.superstep._packed_layout`)."""
+    the device (:func:`~ceph_tpu_torch.recovery.superstep._packed_layout`).
+    Rows of the compiled fleet keep the epoch and dirty lanes on the
+    device too: ``lanes`` is ``[n, fleet_pad, width + 2]`` (``packed``
+    its first ``width`` columns, then the epoch and dirty lanes) and
+    ``epoch``/``dirty`` are None until :meth:`FleetSeries.from_device`
+    reads it."""
 
-    now: np.ndarray      # f64 [n]  (the clock is shared)
-    epoch: np.ndarray    # i32 [n, fleet_pad]
-    dirty: np.ndarray    # i32 [n, fleet_pad]
+    now: np.ndarray             # f64 [n]  (the clock is shared)
+    epoch: np.ndarray | None    # i32 [n, fleet_pad]
+    dirty: np.ndarray | None    # i32 [n, fleet_pad]
     packed: torch.Tensor
+    lanes: torch.Tensor | None = None
 
     def __len__(self) -> int:
         return int(self.now.shape[0])
@@ -300,8 +328,12 @@ class FleetSeries:
     @classmethod
     def from_device(cls, rows: FleetRows, n_clusters: int) -> "FleetSeries":
         """Pull a run's rows (one copy) and crop the pad clusters."""
-        return cls.from_rows(rows.now, rows.epoch, rows.dirty, rows.packed.cpu().numpy(),
-                             n_clusters)
+        if rows.lanes is None:
+            return cls.from_rows(rows.now, rows.epoch, rows.dirty, rows.packed.cpu().numpy(),
+                                 n_clusters)
+        a = rows.lanes.cpu().numpy()
+        w = rows.packed.shape[-1]
+        return cls.from_rows(rows.now, a[:, :, w], a[:, :, w + 1], a[:, :, :w], n_clusters)
 
     def cluster(self, i: int) -> EpochSeries:
         """Cluster ``i``'s lane as a plain :class:`EpochSeries` — the
@@ -325,8 +357,10 @@ class _TapePlan:
     edits of each epoch in apply order, and what the host learns from
     each window (map rows, epoch bumps, suppressed and slow bits)."""
 
-    idx: torch.Tensor | None          # int64 flat lane * n_osds + osd
+    idx: torch.Tensor | None          # int64 flat lane * n_osds + osd, on the device
+    flat: np.ndarray                  # the same indices on the host
     edits: list                       # [epoch] -> [(kind, start, stop)]
+    stops: np.ndarray                 # int [n, F]: each lane's cursor after each epoch
     tape_dirty: np.ndarray            # bool [n, F]: a map row applied
     bumps: np.ndarray                 # int [n, F]: epoch advances
     sup_any: np.ndarray               # bool [n, F]: any suppressed after
@@ -334,7 +368,7 @@ class _TapePlan:
     cursor: np.ndarray                # int [F]: cursors after the run
 
 
-def _tape_plan(tapes: list[EventTape], nows: np.ndarray, n_osds: int, dev) -> _TapePlan:
+def _tape_plan(tapes: list[EventTape], nows: np.ndarray, n_osds: int, dev=None) -> _TapePlan:
     lanes_n = len(tapes)
     n = len(nows)
     stops = np.zeros((n, lanes_n), np.int64)
@@ -372,9 +406,10 @@ def _tape_plan(tapes: list[EventTape], nows: np.ndarray, n_osds: int, dev) -> _T
         sup_any[e], slow_any[e] = sup.any(1), slow.any(1)
         edits.append(ep)
         lo = hi
-    idx = (torch.from_numpy(np.concatenate(flat)).to(dev) if flat else None)
-    return _TapePlan(idx=idx, edits=edits, tape_dirty=tape_dirty, bumps=bumps,
-                     sup_any=sup_any, slow_any=slow_any, cursor=lo.copy())
+    flat_np = np.concatenate(flat) if flat else np.zeros(0, np.int64)
+    idx = torch.from_numpy(flat_np).to(dev) if flat and dev is not None else None
+    return _TapePlan(idx=idx, flat=flat_np, edits=edits, stops=stops, tape_dirty=tape_dirty,
+                     bumps=bumps, sup_any=sup_any, slow_any=slow_any, cursor=lo.copy())
 
 
 class FleetDriver:
@@ -387,10 +422,12 @@ class FleetDriver:
     whole fleet shares them; what varies per lane is the timeline and
     the traffic seed.
 
-    - :meth:`run_fleet` advances all ``F_pad`` lanes one epoch at a time
-      (pad lanes are cropped);
+    - :meth:`run_fleet` advances all ``F_pad`` lanes together (pad lanes
+      are cropped): on the card one replay of :meth:`compile_fleet`'s
+      graph, on the CPU the host-decided loop;
     - :meth:`run_sequential` runs one lane at a time through the
-      template's ``_epoch_step_with``, the one-cluster baseline.
+      template's ``_epoch_step_with`` (on the card its tape program),
+      the one-cluster baseline.
 
     :attr:`stats` counts the last run's reads, dirty lane-epochs,
     peerings and reused peerings.
@@ -403,6 +440,8 @@ class FleetDriver:
         self.device = self.driver.device
         self._init_cache: dict[int, ClusterState] = {}
         self._decay_tab: torch.Tensor | None = None
+        self._decay_host: np.ndarray | None = None
+        self._programs: dict[bool, FleetProgram] = {}
         #: the flight recorder's per-lane ring after the last run (None
         #: with the recorder off)
         self.flight = None
@@ -428,7 +467,7 @@ class FleetDriver:
         (pad lanes 0)."""
         salts = np.zeros((f_pad, 1), np.int64)
         salts[:n, 0] = [int(_salt_base(s)) for s in self._seeds(n, seeds)]
-        return torch.from_numpy(salts).to(self.device)
+        return uploaded(salts, self.device)
 
     def _fleet_state(self, f_pad: int) -> ClusterState:
         """The stacked initial fleet state, cached per pad bucket."""
@@ -452,7 +491,8 @@ class FleetDriver:
             for e in range(n_epochs):
                 now = drv._now_of(e)
                 host[e, :e + 1] = [drv._decay(now, lt) for lt in ticks[:e + 1]]
-            tab = self._decay_tab = torch.from_numpy(host).to(self.device)
+            self._decay_host = host
+            tab = self._decay_tab = uploaded(host, self.device)
         return tab
 
     # -- the pieces ------------------------------------------------------
@@ -550,17 +590,45 @@ class FleetDriver:
 
     # -- drivers -------------------------------------------------------
 
+    def compile_fleet(self) -> "FleetProgram":
+        """The ONE program of a fleet's window (:class:`FleetProgram`,
+        built once a driver, the ring riding it with the template's
+        flight recorder on): on the card one CUDA graph, captured on the
+        first run of a pad bucket and replayed for every later one."""
+        flight = bool(self.driver.flight_on)
+        if self._programs.get(flight) is None:
+            self._programs[flight] = FleetProgram(self, flight=flight)
+        return self._programs[flight]
+
     def _run(self, n_epochs: int, tapes: list[EventTape], salts: torch.Tensor, *,
              start: int = 0, stop: int | None = None, fstate: ClusterState | None = None,
-             fs=None):
+             fs=None, path: str | None = None):
         """Advance ``len(tapes)`` lanes through epochs ``start .. stop -
         1`` of an ``n_epochs`` run (the whole run by default) from
-        ``fstate`` (the initial fleet by default; a state a chunk or a
-        restore wrote, whose scalars and down/laggy bits rebuild the
-        host's view with one read).  With a flight state ``fs`` the
-        per-lane ring records each epoch (:attr:`flight` afterwards).
-        Returns ``(state, FleetRows)``, the state's scalars set for the
-        chunk's end."""
+        ``fstate`` (the initial fleet by default, or a state a chunk or a
+        restore wrote).  With a flight state ``fs`` the per-lane ring
+        records each epoch (:attr:`flight` afterwards).  Returns
+        ``(state, FleetRows)``, the state's scalars set for the chunk's
+        end, through ``path``: ``"graph"`` (the compiled fleet's replay,
+        :meth:`compile_fleet`; the card's default), ``"eager"`` (its body
+        run eagerly, each decision read) or ``"host"`` (the host-decided
+        loop, :meth:`_run_host`; the CPU's default).  ``stats["path"]``
+        names the one taken."""
+        path = pick_path(self.device, path)
+        if path == "host":
+            return self._run_host(n_epochs, tapes, salts, start=start, stop=stop,
+                                  fstate=fstate, fs=fs)
+        return self.compile_fleet().run(n_epochs, tapes, salts, start=start, stop=stop,
+                                        fstate=fstate, fs=fs, compiled=path == "graph")
+
+    def _run_host(self, n_epochs: int, tapes: list[EventTape], salts: torch.Tensor, *,
+                  start: int = 0, stop: int | None = None,
+                  fstate: ClusterState | None = None, fs=None):
+        """:meth:`_run` decided on the host, one epoch at a time: the
+        windows a host plan, the busy epoch's one read of every lane's
+        flags and pool key, the dirty lanes peered one at a time (a
+        restored ``fstate``'s scalars and down/laggy bits rebuild the
+        host's view with one read)."""
         drv = self.driver
         dev = self.device
         f_pad = len(tapes)
@@ -572,7 +640,8 @@ class FleetDriver:
         self._salt_dev = salts
         self._memo: dict[bytes, tuple] = {}
         self._zero_live = torch.zeros((f_pad, 5), dtype=I32, device=dev)
-        self.stats = {"reads": 0, "dirty_lane_epochs": 0, "peered": 0, "peer_reused": 0}
+        self.stats = {"path": "host", "reads": 0, "dirty_lane_epochs": 0, "peered": 0,
+                      "peer_reused": 0}
         if n_epochs > 0:
             self._decay_table(n_epochs)
         if fstate is None:
@@ -676,13 +745,16 @@ class FleetDriver:
         seeds=None,
         pull: bool = True,
         journal=None,
+        path: str | None = None,
     ):
         """Advance every timeline ``n_epochs`` epochs together.  Returns a
         cropped :class:`FleetSeries`, or with ``pull=False`` the
         ``(state, rows)`` pair still on the device (:class:`FleetRows`).
         With the template driver's flight recorder on, a per-lane ring
         rides the run (:attr:`flight` afterwards; drained into
-        ``journal`` when given) without touching the series lanes."""
+        ``journal`` when given) without touching the series lanes.
+        ``path`` picks the graph, its eager body or the host-decided loop
+        (:meth:`_run`)."""
         from ..obs.flight import empty_flight, journal_drain
 
         tls = list(timelines)
@@ -692,7 +764,7 @@ class FleetDriver:
         lanes = tapes + [_empty_tape()] * (ftape.fleet_pad - len(tapes))
         fs = (empty_flight(self.driver.flight_ring_epochs, fleet=ftape.fleet_pad,
                            device=self.device) if self.driver.flight_on else None)
-        state, rows = self._run(int(n_epochs), lanes, salts, fs=fs)
+        state, rows = self._run(int(n_epochs), lanes, salts, fs=fs, path=path)
         if fs is not None and journal is not None:
             journal_drain(journal, self.flight, fleet=len(tls))
         self.final_state = state
@@ -707,25 +779,42 @@ class FleetDriver:
         *,
         seeds=None,
         rows_pad: int | None = None,
+        path: str | None = None,
     ) -> list[EpochSeries]:
         """N one-cluster runs through the template's ``_epoch_step_with``
         (tape and salt as arguments, dense peering), one at a time.  Equal
         to ``EpochDriver(m, timeline_i, seed=seed_i).run_superstep(
         n_epochs)`` per cluster: the same body, and the pad rows sit past
-        every epoch's window."""
+        every epoch's window.  ``path`` as :meth:`_run`'s: the template's
+        tape program replayed (the card's default, :meth:`_sequential_program`)
+        or run eagerly, or the host-decided body (the CPU's default,
+        :meth:`_sequential_host`)."""
+        path = pick_path(self.device, path)
+        args = self._sequential_args(timelines, seeds, rows_pad)
+        if path == "host":
+            return self._sequential_host(int(n_epochs), *args)
+        return self._sequential_program(int(n_epochs), *args, compiled=path == "graph")
+
+    def _sequential_args(self, timelines, seeds=None, rows_pad: int | None = None):
+        """``(tapes, seeds, rows pad)`` of :meth:`run_sequential`."""
         tls = list(timelines)
         seeds = self._seeds(len(tls), seeds)
         tapes = [compile_event_tape(tl, self.m) for tl in tls]
         r_pad = _pad_to(max(max((len(tp) for tp in tapes), default=1), 1))
         if rows_pad is not None:
             r_pad = max(r_pad, int(rows_pad))
+        return tapes, seeds, r_pad
+
+    def _sequential_host(self, n_epochs: int, tapes, seeds, r_pad: int) -> list[EpochSeries]:
+        """:meth:`run_sequential` decided on the host, one epoch at a
+        time."""
         drv = self.driver
         out = []
         for tp, sd in zip(tapes, seeds):
             tape = _padded_tape(tp, r_pad)
             state, host = drv._init_state, drv._init_host.copy()
             now, epoch, dirty, packed = [], [], [], []
-            for e in range(int(n_epochs)):
+            for e in range(n_epochs):
                 state, (d, row) = drv._epoch_step_with(state, host, e, tape, int(_salt_base(sd)))
                 now.append(host.now)
                 epoch.append(host.epoch)
@@ -738,6 +827,401 @@ class FleetDriver:
                 np.asarray(now, np.float64), np.asarray(epoch, np.int32),
                 np.asarray(dirty, np.int32), torch.stack(packed))))
         return out
+
+    def _sequential_program(self, n_epochs: int, tapes, seeds, r_pad: int, *,
+                            compiled: bool) -> list[EpochSeries]:
+        """:meth:`run_sequential` through the template's
+        :class:`~ceph_tpu_torch.recovery.superstep.TapeProgram`: one
+        ``load`` of a cluster's padded tape and salt, then one chunk of
+        replays (eagerly with ``compiled=False``)."""
+        drv = self.driver
+        prog = drv.compile_tape_program()
+        out = []
+        for tp, sd in zip(tapes, seeds):
+            prog.load(_padded_tape(tp, r_pad), int(_salt_base(sd)))
+            _state, _fs, rows = prog._advance(drv._init_state, drv._init_host.copy(), 0,
+                                              n_epochs, compiled=compiled)
+            out.append(EpochSeries.from_device(rows))
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the compiled fleet window
+
+
+class _FleetCarry:
+    """The buffers a compiled fleet window reads and writes in place: the
+    fleet state and its per-lane ring, the rows ``[s_pad, f_pad, width +
+    2]`` (the epoch and dirty lanes last), the run's tables indexed by
+    the absolute step (clock, capacity, scrub count, salt stride, each
+    epoch's range of edit groups, bumps, map rows, cursors, the decay
+    table ``[s_pad, s_pad + 1]``), the edit groups (a kind, and
+    ``f_pad`` flat indices, the group's own padded by its first), the
+    lanes' salts, the step and group counters, the epoch's decisions
+    and the ring's probe, and the memo of the run's peerings: ``memo``
+    pool keys ``[K, n_osds]`` and each key's peering outputs ``[K,
+    ...]`` a field, ``memo_n`` the run's peerings (slot ``memo_n % K``
+    takes the next), ``n_dirty`` its dirty lane-epochs."""
+
+    def __init__(self, fd: "FleetDriver", f_pad: int, s_pad: int, g_pad: int, flight: bool):
+        from ..obs.flight import empty_flight
+
+        drv = fd.driver
+        dev = fd.device
+
+        def z(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.f_pad, self.s_pad, self.g_pad = f_pad, s_pad, g_pad
+        self.st = _clone_state(fd._fleet_state(f_pad))
+        self.fs = (empty_flight(drv.flight_ring_epochs, fleet=f_pad, device=dev)
+                   if flight else None)
+        self.width = sum(w for _f, w, _d in _packed_layout())
+        self.rows = z((s_pad, f_pad, self.width + 2), I32)
+        self.tab = {"now": z(s_pad, torch.float64), "now32": z(s_pad, torch.float32),
+                    "cap": z(s_pad, torch.float32), "scrub": z(s_pad, I32),
+                    "ssalt": z(s_pad, I64), "g_lo": z(s_pad, I64), "g_hi": z(s_pad, I64),
+                    "bumps": z((s_pad, f_pad), I32), "tdirty": z((s_pad, f_pad), torch.bool),
+                    "cursor": z((s_pad, f_pad), I32),
+                    "decay": z((s_pad, s_pad + 1), torch.float32)}
+        self.g_kind = z(g_pad, I32)
+        self.g_idx = z((g_pad, f_pad), I64)
+        self.salts = z((f_pad, 1), I64)
+        self.start, self.stop, self.step, self.gc = (z(1, I64) for _ in range(4))
+        self.lt_col = z(f_pad, I64)
+        self.live = z((f_pad, 5), I32)
+        self.active, self.trans, self.dirty, self.miss = (z(f_pad, torch.bool)
+                                                          for _ in range(4))
+        self.anyd, self.heavy = z((), torch.bool), z((), I64)
+        self.frung, self.nd = z((), I32), z((), I64)
+        k = max(FleetProgram.MEMO_PER_LANE * f_pad, FleetProgram.MEMO_MIN)
+        self.memo_key = z((k, self.st.n_osds), I32)
+        self.memo = tuple(z((k,) + getattr(self.st, f).shape[1:], getattr(self.st, f).dtype)
+                          for f in _PEER_FIELDS)
+        self.memo_slots = torch.arange(k, dtype=I64, device=dev)
+        self.memo_n, self.n_dirty = z(1, I64), z(1, I64)
+
+    def fits(self, f_pad: int, s_pad: int, g_pad: int) -> bool:
+        return f_pad == self.f_pad and s_pad <= self.s_pad and g_pad <= self.g_pad
+
+    def load(self, fstate: ClusterState, fs) -> None:
+        """Copy a window's starting state (and ring, when given) in."""
+        for name in _state_names(self.st):
+            _get(self.st, name).copy_(_get(fstate, name))
+        if self.fs is not None and fs is not None:
+            self.fs.ring.copy_(fs.ring)
+            self.fs.head.copy_(fs.head)
+
+    def scratch(self) -> "_FleetCarry":
+        """A copy of every buffer (the warm-up's)."""
+        from ..obs.flight import FlightState
+
+        w = copy.copy(self)
+        for k, v in vars(self).items():
+            if isinstance(v, torch.Tensor):
+                setattr(w, k, v.clone())
+        w.tab = {k: v.clone() for k, v in self.tab.items()}
+        w.memo = tuple(v.clone() for v in self.memo)
+        w.st = _clone_state(self.st)
+        if self.fs is not None:
+            w.fs = FlightState(ring=self.fs.ring.clone(), head=self.fs.head.clone())
+        return w
+
+
+class FleetProgram(_GraphProgram):
+    """The compiled fleet window of one :class:`FleetDriver` (the
+    reference's vmapped ``lax.scan``, ``_build_fleet_scan``), every
+    decision of the fleet epoch made on the device.
+
+    - On the card it is one CUDA graph (:mod:`ceph_tpu_torch.core.graphs`,
+      captured and replayed as the one-cluster program's): a WHILE node
+      over the window's steps whose body applies the epoch's tape edits
+      (a WHILE node over its edit groups, each group's ``_LANE_EDITS``
+      edit a SWITCH node on its kind, the groups in the host plan's apply
+      order, so a ``down`` and an ``up`` of one OSD in one epoch never
+      land in one scatter), ticks the detector under an IF node on any
+      lane being active (each lane's decay from the run's decay table at
+      its last tick), moves the epoch lanes by the tape's bumps and the
+      tick's transitions, peers the dirty lanes under an IF node on any
+      being dirty, steps the traffic of every lane, and writes the rows
+      (and the per-lane ring) in place.  A run copies its tables in (no
+      sync), replays once and copies the rows, state and ring out: no
+      wrapper call and no read.  Timelines in the same buckets (the
+      fleet pad, the steps, the edit groups) replay the same graph;
+      another pad or larger tables capture anew.
+    - On the CPU the same body runs eagerly, each decision one host read
+      of its predicate.
+
+    **Peering** keeps the host loop's memo on the device: a dirty lane
+    whose pool key (:meth:`FleetDriver._keys`) the run already peered
+    copies that result from the carry's memo, and a WHILE node peers the
+    first lane of each new key through the template's dense peering
+    (K3), writes it into every dirty lane of that key and into the memo's
+    next slot.  The reference's lane ladder (a batched peering a rung)
+    needs a ``_peer_hist`` with a lane axis, which the port's has not:
+    the ring's rung and peer-cycle lanes report the reference's rung,
+    computed on the device."""
+
+    #: the memo's slots: this many a lane, and at least MEMO_MIN (a run
+    #: with more keys reuses the oldest slots, and peers those keys again)
+    MEMO_PER_LANE = 2
+    MEMO_MIN = 64
+
+    def __init__(self, fd: "FleetDriver", *, flight: bool):
+        super().__init__(fd.driver, flight=flight)
+        self.fd = fd
+        self._carry: _FleetCarry | None = None
+
+    def peer_counts(self) -> dict:
+        """The last run's dirty lane-epochs, peerings and reused peerings
+        (one read)."""
+        c = self._carry
+        if c is None:
+            return {"dirty_lane_epochs": 0, "peered": 0, "peer_reused": 0}
+        n_dirty, peered = torch.cat([c.n_dirty, c.memo_n]).tolist()
+        return {"dirty_lane_epochs": n_dirty, "peered": peered,
+                "peer_reused": n_dirty - peered}
+
+    # -- a run -------------------------------------------------------------
+
+    def _tables(self, n_epochs: int, tapes: list[EventTape]) -> dict:
+        """The run's tables on the host (see :class:`_FleetCarry`), from
+        the host plan of its tape windows and the template's step
+        tables."""
+        fd = self.fd
+        drv = fd.driver
+        f_pad, n = len(tapes), n_epochs
+        nows = np.array([drv._now_of(e) for e in range(n)], np.float64)
+        plan = _tape_plan(tapes, nows, drv._init_state.n_osds)
+        base, _dev = drv._tables(n)
+        groups = [g for ep in plan.edits for g in ep]
+        g_kind = np.zeros(len(groups), np.int32)
+        g_idx = np.zeros((len(groups), f_pad), np.int64)
+        for gi, (kind, a, b) in enumerate(groups):
+            g_kind[gi] = kind
+            g_idx[gi] = plan.flat[a]
+            g_idx[gi, :b - a] = plan.flat[a:b]
+        counts = np.array([len(ep) for ep in plan.edits], np.int64)
+        fd._decay_table(n)
+        return {
+            "now": base["now"][:n], "now32": base["now32"][:n], "cap": base["cap"][:n],
+            "scrub": base["scrub"][:n],
+            "ssalt": np.arange(n, dtype=np.int64) * _SALT_STEP,
+            "g_hi": np.cumsum(counts), "g_lo": np.cumsum(counts) - counts,
+            "bumps": plan.bumps.astype(np.int32), "tdirty": plan.tape_dirty,
+            "cursor": plan.stops.astype(np.int32), "decay": fd._decay_host[:n, :n + 1],
+            "g_kind": g_kind, "g_idx": g_idx, "nows": nows,
+            "pads": (f_pad, _pad_to(max(n, 16)), _pad_to(max(len(groups), 16))),
+        }
+
+    def _carry_for(self, pads) -> _FleetCarry:
+        """The carry of the run's buckets, made anew (the graph released)
+        for another fleet pad or larger tables."""
+        f_pad, s_pad, g_pad = pads
+        c = self._carry
+        if c is None or not c.fits(*pads):
+            if self.graph is not None:
+                self.graph.release()
+                self.graph = None
+            if c is not None and c.f_pad == f_pad:
+                s_pad, g_pad = max(s_pad, c.s_pad), max(g_pad, c.g_pad)
+            c = self._carry = _FleetCarry(self.fd, f_pad, s_pad, g_pad, self.flight)
+            self._ladder = self.fd._lane_widths(f_pad)
+            self._peer_widths = uploaded(np.array(self._ladder + (f_pad,), np.int64),
+                                         self.fd.device)
+        return c
+
+    def run(self, n_epochs: int, tapes: list[EventTape], salts: torch.Tensor, *,
+            start: int = 0, stop: int | None = None, fstate: ClusterState | None = None,
+            fs=None, compiled: bool | None = None):
+        """:meth:`FleetDriver._run` through the program (a replay, or
+        with ``compiled=False`` the body eagerly): ``(state,
+        FleetRows)``, the rows' epoch and dirty lanes on the device."""
+        from ..obs.flight import FlightState
+
+        fd = self.fd
+        compiled = self.compiled if compiled is None else bool(compiled)
+        n_epochs = int(n_epochs)
+        stop = n_epochs if stop is None else int(stop)
+        f_pad = len(tapes)
+        fs = fs if self.flight else None
+        fstate = fd._fleet_state(f_pad) if fstate is None else fstate
+        fd.stats = {"path": "graph" if compiled else "eager", "reads": 0}
+        if stop <= start:
+            fd.flight = fs
+            width = sum(w for _f, w, _d in _packed_layout())
+            return fstate, FleetRows(np.zeros(0, np.float64), np.zeros((0, f_pad), np.int32),
+                                     np.zeros((0, f_pad), np.int32),
+                                     torch.zeros((0, f_pad, width), dtype=I32, device=fd.device))
+        host = self._tables(n_epochs, tapes)
+        c = self._carry_for(host.pop("pads"))
+        nows = host.pop("nows")
+        decay = np.zeros((n_epochs, c.s_pad + 1), np.float32)
+        decay[:, :n_epochs + 1] = host.pop("decay")
+        host["decay"] = decay
+        g_kind, g_idx = host.pop("g_kind"), host.pop("g_idx")
+        if len(g_kind):
+            upload(c.g_kind[:len(g_kind)], g_kind)
+            upload(c.g_idx[:len(g_idx)], g_idx)
+        for k, v in host.items():
+            upload(c.tab[k][:n_epochs], v)
+        c.salts.copy_(salts)
+        c.load(fstate, fs)
+        c.start.fill_(start)
+        c.stop.fill_(stop)
+        if compiled:
+            self._replay(c)
+        else:
+            self._begin(c)
+            for e in range(start, stop):
+                c.step.fill_(e)
+                self._step(c)
+        fd.stats.update(captures=self.captures, replays=self.replays)
+        lanes = c.rows[start:stop].clone()
+        fd.flight = (None if fs is None
+                     else FlightState(ring=c.fs.ring.clone(), head=c.fs.head.clone()))
+        return _clone_state(c.st), FleetRows(nows[start:stop], None, None,
+                                             lanes[..., :c.width], lanes)
+
+    # -- the graph's hooks -------------------------------------------------------
+
+    def _scratch(self, c: _FleetCarry) -> _FleetCarry:
+        return c.scratch()
+
+    def _at(self, c: _FleetCarry, name: str) -> torch.Tensor:
+        """The table ``name``'s entry for ``c.step`` (absolute)."""
+        return c.tab[name].index_select(0, c.step)
+
+    def _warm_branches(self, w: _FleetCarry) -> None:
+        """Every branch the body may take: each tape edit, the tick, and
+        a dirty lane peered (the memo's hit and new-key paths)."""
+        self._warm_edits(w, w.g_idx[0])
+        self._tick(w, self._at(w, "now"), self._at(w, "now32"))
+        w.dirty.zero_()
+        w.dirty.narrow(0, 0, 1).fill_(True)
+        self._peer(w)
+        self._peer(w)
+        self._record(w, torch.zeros((w.f_pad, w.width), dtype=I32, device=self.fd.device))
+
+    # -- the fleet epoch, its decisions on the device -------------------------
+
+    def _begin(self, c: _FleetCarry) -> None:
+        """The window's first step, each lane's last tick as its
+        decay-table column (0: ``t0``; ``s + 1``: epoch ``s``), and an
+        empty memo."""
+        drv = self.fd.driver
+        super()._begin(c)
+        c.lt_col.copy_(torch.round((c.st.last_tick - drv.t0) / drv.dt).to(I64))
+        c.memo_n.zero_()
+        c.n_dirty.zero_()
+
+    def _step(self, c: _FleetCarry) -> None:
+        """Step ``c.step`` of every lane, in place."""
+        from ..core import graphs
+
+        drv, st = self.fd.driver, c.st
+
+        def at(name):
+            return self._at(c, name)
+
+        now, now32 = at("now"), at("now32")
+        # the tape: the epoch's edit groups in apply order
+        flat = {k: v.view(-1) for k, v in _tape_lanes(st).items()}
+        exists = st.pool.osd_exists.view(-1)
+        c.gc.copy_(at("g_lo"))
+        hi = at("g_hi")
+
+        def group():
+            idx = c.g_idx.index_select(0, c.gc).reshape(-1)
+            graphs.switch(c.g_kind.index_select(0, c.gc),
+                          [functools.partial(edit, flat, idx, now32, exists)
+                           for edit in _LANE_EDITS])
+            c.gc.add_(1)
+
+        graphs.loop(lambda: c.gc < hi, group)
+        # the liveness tick of the active lanes (the others keep their state)
+        c.active.copy_(st.suppressed.any(-1) | st.slow.any(-1) | st.down.any(-1)
+                       | (st.laggy != 0).any(-1))
+        c.live.zero_()
+        c.trans.zero_()
+        graphs.cond(c.active.any().reshape(1), lambda: self._tick(c, now, now32))
+        st.epoch.add_(at("bumps").reshape(-1) + c.trans.to(I32))
+        c.dirty.copy_(at("tdirty").reshape(-1) | c.trans)
+        graphs.cond(c.dirty.any().reshape(1), lambda: self._peer(c))
+        salt = (c.salts + at("ssalt")) & _M32
+        traffic = drv._traffic_core(st, salt, at("cap").reshape(()))
+        row = drv._row(st, traffic, c.live, at("scrub"))
+        meta = torch.stack([st.epoch, c.dirty.to(I32)], dim=-1)
+        c.rows.index_copy_(0, c.step, torch.cat([row, meta], dim=-1).unsqueeze(0))
+        st.now.copy_(now.expand(c.f_pad))
+        st.step.copy_(c.step.expand(c.f_pad))
+        st.tape_cursor.copy_(at("cursor").reshape(-1))
+        self._record(c, row)
+
+    def _tick(self, c: _FleetCarry, now, now32) -> None:
+        drv, st, j = self.fd.driver, c.st, c.step
+        decay = c.tab["decay"].index_select(0, j).reshape(-1).index_select(0, c.lt_col)
+        new, live, flags = drv._tick(st, now32.reshape(()), decay[:, None])
+        a = c.active[:, None]
+        for name in _TICK_NAMES:
+            lane = _get(st, name)
+            lane.copy_(torch.where(a, _get(new, name), lane))
+        c.live.copy_(torch.where(a, live, 0))
+        c.trans.copy_(flags[:, 0] & c.active)
+        st.last_tick.copy_(torch.where(c.active, now, st.last_tick))
+        c.lt_col.copy_(torch.where(c.active, j + 1, c.lt_col))
+
+    def _peer(self, c: _FleetCarry) -> None:
+        """The dirty lanes: those whose pool key the run peered before
+        from the memo, then a WHILE node over the new keys."""
+        from ..core import graphs
+
+        st = c.st
+        keys = FleetDriver._keys(st)
+        valid = c.memo_slots < c.memo_n
+        seen = (keys[:, None, :] == c.memo_key[None]).all(-1) & valid
+        hit = seen.any(-1) & c.dirty
+        slot = seen.to(I32).argmax(-1)
+        for f, memo in zip(_PEER_FIELDS, c.memo):
+            lane = getattr(st, f)
+            lane.copy_(torch.where(_lanes(hit, lane), memo.index_select(0, slot), lane))
+        c.n_dirty.add_(c.dirty.sum(dtype=I64))
+        c.miss.copy_(c.dirty & ~hit)
+        graphs.loop(lambda: c.miss.any().reshape(1), lambda: self._peer_new(c, keys))
+
+    def _peer_new(self, c: _FleetCarry, keys: torch.Tensor) -> None:
+        """The first missed lane peered through the dense peering, its
+        outputs written into every missed lane of its key and the memo."""
+        st = c.st
+        lane = c.miss.to(I32).argmax().reshape(1)
+        key = keys.index_select(0, lane)
+        pool = replace(st.pool, **{f.name: getattr(st.pool, f.name).index_select(0, lane)[0]
+                                   for f in fields(st.pool)})
+        same = (keys == key).all(-1) & c.miss
+        slot = c.memo_n.remainder(c.memo_key.shape[0])
+        for f, v, memo in zip(_PEER_FIELDS, self.fd.driver._peer_outs(pool), c.memo):
+            out = getattr(st, f)
+            out.copy_(torch.where(_lanes(same, out), v.unsqueeze(0), out))
+            memo.index_copy_(0, slot, v.unsqueeze(0))
+        c.memo_key.index_copy_(0, slot, key)
+        c.memo_n.add_(1)
+        c.miss.copy_(c.miss & ~same)
+
+    def _flight_row(self, c: _FleetCarry, row: torch.Tensor, wrow=None) -> torch.Tensor:
+        """The ring's rows with the lane ladder's probe (one value an
+        epoch: the count of dirty lanes and the rung the reference takes
+        for it, :meth:`FleetDriver._record` on the device)."""
+        from ..core.cluster_state import ladder_rung_device
+
+        c.nd.copy_(c.dirty.sum(dtype=I64))
+        c.anyd.copy_(c.dirty.any())
+        c.frung.copy_(torch.where(c.anyd, ladder_rung_device(c.nd, self._ladder), -1))
+        return super()._flight_row(c, row, wrow)
+
+
+def _lanes(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A ``[F]`` lane mask shaped to broadcast over ``like`` ``[F, ...]``."""
+    return mask.view((-1,) + (1,) * (like.dim() - 1))
 
 
 def run_fleet(

@@ -17,7 +17,9 @@ exchange; this module simulates that:
   :class:`~ceph_tpu_torch.core.cluster_state.ClusterState` through the
   epoch loop's body (``EpochDriver._epoch_step_with``: its own skewed
   tape as an argument, dense peering, K3 on the card), with its own
-  host view.  Reconciliation never writes into a rank's view: the
+  host view; on the card through the template's
+  :class:`~ceph_tpu_torch.recovery.superstep.TapeProgram` (one load of
+  the rank's tape, one graph replay a chunk; the view then stale).  Reconciliation never writes into a rank's view: the
   merged view is a separate consensus output.
 - **Reconciliation rounds**: every ``reconcile_every_epochs`` epochs
   the views merge through element-wise lattice joins (torch ops):
@@ -70,7 +72,7 @@ from .chaos import ChaosEvent, ChaosTimeline
 from .failure import FailureSpec, check_rank
 from .fleet import _padded_tape
 from .liveness import ClusterFlags
-from .superstep import EpochDriver, compile_event_tape
+from .superstep import EpochDriver, compile_event_tape, pick_path
 
 __all__ = [
     "DivergentDriver",
@@ -615,10 +617,28 @@ class ReconcileProtocol:
 
 
 def _advance_view(drv: EpochDriver, state: ClusterState, host, tape, start: int,
-                  stop: int) -> ClusterState:
+                  stop: int, *, path: str = "host") -> ClusterState:
     """Epochs ``start .. stop - 1`` of one view through the template
     driver's epoch body with the rank's own tape (rows dropped), with
-    the state's scalars set after."""
+    the state's scalars set after.
+
+    With ``path="graph"`` (the card's) or ``"eager"`` the template's
+    :class:`~ceph_tpu_torch.recovery.superstep.TapeProgram` runs them:
+    one ``load`` of the rank's tape and the driver's salt, then one
+    replay a chunk (or its body eagerly); ``host`` then keeps only the
+    clock and the cursor (``host.stale``).  With ``"host"`` the
+    host-decided body (``_epoch_step_with``), the view rebuilt from the
+    state with one read when a program left it stale."""
+    if path != "host":
+        prog = drv.compile_tape_program()
+        prog.load(tape, drv.salt_base)
+        state, _fs, _rows = prog._advance(state, host, start, stop,
+                                          compiled=path == "graph")
+        return state
+    if host.stale:
+        fresh = drv.host_view(state)
+        for f in fields(host):
+            setattr(host, f.name, getattr(fresh, f.name))
     for e in range(start, stop):
         state, _row = drv._epoch_step_with(state, host, e, tape, drv.salt_base)
     return drv._with_scalars(state, host)
@@ -640,7 +660,10 @@ class DivergentDriver:
     reconciliation rounds merge the views with :func:`merge_stacked`.
     All protocol bookkeeping lives in :class:`ReconcileProtocol`.
     Driver kwargs (``device=`` among them; the card by default) pass
-    through to the template :class:`EpochDriver`."""
+    through to the template :class:`EpochDriver`; ``path`` (one of
+    ``superstep.PATHS``, :attr:`path` afterwards) picks how each rank's
+    epochs run: the tape program's graph (the card's default), its body
+    eagerly, or the host-decided body (the CPU's default)."""
 
     def __init__(
         self,
@@ -653,6 +676,7 @@ class DivergentDriver:
         health=None,
         flags: ClusterFlags | None = None,
         seed: int = 0,
+        path: str | None = None,
         **driver_kwargs,
     ):
         cfg = config or global_config()
@@ -667,6 +691,9 @@ class DivergentDriver:
         self.driver = EpochDriver(
             m, base, seed=seed, config=cfg, **driver_kwargs
         )
+        #: how each rank's epochs run (``superstep.PATHS``): the tape
+        #: program's graph on the card, the host-decided body on the CPU
+        self.path = pick_path(self.driver.device, path)
         self._r_pad, self._tapes = _rank_tapes(m, timeline, self.n_ranks)
         self.states = [
             self.driver._init_state for _ in range(self.n_ranks)
@@ -684,7 +711,7 @@ class DivergentDriver:
     # -- stall-aware advance ------------------------------------------
 
     def _steps(self, state: ClusterState, host, tape, start: int, stop: int) -> ClusterState:
-        return _advance_view(self.driver, state, host, tape, start, stop)
+        return _advance_view(self.driver, state, host, tape, start, stop, path=self.path)
 
     def _allowed(self, rank: int, target: int) -> int:
         return _stall_allowed(
@@ -723,7 +750,7 @@ class DivergentDriver:
         """(steps, epochs, fingerprints) per rank (the between-rounds
         seam: each view's lanes read back once)."""
         steps = [self.cur[r] for r in range(self.n_ranks)]
-        epochs = [int(h.epoch) for h in self.hosts]
+        epochs = [int(s.epoch) for s in self.states]
         # the between-rounds seam: each rank's view read back once a round
         # torchlint: disable=J003
         fps = [view_fingerprint(s) for s in self.states]
@@ -995,6 +1022,7 @@ class RankReconciler:
         health=None,
         flags: ClusterFlags | None = None,
         seed: int = 0,
+        path: str | None = None,
         **driver_kwargs,
     ):
         from ..parallel import multihost
@@ -1017,6 +1045,7 @@ class RankReconciler:
         ]
         self.driver = EpochDriver(m, strip_rank_specs(timeline), seed=seed, config=cfg,
                                   device=self.mesh.device, **driver_kwargs)
+        self.path = pick_path(self.driver.device, path)
         _r_pad, tapes = _rank_tapes(m, timeline, self.n_ranks)
         self._tape = tapes[self.rank]
         self.state = self.driver._init_state
@@ -1043,7 +1072,7 @@ class RankReconciler:
         catch_up = self.rank in self.protocol.laggy
         old = self.state if catch_up else None
         self.state = _advance_view(self.driver, self.state, self.host, self._tape,
-                                   self.cur, allowed)
+                                   self.cur, allowed, path=self.path)
         self.cur = allowed
         if catch_up and self.journal is not None:
             self.journal.event(
@@ -1059,7 +1088,7 @@ class RankReconciler:
         self.merged = self.merger.merge(
             self.state, self.schedules[self.rank].reporting(now), self.min_reporters)
         rows = self.merger.gather_rows(
-            [self.cur, int(self.host.epoch), view_fingerprint(self.state)])
+            [self.cur, int(self.state.epoch), view_fingerprint(self.state)])
         if rank_checks_enabled():
             assert_rank_identical(
                 "reconcile.merged", self.merged.epoch, self.merged.down,

@@ -58,10 +58,12 @@ them).  So:
   ``interp_batch._any``), and with the ladder on, one read of the
   dirty-PG count picks the rung.
 
-The write path, the fleet and the divergent ranks run that host-decided
-body too.  The compiled program runs on the CPU as well, eagerly, each
-decision one read of its predicate (what the CPU tests hold against the
-reference).
+The write path's program adds its stage to this body; the fleet's
+sequential baseline and the divergent ranks run :class:`TapeProgram`,
+the same body with the tape and the salt as device inputs.  On the CPU
+each keeps its host-decided loop.  The compiled programs run on the CPU
+as well, eagerly, each decision one read of its predicate (what the CPU
+tests hold against the reference).
 
 Two drivers
 -----------
@@ -694,8 +696,9 @@ class EpochDriver:
         #: the recorder's ring after the most recent run or chunk
         self.flight = self._init_flight
         self._probe = None
-        # the compiled supersteps (recorder off, on) and the step tables
-        self._programs: dict[bool, SuperstepProgram | None] = {}
+        # the compiled supersteps (recorder off, on; "tape": the tape program)
+        # and the step tables
+        self._programs: dict = {}
         self._tables_host: dict | None = None
         self._tables_dev: dict | None = None
 
@@ -829,16 +832,20 @@ class EpochDriver:
         flags, mask, n_alive = classify_rows(prev_acting, up, acting, self.min_size)
         return up, upp, acting, actp, flags, mask, n_alive
 
-    def _peer_hist(self, state: ClusterState) -> ClusterState:
-        """Re-peer and reclassify every PG: the dense dirty branch, the
-        fused pipeline's current-epoch half (eagerly under the lever)."""
+    def _peer_outs(self, pool) -> tuple:
+        """The dense dirty branch's outputs for the pool state ``pool``:
+        ``(up, up_primary, acting, acting_primary, flags, survivor_mask,
+        n_alive, pg_hist, pg_aux)``, the fused pipeline's current-epoch
+        half (eagerly under the lever)."""
         if self._fused is not None:
-            outs = self._fused.peer_hist(self._fused_arg, state.pool, self._prev_acting,
+            return self._fused.peer_hist(self._fused_arg, pool, self._prev_acting,
                                          self._pg_idx, self.min_size, self.k)
-        else:
-            outs = peer_current(self._map_fn, self._crush_arg, state.pool, self._prev_acting,
-                                self._pg_idx, self.min_size, self.k)
-        up, upp, acting, actp, flags, mask, n_alive, hist, aux = outs
+        return peer_current(self._map_fn, self._crush_arg, pool, self._prev_acting,
+                            self._pg_idx, self.min_size, self.k)
+
+    def _peer_hist(self, state: ClusterState) -> ClusterState:
+        """Re-peer and reclassify every PG: the dense dirty branch."""
+        up, upp, acting, actp, flags, mask, n_alive, hist, aux = self._peer_outs(state.pool)
         return replace(state, up=up, up_primary=upp, acting=acting, acting_primary=actp,
                        flags=flags, survivor_mask=mask, n_alive=n_alive,
                        pg_hist=hist, pg_aux=aux)
@@ -1177,6 +1184,14 @@ class EpochDriver:
             self._programs[True] = SuperstepProgram(self, flight=True)
         return self._programs[True]
 
+    def compile_tape_program(self) -> "TapeProgram":
+        """The one-cluster program whose tape and traffic salt are device
+        inputs (:class:`TapeProgram`, built once a driver): the fleet's
+        sequential baseline and the divergent ranks' epochs on the card."""
+        if self._programs.get("tape") is None:
+            self._programs["tape"] = TapeProgram(self)
+        return self._programs["tape"]
+
     def drain_flight(self) -> dict:
         """The recorder's ring brought to the host and un-rotated (a pure
         read)."""
@@ -1190,23 +1205,25 @@ class EpochDriver:
 
     # -- the compiled superstep's step tables --------------------------
 
-    def step_tables(self, n_steps: int) -> dict[str, np.ndarray]:
+    def step_tables(self, n_steps: int, tape: EventTape | None = None,
+                    salt_base: int | None = None) -> dict[str, np.ndarray]:
         """What each of steps ``0 .. n_steps - 1`` knows before it runs,
-        from the step, the static tape and the static config alone, each
-        value computed as the host driver computes it: the clock
-        (``now``, float64, and ``now32``, float32), the tape window's
-        stop, its epoch bumps and whether it holds a map row (the window
-        starts where the last one stopped), the traffic salt and
+        from the step, the tape (the driver's, or ``tape``) and the
+        static config alone, each value computed as the host driver
+        computes it: the clock (``now``, float64, and ``now32``,
+        float32), the tape window's stop, its epoch bumps and whether it
+        holds a map row (the window starts where the last one stopped),
+        the traffic salt (of ``salt_base``, the driver's by default) and
         capacity (:meth:`_traffic_params`) and the scrub count
         (:meth:`_scrub_due`, from the previous step's clock)."""
-        tape = self.tape
+        tape = self.tape if tape is None else tape
         n = int(n_steps)
         now = np.array([self._now_of(s) for s in range(n)], np.float64)
         stop = np.searchsorted(tape.t, now, side="right").astype(np.int64)
         lo = np.concatenate([[0], stop[:-1]]).astype(np.int64)
         bumps = np.concatenate([[0], np.cumsum(tape.bump, dtype=np.int64)])
         maps = np.concatenate([[0], np.cumsum(np.isin(tape.kind, _MAP_KINDS), dtype=np.int64)])
-        params = [self._traffic_params(s, float(now[s])) for s in range(n)]
+        params = [self._traffic_params(s, float(now[s]), salt_base) for s in range(n)]
         scrub = np.zeros(n, np.int32)
         if self.scrub_period_s > 0:
             phases = scrub_phases(self.pg_num, self.scrub_period_s)
@@ -1451,6 +1468,11 @@ class _Carry:
         self.prev_up = self.st.pool.osd_up.clone()
         self.prev_w = self.st.pool.osd_weight.clone()
 
+    @property
+    def anyd(self) -> torch.Tensor:
+        """Whether any lane is dirty (the one lane's dirty bit)."""
+        return self.dirty
+
     def load(self, state: ClusterState, fs) -> None:
         """Copy a chunk's starting state (and ring) in."""
         for name in _state_names(self.st):
@@ -1489,7 +1511,104 @@ class _Carry:
         return FlightState(ring=self.fs.ring.clone(), head=self.fs.head.clone())
 
 
-class SuperstepProgram:
+class _GraphProgram:
+    """What every compiled window shares: the graph captured over a
+    carry's buffers (a WHILE node over its steps from :meth:`_begin`,
+    after :meth:`_warm` ran the body and its branches once eagerly), its
+    replays, and the flight recorder's ring row from the epoch's row and
+    the carry's device probe.  A subclass gives the carry (``st``,
+    ``fs``, ``start``/``stop``/``step``, ``dirty``, ``anyd``, ``frung``,
+    ``nd``, ``heavy``), :meth:`_step`, :meth:`_tick`, :meth:`_at`,
+    :meth:`_scratch` and :meth:`_warm_branches`, and sets ``_ladder``
+    and ``_peer_widths`` (the ladder the ring's rung and peer-cycle
+    lanes name)."""
+
+    def __init__(self, driver: "EpochDriver", *, flight: bool):
+        self.driver = driver
+        self.flight = bool(flight)
+        self.graph = None  # graphs.Graph, on the card
+        self.captures = 0
+        self.replays = 0
+        self._ladder: tuple = ()
+        self._peer_widths: torch.Tensor | None = None
+
+    @property
+    def compiled(self) -> bool:
+        """Whether a window is a graph replay (on the card)."""
+        return self.driver.device.type == "cuda"
+
+    def _replay(self, c) -> None:
+        from ..core import graphs
+
+        if self.graph is None:
+            self._warm(c)
+
+            def window():
+                self._begin(c)
+                with graphs.while_node(lambda: c.step < c.stop):
+                    self._step(c)
+                    c.step.add_(1)
+
+            self.graph = graphs.capture(window, self.driver.device)
+            self.captures += 1
+        self.graph.replay()
+        self.replays += 1
+
+    def _begin(self, c) -> None:
+        """The window's first step (a subclass resets its own counters)."""
+        c.step.copy_(c.start)
+
+    def _warm(self, c) -> None:
+        """Run the body and every branch of it once, eagerly, on a copy
+        of ``c``: the kernels built, their tables uploaded and their
+        launch settings read at every width the graph launches them."""
+        w = self._scratch(c)
+        self._begin(w)
+        self._step(w)
+        self._warm_branches(w)
+        torch.cuda.synchronize(self.driver.device)
+
+    def _warm_edits(self, w, idx: torch.Tensor) -> None:
+        """Every tape edit once on ``w``'s lanes at the flat ``idx``."""
+        now32 = self._at(w, "now32")
+        lanes = {k: v.view(-1) for k, v in _tape_lanes(w.st).items()}
+        for edit in _LANE_EDITS:
+            edit(lanes, idx, now32, w.st.pool.osd_exists.view(-1))
+
+    def _record(self, c, row: torch.Tensor, wrow=None) -> None:
+        if c.fs is not None:
+            from ..obs.flight import flight_record_
+
+            flight_record_(c.fs, self._flight_row(c, row, wrow))
+
+    def _flight_row(self, c, row: torch.Tensor, wrow=None) -> torch.Tensor:
+        """:meth:`EpochDriver._flight_row` from the device's probe (and
+        the write path's stripe lanes from its row ``wrow``); a fleet's
+        rows carry a leading lane axis."""
+        from ..obs.flight import flight_row
+
+        n_rungs = len(self._ladder)
+        col = _packed_cols()
+
+        def lane(name, i=0):
+            return row[..., col[name] + i].to(I64)
+
+        served, degraded, blocked = lane("counts"), lane("counts", 1), lane("counts", 2)
+        rung = c.frung
+        peer = self._peer_widths.index_select(0, rung.clamp(0, n_rungs).to(I64).reshape(1))
+        return flight_row(
+            device=row.device, epoch=c.step, dirty=c.dirty, rung=rung, dirty_pgs=c.nd,
+            compact=c.anyd & (rung >= 0) & (rung < n_rungs), heavy=c.heavy,
+            served=served, degraded=degraded, blocked=blocked, writes=lane("writes"),
+            deg_reads=lane("deg_reads"), eff_down=lane("eff_down"), eff_up=lane("eff_up"),
+            eff_out=lane("eff_out"), down_total=lane("down_total"),
+            scrub_due=lane("scrub_due"),
+            cycles_peer=torch.where(c.anyd, peer.reshape(()), 0),
+            cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"),
+            **_stripe_lanes(wrow))
+
+
+class SuperstepProgram(_GraphProgram):
     """The compiled superstep of one :class:`EpochDriver`: a chunk of
     epochs as one program, every decision of the epoch body made on the
     device (:meth:`EpochDriver.compile_superstep`, and
@@ -1517,22 +1636,15 @@ class SuperstepProgram:
     :meth:`advance` is :meth:`EpochDriver.advance`'s compiled form."""
 
     def __init__(self, driver: EpochDriver, *, flight: bool):
+        super().__init__(driver, flight=flight)
         dev = driver.device
-        self.driver = driver
-        self.flight = bool(flight)
-        self.graph = None  # graphs.Graph, on the card
-        self.captures = 0
-        self.replays = 0
         self._carry: _Carry | None = None
         self._kind = torch.from_numpy(np.ascontiguousarray(driver.tape.kind)).to(dev)
         self._osd = torch.from_numpy(driver.tape.osd.astype(np.int64)).to(dev)
-        widths = tuple(driver._dirty_ladder) + (driver.pg_num,)
+        #: the dirty branch's compaction ladder (none: dense peering only)
+        self._ladder = tuple(driver._dirty_ladder)
+        widths = self._ladder + (driver.pg_num,)
         self._peer_widths = torch.tensor(widths, dtype=I64).to(dev)
-
-    @property
-    def compiled(self) -> bool:
-        """Whether a chunk is a graph replay (on the card)."""
-        return self.driver.device.type == "cuda"
 
     def __call__(self, n_epochs: int, **kw):
         d = self.driver
@@ -1566,7 +1678,7 @@ class SuperstepProgram:
         """Steps ``start .. stop - 1`` through the carry, a window of its
         capacity at a time: each output's rows (:meth:`_Carry.take`), the
         host view's clock and cursor moved to ``stop``."""
-        tables_host, tables = self.driver._tables(stop)
+        tables_host, tables = self._tables(stop)
         parts = []
         for lo in range(start, stop, c.capacity):
             hi = min(stop, lo + c.capacity)
@@ -1582,6 +1694,10 @@ class SuperstepProgram:
         host.step, host.now = stop - 1, float(tables_host["now"][stop - 1])
         host.cursor, host.stale = int(tables_host["stop"][stop - 1]), True
         return [p[0] if len(parts) == 1 else torch.cat(p) for p in zip(*parts)]
+
+    def _tables(self, n_steps: int) -> tuple[dict, dict]:
+        """The step tables covering ``n_steps`` (the driver's)."""
+        return self.driver._tables(n_steps)
 
     @staticmethod
     def _rows(c: _Carry, lanes: torch.Tensor) -> EpochRows:
@@ -1602,45 +1718,29 @@ class SuperstepProgram:
 
     # -- the graph -------------------------------------------------------
 
-    def _replay(self, c: _Carry) -> None:
-        from ..core import graphs
+    def _scratch(self, c: _Carry) -> _Carry:
+        """A carry of its own with ``c``'s inputs (the warm-up's)."""
+        w = self._new_carry(c.st, c.fs, c.capacity)
+        w.follow(c)
+        return w
 
-        if self.graph is None:
-            self._warm(c)
+    def _at(self, c: _Carry, name: str) -> torch.Tensor:
+        """The step table ``name``'s entry ``[1]`` for ``c.step``."""
+        return c.tab[name].index_select(0, (c.step - c.start).reshape(1))
 
-            def chunk():
-                c.step.copy_(c.start)
-                with graphs.while_node(lambda: c.step < c.stop):
-                    self._step(c)
-                    c.step.add_(1)
-
-            self.graph = graphs.capture(chunk, self.driver.device)
-            self.captures += 1
-        self.graph.replay()
-        self.replays += 1
-
-    def _warm(self, c: _Carry) -> None:
-        """Run the body and every branch of it once, eagerly, on a copy
-        of ``c``: the kernels built, their tables uploaded and their
-        launch settings read at every width the graph launches them."""
+    def _warm_branches(self, w: _Carry) -> None:
+        """Every branch the body may take: each tape edit, the tick, each
+        compaction rung, the dense peering and the dirty branch."""
         from ..core.cluster_state import compact_dirty_indices as compact
 
         d = self.driver
-        w = self._new_carry(c.st, c.fs, c.capacity)
-        w.follow(c)
-        self._step(w)
-        now, now32 = w.tab["now"][:1], w.tab["now32"][:1]
-        lanes = _tape_lanes(w.st)
-        first = torch.zeros(1, dtype=I64, device=d.device)
-        for edit in _LANE_EDITS:
-            edit(lanes, first, now32, w.st.pool.osd_exists)
-        self._tick(w, now, now32)
+        self._warm_edits(w, torch.zeros(1, dtype=I64, device=d.device))
+        self._tick(w, self._at(w, "now"), self._at(w, "now32"))
         take, n_dirty = compact(torch.ones(d.pg_num, dtype=torch.bool, device=d.device))
-        for width in d._dirty_ladder:
+        for width in self._ladder:
             self._compact(w, take, n_dirty, width)
         self._dense(w)
         self._dirty(w)
-        torch.cuda.synchronize(d.device)
 
     # -- the epoch body, its decisions on the device ---------------------
 
@@ -1658,7 +1758,7 @@ class SuperstepProgram:
         now, now32 = at("now"), at("now32")
         c.prev_up.copy_(st.pool.osd_up)
         c.prev_w.copy_(st.pool.osd_weight)
-        if len(d.tape):
+        if self._kind.numel():
             # the tape window: its rows from the device cursor, in order
             stop = at("stop")
             lanes, exists = _tape_lanes(st), st.pool.osd_exists
@@ -1698,12 +1798,6 @@ class SuperstepProgram:
         on (a subclass runs its own stage first and records after it)."""
         self._record(c, row)
 
-    def _record(self, c: _Carry, row: torch.Tensor, wrow=None) -> None:
-        if c.fs is not None:
-            from ..obs.flight import flight_record_
-
-            flight_record_(c.fs, self._flight_row(c, row, wrow))
-
     def _tick(self, c: _Carry, now, now32) -> None:
         d, st = self.driver, c.st
         hl = torch.full((), max(d.laggy_halflife, 1e-9), dtype=F64, device=now.device)
@@ -1722,7 +1816,7 @@ class SuperstepProgram:
         from ..core.cluster_state import compact_dirty_indices, ladder_rung_device
 
         d, st = self.driver, c.st
-        widths = d._dirty_ladder
+        widths = self._ladder
         if not widths:
             if c.fs is not None:
                 dirty_pg, heavy = d._dirty_pgs(st, c.prev_up, c.prev_w)
@@ -1749,30 +1843,115 @@ class SuperstepProgram:
     def _dense(self, c: _Carry) -> None:
         _assign(c.st, self.driver._peer_hist(c.st), _PEER_NAMES)
 
-    def _flight_row(self, c: _Carry, row: torch.Tensor, wrow=None) -> torch.Tensor:
-        """:meth:`EpochDriver._flight_row` from the device's probe (and
-        the write path's stripe lanes from its row ``wrow``)."""
-        from ..obs.flight import flight_row
 
-        n_rungs = len(self.driver._dirty_ladder)
-        col = _packed_cols()
+class TapeProgram(SuperstepProgram):
+    """The one-cluster program with the chaos tape and the traffic salt
+    as device inputs (the reference's ``FleetDriver._seq_scan_fn`` and
+    the divergent ranks' ``_scan_fn``: a scan of ``_epoch_step_with``):
+    :class:`SuperstepProgram`'s body with dense peering and no
+    compaction ladder, as :meth:`EpochDriver._epoch_step_with` runs it.
 
-        def lane(name, i=0):
-            return row[col[name] + i].to(I64)
+    The tape's kind and OSD columns live in buffers of a power-of-two
+    row bucket (rows past the tape are never reached: a window stops at
+    ``searchsorted`` over the tape's own times), and the step tables
+    (:meth:`EpochDriver.step_tables`) are computed from the loaded
+    ``(tape, salt_base)``.  :meth:`load` copies both in with no sync, so
+    a tape in the same bucket replays the same graph; a longer one
+    captures anew.  Run it as :meth:`SuperstepProgram.advance` after a
+    :meth:`load` (the host view keeps only the clock and cursor:
+    ``host.stale``)."""
 
-        served, degraded, blocked = lane("counts"), lane("counts", 1), lane("counts", 2)
-        rung = c.frung
-        peer = self._peer_widths.index_select(0, rung.clamp(0, n_rungs).to(I64).reshape(1))
-        return flight_row(
-            device=row.device, epoch=c.step, dirty=c.dirty, rung=rung, dirty_pgs=c.nd,
-            compact=c.dirty & (rung >= 0) & (rung < n_rungs), heavy=c.heavy,
-            served=served, degraded=degraded, blocked=blocked, writes=lane("writes"),
-            deg_reads=lane("deg_reads"), eff_down=lane("eff_down"), eff_up=lane("eff_up"),
-            eff_out=lane("eff_out"), down_total=lane("down_total"),
-            scrub_due=lane("scrub_due"),
-            cycles_peer=torch.where(c.dirty, peer.reshape(()), 0),
-            cycles_traffic=served + degraded + blocked, cycles_scrub=lane("scrub_due"),
-            **_stripe_lanes(wrow))
+    #: loaded tapes whose device step tables are kept
+    KEEP_TABLES = 64
+
+    def __init__(self, driver: EpochDriver):
+        super().__init__(driver, flight=False)
+        self._ladder = ()
+        self._kind = self._osd = None
+        self._tape: EventTape | None = None
+        self._salt = 0
+        self._tabs: dict = {}  # (id(tape), salt) -> (tape, host tables, device tables)
+
+    @property
+    def rows_pad(self) -> int:
+        """The tape buffers' row bucket (0 before the first load)."""
+        return 0 if self._kind is None else int(self._kind.numel())
+
+    def load(self, tape: EventTape, salt_base: int) -> None:
+        """Make ``tape`` and ``salt_base`` the program's inputs: the
+        tape's columns copied into the buffers (new buffers, and a new
+        capture, when it outgrows their bucket)."""
+        from ..core.cluster_state import _pad_to
+
+        dev = self.driver.device
+        rows = _pad_to(max(len(tape), 1))
+        if rows > self.rows_pad:
+            if self.graph is not None:
+                self.graph.release()
+                self.graph = None
+            self._kind = torch.zeros(rows, dtype=I32, device=dev)
+            self._osd = torch.zeros(rows, dtype=I64, device=dev)
+        n = len(tape)
+        if n:
+            upload(self._kind[:n], tape.kind.astype(np.int32))
+            upload(self._osd[:n], tape.osd.astype(np.int64))
+        self._tape, self._salt = tape, int(salt_base)
+
+    def _tables(self, n_steps: int) -> tuple[dict, dict]:
+        """The loaded tape's step tables covering ``n_steps``, made once
+        for a power-of-two bucket of steps and kept for the last
+        :data:`KEEP_TABLES` tapes loaded."""
+        if self._tape is None:
+            raise RuntimeError("TapeProgram.load(tape, salt_base) first")
+        key = (id(self._tape), self._salt)
+        hit = self._tabs.pop(key, None)
+        if hit is None or hit[0] is not self._tape or len(hit[1]["now"]) < n_steps:
+            n = 1 << max(int(n_steps) - 1, 63).bit_length()
+            host = self.driver.step_tables(n, tape=self._tape, salt_base=self._salt)
+            hit = (self._tape, host, {k: uploaded(v, self.driver.device)
+                                      for k, v in host.items()})
+        self._tabs[key] = hit
+        while len(self._tabs) > self.KEEP_TABLES:
+            self._tabs.pop(next(iter(self._tabs)))
+        return hit[1], hit[2]
+
+
+#: how a caller runs a compiled window: its graph (the card's default),
+#: its body eagerly (each decision one read), or the host-decided loop
+#: (the CPU's default)
+PATHS = ("graph", "eager", "host")
+
+
+def pick_path(device, path: str | None) -> str:
+    """``path`` checked against :data:`PATHS` (``"graph"`` only on the
+    card), or the device's default."""
+    on_card = torch.device(device).type == "cuda"
+    if path is None:
+        return "graph" if on_card else "host"
+    if path not in PATHS or (path == "graph" and not on_card):
+        raise ValueError(f"no path {path!r} on {torch.device(device).type} "
+                         f"(one of {PATHS}; 'graph' on the card)")
+    return path
+
+
+def upload(dst: torch.Tensor, src: np.ndarray) -> None:
+    """Copy the host array ``src`` into ``dst`` without a sync: on the
+    card a non-blocking copy from pinned memory (a graph's inputs,
+    copied in between replays)."""
+    t = torch.from_numpy(np.ascontiguousarray(src))
+    if dst.is_cuda:
+        dst.copy_(t.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(t)
+
+
+def uploaded(src: np.ndarray, dev) -> torch.Tensor:
+    """The host array ``src`` as a new tensor on ``dev``, copied as
+    :func:`upload` copies."""
+    t = torch.from_numpy(np.ascontiguousarray(src))
+    if torch.device(dev).type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def _stripe_lanes(wrow) -> dict:

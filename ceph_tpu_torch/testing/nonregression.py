@@ -202,8 +202,10 @@ BUDGETS: dict[str, Budget] = {
         "superstep's graph: no wrapper call, no read and no sync warning)"),
     "fleet_superstep": Budget(
         {"descend": 272}, 176,
-        f"172 are {_LADDER}; 4 read the active lanes' flags and keys once a window "
-        "(recovery/fleet.py `FleetDriver._live`: `.cpu().numpy()`, twice)"),
+        f"on the CPU the host-decided loop: 172 are {_LADDER}; 4 read the active lanes' flags "
+        "and keys once a window (recovery/fleet.py `FleetDriver._live`: `.cpu().numpy()`, "
+        "twice) (on the card the run is one replay of the compiled fleet's graph, captured at "
+        "the first run in the pad bucket: no wrapper call, no read and no sync warning)"),
     "compacted_superstep": Budget(
         {"descend": 360}, 215,
         f"on the CPU the host-decided loop: 210 are {_LADDER}; 5 are the compaction ladder's "
@@ -215,7 +217,11 @@ BUDGETS: dict[str, Budget] = {
         f"on the CPU the host-decided loop: 100 are {_LADDER}; 14 are {_EPOCH_READ} (7 epochs) "
         "(on the card the run at the second cap is one replay of the compiled write path's "
         "graph, captured at the first: no wrapper call, no read and no sync warning)"),
-    "reconcile_round": Budget({}, 0),
+    "reconcile_round": Budget(
+        {}, 0,
+        "on the CPU the host-decided body, its epochs idle (on the card each rank's chunk is "
+        "one load of its tape and one replay of the template's tape program: no wrapper call, "
+        "no read and no sync warning)"),
     "worksteal_dispatch": Budget({"matrix_encode": 32}, 0),
 }
 

@@ -158,26 +158,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
 10c. fleet: scenario fleets (``recovery/fleet.py::FleetDriver``) at
    BASELINE config 8 as bench/config8_fleet.py sets it (256 ssd-burst
    lanes over 256 epochs, build_osdmap(32, pg_num=16, size=6, erasure),
-   32 ops a step): a warm run timed with ``pull=False``
-   (cluster-epochs/s, host syncs an epoch, K3 launches), and 32 lanes
-   over 32 epochs at config 7's width (1024 OSDs, 8192 PGs); lanes 0
-   and 1 of each equal to new ``EpochDriver``s (and config 8's to
-   ``run_sequential``: the sequential rates), a fleet of 255 equal to
-   the first 255 lanes, Monte Carlo durability
-   (``recovery/durability.py``) for ssd-burst and the panel's
-   ssd-steady and ssd-skew fleets, launches an epoch by piece
-   (torch.profiler spans over the first 3 epochs, before the first
-   map events; host syncs by piece over the timed runs), and 4 lanes
-   over 16 epochs on
-   the card and the CPU, every lane equal; then one line of the
-   reference's config-8 record (``cli/status.py fleet`` renders it);
+   32 ops a step), a run one replay of the compiled fleet's CUDA graph
+   (``FleetProgram``: its capture ms, nodes and memory; the dirty lanes
+   peered through a memo of pool keys on the card; a run of each size
+   and a replayed fleet of 255 with no wrapper call, host read, sync
+   warning or build): a run timed with ``pull=False``
+   (cluster-epochs/s, K3 launches by the bodies' pass counters, the
+   memo's peerings), and 32 lanes over 32 epochs at config 7's width
+   (1024 OSDs, 8192 PGs); each against the host-decided loop (every
+   lane, the final state and the memo's counts equal; the rates in
+   turns); lanes 0 and 1 of each
+   equal to new ``EpochDriver``s (and config 8's to ``run_sequential``
+   through the tape program and to its host-decided loop: the
+   sequential rates), a fleet of 255 equal to the first 255 lanes, the
+   per-lane ring of 64 lanes equal to the host-decided loop's, Monte
+   Carlo durability (``recovery/durability.py``) for ssd-burst and the
+   panel's ssd-steady and ssd-skew fleets, launches an epoch by piece of
+   the host-decided loop (torch.profiler spans over the first 3 epochs,
+   before the first map events), and 4 lanes
+   over 16 epochs on the card and the CPU with the recorder on, every
+   lane and the ring equal; then one line of the reference's config-8
+   record (``cli/status.py fleet`` renders it);
 10d. divergent: config 6's ``--divergent`` pass
    (``recovery/reconcile.py::DivergentDriver``) on the recovery phase's
    map: two rank views of flap, rank 1 seeing every event 2.5 s late,
-   48 epochs, gated (converged, a detection-to-convergence latency, the
-   views' fingerprints equal to the unskewed reference's); the same at
-   64 OSDs and 128 PGs on the card and the CPU, every round and every
-   lane equal; then one line of the reference's divergent record
+   48 epochs, each rank's chunk one load and one replay of the
+   template's tape program (``TapeProgram``'s CUDA graph), gated
+   (converged, a detection-to-convergence latency, the views'
+   fingerprints equal to the unskewed reference's, every round and view
+   equal to the host-decided run's; the two in turns: rounds/s); the
+   same at 64 OSDs and 128 PGs on the card and the CPU, every round and
+   every lane equal; then one line of the reference's divergent record
    (``cli/status.py ranks`` renders it);
 10e. checkpoint: BASELINE config 9 (``recovery/checkpoint.py``) as
    bench/config9_checkpoint.py runs it, at config 7's width (flap, 256
@@ -265,8 +276,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    back) and one ``WritepathDriver`` under ``debug_bucket_checks``;
    ``fused_placement``'s second run is one graph replay with no wrapper
    call and no seam read, whose launches are counted, and
-   ``epoch_superstep``'s, ``compacted_superstep``'s and
-   ``online_write_batch``'s replays make no call, seam read or sync
+   ``epoch_superstep``'s, ``compacted_superstep``'s,
+   ``online_write_batch``'s, ``fleet_superstep``'s and
+   ``reconcile_round``'s replays make no call, seam read or sync
    warning;
 15. pipeline: the fused placement->peering program
    (``recovery/pipeline.py``) as one CUDA graph: the card's torch,
@@ -2099,7 +2111,8 @@ FLEET_PROFILED = 3              # config-8 epochs under torch.profiler for the s
 FLEET_WIDE = (1024, 8192, 64)   # OSDs, PGs, ops a step: config 7's geometry
 FLEET_WIDE_RUN = (32, 32)       # clusters, epochs
 FLEET_SMALL = (4, 16)           # clusters, epochs of the card-vs-CPU replay
-#: the fleet epoch's pieces (FleetDriver methods), each a span for the split
+FLEET_RING = (64, 32)           # clusters, epochs of the recorder's graph-vs-host check
+#: the host-decided fleet epoch's pieces (FleetDriver methods), each a span for the split
 FLEET_PIECES = {"tape": ("_tape_apply",), "liveness": ("_live",),
                 "peering": ("_peer_dirty",), "traffic": ("_traffic_apply",),
                 "scrub": ("_scrub_due",), "row": ("_row",)}
@@ -2119,14 +2132,16 @@ DIVERGENT_SMALL = (64, 128)     # OSDs, PGs of the card-vs-CPU replay
 
 
 def fleet_record(sizes: dict, rate: float, seq_cold: float, seq_warm: float, bitequal: bool,
-                 same_bucket: bool, ftape, est, panel: list, host_syncs: int) -> dict:
+                 same_bucket: bool, ftape, est, panel: list, host_reads: int) -> dict:
     """One JSON line of the reference's ``build_fleet_record`` schema
     (bench/config8_fleet.py), which ``python -m ceph_tpu_torch.cli.status
     fleet --bench-log FILE`` renders.  ``vs_baseline`` divides by the
     sequential rate of new ``EpochDriver``s, their build included (the
     port compiles nothing, so ``fleet_seq_includes_compile`` is false);
     ``fleet_same_bucket_zero_recompile`` holds the port's same-bucket
-    check (a fleet of 255 equals the first 255 lanes of 256)."""
+    check (a fleet of 255 equals the first 255 lanes of 256);
+    ``host_transfers`` counts the host reads of a run of the cell's size
+    (the runtime guard's)."""
     rec = {
         "metric": "fleet_epoch_rate_per_sec", "status": "ok", "value": round(rate),
         "unit": "cluster-epochs/s",
@@ -2145,7 +2160,7 @@ def fleet_record(sizes: dict, rate: float, seq_cold: float, seq_warm: float, bit
         "fleet_aggregate_speedup_warm": round(rate / seq_warm, 2) if seq_warm else 0.0,
         "fleet_bitequal": bool(bitequal), "fleet_same_bucket_zero_recompile": bool(same_bucket),
         "fleet_scenario_panel": panel, "n_compiles": 0, "n_compiles_first": 0,
-        "host_transfers": int(host_syncs),
+        "host_transfers": int(host_reads),
     }
     rec.update(est.to_dict())
     return rec
@@ -2170,28 +2185,59 @@ def fleet_lanes_equal(fs, seqs) -> list:
     return [[k, fs.cluster(k).diff(s)] for k, s in enumerate(seqs) if fs.cluster(k).diff(s)]
 
 
+def fleet_program_info(fd) -> dict:
+    """A fleet's compiled window: its captures and replays, and its
+    graph's figures where it has one (the CPU runs the body eagerly)."""
+    prog = fd.compile_fleet()
+    g = prog.graph
+    info = {"captures": prog.captures, "replays": prog.replays}
+    if g is not None:
+        info.update(capture_ms=g.capture_ms, nodes=g.nodes, conditional_nodes=g.cond_nodes,
+                    conditional_bodies=len(g.bodies), pool_bytes=g.pool_bytes)
+    return info
+
+
+def fleet_rings_equal(a, b) -> bool:
+    return (a is None) == (b is None) and (a is None or (
+        torch.equal(a.ring.cpu(), b.ring.cpu()) and int(a.head) == int(b.head)))
+
+
 def phase_fleet(dev, launch_counts, reset_launches, osds: int = FLEET_OSDS,
                 pgs: int = FLEET_PGS, clusters: int = FLEET_CLUSTERS,
                 epochs: int = FLEET_EPOCHS, wide=FLEET_WIDE, wide_run=FLEET_WIDE_RUN,
-                small=FLEET_SMALL, profiled: int = FLEET_PROFILED) -> dict:
+                small=FLEET_SMALL, profiled: int = FLEET_PROFILED,
+                ring_run=FLEET_RING) -> dict:
     """Scenario fleets (``recovery/fleet.py::FleetDriver``) and Monte Carlo
     durability (``recovery/durability.py``): (a) BASELINE config 8 as
     ``bench/config8_fleet.py`` runs it — ``build_osdmap(osds, pgs, size=6,
     erasure)``, ``FleetDriver(m, seed=0, n_ops=32)``, ``clusters``
-    ssd-burst timelines over ``epochs`` epochs — a warm run timed with
-    ``pull=False`` (cluster-epochs/s, host syncs an epoch; its launches
-    are the path's); (b) the same at config 7's width (``wide``,
-    ``wide_run``).  Then the checks, outside the counts: the first
-    FLEET_SEQ lanes equal to new ``EpochDriver``s and to
-    ``run_sequential`` (timed: the sequential rates), a fleet of
-    ``clusters - 1`` equal to the first lanes, durability for the
-    headline and the panel's scenarios, launches an epoch by piece
-    (torch.profiler over ``profiled`` epochs), and a fleet of ``small``
-    on the card and the CPU, every lane equal.  Returns the phase line
-    and the fleet record."""
+    ssd-burst timelines over ``epochs`` epochs — a run one replay of the
+    compiled fleet's CUDA graph (captured by a warm run: its capture ms,
+    nodes, conditional nodes and bodies, the memory it reserved), then a
+    run timed with ``pull=False`` (cluster-epochs/s; its launches are the
+    path's, K3 by the bodies' pass counters; the memo's peerings); (b)
+    the same at config 7's width (``wide``, ``wide_run``).  Then the
+    checks, outside the counts: a run of each size under the runtime
+    guard (no wrapper call, host read, sync warning or build: config 8's
+    host reads are its record's ``host_transfers``); the timed run's
+    lanes and final state equal to the host-decided loop's
+    (``path="host"``), the rates in turns; the first FLEET_SEQ lanes
+    equal to new ``EpochDriver``s, to ``run_sequential`` through the
+    tape program and to the host-decided sequential loop (timed: the
+    sequential rates); a fleet of ``clusters - 1`` replayed in the same
+    graph under the guard, equal to the first lanes; with the recorder on
+    (``ring_run``: lanes, epochs) the per-lane ring and every lane of the
+    graph equal to the host-decided loop's; durability for the headline
+    and the panel's scenarios (the panel's fleets through the graph);
+    launches an epoch by piece of the host-decided loop (torch.profiler
+    over ``profiled`` epochs); and a fleet of ``small`` on the card and
+    the CPU with the recorder on, every lane and the ring equal.  Returns
+    the phase line and the fleet record."""
     from ceph_tpu_torch import recovery as rec
-    from ceph_tpu_torch.common.config import global_config
+    from ceph_tpu_torch.analysis import runtime_guard
+    from ceph_tpu_torch.common.config import Config, global_config
     from ceph_tpu_torch.models.clusters import build_osdmap
+    from ceph_tpu_torch.recovery.checkpoint import diff_states
 
     out: dict = {"phase": "fleet", "osds": osds, "pgs": pgs, "size": 6, "n_ops": FLEET_OPS,
                  "clusters": clusters, "epochs": epochs, "scenario": FLEET_SCENARIO}
@@ -2204,14 +2250,13 @@ def phase_fleet(dev, launch_counts, reset_launches, osds: int = FLEET_OSDS,
         t_last[0] = now
 
     def timed_fleet(fd, tls, n, syncs=True):
-        # the host syncs are counted by piece in a run of their own (the
-        # sync-debug mode and the piece wrappers cost host time); the
-        # launch counts start from 0 just before the timed run, which
-        # runs with no instrumentation, as the sequential baselines do
+        # the host syncs are counted in a run of their own (the sync-debug
+        # mode costs host time); the launch counts start from 0 just
+        # before the timed run, which runs with no instrumentation
         info: dict = {}
         if syncs:
             t0 = time.perf_counter()
-            with count_syncs(info, fd, FLEET_PIECES):
+            with count_syncs(info):
                 fd.run_fleet(n, tls, pull=False)
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2227,16 +2272,58 @@ def phase_fleet(dev, launch_counts, reset_launches, osds: int = FLEET_OSDS,
                     epochs_per_s=n / wall, **{k: v for k, v in fd.stats.items()})
         return rows, info
 
+    def against_host(fd, tls, n, fs, info):
+        # the graph's series and final state (of the timed run) held
+        # against the host-decided loop's, then both again in turns
+        # (rates read within this run); the memo's counts beside the
+        # host loop's
+        info.update(fd.compile_fleet().peer_counts())
+        state = fd.final_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = fd.run_fleet(n, tls, path="host")
+        torch.cuda.synchronize()
+        host_rate = len(tls) * n / (time.perf_counter() - t0)
+        info["host_stats"] = dict(fd.stats)
+        info["differ_host"] = fleet_lanes_equal(fs, [host.cluster(k) for k in range(len(tls))])
+        info["state_differ_host"] = diff_states(state, fd.final_state)
+        info["memo_equals_host"] = all(info[k] == fd.stats[k] for k in
+                                       ("dirty_lane_epochs", "peered", "peer_reused"))
+        info["cluster_epochs_per_s_in_turns"] = [["graph", info["cluster_epochs_per_s"]],
+                                                 ["host", host_rate]]
+        for how in ("host", "graph", "host", "graph"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fd.run_fleet(n, tls, pull=False, path=None if how == "graph" else how)
+            torch.cuda.synchronize()
+            info["cluster_epochs_per_s_in_turns"].append(
+                [how, len(tls) * n / (time.perf_counter() - t0)])
+
+    def replayed(fd, tls, n):
+        # a replayed run: no wrapper call, no read, no sync warning, no build
+        with runtime_guard.track(sync_debug=True, check_launches=dev.type == "cuda") as g:
+            state, rows = fd.run_fleet(n, tls, pull=False)
+            torch.cuda.synchronize()
+        lc = g.launch_counter
+        return {"calls": lc.calls, "host_reads": g.host_transfers,
+                "sync_warnings": g.transfer_counter.sync_warnings, "builds": g.n_compiles,
+                "launches_equal_replayed": lc.launches == lc.replays}, rows
+
     m = build_osdmap(osds, pg_num=pgs, size=6, pool_kind="erasure")
     fd = rec.FleetDriver(m, seed=FLEET_SEED, n_ops=FLEET_OPS, device=dev)
     tls = fd.sample(clusters, FLEET_SCENARIO)
     ftape = rec.stack_tapes([rec.compile_event_tape(tl, m) for tl in tls])
-    fd.run_fleet(epochs, tls, pull=False)  # warm: builds nothing new, times nothing
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    fd.run_fleet(epochs, tls, pull=False)  # warm: the warm-up, the capture, one replay
     torch.cuda.synchronize()
+    graph = {**fleet_program_info(fd), "first_run_s": time.perf_counter() - t0,
+             "reserved_over_first_run": torch.cuda.memory_reserved() - reserved0}
     lap("warm")
-    rows, head = timed_fleet(fd, tls, epochs)
+    rows, head = timed_fleet(fd, tls, epochs, syncs=False)
     path = launch_counts()
     head["k3_launches"] = path.get("descend", 0)
+    head["graph"] = graph
     fs = rec.FleetSeries.from_device(rows, clusters)
     out["config8"] = head
     lap("config8")
@@ -2247,42 +2334,90 @@ def phase_fleet(dev, launch_counts, reset_launches, osds: int = FLEET_OSDS,
     m_w = build_osdmap(n_w, pg_num=pg_w, size=6, pool_kind="erasure")
     fd_w = rec.FleetDriver(m_w, seed=FLEET_SEED, n_ops=ops_w, device=dev)
     tls_w = fd_w.sample(c_w, FLEET_SCENARIO)
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    fd_w.run_fleet(e_w, tls_w, pull=False)
+    torch.cuda.synchronize()
+    graph_w = {**fleet_program_info(fd_w), "first_run_s": time.perf_counter() - t0,
+               "reserved_over_first_run": torch.cuda.memory_reserved() - reserved0}
     rows_w, wide_info = timed_fleet(fd_w, tls_w, e_w)
     wide_launches = launch_counts()
     for kname, v in wide_launches.items():
         path[kname] = path.get(kname, 0) + v
     wide_info.update(osds=n_w, pgs=pg_w, n_ops=ops_w, clusters=c_w, epochs=e_w,
-                     k3_launches=wide_launches.get("descend", 0))
+                     k3_launches=wide_launches.get("descend", 0), graph=graph_w)
     fs_w = rec.FleetSeries.from_device(rows_w, c_w)
     out["wide"] = wide_info
     out["launches"] = path
     lap("wide")
 
-    # the checks, outside the counts
+    # the checks, outside the counts: a run of each size under the guard
+    # (config 8's host reads are its record's host_transfers), then each
+    # against the host-decided loop
+    head["replay"] = replayed(fd, tls, epochs)[0]
+    head["host_reads"] = head["replay"]["host_reads"]
+    wide_info["replay"] = replayed(fd_w, tls_w, e_w)[0]
+    against_host(fd, tls, epochs, fs, head)
+    against_host(fd_w, tls_w, e_w, fs_w, wide_info)
+    head["graph"].update(captures=fd.compile_fleet().captures,
+                         replays=fd.compile_fleet().replays)
+    wide_info["graph"].update(captures=fd_w.compile_fleet().captures,
+                              replays=fd_w.compile_fleet().replays)
+    lap("against_host")
     t0 = time.perf_counter()
     cold = [rec.EpochDriver(m, tls[k], seed=FLEET_SEED + k, n_ops=FLEET_OPS,
                             device=dev).run_superstep(epochs) for k in range(FLEET_SEQ)]
     torch.cuda.synchronize()
     seq_cold = FLEET_SEQ * epochs / (time.perf_counter() - t0)
+    fd.run_sequential(epochs, tls[:FLEET_SEQ])  # the tape program's capture
     t0 = time.perf_counter()
     warm = fd.run_sequential(epochs, tls[:FLEET_SEQ])
     torch.cuda.synchronize()
     seq_warm = FLEET_SEQ * epochs / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    seq_host = fd.run_sequential(epochs, tls[:FLEET_SEQ], path="host")
+    torch.cuda.synchronize()
+    seq_host_rate = FLEET_SEQ * epochs / (time.perf_counter() - t0)
+    tape_prog = fd.driver.compile_tape_program()
     bad = fleet_lanes_equal(fs, cold) + fleet_lanes_equal(fs, warm)
+    seq_bad = [[k, warm[k].diff(seq_host[k])] for k in range(FLEET_SEQ)
+               if warm[k].diff(seq_host[k])]
     out["sequential"] = {"lanes": FLEET_SEQ, "cold_epochs_per_s": seq_cold,
-                         "warm_epochs_per_s": seq_warm, "differ": bad}
+                         "warm_epochs_per_s": seq_warm, "host_decided_epochs_per_s": seq_host_rate,
+                         "differ": bad, "program_differ_host": seq_bad,
+                         "tape_program": program_info(tape_prog)}
     lap("sequential")
-    fs_less = fd.run_fleet(epochs, tls[:clusters - 1])
+    # the fleet of 255 replayed in the same graph under the guard
+    out["one_less"], rows_less = replayed(fd, tls[:clusters - 1], epochs)
+    fs_less = rec.FleetSeries.from_device(rows_less, clusters - 1)
     less_bad = [k for k in range(clusters - 1) if fs_less.cluster(k).diff(fs.cluster(k))]
-    out["one_less"] = {"clusters": clusters - 1, "fleet_pad": rec.stack_tapes(
+    out["one_less"].update(clusters=clusters - 1, epochs=epochs, fleet_pad=rec.stack_tapes(
         [rec.compile_event_tape(tl, m) for tl in tls[:clusters - 1]]).fleet_pad,
-        "differ": less_bad}
+        differ=less_bad, captures=fd.compile_fleet().captures)
     lap("one_less")
     wide_cold = [rec.EpochDriver(m_w, tls_w[k], seed=FLEET_SEED + k, n_ops=ops_w,
                                  device=dev).run_superstep(e_w) for k in range(FLEET_SEQ)]
     out["wide"]["differ"] = fleet_lanes_equal(fs_w, wide_cold)
-    out["wide"]["dirty_lane_epochs"] = int(fs_w.dirty.sum())
     lap("wide_sequential")
+
+    # the per-lane ring: the graph against the host-decided loop
+    c_r, e_r = ring_run
+    cfg_r = Config(env={})
+    cfg_r.set("flight_recorder", "on")
+    fd_r = rec.FleetDriver(m, seed=FLEET_SEED, n_ops=FLEET_OPS, config=cfg_r, device=dev)
+    tls_r = tls[:c_r]
+    g_r = fd_r.run_fleet(e_r, tls_r)
+    ring_g, state_g = fd_r.flight, fd_r.final_state
+    h_r = fd_r.run_fleet(e_r, tls_r, path="host")
+    out["ring"] = {"clusters": c_r, "epochs": e_r,
+                   "differ": [k for k in range(c_r) if g_r.cluster(k).diff(h_r.cluster(k))],
+                   # the recorder changes no lane: the first lanes and epochs of config 8's
+                   "differ_unrecorded": [k for k in range(c_r) if g_r.cluster(k).diff(
+                       series_head(fs.cluster(k), e_r))],
+                   "ring_equal": fleet_rings_equal(ring_g, fd_r.flight),
+                   "state_differ": diff_states(state_g, fd_r.final_state),
+                   "head": int(ring_g.head), "graph": fleet_program_info(fd_r)}
+    lap("ring")
 
     down_out = float(global_config().get("mon_osd_down_out_interval"))
 
@@ -2323,43 +2458,64 @@ def phase_fleet(dev, launch_counts, reset_launches, osds: int = FLEET_OSDS,
         panel.append(panel_entry(p_est))
     out["durability"] = {"estimate_ms": est_ms, **est.to_dict()}
     out["durability_card_vs_cpu_differ"] = dur_cpu
-    out["panel"] = {"runs": panel_info, "rows": panel}
+    out["panel"] = {"runs": panel_info, "rows": panel,
+                    "captures": fd.compile_fleet().captures}
     lap("durability")
 
-    split = piece_launches(fd, lambda: fd.run_fleet(profiled, tls, pull=False), FLEET_PIECES)
+    # the host-decided loop's pieces (the graph's body has no host spans)
+    split = piece_launches(fd, lambda: fd.run_fleet(profiled, tls, pull=False, path="host"),
+                           FLEET_PIECES)
+    split["stats"] = dict(fd.stats)
     split["epochs"] = profiled
     split["per_epoch"] = {p: {k: v / profiled for k, v in c.items()}
                           for p, c in split["split"].items()}
-    split["stats"] = dict(fd.stats)
     out["launch_split"] = split
     lap("profile")
 
     c_s, e_s = small
-    small_runs = []
+    small_runs, small_rings = [], []
     for d_ in (dev, torch.device("cpu")):
-        fd_s = rec.FleetDriver(m, seed=FLEET_SEED, n_ops=FLEET_OPS, device=d_)
+        fd_s = rec.FleetDriver(m, seed=FLEET_SEED, n_ops=FLEET_OPS, config=cfg_r, device=d_)
         small_runs.append(fd_s.run_fleet(e_s, tls[:c_s]))
+        small_rings.append(fd_s.flight)
     out["card_equals_cpu"] = {
         "clusters": c_s, "epochs": e_s, "dirty_lane_epochs": int(small_runs[1].dirty.sum()),
         "differ": [k for k in range(c_s)
-                   if small_runs[0].cluster(k).diff(small_runs[1].cluster(k))]}
+                   if small_runs[0].cluster(k).diff(small_runs[1].cluster(k))],
+        "ring_equal": fleet_rings_equal(*small_rings)}
     lap("card_equals_cpu")
     out["walls_s"] = walls
     record = fleet_record(out, head["cluster_epochs_per_s"], seq_cold, seq_warm, not bad,
                           not less_bad and out["one_less"]["fleet_pad"] == ftape.fleet_pad,
-                          ftape, est, panel, head["host_syncs"])
+                          ftape, est, panel, head["host_reads"])
+    zero = {"calls": {}, "host_reads": 0, "sync_warnings": 0, "builds": 0,
+            "launches_equal_replayed": True}
     out["gates"] = {
         "lanes_equal_sequential": not bad,
+        "sequential_program_equals_host_decided": not seq_bad,
         "one_less_equal": not less_bad,
         "one_less_same_bucket": out["one_less"]["fleet_pad"] == ftape.fleet_pad,
+        "one_less_reads_nothing": {k: out["one_less"][k] for k in zero} == zero,
         "config8_dirty": int(fs.dirty.sum()) > 0,
         "config8_k3_launched": head["k3_launches"] > 0,
+        "config8_graph_equals_host_decided": not head["differ_host"]
+        and not head["state_differ_host"] and head["memo_equals_host"],
+        "config8_replay_reads_nothing": head["replay"] == zero,
+        "config8_one_capture": graph.get("captures") == 1
+        and head["graph"]["captures"] == 1 and out["one_less"]["captures"] == 1,
         "wide_lanes_equal_sequential": not out["wide"]["differ"],
         "wide_k3_launched": wide_info["k3_launches"] > 0,
+        "wide_graph_equals_host_decided": not wide_info["differ_host"]
+        and not wide_info["state_differ_host"] and wide_info["memo_equals_host"],
+        "wide_replay_reads_nothing": wide_info["replay"] == zero,
+        "ring_graph_equals_host_decided": not out["ring"]["differ"]
+        and out["ring"]["ring_equal"] and not out["ring"]["state_differ"]
+        and not out["ring"]["differ_unrecorded"],
         "durability_finite": all(np.isfinite([est.mttdl_s, est.mttdl_ci_lo_s,
                                               est.mttdl_ci_hi_s])),
         "durability_card_equals_cpu": not any(dur_cpu.values()),
         "card_equals_cpu": not out["card_equals_cpu"]["differ"]
+        and out["card_equals_cpu"]["ring_equal"]
         and out["card_equals_cpu"]["dirty_lane_epochs"] > 0,
     }
     return out, record
@@ -2392,9 +2548,10 @@ def divergent_record(res, health, report, rate: float, host_syncs: int, states) 
     }
 
 
-def divergent_driver(m, dev, health=None):
+def divergent_driver(m, dev, health=None, path=None):
     """Config 6's --divergent pass's driver on ``m``: the flap scenario,
-    rank 1 seeing every event 2.5 s late from t = 0.05."""
+    rank 1 seeing every event 2.5 s late from t = 0.05; ``path`` picks
+    how each rank's epochs run (``superstep.PATHS``)."""
     from ceph_tpu_torch import recovery as rec
     from ceph_tpu_torch.common.config import Config
     from ceph_tpu_torch.recovery.failure import parse_spec
@@ -2403,16 +2560,16 @@ def divergent_driver(m, dev, health=None):
     skew = parse_spec(f"rankdelay:1.{DIVERGENT_DELAY_MS}")
     tl = rec.ChaosTimeline(list(base.events()) + [rec.ChaosEvent(0.05, (skew,))])
     return rec.DivergentDriver(m, tl, DIVERGENT_N_RANKS, config=Config(env={}),
-                               seed=DIVERGENT_SEED, health=health, device=dev)
+                               seed=DIVERGENT_SEED, health=health, device=dev, path=path)
 
 
-def divergent_run(m, dev, n_epochs: int = DIVERGENT_EPOCHS):
+def divergent_run(m, dev, n_epochs: int = DIVERGENT_EPOCHS, path=None):
     """Config 6's --divergent pass on ``m`` (its size, k = 8 m = 3):
     ``(driver, result, health, report, seconds)``."""
     from ceph_tpu_torch.obs import HealthTimeline, SLOSpec, evaluate
 
     health = HealthTimeline(lambda: 0.0, k=8, device=dev)
-    d = divergent_driver(m, dev, health=health)
+    d = divergent_driver(m, dev, health=health, path=path)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = d.run(n_epochs)
@@ -2421,27 +2578,66 @@ def divergent_run(m, dev, n_epochs: int = DIVERGENT_EPOCHS):
     return d, res, health, evaluate(health, SLOSpec(max_rank_stall_rounds=1)), seconds
 
 
+def divergent_differ(r0, r1) -> list:
+    """The rounds, and the lanes of the views and the merged view, where
+    two divergent results differ."""
+    def lanes(state):
+        flat = {}
+        for f in dataclasses.fields(state):
+            v = getattr(state, f.name)
+            if f.name == "pool":
+                flat.update({"pool." + g.name: getattr(v, g.name).cpu()
+                             for g in dataclasses.fields(v)})
+            elif v is not None:
+                flat[f.name] = v.cpu()
+        return flat
+
+    differ = [r.round for r, q in zip(r0.rounds, r1.rounds)
+              if (r.steps, r.epochs, r.fingerprints, r.converged, r.retries) != (
+                  q.steps, q.epochs, q.fingerprints, q.converged, q.retries)]
+    if len(r0.rounds) != len(r1.rounds):
+        differ.append("rounds")
+    for k, (a, b) in enumerate(zip(r0.states + [r0.merged], r1.states + [r1.merged])):
+        la, lb = lanes(a), lanes(b)
+        differ += [f"view{k}:{n}" for n in la if not torch.equal(la[n], lb[n])]
+    return differ
+
+
 def phase_divergent(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_OSDS,
                     pg_num: int = RECOVERY_PGS, small=DIVERGENT_SMALL) -> dict:
     """Config 6's ``--divergent`` pass (``recovery/reconcile.py::
     DivergentDriver``): two rank views of the flap scenario, rank 1 seeing
     every event 2.5 s late from t = 0.05, 48 epochs, seed 6, a
     HealthTimeline graded by ``SLOSpec(max_rank_stall_rounds=1)``, on
-    ``build_osdmap(n_osds, pg_num, size=11, erasure)``; the run is the
-    path's launch counts.  Gates: converged, a detection-to-convergence
-    latency, the rank views' fingerprints equal at the end and equal to
-    the unskewed reference's.  Then the pass at ``small`` size on the card
-    and the CPU: every round and every lane of every view equal.  Returns
-    the phase line and the divergent record."""
+    ``build_osdmap(n_osds, pg_num, size=11, erasure)``, each rank's
+    advance one ``load`` of its tape and one replay a chunk of the
+    template's tape program (its capture ms, nodes and memory); the run
+    is the path's launch counts.  Gates: converged, a
+    detection-to-convergence latency, the rank views' fingerprints equal
+    at the end and equal to the unskewed reference's, the run equal to
+    the host-decided one (every round, view and the merged view, the
+    detection-to-convergence rounds; the two in turns: rounds/s).  Then
+    the pass at ``small`` size on the card and the CPU: every round and
+    every lane of every view equal.  Returns the phase line and the
+    divergent record."""
     from ceph_tpu_torch.models.clusters import build_osdmap
     from ceph_tpu_torch.recovery import view_fingerprint
 
     m = build_osdmap(n_osds, pg_num=pg_num, size=11, pool_kind="erasure")
     info: dict = {}
     reset_launches()
+    reserved0 = torch.cuda.memory_reserved()
     with count_syncs(info):
         d, res, health, report, seconds = divergent_run(m, dev)
     launches = launch_counts()
+    graph = {**program_info(d.driver.compile_tape_program()),
+             "reserved_over_run": torch.cuda.memory_reserved() - reserved0}
+    dh, res_h, _h, _r, seconds_h = divergent_run(m, dev, path="host")
+    host_differ = divergent_differ(res, res_h)
+    host_d2c = res_h.detection_to_convergence_rounds()
+    turns = [["graph", len(res.rounds) / seconds], ["host", len(res_h.rounds) / seconds_h]]
+    turns.append(["host", len(res_h.rounds) / divergent_run(m, dev, path="host")[-1]])
+    turns.append(["graph", len(res.rounds) / divergent_run(m, dev)[-1]])
     fps = [view_fingerprint(s) for s in res.states]
     ref_fp = view_fingerprint(d.reference_state(res.total_steps))
     rate = len(res.rounds) / seconds
@@ -2456,30 +2652,15 @@ def phase_divergent(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_O
                                r.converged, r.retries] for r in res.rounds],
            "fingerprints": fps, "reference_fingerprint": ref_fp,
            "slo": report.status, "launches": launches,
-           "k3_launches": launches.get("descend", 0)}
+           "k3_launches": launches.get("descend", 0), "graph": graph,
+           "host_decided": {"seconds": seconds_h, "rounds": len(res_h.rounds),
+                            "detect_to_converge_rounds": host_d2c, "differ": host_differ},
+           "rounds_per_s_in_turns": turns}
     n_s, pg_s = small
     m_s = build_osdmap(n_s, pg_num=pg_s, size=11, pool_kind="erasure")
     runs = [divergent_run(m_s, d_) for d_ in (dev, torch.device("cpu"))]
     (_d0, r0, *_), (_d1, r1, *_) = runs
-
-    def lanes(state):
-        from dataclasses import fields
-
-        flat = {}
-        for f in fields(state):
-            v = getattr(state, f.name)
-            if f.name == "pool":
-                flat.update({"pool." + g.name: getattr(v, g.name).cpu() for g in fields(v)})
-            elif v is not None:
-                flat[f.name] = v.cpu()
-        return flat
-
-    differ = [r.round for r, q in zip(r0.rounds, r1.rounds)
-              if (r.steps, r.epochs, r.fingerprints, r.converged) != (
-                  q.steps, q.epochs, q.fingerprints, q.converged)]
-    for k, (a, b) in enumerate(zip(r0.states + [r0.merged], r1.states + [r1.merged])):
-        la, lb = lanes(a), lanes(b)
-        differ += [f"view{k}:{n}" for n in la if not torch.equal(la[n], lb[n])]
+    differ = divergent_differ(r0, r1)
     out["card_equals_cpu"] = {"osds": n_s, "pgs": pg_s, "rounds": len(r1.rounds),
                               "detect_to_converge_rounds": r1.detection_to_convergence_rounds(),
                               "differ": differ}
@@ -2488,6 +2669,9 @@ def phase_divergent(dev, launch_counts, reset_launches, n_osds: int = RECOVERY_O
         "detected": d2c is not None,
         "fingerprints_agree": len(set(fps)) == 1 and fps[0] == ref_fp,
         "k3_launched": out["k3_launches"] > 0,
+        "graph_equals_host_decided": not host_differ and host_d2c == d2c
+        and (d.path, dh.path) == ("graph", "host"),
+        "tape_program_replayed": graph.get("captures") == 1 and graph["replays"] > 0,
         "card_equals_cpu": not differ and len(r0.rounds) == len(r1.rounds),
     }
     return out, divergent_record(res, health, report, rate, info["host_syncs"], res.states)
@@ -5020,7 +5204,8 @@ def phase_tooling(dev, counts, reset, work_dir: str) -> dict:
         fp["pipeline_replays"] == 1 and fp["calls"] == {} and fp["host_reads"] == 0
         and fp["launches"] == fp["replayed_launches"] != {})
     # the reference's zero
-    for name in ("epoch_superstep", "compacted_superstep", "online_write_batch"):
+    for name in ("epoch_superstep", "compacted_superstep", "online_write_batch",
+                 "fleet_superstep", "reconcile_round"):
         b = budgets[name]
         gates[f"{name}_no_read_on_the_card"] = (
             b["calls"] == {} and b["host_reads"] == 0 and b["sync_warnings"] == 0

@@ -40,7 +40,13 @@ path (``workload/writepath.py``) on a small config 10 against the eager
 body, the host-decided loop, ``run_staged`` and the CPU (with the
 recorder too), one capture over two caps in one bucket, a replay with no
 call, read or sync warning, and a capture with a host read in the write
-stage raising.  Run them
+stage raising; the compiled fleet window (``recovery/fleet.py``) against
+the eager body, the host-decided loop and the CPU (with the per-lane
+ring too), a second fleet in the pad bucket replayed with no capture,
+call, read or sync warning, and the tape program
+(``recovery/superstep.py``) sharing one capture over two tapes of a row
+bucket, equal to its eager body and the host-decided sequential loop.
+Run them
 on a machine with an H100 and nvcc:
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 repo's conftest imports the reference package, which needs jax).  All
@@ -1202,3 +1208,109 @@ def test_writepath_capture_with_a_host_read_in_the_write_stage_raises(card, monk
     with pytest.raises(graphs.HostReadInCapture):
         w.run_superstep(8)
     assert w.compile_writepath().graph is None
+
+
+# ---------------------------------------------------------------- the fleet's window, the tape program
+
+
+def _fleet_driver(dev, flight: bool = False):
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.models.clusters import build_osdmap
+
+    m = build_osdmap(32, pg_num=16, size=6, pool_kind="erasure")
+    cfg = Config(env={})
+    cfg.set("flight_recorder", "on" if flight else "off")
+    cfg.set("flight_ring_epochs", 16)
+    return rec.FleetDriver(m, seed=7, n_ops=32, config=cfg, device=dev)
+
+
+def _rings_equal(a, b) -> bool:
+    return (a is None and b is None) or (torch.equal(a.ring.cpu(), b.ring.cpu())
+                                         and int(a.head) == int(b.head))
+
+
+@pytest.mark.parametrize("flight", [False, True])
+def test_fleet_graph_equals_the_eager_body_host_loop_and_cpu(card, flight):
+    """A fleet run's replay (K3 inside the dirty lanes' WHILE body)
+    equals the body run eagerly on the card, the host-decided loop and
+    the CPU's run: every lane, the final state and, with the recorder
+    on, the per-lane ring."""
+    from ceph_tpu_torch.core import graphs
+    from ceph_tpu_torch.recovery.checkpoint import diff_states
+
+    fd = _fleet_driver(card, flight)
+    tls = fd.sample(3, "ssd-burst")
+    n = 24
+    graph = fd.run_fleet(n, tls)
+    ring, state = fd.flight, fd.final_state
+    prog = fd.compile_fleet()
+    g = prog.graph
+    assert prog.captures == 1 and prog.replays == 1 and g.cond_nodes >= 5
+    assert fd.stats["path"] == "graph"
+    graphs.collect()  # the bodies' launches, by their pass counters
+    assert g.launched.get("descend", 0) > 0 and graph.dirty.sum() > 0
+    counts = prog.peer_counts()
+    for how in ("eager", "host"):
+        s = fd.run_fleet(n, tls, path=how)
+        assert fd.stats["path"] == how
+        assert all(graph.cluster(k).diff(s.cluster(k)) == [] for k in range(3)), how
+        assert diff_states(state, fd.final_state) == [] and _rings_equal(ring, fd.flight), how
+    # the graph's memo peered and reused as the host loop's did
+    assert counts == {k: fd.stats[k] for k in counts} and counts["peer_reused"] > 0
+    cpu = _fleet_driver(torch.device("cpu"), flight)
+    s = cpu.run_fleet(n, tls)
+    assert all(graph.cluster(k).diff(s.cluster(k)) == [] for k in range(3))
+    assert diff_states(state, cpu.final_state) == [] and _rings_equal(ring, cpu.flight)
+
+
+def test_fleet_second_fleet_in_the_bucket_replays_without_a_capture(card):
+    """3 lanes, then 4 other ones in the same pad bucket: the second run
+    replays the first's graph with no wrapper call, read or sync warning,
+    and equals the host-decided loop."""
+    from ceph_tpu_torch import recovery as rec
+    from ceph_tpu_torch.analysis import runtime_guard
+
+    fd = _fleet_driver(card)
+    fd.run_fleet(8, fd.sample(3, "ssd-burst"), pull=False)
+    tls = fd.sample(4, "ssd-burst")
+    torch.cuda.synchronize()
+    with runtime_guard.track(sync_debug=True, check_launches=True) as g:
+        _state, rows = fd.run_fleet(8, tls, pull=False)
+        torch.cuda.synchronize()
+    lc = g.launch_counter
+    assert lc.calls == {} and lc.captured == {} and g.n_compiles == 0
+    assert g.host_transfers == 0 and g.transfer_counter.sync_warnings == 0
+    assert lc.launches == lc.replays
+    prog = fd.compile_fleet()
+    assert prog.captures == 1 and prog.replays == 2
+    got = rec.FleetSeries.from_device(rows, 4)
+    want = fd.run_fleet(8, tls, path="host")
+    assert all(got.cluster(k).diff(want.cluster(k)) == [] for k in range(4))
+
+
+def test_tape_program_second_tape_in_the_bucket_replays_without_a_capture(card):
+    """``run_sequential`` through the tape program: two tapes of one row
+    bucket share one capture, equal to the body run eagerly and to the
+    host-decided sequential loop; a third tape's run reads nothing."""
+    from ceph_tpu_torch.analysis import runtime_guard
+
+    fd = _fleet_driver(card)
+    tls = fd.sample(3, "flap")
+    args = fd._sequential_args(tls)
+    seq = fd.run_sequential(16, tls[:2], rows_pad=args[2])
+    prog = fd.driver.compile_tape_program()
+    assert prog.captures == 1 and prog.replays == 2 and prog.rows_pad == args[2]
+    eager = fd.run_sequential(16, tls[:2], rows_pad=args[2], path="eager")
+    host = fd.run_sequential(16, tls[:2], rows_pad=args[2], path="host")
+    for k in range(2):
+        assert seq[k].diff(eager[k]) == [] and seq[k].diff(host[k]) == [], k
+    torch.cuda.synchronize()
+    with runtime_guard.track(sync_debug=True, check_launches=True) as g:
+        prog.load(args[0][2], 11)
+        _state, _fs, rows = prog.advance(fd.driver._init_state, fd.driver._init_host.copy(),
+                                         0, 16)
+        torch.cuda.synchronize()
+    lc = g.launch_counter
+    assert lc.calls == {} and g.host_transfers == 0 and g.transfer_counter.sync_warnings == 0
+    assert lc.launches == lc.replays and prog.captures == 1

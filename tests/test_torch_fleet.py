@@ -269,7 +269,7 @@ def test_netsplit_fleet_ticks_lanes_apart():
     assert fs.dirty[:, 3].sum() == 0 and fd.stats["reads"] > 0
 
 
-def test_flight_recorder_on_is_refused():
+def test_flight_recorder_on_leaves_a_per_lane_ring():
     """No longer refused: with the recorder on, a run leaves a per-lane
     ring (``tests/test_torch_flight.py`` holds it to the reference's);
     off, none."""

@@ -520,7 +520,7 @@ def test_driver_validates_rank_specs_loudly():
         rc.DivergentDriver(maps[1], tl, 0, config=cfg, n_ops=16, device="cpu")
 
 
-def test_what_waits_raises_and_names_its_item():
+def test_rank_reconciler_on_a_world_of_one_equals_the_driver():
     """What waited for item 4 now runs; on a world of one: the
     multi-process ``RankReconciler`` (its merge through ``ViewMerger``'s
     collectives) equals the one-rank in-process driver round for round
